@@ -1,0 +1,120 @@
+// Device code shared by the DKS kernels (subset_combine.cu,
+// lane_superstep.cu): the top-K distinct insert, the per-thread table slab
+// in shared memory, and the popcount-ordered subset-combine sweep.
+//
+// A node's table is F = 2^m keyword-sets of K sorted, distinct,
+// INF-padded f32 values.  Every value the lattice makes is a min, a compare
+// or one round-to-nearest f32 add (__fadd_rn, so nothing is contracted),
+// which is what keeps the kernels bit-identical to their plain torch
+// versions and to the JAX reference.  Build without --use_fast_math.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define DKS_INF 1e9f
+#define DKS_HALF_INF 5e8f   // bump_to_inf threshold: 0.5 * INF
+#define DKS_MAX_M 5
+#define DKS_MAX_K 4
+#define DKS_MAX_THREADS 256
+#define DKS_SLAB_BYTES (48 * 1024)
+
+// Insert x into the sorted-unique INF-padded K-vector r, keeping the K
+// smallest distinct values.  The result is a function of the value set
+// alone, so candidates may arrive in any order.
+template <int K>
+__device__ __forceinline__ void dks_insert(float (&r)[K], float x) {
+  if (!(x < r[K - 1])) return;  // not below the K-th value, or equal to it
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (x == r[j]) return;  // a duplicate (or INF meeting INF padding)
+    if (x < r[j]) {
+      const float t = r[j];
+      r[j] = x;
+      x = t;
+    }
+  }
+}
+
+// The block's tables live in one shared-memory slab: slot i (= set*K + j)
+// of the block's row r sits at slab[i * stride + r], with stride =
+// blockDim.x + 1 so that a warp touching one slot of 32 rows, or 32 slots
+// of one row, hits distinct banks.
+template <int K>
+__device__ __forceinline__ void dks_load(const float* tab, int stride, int f,
+                                         float (&r)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) r[j] = tab[(f * K + j) * stride];
+}
+
+template <int K>
+__device__ __forceinline__ void dks_store(float* tab, int stride, int f,
+                                          const float (&r)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) tab[(f * K + j) * stride] = r[j];
+}
+
+// Coalesced copies of `rows` consecutive FK-float rows between device
+// memory and the slab (all threads of the block take part).
+__device__ __forceinline__ void dks_rows_to_slab(const float* __restrict__ g,
+                                                 float* slab, int rows,
+                                                 int fk, int stride) {
+  for (int idx = threadIdx.x; idx < rows * fk; idx += blockDim.x) {
+    const int r = idx / fk;
+    slab[(idx - r * fk) * stride + r] = g[idx];
+  }
+}
+
+__device__ __forceinline__ void dks_slab_to_rows(const float* slab,
+                                                 float* __restrict__ g,
+                                                 int rows, int fk,
+                                                 int stride) {
+  for (int idx = threadIdx.x; idx < rows * fk; idx += blockDim.x) {
+    const int r = idx / fk;
+    g[idx] = slab[(idx - r * fk) * stride + r];
+  }
+}
+
+// The subset-combine closure of one node's table, in place.  The splits
+// are enumerated in the order of spa.split_pairs(m): target sets t in
+// popcount order (then ascending), and for each t every a < b with
+// a | b == t, a & b == 0.  A set of popcount p reads only sets of smaller
+// popcount, which are final by then, so one sweep reaches the closure:
+// S[t] <- K smallest distinct of S[t] ∪ {min(S[a]_i + S[b]_j, INF)}.
+template <int K>
+__device__ void dks_combine_sweep(float* tab, int stride, int m) {
+  const int n_sets = 1 << m;
+  for (int p = 2; p <= m; ++p) {
+    for (int t = 3; t < n_sets; ++t) {
+      if (__popc(t) != p) continue;
+      float r[K];
+      dks_load<K>(tab, stride, t, r);
+      for (int a = (t - 1) & t; a; a = (a - 1) & t) {
+        const int b = t ^ a;
+        if (a > b) continue;
+        float av[K], bv[K];
+        dks_load<K>(tab, stride, a, av);
+        dks_load<K>(tab, stride, b, bv);
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            dks_insert<K>(r, fminf(__fadd_rn(av[i], bv[j]), DKS_INF));
+        }
+      }
+      dks_store<K>(tab, stride, t, r);
+    }
+  }
+}
+
+// Threads per block for rows of fk floats: a multiple of 32, at most
+// DKS_MAX_THREADS, with the slab inside the default 48 KB of shared memory
+// (fk <= 2^DKS_MAX_M * DKS_MAX_K = 128 gives 64 threads).
+static inline int dks_block_threads(int fk) {
+  int t = DKS_SLAB_BYTES / (fk * (int)sizeof(float)) - 1;
+  t = t / 32 * 32;
+  return t > DKS_MAX_THREADS ? DKS_MAX_THREADS : t;
+}
+
+static inline size_t dks_slab_bytes(int fk, int threads) {
+  return (size_t)fk * (size_t)(threads + 1) * sizeof(float);
+}

@@ -1,0 +1,23 @@
+"""Where the port's tensors live.
+
+Entry points run on the card unless the caller asks for the CPU: a
+``device=None`` argument resolves to ``cuda:0`` and raises when there is no
+GPU.  There is no silent fallback to the CPU — a CPU run is only ever one the
+caller asked for (the tests pass ``device="cpu"``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` -> ``cuda:0`` (raises ``RuntimeError`` without a GPU);
+    anything else is taken as the caller's explicit choice."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port's plain torch path on the CPU")
+        return torch.device("cuda", 0)
+    return torch.device(device)

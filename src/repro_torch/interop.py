@@ -1,0 +1,79 @@
+"""Carry a DKS engine's data across from the JAX package.
+
+A DKS engine has no weights: its parameters are the graph, the inverted
+index and the superstep state.  These functions take them as plain numpy
+arrays (what ``repro``'s dataclasses hold, or ``np.asarray`` of its device
+arrays), so this module needs neither ``jax`` nor ``repro``:
+
+- :func:`graph_from_numpy` — a dict of ``Graph`` fields -> the port's
+  :class:`~repro_torch.graph.structure.Graph`;
+- :func:`index_from_postings` — ``InvertedIndex.to_postings`` arrays -> the
+  port's :class:`~repro_torch.graph.index.InvertedIndex`;
+- :func:`state_from_numpy` / :func:`state_to_numpy` — a dict of lane-batched
+  ``DKSState`` fields <-> the port's :class:`~repro_torch.core.dks.DKSState`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.dks import STATE_FIELDS, DKSState
+from repro_torch.device import resolve_device
+from repro_torch.graph.index import InvertedIndex
+from repro_torch.graph.structure import Graph
+
+STATE_DTYPES = {
+    "S": np.float32, "changed": np.bool_, "first_fire": np.bool_,
+    "visited": np.bool_, "g": np.float32, "s_front": np.float32,
+    "topk_w": np.float32, "topk_root": np.int32, "msgs_bfs": np.float32,
+    "msgs_deep": np.float32, "step": np.int32, "done": np.bool_,
+    "budget_hit": np.bool_, "capped": np.bool_,
+}
+
+
+def _copy(x):
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, tuple):
+        return tuple(_copy(y) for y in x)
+    if isinstance(x, list):
+        return list(x)
+    return x
+
+
+def graph_from_numpy(fields: dict) -> Graph:
+    """A dict of ``Graph`` field values (numpy arrays, lists, ints) -> the
+    port's Graph, with every array copied."""
+    names = {f.name for f in dataclasses.fields(Graph)}
+    unknown = sorted(set(fields) - names)
+    if unknown:
+        raise ValueError(f"not Graph fields: {unknown}")
+    return Graph(**{name: _copy(v) for name, v in fields.items()})
+
+
+def index_from_postings(tokens, offsets, nodes) -> InvertedIndex:
+    """``InvertedIndex.to_postings`` arrays -> the port's index."""
+    return InvertedIndex.from_postings(
+        list(tokens), np.asarray(offsets, np.int64),
+        np.asarray(nodes, np.int32).copy())
+
+
+def state_from_numpy(fields: dict,
+                     device: str | torch.device | None = None) -> DKSState:
+    """A dict of lane-batched ``DKSState`` fields (every field with its
+    leading lane axis) -> the port's state on ``device``."""
+    missing = sorted(set(STATE_FIELDS) - set(fields))
+    if missing:
+        raise ValueError(f"missing DKSState fields: {missing}")
+    dev = resolve_device(device)
+    return DKSState(**{
+        f: torch.from_numpy(np.array(fields[f], STATE_DTYPES[f])).to(dev)
+        for f in STATE_FIELDS})
+
+
+def state_to_numpy(state: DKSState) -> dict[str, np.ndarray]:
+    """The port's state -> a dict of numpy arrays, one per field."""
+    return {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}

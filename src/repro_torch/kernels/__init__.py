@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper (sources under ``../csrc``), each
+beside its plain torch version:
+
+- ``subset_combine`` — the per-node subset-convolution closure (replaces
+  ``repro.kernels.subset_combine``'s ``subset_combine_t``);
+- ``lane_superstep`` — one whole superstep's inner loop for every lane
+  (replaces ``repro.kernels.lane_superstep``'s ``fused_lane_step``).
+"""

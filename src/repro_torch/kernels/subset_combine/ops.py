@@ -1,0 +1,51 @@
+"""Wrapper of the subset-combine kernel (``csrc/subset_combine.cu``):
+engine layout ``S[..., V, 2^m, K]`` in and out.
+
+On a CPU tensor it takes the plain version (:mod:`.ref`); on a CUDA tensor
+it launches the kernel or raises.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda_build
+from repro_torch.kernels.subset_combine.ref import subset_combine_ref
+
+MAX_M = 5   # keyword count: 2^m tables of K floats per node in the slab
+MAX_K = 4   # top-K width: the kernels are instantiated for K = 1..4
+
+launches = 0
+
+
+def check_range(m: int, k: int, what: str) -> None:
+    """The (m, K) range the CUDA kernels are built for."""
+    if not (1 <= m <= MAX_M and 1 <= k <= MAX_K):
+        raise ValueError(
+            f"{what}: the CUDA kernels support 1 <= m <= {MAX_M} keywords "
+            f"and 1 <= k <= {MAX_K} answers, got m={m}, k={k}")
+
+
+def subset_combine(S: torch.Tensor, m: int) -> torch.Tensor:
+    """Closed table of ``S`` (f32[..., 2^m, K]): one popcount-ordered
+    sweep over ``split_pairs(m)``, top-K distinct, saturated at INF."""
+    global launches
+    if S.dtype != torch.float32 or S.dim() < 2 or S.shape[-2] != 1 << m:
+        raise ValueError(f"subset_combine wants f32[..., {1 << m}, K], "
+                         f"got {S.dtype}{list(S.shape)}")
+    k = S.shape[-1]
+    check_range(m, k, "subset_combine")
+    if not S.is_contiguous():
+        raise ValueError("subset_combine wants a contiguous table")
+    if S.device.type == "cpu":
+        return subset_combine_ref(S, m)
+    if S.device.type != "cuda":
+        raise ValueError(f"subset_combine: unsupported device {S.device}")
+    fn = cuda_build.library("subset_combine").dks_subset_combine
+    out = torch.empty_like(S)
+    n_rows = S.numel() // ((1 << m) * k)
+    err = fn(S.data_ptr(), out.data_ptr(), n_rows, m, k,
+             torch.cuda.current_stream(S.device).cuda_stream)
+    launches += 1
+    cuda_build.check(err, "subset_combine")
+    return out

@@ -1,0 +1,157 @@
+"""Port parity, host graph layer: graph build, weight policies, generators,
+the inverted index, ``to_device`` and the interop carriers give arrays
+identical to ``repro``'s from identical seeds and inputs."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.graph import generators as gen_j
+from repro.graph import structure as st_j
+from repro.graph import weights as wt_j
+from repro.graph.index import InvertedIndex as IndexJ
+from repro.graph.index import mid_df_tokens as mid_df_j
+
+from repro_torch import INF as INF_T
+from repro_torch import interop
+from repro_torch.graph import generators as gen_t
+from repro_torch.graph import structure as st_t
+from repro_torch.graph import weights as wt_t
+from repro_torch.graph.index import InvertedIndex as IndexT
+from repro_torch.graph.index import mid_df_tokens as mid_df_t
+
+GRAPH_FIELDS = [f.name for f in dataclasses.fields(st_j.Graph)]
+
+
+def assert_same_graph(gj, gt):
+    for name in GRAPH_FIELDS:
+        a, b = getattr(gj, name), getattr(gt, name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+            assert a.dtype == b.dtype, name
+        elif isinstance(a, tuple):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y, err_msg=name)
+        else:
+            assert a == b, name
+
+
+def typed_graph(lib):
+    rng = np.random.default_rng(3)
+    n = 40
+    src = rng.integers(0, n, 120)
+    dst = rng.integers(0, n, 120)
+    pred = rng.integers(0, 3, 120)
+    conf = rng.uniform(0.05, 1.0, 120).astype(np.float32)
+    return lib.build_graph(src, dst, n, pred=pred, conf=conf,
+                           pred_names=["knows", "funds", "cites"])
+
+
+def test_inf_sentinel_matches():
+    from repro import INF as INF_J
+    assert INF_T == INF_J
+
+
+def test_rmat_edges_identical():
+    for seed in (0, 5):
+        sj, dj = gen_j.rmat_edges(300, 1000, seed=seed)
+        s_t, d_t = gen_t.rmat_edges(300, 1000, seed=seed)
+        np.testing.assert_array_equal(sj, s_t)
+        np.testing.assert_array_equal(dj, d_t)
+
+
+@pytest.mark.parametrize("make", [
+    lambda lib: lib.lod_like_graph(250, 900, seed=11, vocab=60, tau=20),
+    lambda lib: (lib.random_weighted_graph(60, 140, seed=2), None),
+    lambda lib: (lib.grid_graph(5, 7, w=2.0), None),
+], ids=["lod_like", "random_weighted", "grid"])
+def test_generators_identical(make):
+    gj, tj = make(gen_j)
+    gt, tt = make(gen_t)
+    assert_same_graph(gj, gt)
+    if tj is not None:
+        np.testing.assert_array_equal(tj, tt)
+
+
+def test_degree_weights_and_typed_build_identical():
+    dst = np.random.default_rng(0).integers(0, 50, 400).astype(np.int32)
+    np.testing.assert_array_equal(st_j.degree_weights(dst, 50, tau=12),
+                                  st_t.degree_weights(dst, 50, tau=12))
+    assert st_j.MIN_EDGE_WEIGHT == st_t.MIN_EDGE_WEIGHT
+    assert_same_graph(typed_graph(st_j), typed_graph(st_t))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kind="confidence", blend=1.0),
+    dict(kind="confidence", blend=0.5, predicates=("knows", "cites")),
+    dict(predicates=("funds",)),
+])
+def test_weight_policy_identical(kw):
+    gj = wt_j.apply_weight_policy(typed_graph(st_j), wt_j.WeightPolicy(**kw))
+    gt = wt_t.apply_weight_policy(typed_graph(st_t), wt_t.WeightPolicy(**kw))
+    assert_same_graph(gj, gt)
+    dj = gj.to_device()
+    dt = gt.to_device(device="cpu")
+    np.testing.assert_array_equal(np.asarray(dj.w), dt.w.numpy())
+
+
+@pytest.mark.parametrize("pad", [(None, None), (260, 2100)])
+def test_to_device_identical(pad):
+    gj, _ = gen_j.lod_like_graph(250, 900, seed=4, vocab=30)
+    gt, _ = gen_t.lod_like_graph(250, 900, seed=4, vocab=30)
+    dj = gj.to_device(pad_nodes_to=pad[0], pad_edges_to=pad[1])
+    dt = gt.to_device(device="cpu", pad_nodes_to=pad[0], pad_edges_to=pad[1])
+    for name in ("src", "dst", "w", "valid", "out_degree", "node_valid"):
+        a, b = np.asarray(getattr(dj, name)), getattr(dt, name).numpy()
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        assert a.dtype == b.dtype, name
+    assert (dj.n_nodes, dj.n_edges, dj.v_pad, dj.e_pad) == \
+        (dt.n_nodes, dt.n_edges, dt.v_pad, dt.e_pad)
+    assert float(dj.e_min()) == float(dt.e_min())
+
+
+def test_in_edge_offsets_cover_each_nodes_real_in_edges():
+    gt, _ = gen_t.lod_like_graph(250, 900, seed=4, vocab=30)
+    dt = gt.to_device(device="cpu", pad_nodes_to=260, pad_edges_to=2100)
+    off = dt.in_offsets
+    assert off.dtype == torch.int64 and off.shape == (dt.v_pad + 1,)
+    assert int(off[-1]) == dt.n_edges
+    dst = dt.dst.numpy()
+    for v in range(dt.v_pad):
+        assert np.all(dst[off[v]:off[v + 1]] == v)
+
+
+def test_inverted_index_identical():
+    _, tokens = gen_j.lod_like_graph(200, 600, seed=9, vocab=50)
+    ij = IndexJ.from_token_matrix(tokens)
+    it = IndexT.from_token_matrix(tokens)
+    pj, pt = ij.to_postings(), it.to_postings()
+    assert pj[0] == pt[0]
+    np.testing.assert_array_equal(pj[1], pt[1])
+    np.testing.assert_array_equal(pj[2], pt[2])
+    assert mid_df_j(ij, 2, 20) == mid_df_t(it, 2, 20)
+    query = mid_df_t(it, 2, 20)[:3] + [10_000]
+    np.testing.assert_array_equal(
+        ij.keyword_masks(query, 200, v_pad=210, on_missing="ignore"),
+        it.keyword_masks(query, 200, v_pad=210, on_missing="ignore"))
+    assert ij.missing_tokens(query) == it.missing_tokens(query) == [10_000]
+    with pytest.raises(KeyError):
+        it.keyword_masks(query, 200)
+    carried = interop.index_from_postings(*pj)
+    assert carried.token_dfs() == it.token_dfs()
+    labels = ["Paris piano", "piano bar", "paris", "Bar"]
+    lj, lt = IndexJ.from_labels(labels), IndexT.from_labels(labels)
+    assert {t: list(lj.lookup(t)) for t in lj.vocabulary()} == \
+        {t: list(lt.lookup(t)) for t in lt.vocabulary()}
+
+
+def test_graph_from_numpy_carries_every_field():
+    gj = typed_graph(st_j)
+    gt = interop.graph_from_numpy(
+        {f: getattr(gj, f) for f in GRAPH_FIELDS})
+    assert_same_graph(gj, gt)
+    assert gt.indptr is not gj.indptr  # copied, not shared
+    with pytest.raises(ValueError):
+        interop.graph_from_numpy({"n_nodes": 1, "bogus": 2})

@@ -1,0 +1,46 @@
+"""Import guard: ``repro_torch`` and ``chip_smoke.py`` never import JAX or
+the JAX package.  A fresh interpreter imports every ``repro_torch`` module
+and every module ``chip_smoke.py`` names (without running it), then no
+``jax*`` and no ``repro`` / ``repro.*`` module may be loaded."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import ast, importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+tree = ast.parse(open(sys.argv[1]).read())
+for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+        for alias in node.names:
+            importlib.import_module(alias.name)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        importlib.import_module(node.module)
+sys.path.insert(0, sys.argv[2])
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             or m.startswith("jax"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE, str(ROOT / "chip_smoke.py"),
+         str(ROOT)], capture_output=True, text=True, env=env, check=True,
+        cwd=ROOT)
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.engine.engine" in seen["modules"]
+    assert "repro_torch.kernels.lane_superstep.ops" in seen["modules"]
+    assert seen["bad"] == []
