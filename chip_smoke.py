@@ -9,19 +9,38 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. Build — compile every CUDA source under ``src/repro_torch/csrc`` with
    nvcc (all at once), timed.
-3. Kernels against their plain torch versions on the card, exact equality
-   (tolerance 0: every lattice value is a min, a compare or one f32 add):
-   random small shapes, then the main path's shapes (the paper-scale
-   sec-rdfabout graph, an 8-lane m=3 K=3 bucket, a real mid-run state with
-   one lane done), each kernel and plain version timed with CUDA events.
+3. DKS kernels against their plain torch versions on the card, exact
+   equality (tolerance 0: every lattice value is a min, a compare or one
+   f32 add): random small shapes, then the main path's shapes (the
+   paper-scale sec-rdfabout graph, an 8-lane m=3 K=3 bucket, a real mid-run
+   state with one lane done), each kernel and plain version timed with
+   CUDA events.
 4. Oracle — random small graphs through ``QueryEngine(backend="cuda")``;
    every top-1 weight equals the Dreyfus-Wagner optimum.
-5. Main path — sec-rdfabout (460,451 nodes, 500,384 edges, vocabulary
+5. DKS main path — sec-rdfabout (460,451 nodes, 500,384 edges, vocabulary
    50,000, seed 7, tau 1001) on ``QueryEngine(backend="cuda")``: one
    ``query_batch`` bucket of 8 lanes (m=3, k=3) and two ``query`` calls
    (m=4, k=2), with the kernels' launch counters set to 0 just before and
    read just after; every result must equal the ``backend="torch"`` run.
-6. The kernels line: one JSON object with each kernel's launches, error,
+6. LM serving — the flash-attention kernel against its plain version
+   (random small shapes: MHA, GQA, MQA, ragged lengths, ``q_offset``; f32
+   within 2e-5, bf16 within 2e-2; then the main path's shape, timed beside
+   the plain version and ``scaled_dot_product_attention``), then
+   ChatGLM3-6B at full width in bf16 with random weights from a seeded
+   CUDA generator through ``repro_torch.launch.serve.generate``: 4 prompts
+   of 2,048 tokens and then one of 1,000, each a prefill through the
+   kernel (the launch counter set to 0 just before and read just after:
+   28 launches per prefill) and 32 greedy decode steps.  The prefill's
+   last logits must agree with a prefill on naive attention within
+   5e-2 x max |logit| (this script's own limit: one absolute bound on
+   every logit), and so must the logits of the served tokens fed back
+   through the KV cache with a naive prefill of the same tokens; beside
+   each, the element-wise reading max |d| / (5e-2 + 5e-2 |want|) is
+   printed (at most 1 would meet an element-wise atol = rtol = 5e-2).
+   The first token must equal naive attention's wherever the top-2
+   margin exceeds the difference.  Then torch.profiler splits one prefill and one
+   decode step into kernel time and host time.
+7. The kernels line: one JSON object with each kernel's launches, error,
    times and bound.
 
 The last line of standard output is
@@ -30,6 +49,7 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -41,9 +61,23 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 BUCKET_M, BUCKET_K, BUCKET_LANES = 3, 3, 8
 SINGLE_M, SINGLE_K, N_SINGLE = 4, 2, 2
 QUERY_SEED = 2024
+LM_ARCH, LM_SEED = "chatglm3-6b", 0
+LM_BATCH, LM_PROMPT, LM_LONG, LM_GEN = 4, 2048, 1000, 32
+LM_TOL = 5e-2               # bf16 logits against naive: x max |logit|
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
+    (1, 128, 128, 4, 4, 64, 0),       # MHA
+    (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
+    (1, 128, 384, 8, 1, 128, 0),      # MQA, longer kv
+    (2, 100, 100, 4, 4, 64, 0),       # lengths not a tile multiple
+    (2, 8, 64, 4, 4, 64, 37),         # decode offset
+    (1, 200, 200, 32, 2, 128, 0),     # ChatGLM3's GQA, g=16
+    (2, 33, 33, 4, 2, 16, 0),         # the smoke configs' head dim
+)
 
 
 def check(cond: bool, what: str) -> None:
@@ -72,6 +106,12 @@ def cuda_ms(fn, iters: int) -> float:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def elementwise_room(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (tol + tol |want|) at tol = ``LM_TOL``: at most 1
+    where an element-wise atol = rtol = ``LM_TOL`` check would pass."""
+    return float(((got - want).abs() / (LM_TOL + LM_TOL * want.abs())).max())
 
 
 def sorted_unique_tables(shape, m, k, seed, device):
@@ -212,9 +252,22 @@ def combine_bound(S, m) -> tuple[float, str]:
     return _bound(2 * S.numel() * 4, rows * len(split_pairs(m)) * k * k * 2)
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+def flash_bound(q, k, q_offset: int = 0) -> tuple[float, str]:
+    """Least time for causal attention forward on these inputs: 4·Dh FLOPs
+    per visible (query, key) pair and query head (two matrix products) over
+    the dense bf16 rate, against q, k, v read once and o written once."""
+    b, sq, hq, dh = q.shape
+    skv = k.shape[1]
+    pos = q_offset + np.arange(sq)
+    pairs = int(np.minimum(skv, pos + 1).sum())
+    nbytes = q.element_size() * 2 * (q.numel() + k.numel())
+    return _bound(nbytes, 4 * b * hq * dh * pairs, BF16_OPS_PER_S)
+
+
+def _bound(nbytes: float, ops: float,
+           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -229,6 +282,185 @@ def same_results(rc, rt, what: str) -> None:
     trees = [[(a.root, a.edges, a.weight) for a in r.answers]
              for r in (rc, rt)]
     check(trees[0] == trees[1], f"{what}: answer trees differ")
+
+
+def flash_phase(dev) -> tuple[float, tuple]:
+    """The flash kernel against its plain version at small shapes and at
+    the main path's prefill shape; returns (max abs err, (ms, plain ms,
+    SDPA ms, bound ms, bound by)) at the main path's shape."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    err = 0.0
+    g = torch.Generator(dev).manual_seed(1)
+
+    def qkv(b, sq, skv, hq, hkv, dh, dtype):
+        return (torch.randn(b, s, h, dh, generator=g, device=dev).to(dtype)
+                for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+
+    def held(q, k, v, q_offset, what):
+        nonlocal err
+        got = fa_ops.flash_attention(q, k, v, q_offset=q_offset)
+        want = attention_ref(q, k, v, q_offset=q_offset)
+        err = max(err, max_abs_err(got.float(), want.float()))
+        tol = FLASH_TOL[q.dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"{what}: {m}")
+
+    for shape in FLASH_SHAPES:
+        for dtype in FLASH_TOL:
+            held(*qkv(*shape[:-1], dtype), shape[-1], f"{shape} {dtype}")
+    cfg = get_arch(LM_ARCH)
+    q, k, v = qkv(LM_BATCH, LM_PROMPT, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                  cfg.head_dim, torch.bfloat16)
+    held(q, k, v, 0, "main path shape")
+    torch.cuda.synchronize()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    times = (cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20),
+             cuda_ms(lambda: attention_ref(q, k, v), 3),
+             cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                  enable_gqa=True), 20),
+             *flash_bound(q, k))
+    log(f"  flash_attention at q {list(q.shape)}, k/v {list(k.shape)} bf16: "
+        f"{times[0]} ms (plain {times[1]} ms, SDPA {times[2]} ms, bound "
+        f"{times[3]} ms by {times[4]})")
+    return err, times
+
+
+def lm_phase(dev) -> int:
+    """ChatGLM3-6B serving through ``repro_torch.launch.serve.generate``:
+    returns the flash kernel's launches on the main path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_arch(LM_ARCH)
+    gen = torch.Generator(dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    model = tfm.init_lm(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count_analytic(),
+          f"{n_params} parameters, config says {cfg.param_count_analytic()}")
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, head dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), bf16, random "
+        f"from seed {LM_SEED}, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    requests = (torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                              generator=gen, device=dev),
+                torch.randint(0, cfg.vocab, (1, LM_LONG), generator=gen,
+                              device=dev))
+    for p in requests:       # warm-up: cuBLAS picks its kernels per shape
+        serve.generate(model, p, 2)
+    prefill, naive = (lm_lib.make_prefill_step(i) for i in ("cuda", "naive"))
+    vocab = cfg.vocab
+    total = 0
+    for p in requests:
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.launches = 0
+        res = serve.generate(model, p, LM_GEN, attn_impl="cuda")
+        launched = fa_ops.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(launched == cfg.n_layers, f"flash_attention launched "
+              f"{launched} times in one prefill, want {cfg.n_layers}")
+        total += launched
+        bsz, s = p.shape
+        check(res.tokens.shape == (bsz, LM_GEN + 1)
+              and bool(((res.tokens >= 0) & (res.tokens < vocab)).all())
+              and bool(res.logits_last.isfinite().all()),
+              "generated tokens or logits out of range")
+        # Prefill: the kernel against naive attention.
+        t0 = time.perf_counter()
+        want, _ = naive(model, p)
+        torch.cuda.synchronize()
+        naive_ms = (time.perf_counter() - t0) * 1e3
+        diff = max_abs_err(res.logits_last, want)
+        room = elementwise_room(res.logits_last, want)
+        top = float(want.abs().max())
+        check(diff <= LM_TOL * top, f"prefill logits differ by {diff}, "
+                                    f"limit {LM_TOL} x {top}")
+        top2 = want[:, :vocab].topk(2).values
+        sure = (top2[:, 0] - top2[:, 1]) > diff
+        check(torch.equal(res.tokens[sure, 0], want[sure, :vocab].argmax(-1)),
+              "first greedy token differs from naive attention's")
+        # Decode: the served tokens fed back through the cache, step by
+        # step; the last step's logits against a naive prefill of the
+        # prompt and every token before the last.
+        _, cache = prefill(model, p)
+        cache = lm_lib.grow_cache(cfg, cache, s + LM_GEN)
+        with torch.no_grad():
+            for t in range(LM_GEN):
+                step, cache = model.decode_step(cache,
+                                                res.tokens[:, t:t + 1])
+        full, _ = naive(model, torch.cat([p, res.tokens[:, :-1]], dim=1))
+        ddiff = max_abs_err(step[:, -1], full)
+        droom = elementwise_room(step[:, -1], full)
+        dtop = float(full.abs().max())
+        check(ddiff <= LM_TOL * dtop, f"decode logits differ by {ddiff} "
+                                      f"from a naive prefill, limit "
+                                      f"{LM_TOL} x {dtop}")
+        n = bsz * s
+        log(f"  {bsz} x {s} tokens: prefill {res.prefill_ms:.2f} ms "
+            f"({n / res.prefill_ms * 1e3:.0f} tokens/s; naive attention "
+            f"{naive_ms:.2f} ms), decode {res.decode_ms_per_step:.3f} ms per "
+            f"step over {res.steps} steps ({res.steps * bsz / res.decode_ms * 1e3:.1f} "
+            f"tokens/s), peak device memory {peak:.2f} GiB")
+        log(f"    prefill: max |logits_last| {top:.4f}, max |kernel - naive| "
+            f"{diff:.6f} (element-wise {room:.4f}), first token checked in "
+            f"{int(sure.sum())} of {bsz} rows; decode step {LM_GEN}: max "
+            f"|logits| {dtop:.4f}, max |decode - naive prefill| {ddiff:.6f} "
+            f"(element-wise {droom:.4f})")
+    device_split(model, requests[0], prefill, lm_lib.make_decode_step())
+    return total
+
+
+def device_split(model, prompts, prefill, decode) -> None:
+    """Where a prefill's and a decode step's time goes on the card:
+    torch.profiler's kernel times against the host clock (profiled, so the
+    host side runs slower than unprofiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm as lm_lib
+
+    steps = 4
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_p:
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, prompts)
+        torch.cuda.synchronize()
+        wall_p = (time.perf_counter() - t0) * 1e3
+    cache = lm_lib.grow_cache(model.cfg, cache, prompts.shape[1] + steps)
+    tok = logits.argmax(-1)[:, None]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_d:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, cache = decode(model, cache, tok)
+        torch.cuda.synchronize()
+        wall_d = (time.perf_counter() - t0) * 1e3 / steps
+    for what, prof, wall, per in (("prefill", prof_p, wall_p, 1),
+                                  ("decode step", prof_d, wall_d, steps)):
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
+        if busy == 0:
+            log(f"  {what}: device time not measured (the profiler saw no "
+                f"kernel)")
+            continue
+        top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / per:.3f} "
+                        f"ms x{e.count // per}" for e in kernels[:6])
+        log(f"  {what} under torch.profiler: kernels busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall ({100 * busy / wall:.1f} %), "
+            f"{sum(e.count for e in kernels) // per} kernel launches; top: "
+            f"{top}")
 
 
 def main() -> int:
@@ -257,14 +489,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/6] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/7] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/6] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/7] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -297,7 +529,7 @@ def main() -> int:
                 dg_small.w)
         held("lane_superstep", ls_ops.fused_lane_step(*args, m),
              fused_lane_step_ref(*args, m), f"small graph m={m} k={k}")
-    log("[3/6] kernels == plain versions at small shapes")
+    log("[3/7] kernels == plain versions at small shapes")
 
     t0 = time.perf_counter()
     cfg_sec = SEC_RDFABOUT
@@ -333,17 +565,19 @@ def main() -> int:
     ls_out = ls_ops.fused_lane_step(*ls_args, BUCKET_M)
     held("lane_superstep", ls_out, fused_lane_step_ref(*ls_args, BUCKET_M),
          "main path shape")
+    # name -> (ms, plain ms, library ms or None, bound ms, bound by); no
+    # single PyTorch call computes either DKS function.
     timing = {
         "subset_combine": (
             cuda_ms(lambda: sc_ops.subset_combine(S_pre, BUCKET_M), 20),
-            cuda_ms(lambda: subset_combine_ref(S_pre, BUCKET_M), 3),
+            cuda_ms(lambda: subset_combine_ref(S_pre, BUCKET_M), 3), None,
             *combine_bound(S_pre, BUCKET_M)),
         "lane_superstep": (
             cuda_ms(lambda: ls_ops.fused_lane_step(*ls_args, BUCKET_M), 20),
-            cuda_ms(lambda: fused_lane_step_ref(*ls_args, BUCKET_M), 3),
+            cuda_ms(lambda: fused_lane_step_ref(*ls_args, BUCKET_M), 3), None,
             *lane_bound(*ls_args)),
     }
-    for name, (ms, plain, bound, by) in timing.items():
+    for name, (ms, plain, _, bound, by) in timing.items():
         log(f"  {name}: {ms} ms (plain {plain} ms, bound {bound} ms by {by})")
     parts, figures = lane_breakdown(dg, st.S, st.changed, done, BUCKET_M,
                                     ls_out, ls_ops.fused_lane_step)
@@ -352,7 +586,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/6] kernels == plain versions at the main path's shapes")
+    log("[3/7] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -371,7 +605,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/6] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/7] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -410,7 +644,7 @@ def main() -> int:
         same_results(rc, rt, f"single query {i}")
     for r in batch + [r for r, _ in single]:
         check(r.found and len(r.answers) > 0, f"no answer for {r.query}")
-    log(f"[5/6] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/7] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -435,19 +669,33 @@ def main() -> int:
     log(f"  launches on the main path: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # ---------------- 6. kernels line ----------------
+    # ---------------- 6. LM serving ----------------
+    del engines, runs, batch, single, graph, index, tokens, g_small, dg_small
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
+    log("[6/7] flash_attention == plain version at small shapes and the "
+        "main path's shape")
+    launches["flash_attention"] = lm_phase(dev)
+    log(f"[6/7] {LM_ARCH} served through the flash kernel: "
+        f"{launches['flash_attention']} launches, logits and tokens agree "
+        f"with naive attention")
+
+    # ---------------- 7. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
-                                  "src/repro/kernels/lane_superstep/kernel.py:131")}
+                                  "src/repro/kernels/lane_superstep/kernel.py:131"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/kernel.py:96")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        ms, plain, bound, by = timing[name]
+        ms, plain, library, bound, by = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None})
+            "bound_ms": bound, "bound_by": by, "library_ms": library})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
-"""The paper's own experiment configurations (Sec. 7.1).
+"""Configurations the port runs.
 
-The two LOD datasets are not redistributable; these are synthetic
-structurally-similar stand-ins (power-law degree, Zipf labels) at the
-paper's node/edge scales, plus CPU-scaled variants.  The same values as
-``repro.configs.dks_paper``.
+- The paper's own DKS experiment configurations (Sec. 7.1).  The two LOD
+  datasets are not redistributable; these are synthetic
+  structurally-similar stand-ins (power-law degree, Zipf labels) at the
+  paper's node/edge scales, plus CPU-scaled variants.  The same values as
+  ``repro.configs.dks_paper``.
+- The dense decoder-only LMs the port serves (:func:`get_arch`), with the
+  same values as ``repro.configs.chatglm3_6b`` and ``repro.configs.qwen15_4b``.
 """
 
 from __future__ import annotations
@@ -34,3 +37,71 @@ SEC_RDFABOUT_CPU = DKSBenchConfig(
     name="sec-rdfabout-cpu", n_nodes=46_000, n_edges=50_000, vocab=5_000)
 BLUK_BNB_CPU = DKSBenchConfig(
     name="bluk-bnb-cpu", n_nodes=80_000, n_edges=230_000, vocab=8_000)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """A dense decoder-only LM (``repro.configs.base.LMConfig`` without the
+    MoE and training fields, which the port does not run yet)."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    qkv_bias: bool = False
+    rotary_pct: float = 1.0
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    param_dtype: str = "bfloat16"
+
+    def scaled(self, **kw) -> "LMConfig":
+        return dataclasses.replace(self, **kw)
+
+    def smoke(self) -> "LMConfig":
+        """Reduced config: same family/topology, tiny dims (CPU tests)."""
+        return dataclasses.replace(
+            self, n_layers=2, d_model=64,
+            n_heads=4, n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_ff=128, vocab=256, head_dim=16,
+        )
+
+    def param_count_analytic(self) -> int:
+        """Parameters, embeddings included once (twice when untied)."""
+        d, l = self.d_model, self.n_layers
+        attn = d * self.n_heads * self.head_dim * 2  # q + o
+        attn += d * self.n_kv_heads * self.head_dim * 2  # k + v
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+        ffn = 3 * d * self.d_ff
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + ffn + 2 * d) + embed + d
+
+
+# ChatGLM3-6B [arXiv:2406.12793]: GQA with 2 KV heads, 2d-RoPE (half of
+# each head's dims rotate).
+CHATGLM3_6B = LMConfig(
+    name="chatglm3-6b", n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2,
+    d_ff=13696, vocab=65024, head_dim=128, rotary_pct=0.5)
+# Qwen1.5-4B: MHA with QKV bias.
+QWEN15_4B = LMConfig(
+    name="qwen1.5-4b", n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20,
+    d_ff=6912, vocab=151936, head_dim=128, qkv_bias=True)
+
+LM_ARCHS = {c.name: c for c in (CHATGLM3_6B, QWEN15_4B)}
+
+
+def get_arch(arch_id: str) -> LMConfig:
+    """The LM configuration named ``arch_id``; the port serves the dense LMs
+    of :data:`LM_ARCHS` only, and any other name raises ``KeyError``."""
+    if arch_id not in LM_ARCHS:
+        raise KeyError(
+            f"arch {arch_id!r} is not in the port; it serves "
+            f"{sorted(LM_ARCHS)}. The MoE LMs (granite-moe-3b-a800m, "
+            f"dbrx-132b), command-r-plus-104b and the GNN and recsys archs "
+            f"wait for later slices (ROADMAP.md, queue 1)")
+    return LM_ARCHS[arch_id]

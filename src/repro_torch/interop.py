@@ -11,6 +11,17 @@ arrays), so this module needs neither ``jax`` nor ``repro``:
   port's :class:`~repro_torch.graph.index.InvertedIndex`;
 - :func:`state_from_numpy` / :func:`state_to_numpy` — a dict of lane-batched
   ``DKSState`` fields <-> the port's :class:`~repro_torch.core.dks.DKSState`.
+
+An LM's parameters and KV cache come across the same way:
+
+- :func:`lm_params_from_numpy` — ``repro``'s LM param tree (stacked
+  ``[L, ...]`` layer arrays, ``x @ W`` orientation) -> the port's
+  :class:`~repro_torch.models.transformer.LM` with the same weights;
+- :func:`cache_from_numpy` / :func:`cache_to_numpy` — a KV cache dict
+  (``k``, ``v`` [L, B, S, Hkv, Dh], ``pos``) both ways.
+
+bf16 arrays, which numpy holds as ml_dtypes' ``bfloat16``, come across
+exactly (through f32, which holds every bf16 value).
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ from repro_torch.core.dks import STATE_FIELDS, DKSState
 from repro_torch.device import resolve_device
 from repro_torch.graph.index import InvertedIndex
 from repro_torch.graph.structure import Graph
+from repro_torch.configs import LMConfig
+from repro_torch.models.transformer import LM
 
 STATE_DTYPES = {
     "S": np.float32, "changed": np.bool_, "first_fire": np.bool_,
@@ -77,3 +90,50 @@ def state_from_numpy(fields: dict,
 def state_to_numpy(state: DKSState) -> dict[str, np.ndarray]:
     """The port's state -> a dict of numpy arrays, one per field."""
     return {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
+                         device: str | torch.device | None = None) -> LM:
+    """``repro``'s LM param tree with numpy leaves (``embed``,
+    ``final_norm``, ``head``, and ``layers`` of stacked ``[L, ...]`` arrays)
+    -> an :class:`LM` on ``device`` holding the same values, in the tree's
+    dtype.  Names and shapes must match ``cfg`` exactly, as a tree that
+    ``repro`` built at ``tp=1`` does."""
+    layers = params_np["layers"]
+    if "moe" in layers:
+        raise ValueError("MoE layers are not in the port yet (ROADMAP.md)")
+    state = {name: _tensor(params_np[name])
+             for name in ("embed", "final_norm", "head") if name in params_np}
+    for key, arr in layers.items():
+        if np.shape(arr)[0] != cfg.n_layers:
+            raise ValueError(f"layers/{key} has {np.shape(arr)[0]} layers, "
+                             f"the config {cfg.n_layers}")
+        stacked = _tensor(arr)
+        for i in range(cfg.n_layers):
+            state[f"layers.{i}.{key}"] = stacked[i]
+    model = LM(cfg, device=device, dtype=state["embed"].dtype)
+    model.load_state_dict(state)
+    return model
+
+
+def cache_from_numpy(cache_np: dict,
+                     device: str | torch.device | None = None) -> dict:
+    """A KV cache dict of numpy arrays -> the port's (``pos`` an int)."""
+    dev = resolve_device(device)
+    return {"k": _tensor(cache_np["k"]).to(dev),
+            "v": _tensor(cache_np["v"]).to(dev),
+            "pos": int(cache_np["pos"])}
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """The port's KV cache -> numpy (bf16 as f32, exactly)."""
+    return {"k": cache["k"].float().cpu().numpy(),
+            "v": cache["v"].float().cpu().numpy(),
+            "pos": np.int32(cache["pos"])}

@@ -4,5 +4,8 @@ beside its plain torch version:
 - ``subset_combine`` — the per-node subset-convolution closure (replaces
   ``repro.kernels.subset_combine``'s ``subset_combine_t``);
 - ``lane_superstep`` — one whole superstep's inner loop for every lane
-  (replaces ``repro.kernels.lane_superstep``'s ``fused_lane_step``).
+  (replaces ``repro.kernels.lane_superstep``'s ``fused_lane_step``);
+- ``flash_attention`` — causal GQA attention forward with an online
+  softmax (replaces ``repro.kernels.flash_attention``'s
+  ``flash_attention_bhsd``).
 """

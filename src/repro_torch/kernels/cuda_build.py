@@ -25,15 +25,20 @@ HEADERS = ("dks_lattice.cuh",)
 SOURCES = {
     "subset_combine": "subset_combine.cu",
     "lane_superstep": "lane_superstep.cu",
+    "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 SIGNATURES = {
     "subset_combine": ("dks_subset_combine", (_P, _P, _L, _I, _I, _P)),
     "lane_superstep": ("dks_lane_superstep",
                        (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P)),
+    "flash_attention": ("flash_attention_fwd",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _P)),
 }
 
 # name -> {"seconds": build wall time, "log": nvcc's stderr (ptxas -v)}.

@@ -1,0 +1,118 @@
+"""Serving driver: batched prefill, then greedy decode against a KV cache.
+
+    python -m repro_torch.launch.serve --arch chatglm3-6b --batch 4 \\
+        --prompt-len 2048 --gen 32
+    python -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu
+
+Weights are random, drawn from ``--seed`` (no checkpoint is in the
+repository).  The prefill's attention is ``--attn-impl`` (default "cuda":
+the flash kernel on the card, its plain version on the CPU); decode uses
+"auto", which picks naive attention at one query row.  The cache is grown
+to ``prompt_len + gen`` after the prefill, and ``--gen`` decode steps
+follow the prefill's token.  Without ``--device`` it runs on ``cuda:0``
+and raises when there is no GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.device import resolve_device
+from repro_torch.models import lm as lm_lib
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import IMPLS
+
+
+@dataclasses.dataclass
+class Generation:
+    tokens: torch.Tensor        # [B, gen + 1]: the prefill's token, then one per step
+    logits_last: torch.Tensor   # f32 [B, vocab]: the prefill's last position
+    prefill_ms: float
+    decode_ms: float            # all decode steps
+    steps: int
+
+    @property
+    def decode_ms_per_step(self) -> float:
+        return self.decode_ms / max(self.steps, 1)
+
+
+def _now(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def generate(model: tfm.LM, prompts: torch.Tensor, gen: int,
+             attn_impl: str = "cuda") -> Generation:
+    """Prefill ``prompts`` [B, S] with ``attn_impl``, grow the cache to
+    S + ``gen``, then ``gen`` greedy decode steps.  Times are host clocks
+    ended by a device synchronise."""
+    prefill = lm_lib.make_prefill_step(attn_impl)
+    decode = lm_lib.make_decode_step()
+    t0 = _now(prompts.device)
+    logits_last, cache = prefill(model, prompts)
+    cache = lm_lib.grow_cache(model.cfg, cache, prompts.shape[1] + gen)
+    tok = logits_last.argmax(dim=-1)[:, None]
+    t1 = _now(prompts.device)
+    out = [tok]
+    for _ in range(gen):
+        tok, cache = decode(model, cache, tok)
+        out.append(tok)
+    tokens = torch.cat(out, dim=1)
+    t2 = _now(prompts.device)
+    return Generation(tokens=tokens, logits_last=logits_last,
+                      prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
+                      steps=gen)
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default cuda:0; 'cpu' runs the plain versions")
+    ap.add_argument("--attn-impl", default="cuda", choices=IMPLS,
+                    help="the prefill's attention")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    cfg = cfg.smoke() if args.smoke else cfg
+    gen = torch.Generator(device).manual_seed(args.seed)
+    model = tfm.init_lm(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    res = generate(model, prompts, args.gen, attn_impl=args.attn_impl)
+    n = args.batch * args.prompt_len
+    print(f"{cfg.name} on {device}: {cfg.param_count_analytic() / 1e9:.2f} B "
+          f"parameters, {cfg.param_dtype}, prefill attention "
+          f"{args.attn_impl}")
+    print(f"prefill: {res.prefill_ms:.1f} ms for {args.batch}x"
+          f"{args.prompt_len} ({n / res.prefill_ms * 1e3:.0f} tokens/s)")
+    print(f"decode:  {res.decode_ms_per_step:.2f} ms per step over "
+          f"{res.steps} steps ({res.steps * args.batch / max(res.decode_ms, 1e-9) * 1e3:.1f} "
+          f"tokens/s)")
+    if device.type == "cuda":
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    print("sample generations (token ids):")
+    for row in res.tokens[:2].tolist():
+        print("  ", row[:16])
+    if not bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise RuntimeError("generated a token outside the vocabulary")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

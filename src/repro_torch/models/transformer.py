@@ -1,0 +1,205 @@
+"""Decoder-only dense transformer for serving (``repro.models.transformer``
+without MoE, remat, sharding and the int8 KV cache).
+
+Serves the dense LMs of :mod:`repro_torch.configs`: chatglm3-6b (GQA kv=2,
+2d/partial RoPE) and qwen1.5-4b (QKV bias, MHA).  Weights keep
+``repro``'s ``x @ W`` orientation and names, one :class:`Block` per layer,
+so :func:`repro_torch.interop.lm_params_from_numpy` carries a ``repro``
+param tree built at ``tp=1`` across unchanged.  The dimensions are the
+config's: one card has no tensor parallelism, so no head or vocabulary is
+padded.  This path serves only: the parameters do not require grad.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs import LMConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import attention, rotary
+from repro_torch.models.common import dense_init, split_keys
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Block(nn.Module):
+    """One layer: RMSNorm -> GQA attention -> residual -> RMSNorm ->
+    SwiGLU FFN -> residual.  Parameter names are ``repro``'s layer keys."""
+
+    def __init__(self, cfg: LMConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        d, dh = cfg.d_model, cfg.head_dim
+        q_w, kv_w = cfg.n_heads * dh, cfg.n_kv_heads * dh
+        self.attn_norm = _param((d,), dtype, device)
+        self.ffn_norm = _param((d,), dtype, device)
+        self.wq = _param((d, q_w), dtype, device)
+        self.wk = _param((d, kv_w), dtype, device)
+        self.wv = _param((d, kv_w), dtype, device)
+        self.wo = _param((q_w, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _param((q_w,), dtype, device)
+            self.bk = _param((kv_w,), dtype, device)
+            self.bv = _param((kv_w,), dtype, device)
+        self.w_gate = _param((d, cfg.d_ff), dtype, device)
+        self.w_up = _param((d, cfg.d_ff), dtype, device)
+        self.w_down = _param((cfg.d_ff, d), dtype, device)
+
+    def _attn(self, x, positions, cache_kv, cache_pos, attn_impl):
+        cfg = self.cfg
+        bsz, s, _ = x.shape
+        dh = cfg.head_dim
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if cfg.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = rotary(q.reshape(bsz, s, cfg.n_heads, dh), positions,
+                   cfg.rotary_pct, cfg.rope_theta)
+        k = rotary(k.reshape(bsz, s, cfg.n_kv_heads, dh), positions,
+                   cfg.rotary_pct, cfg.rope_theta)
+        v = v.reshape(bsz, s, cfg.n_kv_heads, dh)
+        if cache_kv is not None:
+            k_cache, v_cache = cache_kv
+            k_cache[:, cache_pos:cache_pos + s] = k
+            v_cache[:, cache_pos:cache_pos + s] = v
+            # Positions past the current one are masked by q_offset.
+            out = attention(q, k_cache, v_cache, q_offset=cache_pos,
+                            impl=attn_impl)
+            new_kv = (k_cache, v_cache)
+        else:
+            out = attention(q, k, v, impl=attn_impl)
+            new_kv = (k, v)
+        return out.reshape(bsz, s, cfg.n_heads * dh) @ self.wo, new_kv
+
+    def forward(self, x, positions, cache_kv=None, cache_pos: int = 0,
+                attn_impl: str = "auto"):
+        """x [B, S, D] -> (x, (k, v)); with ``cache_kv`` = (k_cache,
+        v_cache) [B, Smax, Hkv, Dh] this step's K/V are written into the
+        caches in place at ``cache_pos``."""
+        eps = self.cfg.norm_eps
+        h = rms_norm(x, self.attn_norm, eps)
+        attn_out, new_kv = self._attn(h, positions, cache_kv, cache_pos,
+                                      attn_impl)
+        x = x + attn_out
+        h = rms_norm(x, self.ffn_norm, eps)
+        x = x + (F.silu(h @ self.w_gate) * (h @ self.w_up)) @ self.w_down
+        return x, new_kv
+
+
+class LM(nn.Module):
+    """Embedding, ``n_layers`` :class:`Block` s, final norm, head.  The
+    parameters are allocated, not initialised: use :func:`init_lm` or
+    ``load_state_dict``."""
+
+    def __init__(self, cfg: LMConfig,
+                 device: str | torch.device | None = None,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        dtype = dtype or DTYPES[cfg.param_dtype]
+        self.cfg = cfg
+        self.embed = _param((cfg.vocab, cfg.d_model), dtype, dev)
+        self.final_norm = _param((cfg.d_model,), dtype, dev)
+        if not cfg.tie_embeddings:
+            self.head = _param((cfg.d_model, cfg.vocab), dtype, dev)
+        self.layers = nn.ModuleList(Block(cfg, dtype, dev)
+                                    for _ in range(cfg.n_layers))
+
+    def forward(self, tokens: torch.Tensor,
+                positions: torch.Tensor | None = None,
+                return_cache: bool = False, attn_impl: str = "auto"):
+        """Prefill forward: tokens [B, S] -> (final hidden [B, S, D], cache
+        (k, v) each [L, B, S, Hkv, Dh] or None).  Logits are not formed
+        here: :meth:`unembed` the positions that need them."""
+        bsz, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device).expand(bsz, s)
+        x = F.embedding(tokens, self.embed)
+        ks, vs = [], []
+        for layer in self.layers:
+            x, (k, v) = layer(x, positions, attn_impl=attn_impl)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return x, ((torch.stack(ks), torch.stack(vs)) if return_cache
+                   else None)
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """hidden [..., D] -> f32 logits [..., vocab]."""
+        head = self.embed.T if self.cfg.tie_embeddings else self.head
+        return (x @ head.to(x.dtype)).float()
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor,
+                    attn_impl: str = "auto") -> tuple[torch.Tensor, dict]:
+        """One-token decode: tokens [B, 1] + cache -> (logits [B, 1, V],
+        cache).  The token's K/V go into ``cache["k"]``/``cache["v"]`` in
+        place (``repro`` returns new arrays); ``pos`` advances by one."""
+        pos = int(cache["pos"])
+        if pos >= cache["k"].shape[2]:
+            raise ValueError(f"KV cache full: position {pos} of "
+                             f"{cache['k'].shape[2]}")
+        bsz = tokens.shape[0]
+        positions = torch.full((bsz, 1), pos, device=tokens.device)
+        x = F.embedding(tokens, self.embed)
+        for i, layer in enumerate(self.layers):
+            x, _ = layer(x, positions, cache_kv=(cache["k"][i], cache["v"][i]),
+                         cache_pos=pos, attn_impl=attn_impl)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self.unembed(x), {"k": cache["k"], "v": cache["v"],
+                                 "pos": pos + 1}
+
+
+@torch.no_grad()
+def init_lm(cfg: LMConfig, generator: torch.Generator) -> LM:
+    """An :class:`LM` on ``generator``'s device with random weights drawn
+    as ``repro``'s ``init_params`` draws them: normal x 1/sqrt(fan_in),
+    embedding x 0.02, norms one, biases zero."""
+    dtype = DTYPES[cfg.param_dtype]
+    model = LM(cfg, device=generator.device, dtype=dtype)
+    d, dh = cfg.d_model, cfg.head_dim
+    q_w, kv_w = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    ks = split_keys(generator, ["embed", "head", "wq", "wk", "wv", "wo",
+                                "ffn"])
+    model.embed.copy_(dense_init(ks["embed"], (cfg.vocab, d), dtype,
+                                 scale=0.02))
+    model.final_norm.fill_(1)
+    if not cfg.tie_embeddings:
+        model.head.copy_(dense_init(ks["head"], (d, cfg.vocab), dtype))
+    for layer in model.layers:
+        layer.wq.copy_(dense_init(ks["wq"], (d, q_w), dtype))
+        layer.wk.copy_(dense_init(ks["wk"], (d, kv_w), dtype))
+        layer.wv.copy_(dense_init(ks["wv"], (d, kv_w), dtype))
+        layer.wo.copy_(dense_init(ks["wo"], (q_w, d), dtype))
+        if cfg.qkv_bias:
+            for name in ("bq", "bk", "bv"):
+                getattr(layer, name).zero_()
+        layer.attn_norm.fill_(1)
+        layer.ffn_norm.fill_(1)
+        layer.w_gate.copy_(dense_init(ks["ffn"], (d, cfg.d_ff), dtype))
+        layer.w_up.copy_(dense_init(ks["ffn"], (d, cfg.d_ff), dtype))
+        layer.w_down.copy_(dense_init(ks["ffn"], (cfg.d_ff, d), dtype))
+    return model
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device | None = None) -> dict:
+    """A zero KV cache: k, v [L, batch, max_seq, Hkv, Dh]; pos 0."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}

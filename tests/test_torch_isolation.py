@@ -43,4 +43,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.engine.engine" in seen["modules"]
     assert "repro_torch.kernels.lane_superstep.ops" in seen["modules"]
+    assert "repro_torch.models.transformer" in seen["modules"]
+    assert "repro_torch.kernels.flash_attention.ops" in seen["modules"]
+    assert "repro_torch.launch.serve" in seen["modules"]
     assert seen["bad"] == []
