@@ -40,7 +40,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    The first token must equal naive attention's wherever the top-2
    margin exceeds the difference.  Then torch.profiler splits one prefill and one
    decode step into kernel time and host time.
-7. The kernels line: one JSON object with each kernel's launches, error,
+7. Recsys serving — the EmbeddingBag kernel against its plain version at
+   random small shapes (sum and mean, with and without weights, -1 pads,
+   ids past the table, all-pad bags, nnz 1..64, D 8..128) within
+   atol = rtol = 1e-5, then timed at one multi-hot shape (ids [65,536, 32]
+   into DCN-v2's 10,000,384 x 16 ``table_0``, Zipf ids, 30 % pads, weights)
+   beside the plain version and ``F.embedding_bag``; then DCN-v2 at full
+   width in f32 (26 tables, 29,497,558 rows x 16, random weights from a
+   seeded CUDA generator, TF32 off) serving one batch each of
+   ``serve_p99`` (512), ``serve_bulk`` (262,144) and ``retrieval_cand``
+   (1 query x 1,000,448 candidates, top 100) from
+   ``recsys_synthetic_stream``: the launch counter set to 0 just before
+   and read just after (26 per forward, 27 per retrieval), and logits,
+   scores and candidate positions bit-equal to ``impl="torch"``.
+8. Padded-CSR relax — one lane of a real mid-run state of the
+   sec-rdfabout m=3 K=3 bucket (three supersteps in) through
+   ``segment_minplus_padded`` at dmax=64 (one ``padded_topk`` launch):
+   equal, exactly, to its plain version and to ``core/dks.py::relax``;
+   ``padded_topk`` timed at that candidate shape beside its plain version.
+9. The kernels line: one JSON object with each kernel's launches, error,
    times and bound.
 
 The last line of standard output is
@@ -69,6 +87,18 @@ LM_ARCH, LM_SEED = "chatglm3-6b", 0
 LM_BATCH, LM_PROMPT, LM_LONG, LM_GEN = 4, 2048, 1000, 32
 LM_TOL = 5e-2               # bf16 logits against naive: x max |logit|
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RECSYS_ARCH, RECSYS_SEED, RETRIEVAL_TOP_K, CAND_SEED = "dcn-v2", 0, 100, 11
+BAG_TOL = 1e-5              # repro's tests/test_kernels.py: sums reorder
+BAG_SHAPES = (              # b, nnz, d, mode, weighted
+    (37, 1, 16, "sum", False),
+    (511, 3, 8, "mean", True),
+    (1000, 64, 16, "sum", True),
+    (77, 17, 32, "mean", False),
+    (129, 8, 128, "sum", True),
+    (3001, 32, 16, "mean", True),
+)
+BAG_TIMED = (65_536, 32, 0.3)   # bags, ids per bag, share of -1 pads
+PADDED_STEPS, PADDED_DMAX = 3, 64
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
     (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
@@ -262,6 +292,19 @@ def flash_bound(q, k, q_offset: int = 0) -> tuple[float, str]:
     pairs = int(np.minimum(skv, pos + 1).sum())
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())
     return _bound(nbytes, 4 * b * hq * dh * pairs, BF16_OPS_PER_S)
+
+
+def bag_bound(table, ids, weighted: bool) -> tuple[float, str]:
+    """Least time for one EmbeddingBag call on these inputs: each distinct
+    table row that a valid id names read once (a row named again can come
+    from the cache), the ids, the weights and the output over HBM
+    bandwidth, against a multiply and an add per gathered element."""
+    v, d = table.shape
+    valid = (ids >= 0) & (ids < v)
+    n_rows = int(torch.unique(ids[valid]).numel())
+    nbytes = (n_rows * d + ids.numel() * (2 if weighted else 1)
+              + ids.shape[0] * d) * 4
+    return _bound(nbytes, 2 * int(valid.sum()) * d)
 
 
 def _bound(nbytes: float, ops: float,
@@ -463,6 +506,235 @@ def device_split(model, prompts, prefill, decode) -> None:
             f"{top}")
 
 
+def bag_phase(dev, table) -> tuple[float, tuple]:
+    """The EmbeddingBag kernel against its plain version at random small
+    shapes and at one multi-hot shape into ``table``; returns (max abs
+    err, (ms, plain ms, F.embedding_bag ms, bound ms, bound by)) at the
+    multi-hot shape."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    err = 0.0
+    rng = np.random.default_rng(3)
+
+    def held(table, ids, w, mode, what):
+        nonlocal err
+        got = eb_ops.embedding_bag(table, ids, w, mode)
+        want = embedding_bag_ref(table, ids, w, mode)
+        err = max(err, max_abs_err(got, want))
+        torch.testing.assert_close(got, want, atol=BAG_TOL, rtol=BAG_TOL,
+                                   msg=lambda m: f"embedding_bag {what}: {m}")
+        return got
+
+    for b, nnz, d, mode, weighted in BAG_SHAPES:
+        v = 5000
+        small = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                                 ).to(dev)
+        ids = rng.integers(-1, v + 2, size=(b, nnz)).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.3] = -1
+        ids[0] = -1                                  # an all-pad bag
+        w = (torch.from_numpy(rng.normal(size=(b, nnz)).astype(np.float32)
+                              ).to(dev) if weighted else None)
+        got = held(small, torch.from_numpy(ids).to(dev), w, mode,
+                   f"{(b, nnz, d, mode, weighted)}")
+        check(not got[0].any(), "an all-pad bag is not zero")
+    b, nnz, pad = BAG_TIMED
+    ids = np.minimum(rng.zipf(1.3, (b, nnz)), table.shape[0]) - 1
+    ids[rng.random(ids.shape) < pad] = -1
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.random((b, nnz)).astype(np.float32)).to(dev)
+    got = held(table, ids, w, "sum", "multi-hot timed shape")
+    torch.cuda.synchronize()
+    # F.embedding_bag takes no padding id with per-sample weights: clamp the
+    # pads to row 0 and give them weight 0.
+    lib_ids, lib_w = ids.clamp(min=0).long(), w * (ids >= 0)
+    emb_bag = torch.nn.functional.embedding_bag
+
+    def library():
+        return emb_bag(lib_ids, table, mode="sum", per_sample_weights=lib_w)
+
+    torch.testing.assert_close(library(), got, atol=BAG_TOL, rtol=BAG_TOL)
+    times = (cuda_ms(lambda: eb_ops.embedding_bag(table, ids, w), 20),
+             cuda_ms(lambda: embedding_bag_ref(table, ids, w), 5),
+             cuda_ms(library, 20), *bag_bound(table, ids, True))
+    log(f"  embedding_bag at ids {list(ids.shape)} "
+        f"({int((ids >= 0).sum())} valid, "
+        f"{int(torch.unique(ids[ids >= 0]).numel())} distinct, Zipf 1.3) "
+        f"into {list(table.shape)} "
+        f"f32, weighted sum: {times[0]} ms (plain {times[1]} ms, "
+        f"F.embedding_bag {times[2]} ms, bound {times[3]} ms by {times[4]})")
+    return err, times
+
+
+def recsys_phase(dev) -> tuple[float, tuple, int]:
+    """DCN-v2 serving at full width through the EmbeddingBag kernel:
+    returns (the kernel's max abs err, its times, its launches on the main
+    path)."""
+    from repro_torch.configs import RECSYS_SHAPES, get_arch
+    from repro_torch.data import recsys_synthetic_stream
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.models import recsys as rec
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 matrix products must run at full f32 precision (TF32 is on)")
+    cfg = get_arch(RECSYS_ARCH)
+    gen = torch.Generator(dev).manual_seed(RECSYS_SEED)
+    t0 = time.perf_counter()
+    params = rec.init_dcn(cfg, gen)
+    torch.cuda.synchronize()
+    rows = sum(t.shape[0] for t in params["tables"].values())
+    n_params = rows * cfg.embed_dim + sum(
+        t.numel() for key in ("cross", "deep") for lw in params[key]
+        for t in lw.values()) + params["logit"].numel() + params["item"].numel()
+    log(f"  {cfg.name}: {cfg.n_sparse} tables, {rows} rows x {cfg.embed_dim} "
+        f"f32, {n_params} parameters ({n_params * 4 / 2**30:.2f} GiB), random "
+        f"from seed {RECSYS_SEED}, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    err, times = bag_phase(dev, params["tables"]["table_0"])
+
+    shapes = {s.name: s for s in RECSYS_SHAPES}
+    batches = {name: rec.batch_to_device(next(recsys_synthetic_stream(
+        cfg, shapes[name].batch, seed=0)), dev)
+        for name in ("serve_p99", "serve_bulk", "retrieval_cand")}
+    n_cand = -(-shapes["retrieval_cand"].n_candidates // 512) * 512
+    cand = torch.from_numpy(np.random.default_rng(CAND_SEED).integers(
+        0, cfg.vocab_sizes[0], n_cand).astype(np.int32)).to(dev)
+
+    def forward(batch, impl):
+        return rec.dcn_forward(params, batch["dense"], batch["sparse"], cfg,
+                               impl=impl)
+
+    def retrieve(batch, impl):
+        return rec.retrieval_scores(params, batch["dense"], batch["sparse"],
+                                    cand, cfg, top_k=RETRIEVAL_TOP_K,
+                                    impl=impl)
+
+    requests = (("serve_p99", forward, cfg.n_sparse),
+                ("serve_bulk", forward, cfg.n_sparse),
+                ("retrieval_cand", retrieve, cfg.n_sparse + 1))
+    for name, fn, _ in requests:          # warm-up: cuBLAS picks per shape
+        for impl in ("cuda", "torch"):
+            fn(batches[name], impl)
+    torch.cuda.synchronize()
+    served = {}
+    eb_ops.launches = 0
+    for name, fn, per in requests:
+        before = eb_ops.launches
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(batches[name], "cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(eb_ops.launches - before == per,
+              f"{name}: embedding_bag launched {eb_ops.launches - before} "
+              f"times, want {per}")
+        served[name] = (out, ms, torch.cuda.max_memory_allocated() / 2**30)
+    launches = eb_ops.launches
+    for name, fn, _ in requests:
+        out, ms, peak = served[name]
+        t0 = time.perf_counter()
+        plain = fn(batches[name], "torch")
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if name == "retrieval_cand":
+            (scores, idx), (p_scores, p_idx) = out, plain
+            check(torch.equal(scores, p_scores) and torch.equal(idx, p_idx),
+                  "retrieval scores or positions differ from impl=torch")
+            check(scores.shape == (1, RETRIEVAL_TOP_K)
+                  and bool(scores.isfinite().all())
+                  and bool((scores[0, 1:] <= scores[0, :-1]).all())
+                  and bool(((idx >= 0) & (idx < n_cand)).all()),
+                  "retrieval scores not finite, not descending or positions "
+                  "out of range")
+            n, unit = n_cand, "candidates/s"
+        else:
+            check(torch.equal(out, plain),
+                  f"{name}: logits differ from impl=torch")
+            check(out.shape == (shapes[name].batch,)
+                  and bool(out.isfinite().all()), f"{name}: bad logits")
+            n, unit = shapes[name].batch, "rows/s"
+        log(f"  {name}: {ms:.3f} ms warm ({n / ms * 1e3:.0f} {unit}; "
+            f"impl=torch {plain_ms:.3f} ms), peak device memory "
+            f"{peak:.2f} GiB, bit-equal to impl=torch")
+    # The kernel at the main path's own single-hot shape, beside the plain
+    # version and F.embedding (one row per id).
+    t0_ids = batches["serve_bulk"]["sparse"][:, :1].contiguous()
+    t0_tab = params["tables"]["table_0"]
+    single = (cuda_ms(lambda: eb_ops.embedding_bag(t0_tab, t0_ids), 20),
+              cuda_ms(lambda: rec.embedding_bag(t0_tab, t0_ids, impl="torch"),
+                      20),
+              cuda_ms(lambda: torch.nn.functional.embedding(
+                  t0_ids[:, 0].long(), t0_tab), 20),
+              *bag_bound(t0_tab, t0_ids, False))
+    log(f"  embedding_bag at serve_bulk's table_0 lookup (ids "
+        f"{list(t0_ids.shape)}): {single[0]} ms (plain {single[1]} ms, "
+        f"F.embedding {single[2]} ms, bound {single[3]} ms by {single[4]})")
+    return err, times, launches
+
+
+def padded_phase(dev, graph, index, bucket) -> tuple[float, tuple, int]:
+    """The padded-CSR relax on one lane of a real mid-run sec-rdfabout
+    state: returns (``padded_topk``'s max abs err, its times, its launches
+    on the main path)."""
+    from repro_torch import INF
+    from repro_torch.core import dks, driver
+    from repro_torch.kernels.segment_minplus import ops as sm_ops
+    from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
+
+    dg = graph.to_device(dev)
+    masks = torch.from_numpy(np.stack([index.keyword_masks(
+        q, graph.n_nodes, v_pad=dg.v_pad) for q in bucket])).to(dev)
+    cfg = dks.DKSConfig(m=BUCKET_M, k=BUCKET_K)
+    st = driver.lane_init(dg, masks, cfg)
+    for _ in range(PADDED_STEPS):
+        st = dks.superstep(dg, st, cfg)
+    lane = int(st.changed.sum(dim=1).argmax())
+    S, changed = st.S[lane].contiguous(), st.changed[lane].contiguous()
+    del st
+    n_e = dg.n_edges
+    src, dst, w = (x[:n_e].cpu().numpy() for x in (dg.src, dg.dst, dg.w))
+    t0 = time.perf_counter()
+    csr = sm_ops.padded_csr_from_graph(src, dst, w, dg.n_nodes,
+                                       dmax=PADDED_DMAX, device=dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    sm_ops.launches = 0
+    t0 = time.perf_counter()
+    got = sm_ops.segment_minplus_padded(S, csr, changed, BUCKET_K, dg.v_pad)
+    torch.cuda.synchronize()
+    relax_ms = (time.perf_counter() - t0) * 1e3
+    launches = sm_ops.launches
+    check(launches == 1, f"padded_topk launched {launches} times in one "
+                         f"segment_minplus_padded, want 1")
+    cand = sm_ops.padded_candidates(S, csr, changed)
+    red_plain = padded_topk_ref(cand, BUCKET_K)
+    check(torch.equal(got, sm_ops.merge_virtual_rows(red_plain, csr,
+                                                     dg.v_pad)),
+          "segment_minplus_padded differs from its plain version")
+    check(torch.equal(got, dks.relax(dg, S[None], changed[None], cfg)[0]),
+          "segment_minplus_padded differs from core/dks.py::relax")
+    check(bool((got < INF).any()), "the relaxed lane received nothing")
+    red = sm_ops.padded_topk(cand, BUCKET_K)
+    err = max_abs_err(red, red_plain)
+    check(torch.equal(red, red_plain), f"padded_topk != plain at the main "
+                                       f"path's shape (max abs err {err})")
+    del red_plain
+    times = (cuda_ms(lambda: sm_ops.padded_topk(cand, BUCKET_K), 20),
+             cuda_ms(lambda: padded_topk_ref(cand, BUCKET_K), 3), None,
+             *_bound((cand.numel() + red.numel()) * 4, cand.numel()))
+    deg = np.bincount(dst, minlength=dg.n_nodes)
+    log(f"  lane {lane} after {PADDED_STEPS} supersteps "
+        f"({int(changed.sum())} senders): padded CSR at dmax={PADDED_DMAX} "
+        f"built on the host in {build_ms:.1f} ms ({csr.n_virtual} virtual "
+        f"rows, {int((deg > PADDED_DMAX).sum())} hubs split); "
+        f"segment_minplus_padded {relax_ms:.2f} ms")
+    log(f"  padded_topk at cand {list(cand.shape)} f32 -> "
+        f"{list(red.shape)}: {times[0]} ms (plain {times[1]} ms, bound "
+        f"{times[3]} ms by {times[4]})")
+    return err, times, launches
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -489,14 +761,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/7] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/9] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/7] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/9] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -529,7 +801,7 @@ def main() -> int:
                 dg_small.w)
         held("lane_superstep", ls_ops.fused_lane_step(*args, m),
              fused_lane_step_ref(*args, m), f"small graph m={m} k={k}")
-    log("[3/7] kernels == plain versions at small shapes")
+    log("[3/9] kernels == plain versions at small shapes")
 
     t0 = time.perf_counter()
     cfg_sec = SEC_RDFABOUT
@@ -586,7 +858,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/7] kernels == plain versions at the main path's shapes")
+    log("[3/9] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -605,7 +877,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/7] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/9] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -644,7 +916,7 @@ def main() -> int:
         same_results(rc, rt, f"single query {i}")
     for r in batch + [r for r, _ in single]:
         check(r.found and len(r.answers) > 0, f"no answer for {r.query}")
-    log(f"[5/7] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/9] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -670,24 +942,45 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # ---------------- 6. LM serving ----------------
-    del engines, runs, batch, single, graph, index, tokens, g_small, dg_small
+    del engines, runs, batch, single, tokens, g_small, dg_small
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/7] flash_attention == plain version at small shapes and the "
+    log("[6/9] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/7] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/9] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
-    # ---------------- 7. kernels line ----------------
+    # ---------------- 7. recsys serving ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs["embedding_bag"], timing["embedding_bag"], \
+        launches["embedding_bag"] = recsys_phase(dev)
+    log(f"[7/9] {RECSYS_ARCH} served through the embedding_bag kernel: "
+        f"{launches['embedding_bag']} launches, logits and retrieval "
+        f"bit-equal to the plain path")
+
+    # ---------------- 8. padded-CSR relax ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs["padded_topk"], timing["padded_topk"], launches["padded_topk"] = \
+        padded_phase(dev, graph, index, bucket)
+    log(f"[8/9] {cfg_sec.name} padded-CSR relax through padded_topk "
+        f"({launches['padded_topk']} launch) == plain == relax, exactly")
+
+    # ---------------- 9. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
                                   "src/repro/kernels/lane_superstep/kernel.py:131"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention/kernel.py:96")}
+                                   "src/repro/kernels/flash_attention/kernel.py:96"),
+               "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                                 "src/repro/kernels/embedding_bag/kernel.py:50"),
+               "padded_topk": ("src/repro_torch/csrc/padded_topk.cu",
+                               "src/repro/kernels/segment_minplus/kernel.py:44")}
     kernels = []
     for name, (source, replaces) in sources.items():
         ms, plain, library, bound, by = timing[name]

@@ -7,6 +7,9 @@
   ``repro.configs.dks_paper``.
 - The dense decoder-only LMs the port serves (:func:`get_arch`), with the
   same values as ``repro.configs.chatglm3_6b`` and ``repro.configs.qwen15_4b``.
+- The DCN-v2 recommender it serves (``get_arch("dcn-v2")``) and the recsys
+  shapes, with the values of ``repro.configs.dcn_v2`` and
+  ``repro.configs.base``.
 """
 
 from __future__ import annotations
@@ -92,16 +95,67 @@ QWEN15_4B = LMConfig(
     name="qwen1.5-4b", n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20,
     d_ff=6912, vocab=151936, head_dim=128, qkv_bias=True)
 
-LM_ARCHS = {c.name: c for c in (CHATGLM3_6B, QWEN15_4B)}
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    """A DCN-v2-style recommender (``repro.configs.base.RecsysConfig``)."""
+
+    name: str
+    n_dense: int
+    n_sparse: int
+    embed_dim: int
+    n_cross_layers: int
+    mlp_dims: tuple[int, ...]
+    vocab_sizes: tuple[int, ...]  # one per sparse field
+    param_dtype: str = "float32"
+
+    def smoke(self) -> "RecsysConfig":
+        return dataclasses.replace(
+            self, embed_dim=8, mlp_dims=(32, 16),
+            vocab_sizes=tuple(min(v, 100) for v in self.vocab_sizes),
+        )
 
 
-def get_arch(arch_id: str) -> LMConfig:
-    """The LM configuration named ``arch_id``; the port serves the dense LMs
-    of :data:`LM_ARCHS` only, and any other name raises ``KeyError``."""
-    if arch_id not in LM_ARCHS:
+@dataclasses.dataclass(frozen=True)
+class RecsysShape:
+    name: str
+    kind: str                 # "train" | "serve" | "retrieval"
+    batch: int
+    n_candidates: int = 0
+
+
+# "train_batch" is listed as in ``repro``; the port serves, it does not
+# train yet.
+RECSYS_SHAPES = (
+    RecsysShape("train_batch", "train", 65_536),
+    RecsysShape("serve_p99", "serve", 512),
+    RecsysShape("serve_bulk", "serve", 262_144),
+    RecsysShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
+)
+
+# DCN-v2 [arXiv:2008.13535]: 13 dense + 26 sparse fields, embed_dim 16,
+# 3 cross layers, MLP 1024-1024-512.  Vocab sizes follow the Criteo-1TB
+# hashed regime: a few huge fields (10^7), a tail of small ones.
+DCN_V2 = RecsysConfig(
+    name="dcn-v2", n_dense=13, n_sparse=26, embed_dim=16, n_cross_layers=3,
+    mlp_dims=(1024, 1024, 512),
+    vocab_sizes=(
+        10_000_000, 10_000_000, 5_000_000,
+        1_000_000, 1_000_000, 1_000_000, 500_000, 500_000,
+        100_000, 100_000, 100_000, 50_000, 50_000, 50_000, 10_000, 10_000,
+        10_000, 5_000, 5_000, 1_000, 1_000, 1_000, 500, 100, 100, 50,
+    ))
+
+ARCHS = {c.name: c for c in (CHATGLM3_6B, QWEN15_4B, DCN_V2)}
+
+
+def get_arch(arch_id: str) -> LMConfig | RecsysConfig:
+    """The configuration named ``arch_id`` in :data:`ARCHS` (the dense LMs
+    and DCN-v2); any other name raises ``KeyError``."""
+    if arch_id not in ARCHS:
         raise KeyError(
             f"arch {arch_id!r} is not in the port; it serves "
-            f"{sorted(LM_ARCHS)}. The MoE LMs (granite-moe-3b-a800m, "
-            f"dbrx-132b), command-r-plus-104b and the GNN and recsys archs "
-            f"wait for later slices (ROADMAP.md, queue 1)")
-    return LM_ARCHS[arch_id]
+            f"{sorted(ARCHS)}. The MoE LMs (granite-moe-3b-a800m, "
+            f"dbrx-132b), command-r-plus-104b and the GNN archs wait for "
+            f"later slices (ROADMAP.md, queue 1)")
+    return ARCHS[arch_id]

@@ -20,6 +20,11 @@ An LM's parameters and KV cache come across the same way:
 - :func:`cache_from_numpy` / :func:`cache_to_numpy` — a KV cache dict
   (``k``, ``v`` [L, B, S, Hkv, Dh], ``pos``) both ways.
 
+A DCN-v2 recommender's parameters too:
+
+- :func:`dcn_params_from_numpy` — ``repro``'s ``init_dcn`` tree -> the
+  port's parameter dict (:mod:`repro_torch.models.recsys`).
+
 bf16 arrays, which numpy holds as ml_dtypes' ``bfloat16``, come across
 exactly (through f32, which holds every bf16 value).
 """
@@ -35,7 +40,8 @@ from repro_torch.core.dks import STATE_FIELDS, DKSState
 from repro_torch.device import resolve_device
 from repro_torch.graph.index import InvertedIndex
 from repro_torch.graph.structure import Graph
-from repro_torch.configs import LMConfig
+from repro_torch.configs import LMConfig, RecsysConfig
+from repro_torch.models import recsys
 from repro_torch.models.transformer import LM
 
 STATE_DTYPES = {
@@ -137,3 +143,38 @@ def cache_to_numpy(cache: dict) -> dict:
     return {"k": cache["k"].float().cpu().numpy(),
             "v": cache["v"].float().cpu().numpy(),
             "pos": np.int32(cache["pos"])}
+
+
+def dcn_params_from_numpy(params_np: dict, cfg: RecsysConfig,
+                          device: str | torch.device | None = None) -> dict:
+    """``repro``'s ``init_dcn`` tree with numpy leaves (``tables/table_i``,
+    ``cross[i].w/b``, ``deep[i].w/b``, ``logit``, ``item``) -> the port's
+    parameter dict on ``device``, f32.  Every shape must equal
+    :func:`repro_torch.models.recsys.param_shapes` of ``cfg``."""
+    dev = resolve_device(device)
+    shapes = recsys.param_shapes(cfg)
+
+    def put(arr, want, where):
+        if tuple(np.shape(arr)) != tuple(want):
+            raise ValueError(f"{where} has shape {list(np.shape(arr))}, the "
+                             f"config {list(want)}")
+        return torch.from_numpy(np.array(arr, np.float32)).to(dev)
+
+    def layers(key):
+        if len(params_np[key]) != len(shapes[key]):
+            raise ValueError(f"{key} has {len(params_np[key])} layers, the "
+                             f"config {len(shapes[key])}")
+        return [{p: put(lw[p], s[p], f"{key}[{i}].{p}") for p in ("w", "b")}
+                for i, (lw, s) in enumerate(zip(params_np[key], shapes[key]))]
+
+    if set(params_np["tables"]) != set(shapes["tables"]):
+        raise ValueError(f"tables {sorted(params_np['tables'])}, the config "
+                         f"{sorted(shapes['tables'])}")
+    return {
+        "tables": {name: put(params_np["tables"][name], s, f"tables/{name}")
+                   for name, s in shapes["tables"].items()},
+        "cross": layers("cross"),
+        "deep": layers("deep"),
+        "logit": put(params_np["logit"], shapes["logit"], "logit"),
+        "item": put(params_np["item"], shapes["item"], "item"),
+    }

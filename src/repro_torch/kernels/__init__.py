@@ -7,5 +7,9 @@ beside its plain torch version:
   (replaces ``repro.kernels.lane_superstep``'s ``fused_lane_step``);
 - ``flash_attention`` — causal GQA attention forward with an online
   softmax (replaces ``repro.kernels.flash_attention``'s
-  ``flash_attention_bhsd``).
+  ``flash_attention_bhsd``);
+- ``embedding_bag`` — multi-hot weighted gather-sum (replaces
+  ``repro.kernels.embedding_bag``'s ``embedding_bag_kernel``);
+- ``segment_minplus`` — the padded-CSR relax reduce ``padded_topk``
+  (replaces ``repro.kernels.segment_minplus``'s ``padded_topk``).
 """

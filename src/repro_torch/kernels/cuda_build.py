@@ -26,6 +26,8 @@ SOURCES = {
     "subset_combine": "subset_combine.cu",
     "lane_superstep": "lane_superstep.cu",
     "flash_attention": "flash_attention.cu",
+    "embedding_bag": "embedding_bag.cu",
+    "padded_topk": "padded_topk.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +41,9 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P)),
+    "embedding_bag": ("embedding_bag_fwd",
+                      (_P, _L, _I, _P, _P, _P, _L, _I, _I, _P)),
+    "padded_topk": ("dks_padded_topk", (_P, _P, _L, _I, _I, _I, _P)),
 }
 
 # name -> {"seconds": build wall time, "log": nvcc's stderr (ptxas -v)}.

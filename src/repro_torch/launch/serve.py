@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import LMConfig, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import transformer as tfm
@@ -84,8 +84,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="the prefill's attention")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_arch(args.arch)
+    if not isinstance(cfg, LMConfig):
+        raise SystemExit("serve only applies to LM archs")
+    device = resolve_device(args.device)
     cfg = cfg.smoke() if args.smoke else cfg
     gen = torch.Generator(device).manual_seed(args.seed)
     model = tfm.init_lm(cfg, gen)

@@ -1,0 +1,169 @@
+"""DCN-v2 (arXiv:2008.13535) serving: embedding tables, cross network and
+deep tower, the counterpart of ``repro.models.recsys``.
+
+Parameters are a plain dict shaped like ``repro``'s tree: ``tables``
+(``table_i`` f32[rows_i, embed_dim]), ``cross`` and ``deep`` (lists of
+``{"w", "b"}`` in ``x @ W`` orientation), ``logit`` and ``item``.
+
+Every table lookup goes through :func:`embedding_bag`: ``repro`` looks up
+its single-hot fields with ``jnp.take`` on clipped ids; the port looks up
+each field as a bag of one id (``ids[:, None]``, no weights, ``"sum"``), so
+on the card the EmbeddingBag kernel runs 26 times per :func:`dcn_forward`
+and 27 times per :func:`retrieval_scores`.  A bag of one gives
+``0 + row * 1 = row``, the row itself (``-0.0`` entries come back as
+``+0.0``, which compares equal).
+
+Serving paths: pointwise scoring (:func:`dcn_forward`) and retrieval
+(:func:`retrieval_scores`: user tower against candidate item vectors).
+Training (``dcn_loss``) waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import RecsysConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.models.common import dense_init, split_keys
+
+IMPLS = ("cuda", "torch")
+
+# Tables at or above this row count are row-padded to a multiple of 512,
+# as in ``repro`` (which shards them over its mesh), so that parameter
+# trees carry across.
+SHARD_VOCAB_MIN = 100_000
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor | None = None, mode: str = "sum",
+                  impl: str = "cuda") -> torch.Tensor:
+    """EmbeddingBag: ids int32[B, nnz] (-1 = padding) -> [B, D].
+    ``impl="cuda"``: the kernel on a CUDA tensor, its plain version on a
+    CPU tensor; ``"torch"``: the plain version."""
+    if impl == "cuda":
+        return eb_ops.embedding_bag(table, ids, weights, mode)
+    if impl == "torch":
+        return embedding_bag_ref(table, ids, weights, mode)
+    raise ValueError(f"embedding_bag: impl must be one of {IMPLS}, got "
+                     f"{impl!r}")
+
+
+def _table_rows(vocab: int) -> int:
+    if vocab >= SHARD_VOCAB_MIN:
+        return -(-vocab // 512) * 512
+    return vocab
+
+
+def param_shapes(cfg: RecsysConfig) -> dict:
+    """The parameter tree's shapes, without allocating it."""
+    d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
+    dims = (d0,) + cfg.mlp_dims
+    return {
+        "tables": {f"table_{i}": (_table_rows(v), cfg.embed_dim)
+                   for i, v in enumerate(cfg.vocab_sizes)},
+        "cross": [{"w": (d0, d0), "b": (d0,)}
+                  for _ in range(cfg.n_cross_layers)],
+        "deep": [{"w": (dims[i], dims[i + 1]), "b": (dims[i + 1],)}
+                 for i in range(len(cfg.mlp_dims))],
+        "logit": (d0 + cfg.mlp_dims[-1], 1),
+        # Item tower for retrieval: an item id's table_0 row -> mlp_dims[-1].
+        "item": (cfg.embed_dim, cfg.mlp_dims[-1]),
+    }
+
+
+def init_dcn(cfg: RecsysConfig, generator: torch.Generator) -> dict:
+    """Random parameters on ``generator``'s device, with ``repro``'s
+    distributions: tables Normal(0, 0.02), weights Normal(0, 1/fan_in),
+    biases 0, all f32."""
+    shapes = param_shapes(cfg)
+    gens = split_keys(generator, ["tables", "cross", "deep", "logit", "item"])
+    dev = generator.device
+    f32 = torch.float32
+    tgens = split_keys(gens["tables"], list(shapes["tables"]))
+    cgens = split_keys(gens["cross"], list(range(cfg.n_cross_layers)))
+    dgens = split_keys(gens["deep"], list(range(len(cfg.mlp_dims))))
+
+    def layer(g, s):
+        return {"w": dense_init(g, s["w"], f32),
+                "b": torch.zeros(s["b"], dtype=f32, device=dev)}
+
+    return {
+        "tables": {name: dense_init(tgens[name], s, f32, scale=0.02)
+                   for name, s in shapes["tables"].items()},
+        "cross": [layer(cgens[i], s) for i, s in enumerate(shapes["cross"])],
+        "deep": [layer(dgens[i], s) for i, s in enumerate(shapes["deep"])],
+        "logit": dense_init(gens["logit"], shapes["logit"], f32),
+        "item": dense_init(gens["item"], shapes["item"], f32),
+    }
+
+
+def batch_to_device(batch: dict,
+                    device: str | torch.device | None = None) -> dict:
+    """A stream batch (numpy ``dense``, ``sparse``, ``label``) as tensors on
+    ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(arr).to(dev) for name, arr in batch.items()}
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor, impl: str) -> torch.Tensor:
+    """``repro``'s ``jnp.take(table, clip(ids, 0, rows - 1))`` as bags of
+    one id.  ids: int32[N] -> [N, D]."""
+    ids = torch.clamp(ids, 0, table.shape[0] - 1)
+    return embedding_bag(table, ids[:, None], None, "sum", impl)
+
+
+def _features(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
+              cfg: RecsysConfig, impl: str) -> torch.Tensor:
+    """dense f32[B, n_dense]; sparse_ids int32[B, n_sparse] -> x0 [B, d0]."""
+    embs = [_lookup(params["tables"][f"table_{i}"], sparse_ids[:, i], impl)
+            for i in range(cfg.n_sparse)]
+    return torch.cat([dense] + embs, dim=-1)
+
+
+def _cross_tower(params: dict, x0: torch.Tensor) -> torch.Tensor:
+    x = x0
+    for lw in params["cross"]:
+        x = x0 * (x @ lw["w"] + lw["b"]) + x
+    return x
+
+
+def _deep_tower(params: dict, x0: torch.Tensor) -> torch.Tensor:
+    h = x0
+    for lw in params["deep"]:
+        h = torch.relu(h @ lw["w"] + lw["b"])
+    return h
+
+
+@torch.no_grad()
+def dcn_forward(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
+                cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
+    """Pointwise CTR logits f32[B]."""
+    x0 = _features(params, dense, sparse_ids, cfg, impl)
+    z = torch.cat([_cross_tower(params, x0), _deep_tower(params, x0)], dim=-1)
+    return (z @ params["logit"])[:, 0]
+
+
+@torch.no_grad()
+def user_vector(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
+                cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
+    """The user tower: [B, mlp_dims[-1]]."""
+    return _deep_tower(params, _features(params, dense, sparse_ids, cfg, impl))
+
+
+@torch.no_grad()
+def retrieval_scores(params: dict, dense: torch.Tensor,
+                     sparse_ids: torch.Tensor, cand_ids: torch.Tensor,
+                     cfg: RecsysConfig, top_k: int = 100,
+                     impl: str = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Score B queries against item ids ``cand_ids`` int32[n_cand] (rows
+    of ``table_0``); return the top ``top_k`` scores [B, top_k] and their
+    candidate positions, highest first, the lower position first among
+    equal scores (as ``lax.top_k``)."""
+    u = user_vector(params, dense, sparse_ids, cfg, impl)        # [B, Dv]
+    cand_emb = _lookup(params["tables"]["table_0"], cand_ids, impl)
+    scores = u @ (cand_emb @ params["item"]).T                   # [B, n_cand]
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    idx = order[:, :top_k]
+    return torch.gather(scores, 1, idx), idx

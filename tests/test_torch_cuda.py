@@ -7,9 +7,11 @@ GPU and PyTorch alone:
 
 Without a card every test here skips (through the ``cuda_device``
 fixture, decided when the test runs).  Tolerance: none for the DKS
-kernels — every lattice value is a min, a compare or one f32 add; 2e-5
-(f32) and 2e-2 (bf16) for flash attention, the JAX package's own
-(``tests/test_kernels.py``), since its sums run in another order.
+kernels (``padded_topk`` included) — every lattice value is a min, a
+compare or one f32 add; 2e-5 (f32) and 2e-2 (bf16) for flash attention and
+1e-5 for multi-hot EmbeddingBag, the JAX package's own
+(``tests/test_kernels.py``), since their sums run in another order; none
+for single-hot bags and the DCN-v2 logits built on them.
 """
 
 import numpy as np
@@ -17,17 +19,23 @@ import pytest
 import torch
 
 from repro_torch import INF
-from repro_torch.configs import get_arch
+from repro_torch.configs import DCN_V2, get_arch
 from repro_torch.core import dks, driver
 from repro_torch.core.semiring import sorted_unique_k
+from repro_torch.data import recsys_synthetic_stream
 from repro_torch.graph.generators import lod_like_graph
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.lane_superstep import ops as ls_ops
 from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
+from repro_torch.kernels.segment_minplus import ops as sm_ops
+from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
 from repro_torch.kernels.subset_combine import ops as sc_ops
 from repro_torch.kernels.subset_combine.ref import subset_combine_ref
 from repro_torch.models import lm as lm_lib
+from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
 
 
@@ -117,3 +125,114 @@ def test_smoke_prefill_through_the_kernel_matches_naive(cuda_device, arch):
     want, cache_n = lm_lib.make_prefill_step("naive")(model, tokens)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(cache["k"], cache_n["k"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nnz,v,d,mode,weighted", [
+    (37, 1, 50, 16, "sum", False),
+    (37, 5, 1000, 8, "mean", True),
+    (101, 64, 3000, 32, "sum", True),
+    (64, 17, 200, 128, "mean", False),
+    (9, 3, 40, 12, "sum", True),          # D not a multiple of 4
+    (1000, 32, 100_000, 16, "sum", True),
+])
+def test_embedding_bag_kernel_matches_plain(cuda_device, b, nnz, v, d, mode,
+                                            weighted):
+    """-1 pads, ids past the table, an all-pad bag; within 1e-5."""
+    rng = np.random.default_rng(b + nnz)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                             ).to(cuda_device)
+    ids = rng.integers(-1, v + 3, size=(b, nnz)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.3] = -1
+    ids[0] = -1
+    ids = torch.from_numpy(ids).to(cuda_device)
+    w = (torch.from_numpy(rng.normal(size=(b, nnz)).astype(np.float32)
+                          ).to(cuda_device) if weighted else None)
+    launched = eb_ops.launches
+    got = eb_ops.embedding_bag(table, ids, w, mode)
+    torch.cuda.synchronize()
+    assert eb_ops.launches == launched + 1
+    torch.testing.assert_close(got, embedding_bag_ref(table, ids, w, mode),
+                               atol=1e-5, rtol=1e-5)
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_single_hot_is_the_row(cuda_device):
+    """A bag of one id, no weights, is the row exactly, on an aligned and
+    on a misaligned (scalar path) table; B = 0 and nnz = 0 give zeros."""
+    rng = np.random.default_rng(0)
+    flat = torch.from_numpy(rng.normal(size=300 * 16 + 1).astype(np.float32)
+                            ).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, 300, (513, 1)).astype(np.int32)
+                           ).to(cuda_device)
+    for table in (flat[:-1].view(300, 16), flat[1:].view(300, 16)):
+        got = eb_ops.embedding_bag(table, ids)
+        assert torch.equal(got, table[ids[:, 0].long()])
+    assert eb_ops.embedding_bag(table, ids[:0]).shape == (0, 16)
+    assert not eb_ops.embedding_bag(table, ids[:, :0].contiguous()).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vv,c,f,k", [(8, 16, 4, 2), (16, 64, 16, 2),
+                                      (8, 128, 16, 4), (24, 32, 8, 1),
+                                      (1001, 192, 8, 3), (33, 12, 32, 4),
+                                      (5, 3, 1, 3)])
+def test_padded_topk_kernel_matches_plain(cuda_device, vv, c, f, k):
+    rng = np.random.default_rng(vv + c)
+    cand = rng.integers(1, 30, size=(vv, c, f)).astype(np.float32)
+    cand[rng.random(cand.shape) > 0.6] = INF
+    cand = torch.from_numpy(cand).to(cuda_device)
+    launched = sm_ops.launches
+    got = sm_ops.padded_topk(cand, k)
+    torch.cuda.synchronize()
+    assert sm_ops.launches == launched + 1
+    assert torch.equal(got, padded_topk_ref(cand, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,dmax", [(3, 3, 64), (2, 2, 4), (5, 4, 16)])
+def test_segment_minplus_padded_on_the_kernel_equals_relax(cuda_device, m, k,
+                                                           dmax):
+    """A real mid-run lane on a hub-heavy graph: one kernel launch, the
+    edge-list relax's result exactly."""
+    g, _ = lod_like_graph(200, 2000, seed=5, vocab=40)
+    dg = g.to_device(cuda_device)
+    cfg = dks.DKSConfig(m=m, k=k)
+    masks = torch.from_numpy(
+        np.random.default_rng(m).random((1, m, dg.v_pad)) < 0.03)
+    st = dks.superstep(dg, driver.lane_init(dg, masks.to(cuda_device), cfg),
+                       cfg)
+    n_e = dg.n_edges
+    csr = sm_ops.padded_csr_from_graph(
+        dg.src[:n_e].cpu().numpy(), dg.dst[:n_e].cpu().numpy(),
+        dg.w[:n_e].cpu().numpy(), dg.n_nodes, dmax=dmax, device=cuda_device)
+    launched = sm_ops.launches
+    got = sm_ops.segment_minplus_padded(st.S[0], csr, st.changed[0], k,
+                                        dg.v_pad)
+    assert sm_ops.launches == launched + 1
+    assert torch.equal(got, dks.relax(dg, st.S, st.changed, cfg)[0])
+
+
+@pytest.mark.cuda
+def test_smoke_dcn_through_the_kernel_is_bit_equal_to_plain(cuda_device):
+    """26 launches per forward, 27 per retrieval; logits, scores and
+    positions bit-equal to the plain path."""
+    cfg = DCN_V2.smoke()
+    params = rec_lib.init_dcn(cfg, torch.Generator(cuda_device).manual_seed(0))
+    batch = rec_lib.batch_to_device(next(recsys_synthetic_stream(cfg, 300)),
+                                    cuda_device)
+    cand = torch.arange(-5, 500, dtype=torch.int32, device=cuda_device) % 97
+    launched = eb_ops.launches
+    got = rec_lib.dcn_forward(params, batch["dense"], batch["sparse"], cfg)
+    assert eb_ops.launches == launched + cfg.n_sparse
+    want = rec_lib.dcn_forward(params, batch["dense"], batch["sparse"], cfg,
+                               impl="torch")
+    assert torch.equal(got, want)
+    d1, s1 = batch["dense"][:1], batch["sparse"][:1]
+    launched = eb_ops.launches
+    got = rec_lib.retrieval_scores(params, d1, s1, cand, cfg, top_k=50)
+    assert eb_ops.launches == launched + cfg.n_sparse + 1
+    want = rec_lib.retrieval_scores(params, d1, s1, cand, cfg, top_k=50,
+                                    impl="torch")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

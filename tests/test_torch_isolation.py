@@ -46,4 +46,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "repro_torch.models.transformer" in seen["modules"]
     assert "repro_torch.kernels.flash_attention.ops" in seen["modules"]
     assert "repro_torch.launch.serve" in seen["modules"]
+    for name in ("repro_torch.models.recsys", "repro_torch.data.pipeline",
+                 "repro_torch.kernels.embedding_bag.ops",
+                 "repro_torch.kernels.embedding_bag.ref",
+                 "repro_torch.kernels.segment_minplus.ops",
+                 "repro_torch.kernels.segment_minplus.ref"):
+        assert name in seen["modules"], name
     assert seen["bad"] == []
