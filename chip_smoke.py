@@ -8,13 +8,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 1. Device — fail unless ``torch.cuda.is_available()``; print the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. Build — compile every CUDA source under ``src/repro_torch/csrc`` with
-   nvcc (all at once), timed.
+   nvcc (all at once), timed; each kernel's ptxas register and spill
+   lines; the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
+   flash library's SASS (``cuobjdump``), which must be there.
 3. DKS kernels against their plain torch versions on the card, exact
    equality (tolerance 0: every lattice value is a min, a compare or one
    f32 add): random small shapes, then the main path's shapes (the
    paper-scale sec-rdfabout graph, an 8-lane m=3 K=3 bucket, a real mid-run
-   state with one lane done), each kernel and plain version timed with
-   CUDA events.
+   state with one lane done; the hub count and threshold of
+   ``lane_superstep``'s warp-per-hub rows), each kernel and plain version
+   timed with CUDA events, and ``lane_superstep`` timed on cut edge
+   lists, each with the hub list built for it.
 4. Oracle — random small graphs through ``QueryEngine(backend="cuda")``;
    every top-1 weight equals the Dreyfus-Wagner optimum.
 5. DKS main path — sec-rdfabout (460,451 nodes, 500,384 edges, vocabulary
@@ -25,12 +29,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 6. LM serving — the flash-attention kernel against its plain version
    (random small shapes: MHA, GQA, MQA, ragged lengths, ``q_offset``; f32
    within 2e-5, bf16 within 2e-2; then the main path's shape, timed beside
-   the plain version and ``scaled_dot_product_attention``), then
+   the plain version and ``scaled_dot_product_attention``, with TFLOP/s
+   and the share of the bound), then
    ChatGLM3-6B at full width in bf16 with random weights from a seeded
    CUDA generator through ``repro_torch.launch.serve.generate``: 4 prompts
    of 2,048 tokens and then one of 1,000, each a prefill through the
-   kernel (the launch counter set to 0 just before and read just after:
-   28 launches per prefill) and 32 greedy decode steps.  The prefill's
+   kernel (the launch counters set to 0 just before and read just after:
+   28 launches per prefill, all on the ``"wgmma"`` route) and 32 greedy
+   decode steps.  The prefill's
    last logits must agree with a prefill on naive attention within
    5e-2 x max |logit| (this script's own limit: one absolute bound on
    every logit), and so must the logits of the served tokens fed back
@@ -224,41 +230,59 @@ def edge_subset(dg, keep):
             dg.w[:n_e][keep].contiguous())
 
 
-def lane_breakdown(dg, S0, changed, done, m, full_out, fused, heavy=32):
+def lane_breakdown(dg, S0, changed, done, m, full_out, fused, hub_nodes,
+                   heavy=32, huge=256):
     """Where ``lane_superstep``'s time goes on the main path's state: the
-    kernel timed on cut edge lists and flags, beside the in-degree figures
-    that each cut speaks to.  Cuts: INF-weight (hub) edges dropped, which
+    kernel timed on cut edge lists and flags, each cut with the hub list
+    ``hub_nodes`` builds for its offsets, beside the in-degree figures that
+    each cut speaks to.  Cuts: INF-weight (hub) edges dropped, which
     leaves the output as it was (checked); then also the in-edges of nodes
-    with more than ``heavy`` finite in-edges dropped; then no sender
-    active (only the tables' stream, the merge and the combine sweep)."""
+    with more than ``huge``, or more than ``heavy``, finite in-edges
+    dropped; then no sender active (only the tables' stream, the merge and
+    the combine sweep)."""
     n_e = dg.n_edges
     finite = dg.w[:n_e] < 5e8
     dst = dg.dst[:n_e].long()
     fin_deg = torch.bincount(dst[finite], minlength=dg.v_pad)
     light = finite & (fin_deg[dst] <= heavy)
     cut_fin = edge_subset(dg, finite)
-    check(torch.equal(fused(S0, changed, done, *cut_fin, m), full_out),
+    cut_fin = (*cut_fin, hub_nodes(cut_fin[0]))
+    check(torch.equal(fused(S0, changed, done, *cut_fin[:3], m, cut_fin[3]),
+                      full_out),
           "lane_superstep without INF-weight edges changed its output")
     cut_light = edge_subset(dg, light)
+    cut_light = (*cut_light, hub_nodes(cut_light[0]))
+    cut_big = edge_subset(dg, finite & (fin_deg[dst] <= huge))
+    cut_big = (*cut_big, hub_nodes(cut_big[0]))
     idle = torch.zeros_like(changed)
-    ms = {"all edges": cuda_ms(lambda: fused(S0, changed, done,
-                                             dg.in_offsets, dg.src, dg.w, m),
-                               10),
-          "finite-weight edges only": cuda_ms(
-              lambda: fused(S0, changed, done, *cut_fin, m), 10),
+
+    def timed(flags, cut):
+        return cuda_ms(lambda: fused(S0, flags, done, *cut[:3], m, cut[3]),
+                       10)
+
+    ms = {"all edges": timed(changed, (dg.in_offsets, dg.src, dg.w,
+                                       dg.hub_nodes)),
+          "finite-weight edges only": timed(changed, cut_fin),
+          f"finite edges into nodes of finite in-degree <= {huge} only":
+              timed(changed, cut_big),
           f"finite edges into nodes of finite in-degree <= {heavy} only":
-              cuda_ms(lambda: fused(S0, changed, done, *cut_light, m), 10),
-          "finite edges, no sender active": cuda_ms(
-              lambda: fused(S0, idle, done, *cut_fin, m), 10)}
-    # Per (live lane, node): the rows its thread gathers, one after another.
+              timed(changed, cut_light),
+          "finite edges, no sender active": timed(idle, cut_fin)}
+    # Per (live lane, node): the rows gathered for it; a hub's rows are
+    # shared by the 32 lanes of its warp.
     live = (~done).nonzero().flatten()
     senders = changed[live][:, dg.src[:n_e].long()] & finite
     chain = torch.stack([torch.bincount(dst[s], minlength=dg.v_pad)
                          for s in senders])
-    n_heavy = int((fin_deg > heavy).sum())
     deg = dg.in_offsets.diff()
+    is_hub = torch.zeros(dg.v_pad, dtype=torch.bool, device=dg.device)
+    is_hub[dg.hub_nodes.long()] = True
+    per_thread = torch.where(is_hub, (chain + 31) // 32, chain)
+    n_heavy = int((fin_deg > heavy).sum())
     return ms, {
         "max in-degree": int(deg.max()),
+        "hubs (in-degree > HUB_IN_DEGREE, one warp per lane and hub)":
+            int(dg.hub_nodes.numel()),
         "nodes with an INF-weight in-edge": int(torch.bincount(
             dst[~finite], minlength=dg.v_pad).gt(0).sum()),
         "INF-weight edges": int((~finite).sum()),
@@ -268,7 +292,9 @@ def lane_breakdown(dg, S0, changed, done, m, full_out, fused, heavy=32):
             fin_deg[fin_deg > heavy].sum() / fin_deg.sum()),
         "gathered rows (live lane, finite edge, active sender)":
             int(chain.sum()),
-        "longest gather chain of one thread": int(chain.max()),
+        "longest gather chain of one (lane, node)": int(chain.max()),
+        "longest gather chain of one thread, hub rows over 32 lanes":
+            int(per_thread.max()),
         f"share of gathered rows into nodes of finite in-degree > {heavy}":
             float(chain[:, fin_deg > heavy].sum() / chain.sum()),
     }
@@ -282,16 +308,20 @@ def combine_bound(S, m) -> tuple[float, str]:
     return _bound(2 * S.numel() * 4, rows * len(split_pairs(m)) * k * k * 2)
 
 
-def flash_bound(q, k, q_offset: int = 0) -> tuple[float, str]:
-    """Least time for causal attention forward on these inputs: 4·Dh FLOPs
-    per visible (query, key) pair and query head (two matrix products) over
-    the dense bf16 rate, against q, k, v read once and o written once."""
+def flash_flops(q, k, q_offset: int = 0) -> int:
+    """4·Dh FLOPs per visible (query, key) pair and query head: the two
+    matrix products of causal attention forward."""
     b, sq, hq, dh = q.shape
-    skv = k.shape[1]
     pos = q_offset + np.arange(sq)
-    pairs = int(np.minimum(skv, pos + 1).sum())
+    return 4 * b * hq * dh * int(np.minimum(k.shape[1], pos + 1).sum())
+
+
+def flash_bound(q, k, q_offset: int = 0) -> tuple[float, str]:
+    """Least time for causal attention forward on these inputs: its FLOPs
+    over the dense bf16 rate, against q, k, v read once and o written
+    once."""
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())
-    return _bound(nbytes, 4 * b * hq * dh * pairs, BF16_OPS_PER_S)
+    return _bound(nbytes, flash_flops(q, k, q_offset), BF16_OPS_PER_S)
 
 
 def bag_bound(table, ids, weighted: bool) -> tuple[float, str]:
@@ -366,9 +396,13 @@ def flash_phase(dev) -> tuple[float, tuple]:
              cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                   enable_gqa=True), 20),
              *flash_bound(q, k))
-    log(f"  flash_attention at q {list(q.shape)}, k/v {list(k.shape)} bf16: "
-        f"{times[0]} ms (plain {times[1]} ms, SDPA {times[2]} ms, bound "
-        f"{times[3]} ms by {times[4]})")
+    flops = flash_flops(q, k)
+    log(f"  flash_attention at q {list(q.shape)}, k/v {list(k.shape)} bf16, "
+        f"route {fa_ops.route(q.dtype, q.shape[-1])}: {times[0]} ms, "
+        f"{flops / times[0] / 1e9:.1f} TFLOP/s, {100 * times[3] / times[0]:.1f} "
+        f"% of the bound (plain {times[1]} ms, SDPA {times[2]} ms = "
+        f"{flops / times[2] / 1e9:.1f} TFLOP/s, bound {times[3]} ms by "
+        f"{times[4]})")
     return err, times
 
 
@@ -406,11 +440,16 @@ def lm_phase(dev) -> int:
     for p in requests:
         torch.cuda.reset_peak_memory_stats()
         fa_ops.launches = 0
+        fa_ops.launches_by_route = {r: 0 for r in fa_ops.launches_by_route}
         res = serve.generate(model, p, LM_GEN, attn_impl="cuda")
         launched = fa_ops.launches
+        by_route = dict(fa_ops.launches_by_route)
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(launched == cfg.n_layers, f"flash_attention launched "
               f"{launched} times in one prefill, want {cfg.n_layers}")
+        check(by_route == {"wgmma": cfg.n_layers, "wmma": 0},
+              f"flash_attention launches by route {by_route}, want all "
+              f"{cfg.n_layers} on wgmma")
         total += launched
         bsz, s = p.shape
         check(res.tokens.shape == (bsz, LM_GEN + 1)
@@ -750,6 +789,7 @@ def main() -> int:
     from repro_torch.graph.generators import (lod_like_graph,
                                               random_weighted_graph)
     from repro_torch.graph.index import InvertedIndex
+    from repro_torch.graph.structure import HUB_IN_DEGREE
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.lane_superstep import ops as ls_ops
     from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
@@ -770,9 +810,19 @@ def main() -> int:
     build = cuda_build.build_all()
     log(f"[2/9] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
+        entry = ""
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"  {name} {entry[:64]}: {line.strip()}")
+    flash_so = str(cuda_build.lib_path("flash_attention"))
+    sass = subprocess.run([str(Path(cuda_build.nvcc_path()).parent
+                               / "cuobjdump"), "-sass", flash_so],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    check(all(counts.values()), f"flash_attention's SASS lacks {counts}")
+    log(f"  flash_attention SASS (cuobjdump): {counts}")
 
     # ---------------- 3. kernels vs plain ----------------
     errs = {"subset_combine": 0.0, "lane_superstep": 0.0}
@@ -799,7 +849,8 @@ def main() -> int:
         done = torch.tensor([True, False, False], device=dev)
         args = (st.S, st.changed, done, dg_small.in_offsets, dg_small.src,
                 dg_small.w)
-        held("lane_superstep", ls_ops.fused_lane_step(*args, m),
+        held("lane_superstep",
+             ls_ops.fused_lane_step(*args, m, dg_small.hub_nodes),
              fused_lane_step_ref(*args, m), f"small graph m={m} k={k}")
     log("[3/9] kernels == plain versions at small shapes")
 
@@ -834,9 +885,12 @@ def main() -> int:
     done = torch.zeros(BUCKET_LANES, dtype=torch.bool, device=dev)
     done[0] = True
     ls_args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
-    ls_out = ls_ops.fused_lane_step(*ls_args, BUCKET_M)
+    ls_out = ls_ops.fused_lane_step(*ls_args, BUCKET_M, dg.hub_nodes)
     held("lane_superstep", ls_out, fused_lane_step_ref(*ls_args, BUCKET_M),
          "main path shape")
+    log(f"  lane_superstep: {dg.hub_nodes.numel()} hubs (nodes of more than "
+        f"HUB_IN_DEGREE = {HUB_IN_DEGREE} in-edges, one warp per lane and "
+        f"hub) of {dg.n_nodes} nodes")
     # name -> (ms, plain ms, library ms or None, bound ms, bound by); no
     # single PyTorch call computes either DKS function.
     timing = {
@@ -845,14 +899,16 @@ def main() -> int:
             cuda_ms(lambda: subset_combine_ref(S_pre, BUCKET_M), 3), None,
             *combine_bound(S_pre, BUCKET_M)),
         "lane_superstep": (
-            cuda_ms(lambda: ls_ops.fused_lane_step(*ls_args, BUCKET_M), 20),
+            cuda_ms(lambda: ls_ops.fused_lane_step(*ls_args, BUCKET_M,
+                                                   dg.hub_nodes), 20),
             cuda_ms(lambda: fused_lane_step_ref(*ls_args, BUCKET_M), 3), None,
             *lane_bound(*ls_args)),
     }
     for name, (ms, plain, _, bound, by) in timing.items():
         log(f"  {name}: {ms} ms (plain {plain} ms, bound {bound} ms by {by})")
     parts, figures = lane_breakdown(dg, st.S, st.changed, done, BUCKET_M,
-                                    ls_out, ls_ops.fused_lane_step)
+                                    ls_out, ls_ops.fused_lane_step,
+                                    ls_ops.hub_nodes)
     log("  lane_superstep on cut inputs (timing only): " + "; ".join(
         f"{what} {ms} ms" for what, ms in parts.items()))
     log("  lane_superstep inputs: " + "; ".join(

@@ -53,24 +53,33 @@ __device__ __forceinline__ void dks_store(float* tab, int stride, int f,
   for (int j = 0; j < K; ++j) tab[(f * K + j) * stride] = r[j];
 }
 
-// Coalesced copies of `rows` consecutive FK-float rows between device
-// memory and the slab (all threads of the block take part).
+// Coalesced copies of `rows` consecutive rows of fk = 2^m * K floats
+// between device memory and the slab (all threads of the block take part).
+// Element idx is slot idx - r * fk of row r = (idx >> m) / K: a shift and
+// a division by a constant, where idx / fk would be a division by a
+// run-time value for every element.
+template <int K>
 __device__ __forceinline__ void dks_rows_to_slab(const float* __restrict__ g,
                                                  float* slab, int rows,
-                                                 int fk, int stride) {
+                                                 int m, int stride) {
+  const int fk = K << m;
   for (int idx = threadIdx.x; idx < rows * fk; idx += blockDim.x) {
-    const int r = idx / fk;
+    const int r = (idx >> m) / K;
     slab[(idx - r * fk) * stride + r] = g[idx];
   }
 }
 
-__device__ __forceinline__ void dks_slab_to_rows(const float* slab,
-                                                 float* __restrict__ g,
-                                                 int rows, int fk,
-                                                 int stride) {
+// The reverse copy; rows r with skip[r] set (when skip is given) are not
+// written.
+template <int K>
+__device__ __forceinline__ void dks_slab_to_rows(
+    const float* slab, float* __restrict__ g, int rows, int m, int stride,
+    const unsigned char* skip = nullptr) {
+  const int fk = K << m;
   for (int idx = threadIdx.x; idx < rows * fk; idx += blockDim.x) {
-    const int r = idx / fk;
-    g[idx] = slab[(idx - r * fk) * stride + r];
+    const int r = (idx >> m) / K;
+    if (skip == nullptr || !skip[r])
+      g[idx] = slab[(idx - r * fk) * stride + r];
   }
 }
 

@@ -31,12 +31,12 @@ subset_combine_kernel(const float* __restrict__ S, float* __restrict__ out,
   const long long row0 = (long long)blockIdx.x * blockDim.x;
   const long long left = n_rows - row0;
   const int rows = left < (long long)blockDim.x ? (int)left : (int)blockDim.x;
-  dks_rows_to_slab(S + row0 * fk, slab, rows, fk, stride);
+  dks_rows_to_slab<K>(S + row0 * fk, slab, rows, m, stride);
   __syncthreads();
   if ((int)threadIdx.x < rows)
     dks_combine_sweep<K>(slab + threadIdx.x, stride, m);
   __syncthreads();
-  dks_slab_to_rows(slab, out + row0 * fk, rows, fk, stride);
+  dks_slab_to_rows<K>(slab, out + row0 * fk, rows, m, stride);
 }
 
 // S, out: f32[n_rows, 2^m, K], contiguous, on the device.  Launches on

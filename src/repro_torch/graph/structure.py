@@ -33,6 +33,21 @@ from repro_torch.device import resolve_device
 # [0, MIN_EDGE_WEIGHT) clamp up to it; negative weights raise.
 MIN_EDGE_WEIGHT = 1e-3
 
+# A node with more in-edges than this is a hub: the lane-superstep kernel
+# walks its in-edges with a warp instead of one thread.
+HUB_IN_DEGREE = 32
+
+
+def hub_nodes(offsets: torch.Tensor) -> torch.Tensor:
+    """int32 ids of the nodes with more than ``HUB_IN_DEGREE`` in-edges
+    under ``offsets`` (int64[V + 1], node v's in-edges at ``offsets[v]`` to
+    ``offsets[v + 1]``), most in-edges first (ties by id), on ``offsets``'
+    device."""
+    deg = offsets.diff()
+    hubs = (deg > HUB_IN_DEGREE).nonzero().flatten()
+    order = torch.sort(deg[hubs], descending=True, stable=True).indices
+    return hubs[order].int()
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceGraph:
@@ -47,6 +62,8 @@ class DeviceGraph:
       in_offsets: int64[V_pad + 1]; node v's real in-edges are entries
         ``in_offsets[v]`` to ``in_offsets[v + 1]`` (the ranges the
         lane-superstep kernel walks).
+      hub_nodes: int32[H], :func:`hub_nodes` of ``in_offsets``: the
+        nodes the lane-superstep kernel gives a warp.
       n_nodes / n_edges: true counts (pre-padding).  Real edges are the
         first ``n_edges`` entries, sorted by ``dst``.
       pred / conf: optional typed channel (int32 / float32[E_pad]).
@@ -59,6 +76,7 @@ class DeviceGraph:
     out_degree: torch.Tensor
     node_valid: torch.Tensor
     in_offsets: torch.Tensor
+    hub_nodes: torch.Tensor
     n_nodes: int
     n_edges: int
     pred: torch.Tensor | None = None
@@ -200,10 +218,12 @@ class Graph:
                                        np.full(pad_e, -1, np.int32)]))
             conf = put(np.concatenate([typed[1],
                                        np.ones(pad_e, np.float32)]))
+        offsets = put(in_offsets)
         return DeviceGraph(
             src=put(src), dst=put(dst), w=put(w), valid=put(valid),
             out_degree=put(out_degree), node_valid=put(node_valid),
-            in_offsets=put(in_offsets), n_nodes=v, n_edges=e, pred=pred, conf=conf,
+            in_offsets=offsets, hub_nodes=hub_nodes(offsets), n_nodes=v,
+            n_edges=e, pred=pred, conf=conf,
         )
 
 

@@ -37,7 +37,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "subset_combine": ("dks_subset_combine", (_P, _P, _L, _I, _I, _P)),
     "lane_superstep": ("dks_lane_superstep",
-                       (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P)),
+                       (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
+                        _I, _P)),
     "flash_attention": ("flash_attention_fwd",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P)),
@@ -77,7 +78,8 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of one kernel source is (or will be) built."""
     return build_dir() / _digest() / f"lib{name}.so"
 
 
@@ -86,13 +88,13 @@ def build_all() -> dict[str, dict]:
     processes started together); raises ``RuntimeError`` with the compiler
     output if any fails.  Returns :data:`BUILD_LOG`."""
     with _LOCK:
-        todo = [n for n in SOURCES if not _lib_path(n).exists()]
+        todo = [n for n in SOURCES if not lib_path(n).exists()]
         if not todo:
             return BUILD_LOG
         nvcc = nvcc_path()
         procs = {}
         for name in todo:
-            out = _lib_path(name)
+            out = lib_path(name)
             out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.parent / f"tmp{os.getpid()}_{out.name}"
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -119,9 +121,9 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    if not _lib_path(name).exists():
+    if not lib_path(name).exists():
         build_all()
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib = ctypes.CDLL(str(lib_path(name)))
     fn_name, argtypes = SIGNATURES[name]
     fn = getattr(lib, fn_name)
     fn.argtypes = list(argtypes)

@@ -2,7 +2,11 @@
 the model's ``[B, S, H, Dh]`` layout in and out, no transpose, no padding.
 
 On a CPU tensor it takes the plain version (:mod:`.ref`); on a CUDA tensor
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+it launches the kernel or raises.  The C entry point picks one of two
+routes by dtype and head dim (:func:`route`): ``"wgmma"`` (bf16 at head dims
+64 and 128, the Hopper design: TMA, a K/V ring, wgmma) or ``"wmma"`` (f32,
+and bf16 at 16 and 32).  ``launches`` counts kernel launches and
+``launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
@@ -19,6 +23,13 @@ HEAD_DIMS = (16, 32, 64, 128)   # the kernel is instantiated for these
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+launches_by_route = {"wgmma": 0, "wmma": 0}
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel route ``flash_attention_fwd`` takes for q's dtype and head
+    dim (the same static rule as the C entry point)."""
+    return "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "wmma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -70,5 +81,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              ctypes.c_float(1.0 / math.sqrt(dh)),
              torch.cuda.current_stream(q.device).cuda_stream)
     launches += 1
+    launches_by_route[route(q.dtype, dh)] += 1
     cuda_build.check(err, "flash_attention")
     return out

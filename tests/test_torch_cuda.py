@@ -6,7 +6,10 @@ GPU and PyTorch alone:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Without a card every test here skips (through the ``cuda_device``
-fixture, decided when the test runs).  Tolerance: none for the DKS
+fixture, decided when the test runs).  The flash tests also check which of
+the kernel's two routes launched (``"wgmma"`` for bf16 at head dims 64 and
+128, ``"wmma"`` otherwise); the lane-superstep tests take graphs with hubs
+(nodes past ``HUB_IN_DEGREE`` in-edges, one warp per lane and hub).  Tolerance: none for the DKS
 kernels (``padded_topk`` included) — every lattice value is a min, a
 compare or one f32 add; 2e-5 (f32) and 2e-2 (bf16) for flash attention and
 1e-5 for multi-hot EmbeddingBag, the JAX package's own
@@ -82,6 +85,97 @@ def test_lane_superstep_kernel_matches_plain(cuda_device, m, k):
     assert torch.equal(got[0], st.S[0])
 
 
+@pytest.fixture(scope="module")
+def hub_graph():
+    """A graph whose in-degrees run through 31, 32 and 33 (the hub
+    threshold) up to 980, with INF-weight edges (tau = 300) into hubs."""
+    g, _ = lod_like_graph(3000, 40000, seed=1, vocab=40, tau=300)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1, 2), (3, 3), (5, 4)])
+def test_lane_superstep_hub_warps_match_plain(cuda_device, hub_graph, m, k):
+    """A real mid-run state, lanes 1 and 3 of 4 done: the rows of hubs
+    (one warp per lane and hub) and of light nodes bit-equal to the plain
+    version, in one launch."""
+    dg = hub_graph.to_device(cuda_device)
+    deg = dg.in_offsets.diff()
+    for d in (31, 32, 33):
+        assert bool((deg == d).any())
+    assert int(deg.max()) > 900 and dg.hub_nodes.numel() == 422
+    n_e = dg.n_edges
+    inf_dst = dg.dst[:n_e][dg.w[:n_e] >= INF / 2].long()
+    assert bool((deg[inf_dst] > 32).any())
+    cfg = dks.DKSConfig(m=m, k=k)
+    masks = torch.from_numpy(
+        np.random.default_rng(m).random((4, m, dg.v_pad)) < 0.01)
+    st = driver.lane_init(dg, masks.to(cuda_device), cfg)
+    for _ in range(2):
+        st = dks.superstep(dg, st, cfg)
+    done = torch.tensor([False, True, False, True], device=cuda_device)
+    args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
+    launched = ls_ops.launches
+    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
+    assert ls_ops.launches == launched + 1
+    assert torch.equal(got, fused_lane_step_ref(*args, m))
+    assert torch.equal(got[1], st.S[1]) and torch.equal(got[3], st.S[3])
+
+
+@pytest.mark.cuda
+def test_lane_superstep_takes_a_hub_list_built_for_cut_edges(cuda_device,
+                                                            hub_graph):
+    """Cut edge lists (finite weights only; then only edges into nodes of
+    at most 100 finite in-edges) with their own hub lists from
+    ``hub_nodes``: the kernel equals the plain version on each."""
+    dg = hub_graph.to_device(cuda_device)
+    m, k = 3, 3
+    cfg = dks.DKSConfig(m=m, k=k)
+    masks = torch.from_numpy(
+        np.random.default_rng(7).random((3, m, dg.v_pad)) < 0.01)
+    st = dks.superstep(dg, driver.lane_init(dg, masks.to(cuda_device), cfg),
+                       cfg)
+    done = torch.tensor([False, False, True], device=cuda_device)
+    n_e = dg.n_edges
+    dst = dg.dst[:n_e].long()
+    finite = dg.w[:n_e] < INF / 2
+    fin_deg = torch.bincount(dst[finite], minlength=dg.v_pad)
+    for keep in (finite, finite & (fin_deg[dst] <= 100)):
+        off = torch.zeros(dg.v_pad + 1, dtype=torch.int64,
+                          device=cuda_device)
+        off[1:] = torch.cumsum(torch.bincount(dst[keep], minlength=dg.v_pad),
+                               0)
+        src, w = dg.src[:n_e][keep].contiguous(), dg.w[:n_e][keep].contiguous()
+        hubs = ls_ops.hub_nodes(off)
+        assert 0 < hubs.numel() < dg.hub_nodes.numel()
+        args = (st.S, st.changed, done, off, src, w)
+        assert torch.equal(ls_ops.fused_lane_step(*args, m, hubs),
+                           fused_lane_step_ref(*args, m))
+
+
+@pytest.mark.cuda
+def test_lane_superstep_skips_hub_entries_that_are_not_hubs(cuda_device,
+                                                           hub_graph):
+    """Entries of the hub list past the graph, negative, light or repeated
+    change nothing: the kernel still equals the plain version."""
+    dg = hub_graph.to_device(cuda_device)
+    m, k = 2, 2
+    cfg = dks.DKSConfig(m=m, k=k)
+    masks = torch.from_numpy(
+        np.random.default_rng(3).random((2, m, dg.v_pad)) < 0.01)
+    st = dks.superstep(dg, driver.lane_init(dg, masks.to(cuda_device), cfg),
+                       cfg)
+    deg = dg.in_offsets.diff()
+    light = int((deg <= 32).nonzero()[0])
+    extra = torch.tensor([dg.v_pad + 7, -1, light], dtype=torch.int32,
+                         device=cuda_device)
+    hubs = torch.cat([extra, dg.hub_nodes, dg.hub_nodes[:5]])
+    done = torch.tensor([False, False], device=cuda_device)
+    args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
+    assert torch.equal(ls_ops.fused_lane_step(*args, m, hubs),
+                       fused_lane_step_ref(*args, m))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,q_offset", [
     (1, 128, 128, 4, 4, 64, 0),       # MHA
@@ -101,12 +195,44 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
                            ).to(dtype)
                for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
     launched = fa_ops.launches
+    by_route = dict(fa_ops.launches_by_route)
     got = fa_ops.flash_attention(q, k, v, q_offset=q_offset)
     torch.cuda.synchronize()
     assert fa_ops.launches == launched + 1
+    # bf16 at head dims 64 and 128 takes the Hopper route, the rest WMMA.
+    route = ("wgmma" if dtype == torch.bfloat16 and dh in (64, 128)
+             else "wmma")
+    by_route[route] += 1
+    assert fa_ops.launches_by_route == by_route
     want = attention_ref(q, k, v, q_offset=q_offset)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,q_offset", [
+    (1, 1000, 1000, 4, 2, 0),      # the 1 x 1,000 prompt's ragged last tile
+    (2, 129, 129, 4, 4, 0),        # one row past a 128-row tile
+    (1, 200, 700, 4, 1, 500),      # Skv > Sq, rows start at q_offset
+    (1, 256, 256, 32, 2, 0),       # Hq / Hkv = 16, ChatGLM3's grouping
+    (3, 300, 300, 8, 2, 0),        # B = 3
+])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_wgmma_route_matches_plain(cuda_device, b, sq, skv,
+                                                   hq, hkv, q_offset, dh):
+    """The Hopper route (TMA, K/V ring, wgmma) at the edges of its tiles,
+    within 2e-2 of the plain version in bf16."""
+    g = torch.Generator(cuda_device).manual_seed(sq + skv + dh)
+    q, k, v = (torch.randn(b, s, h, dh, generator=g, device=cuda_device
+                           ).bfloat16()
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    wgmma = fa_ops.launches_by_route["wgmma"]
+    got = fa_ops.flash_attention(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_by_route["wgmma"] == wgmma + 1
+    want = attention_ref(q, k, v, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.cuda

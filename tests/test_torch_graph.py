@@ -21,6 +21,7 @@ from repro_torch.graph import structure as st_t
 from repro_torch.graph import weights as wt_t
 from repro_torch.graph.index import InvertedIndex as IndexT
 from repro_torch.graph.index import mid_df_tokens as mid_df_t
+from repro_torch.kernels.lane_superstep import ops as ls_ops
 
 GRAPH_FIELDS = [f.name for f in dataclasses.fields(st_j.Graph)]
 
@@ -121,6 +122,51 @@ def test_in_edge_offsets_cover_each_nodes_real_in_edges():
     dst = dt.dst.numpy()
     for v in range(dt.v_pad):
         assert np.all(dst[off[v]:off[v + 1]] == v)
+
+
+def hubs_by_definition(in_offsets):
+    """The nodes with more than HUB_IN_DEGREE in-edges, most first, ties by
+    id: the list the lane-superstep kernel gives a warp each."""
+    deg = np.diff(np.asarray(in_offsets))
+    hubs = [v for v in range(len(deg)) if deg[v] > st_t.HUB_IN_DEGREE]
+    return np.array(sorted(hubs, key=lambda v: (-deg[v], v)), np.int32)
+
+
+@pytest.mark.parametrize("make,n_hubs", [
+    (lambda: gen_t.lod_like_graph(3000, 40000, seed=1, vocab=40,
+                                  tau=300)[0], 422),
+    (lambda: gen_t.grid_graph(5, 7, w=2.0), 0),
+], ids=["lod_like", "grid"])
+def test_hub_nodes_are_the_nodes_past_the_in_degree_threshold(make, n_hubs):
+    g = make()
+    dt = g.to_device(device="cpu", pad_nodes_to=g.n_nodes + 5)
+    hubs = dt.hub_nodes
+    assert hubs.dtype == torch.int32 and hubs.shape == (n_hubs,)
+    np.testing.assert_array_equal(hubs.numpy(),
+                                  hubs_by_definition(dt.in_offsets))
+    # The ops-module helper gives the same list for the full edge list.
+    got = ls_ops.hub_nodes(dt.in_offsets)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, hubs)
+
+
+def test_hub_helper_follows_cut_edge_lists():
+    """Offsets of a cut edge list (finite weights only, then the in-edges
+    of light nodes only) get their own list, by the same definition."""
+    g, _ = gen_t.lod_like_graph(3000, 40000, seed=1, vocab=40, tau=300)
+    dt = g.to_device(device="cpu")
+    n_e = dt.n_edges
+    dst = dt.dst[:n_e].long()
+    finite = dt.w[:n_e] < INF_T / 2
+    deg = torch.bincount(dst[finite], minlength=dt.v_pad)
+    for keep in (finite, finite & (deg[dst] <= 100)):
+        off = torch.zeros(dt.v_pad + 1, dtype=torch.int64)
+        off[1:] = torch.cumsum(torch.bincount(dst[keep], minlength=dt.v_pad),
+                               0)
+        got = ls_ops.hub_nodes(off)
+        np.testing.assert_array_equal(got.numpy(), hubs_by_definition(off))
+        assert 0 < got.numel() < dt.hub_nodes.numel()
+    assert ls_ops.hub_nodes(torch.zeros(9, dtype=torch.int64)).numel() == 0
 
 
 def test_inverted_index_identical():

@@ -30,6 +30,7 @@ from repro_torch.core import dks as dks_t
 from repro_torch.core import driver as drv_t
 from repro_torch.graph.generators import lod_like_graph as lod_t
 from repro_torch.kernels.lane_superstep import ops as ls_ops
+from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
 from repro_torch.kernels.subset_combine import ops as sc_ops
 
 
@@ -184,3 +185,42 @@ def test_lane_step_checks_inputs(hub_graphs):
         ls_ops.fused_lane_step(S, changed[:1], done, off, dt.src, dt.w, 2)
     ls_ops.fused_lane_step(S, changed, done, off, dt.src, dt.w, 2)
     assert ls_ops.launches == launched  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("m,k", [(1, 2), (3, 3)])
+def test_lane_step_with_hub_list_matches_plain_and_vmapped(m, k):
+    """A graph with 422 nodes past the hub threshold (in-degrees 31, 32,
+    33 and up to 980, INF-weight edges among them): the wrapper given
+    ``DeviceGraph.hub_nodes`` equals its plain version, and the lane
+    superstep built on it equals ``repro``'s jnp one, a frozen lane
+    included."""
+    gj, _ = lod_j(3000, 40000, seed=1, vocab=40, tau=300)
+    gt, _ = lod_t(3000, 40000, seed=1, vocab=40, tau=300)
+    dj, dt = gj.to_device(), gt.to_device(device="cpu")
+    assert dt.hub_nodes.numel() == 422
+    st_j, st_t = lane_state(dj, m, k, n_lanes=3, seed=m, steps=2)
+    done = torch.tensor([True, False, False])
+    args = (st_t.S, st_t.changed, done, dt.in_offsets, dt.src, dt.w)
+    S1 = ls_ops.fused_lane_step(*args, m, dt.hub_nodes)
+    assert torch.equal(S1, fused_lane_step_ref(*args, m))
+    assert torch.equal(S1[0], st_t.S[0])
+    st_j = dataclasses.replace(st_j, done=jnp.asarray([True, False, False]))
+    st_t = dataclasses.replace(st_t, done=done)
+    cfg_j = dks_j.DKSConfig(m=m, k=k, max_supersteps=8)
+    cfg_t = dks_t.DKSConfig(m=m, k=k, max_supersteps=8, backend="cuda")
+    assert_same_state(drv_j.lane_superstep(dj, st_j, cfg_j),
+                      drv_t.lane_superstep(dt, st_t, cfg_t))
+
+
+def test_lane_step_checks_the_hub_list(hub_graphs):
+    _, _, dt = hub_graphs
+    S = torch.full((2, dt.v_pad, 4, 2), INF)
+    changed = torch.zeros(2, dt.v_pad, dtype=torch.bool)
+    done = torch.zeros(2, dtype=torch.bool)
+    args = (S, changed, done, dt.in_offsets, dt.src, dt.w, 2)
+    for bad in (dt.hub_nodes.long(), dt.hub_nodes[None]):
+        with pytest.raises(ValueError, match="hubs"):
+            ls_ops.fused_lane_step(*args, bad)
+    # Omitted, the list is the one of the offsets given.
+    assert torch.equal(ls_ops.fused_lane_step(*args),
+                       ls_ops.fused_lane_step(*args, dt.hub_nodes))
