@@ -46,19 +46,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    The first token must equal naive attention's wherever the top-2
    margin exceeds the difference.  Then torch.profiler splits one prefill and one
    decode step into kernel time and host time.
-7. Recsys serving — the EmbeddingBag kernel against its plain version at
-   random small shapes (sum and mean, with and without weights, -1 pads,
-   ids past the table, all-pad bags, nnz 1..64, D 8..128) within
-   atol = rtol = 1e-5, then timed at one multi-hot shape (ids [65,536, 32]
-   into DCN-v2's 10,000,384 x 16 ``table_0``, Zipf ids, 30 % pads, weights)
-   beside the plain version and ``F.embedding_bag``; then DCN-v2 at full
+7. Recsys serving — the multi-hot EmbeddingBag kernel against its plain
+   version at random small shapes (sum and mean, with and without
+   weights, -1 pads, ids past the table, all-pad bags, nnz 1..300, D
+   8..256) within atol = rtol = 1e-5, and the grouped lookup (F fields in
+   one launch, at misaligned columns, ids clipped or padded) exactly; the
+   multi-hot kernel timed at ids [65,536, 32] into DCN-v2's 10,000,384 x
+   16 ``table_0`` (Zipf ids, 30 % pads, weights) with L2 warm and cold
+   beside its plain version and ``F.embedding_bag``; then DCN-v2 at full
    width in f32 (26 tables, 29,497,558 rows x 16, random weights from a
    seeded CUDA generator, TF32 off) serving one batch each of
    ``serve_p99`` (512), ``serve_bulk`` (262,144) and ``retrieval_cand``
    (1 query x 1,000,448 candidates, top 100) from
    ``recsys_synthetic_stream``: the launch counter set to 0 just before
-   and read just after (26 per forward, 27 per retrieval), and logits,
-   scores and candidate positions bit-equal to ``impl="torch"``.
+   and read just after (one grouped launch per forward, two per
+   retrieval), and logits, scores and candidate positions bit-equal to
+   ``impl="torch"``; then the grouped kernel at each of those lookups,
+   equal to its plain version and to ``F.embedding`` per field, timed
+   beside both.
 8. Padded-CSR relax — one lane of a real mid-run state of the
    sec-rdfabout m=3 K=3 bucket (three supersteps in) through
    ``segment_minplus_padded`` at dmax=64 (one ``padded_topk`` launch):
@@ -94,6 +99,7 @@ LM_BATCH, LM_PROMPT, LM_LONG, LM_GEN = 4, 2048, 1000, 32
 LM_TOL = 5e-2               # bf16 logits against naive: x max |logit|
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RECSYS_ARCH, RECSYS_SEED, RETRIEVAL_TOP_K, CAND_SEED = "dcn-v2", 0, 100, 11
+REQUEST_REPS = 9            # host-clock repeats of each recsys request
 BAG_TOL = 1e-5              # repro's tests/test_kernels.py: sums reorder
 BAG_SHAPES = (              # b, nnz, d, mode, weighted
     (37, 1, 16, "sum", False),
@@ -102,8 +108,19 @@ BAG_SHAPES = (              # b, nnz, d, mode, weighted
     (77, 17, 32, "mean", False),
     (129, 8, 128, "sum", True),
     (3001, 32, 16, "mean", True),
+    (203, 33, 12, "sum", True),
+    (65, 300, 64, "mean", True),
+    (90, 31, 256, "sum", False),
+)
+GROUPED_SHAPES = (          # b, fields, d, col0, extra columns past them
+    (1, 1, 16, 0, 0),
+    (300, 3, 16, 13, 0),
+    (1031, 26, 16, 13, 0),
+    (517, 5, 12, 1, 3),
 )
 BAG_TIMED = (65_536, 32, 0.3)   # bags, ids per bag, share of -1 pads
+L2_FLUSH_BYTES = 128 << 20  # written between cold launches: > 2 x 50 MB L2
+SPIN_CYCLES_PER_S = 2e9     # at or above the H100's top SM clock (1.98 GHz)
 PADDED_STEPS, PADDED_DMAX = 3, 64
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
@@ -125,11 +142,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events,
-    after one warm-up call."""
+def host_s(fn) -> float:
+    """Host seconds of one call of ``fn`` ended by a synchronize, after a
+    warm-up call: at least the time the host takes to queue it."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def hold_device(seconds: float) -> None:
+    """Queue a spin kernel of at least ``seconds`` (capped at 2 s), so the
+    device waits while the host queues what follows."""
+    torch.cuda._sleep(int(min(seconds, 2.0) * SPIN_CYCLES_PER_S))
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events, after
+    a warm-up call.  A spin kernel queued ahead of the first event holds the
+    device until the host has queued every call, so the host's time between
+    launches stays off the clock."""
+    hold_device(2 * iters * host_s(fn) + 1e-3)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -138,6 +173,27 @@ def cuda_ms(fn, iters: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def cold_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` with a cold L2: before each call a
+    buffer of ``L2_FLUSH_BYTES`` is written, and each call is timed by its
+    own pair of CUDA events, queued behind a spin kernel as in ``cuda_ms``."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    hold = 2 * host_s(fn) + 1e-3
+    total = 0.0
+    for _ in range(iters):
+        flush.fill_(1.0)
+        hold_device(hold)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+    return total / iters
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -324,17 +380,35 @@ def flash_bound(q, k, q_offset: int = 0) -> tuple[float, str]:
     return _bound(nbytes, flash_flops(q, k, q_offset), BF16_OPS_PER_S)
 
 
-def bag_bound(table, ids, weighted: bool) -> tuple[float, str]:
-    """Least time for one EmbeddingBag call on these inputs: each distinct
-    table row that a valid id names read once (a row named again can come
-    from the cache), the ids, the weights and the output over HBM
-    bandwidth, against a multiply and an add per gathered element."""
+def bag_work(table, ids, weighted: bool) -> tuple[int, int]:
+    """Bytes and operations of one EmbeddingBag call on these inputs: each
+    distinct table row that a valid id names read once (a row named again
+    can come from the cache), the ids, the weights and the output, against
+    a multiply and an add per gathered element."""
     v, d = table.shape
     valid = (ids >= 0) & (ids < v)
     n_rows = int(torch.unique(ids[valid]).numel())
     nbytes = (n_rows * d + ids.numel() * (2 if weighted else 1)
               + ids.shape[0] * d) * 4
-    return _bound(nbytes, 2 * int(valid.sum()) * d)
+    return nbytes, 2 * int(valid.sum()) * d
+
+
+def bag_bound(table, ids, weighted: bool) -> tuple[float, str]:
+    """Least time for one EmbeddingBag call on these inputs (``bag_work``
+    over HBM bandwidth and the f32 rate)."""
+    return _bound(*bag_work(table, ids, weighted))
+
+
+def grouped_bound(tables, ids, prefix=None) -> tuple[float, str]:
+    """Least time for one grouped lookup with clipped ids: ``bag_work`` of
+    each field's bags of one id, summed over the fields, and the prefix
+    columns read once and written once."""
+    work = [bag_work(t, ids[:, f:f + 1].clamp(0, t.shape[0] - 1), False)
+            for f, t in enumerate(tables)]
+    nbytes = sum(w[0] for w in work)
+    if prefix is not None:
+        nbytes += 2 * prefix.numel() * 4
+    return _bound(nbytes, sum(w[1] for w in work))
 
 
 def _bound(nbytes: float, ops: float,
@@ -545,13 +619,33 @@ def device_split(model, prompts, prefill, decode) -> None:
             f"{top}")
 
 
-def bag_phase(dev, table) -> tuple[float, tuple]:
-    """The EmbeddingBag kernel against its plain version at random small
-    shapes and at one multi-hot shape into ``table``; returns (max abs
-    err, (ms, plain ms, F.embedding_bag ms, bound ms, bound by)) at the
-    multi-hot shape."""
+def bag_times(what: str, kernel, plain, library, bound: tuple[float, str],
+              cold: bool = False) -> dict:
+    """One timed shape of an EmbeddingBag kernel: its time, its plain
+    version's, the library call's and the bound, with L2 warm (the same
+    inputs call after call) or cold (``cold_ms``)."""
+    timer = cold_ms if cold else cuda_ms
+    row = {"shape": what, "l2": "cold" if cold else "warm",
+           "ms": timer(kernel, 20), "plain_ms": timer(plain, 3),
+           "library_ms": timer(library, 20), "bound_ms": bound[0],
+           "bound_by": bound[1], "call_ms": 1e3 * host_s(kernel)}
+    log(f"  embedding_bag {what}, {row['l2']} L2: {row['ms']} ms (plain "
+        f"{row['plain_ms']} ms, library {row['library_ms']} ms, bound "
+        f"{row['bound_ms']} ms by {row['bound_by']}, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f} % of it; one call on the "
+        f"host clock {row['call_ms']} ms)")
+    return row
+
+
+def bag_phase(dev, table) -> tuple[float, list[dict]]:
+    """The EmbeddingBag kernels against their plain versions: the multi-hot
+    bag at random small shapes (within ``BAG_TOL``), the grouped lookup at
+    random small shapes (exactly), and the multi-hot bag at one Zipf shape
+    into ``table``, timed with L2 warm and cold; returns (max abs err, the
+    two timed rows)."""
     from repro_torch.kernels.embedding_bag import ops as eb_ops
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_grouped_ref, embedding_bag_ref)
 
     err = 0.0
     rng = np.random.default_rng(3)
@@ -577,6 +671,22 @@ def bag_phase(dev, table) -> tuple[float, tuple]:
         got = held(small, torch.from_numpy(ids).to(dev), w, mode,
                    f"{(b, nnz, d, mode, weighted)}")
         check(not got[0].any(), "an all-pad bag is not zero")
+    for i, (b, f, d, col0, extra) in enumerate(GROUPED_SHAPES):
+        tabs = [torch.from_numpy(rng.normal(size=(int(rows), d)).astype(
+            np.float32)).to(dev) for rows in rng.integers(1, 3000, f)]
+        ids = torch.from_numpy(np.stack(
+            [rng.integers(-3, t.shape[0] + 3, b) for t in tabs],
+            axis=1).astype(np.int32)).to(dev)
+        out = torch.full((b, col0 + f * d + extra), 7.0, device=dev)
+        prefix = (torch.from_numpy(rng.normal(size=(b, col0)).astype(
+            np.float32)).to(dev) if i % 2 else None)
+        want = embedding_bag_grouped_ref(tabs, ids, out.clone(), col0,
+                                         i % 2 == 0, prefix)
+        got = eb_ops.embedding_bag_grouped(tabs, ids, out, col0, i % 2 == 0,
+                                           prefix)
+        err = max(err, max_abs_err(got, want))
+        check(torch.equal(got, want), f"embedding_bag_grouped != plain at "
+                                      f"{(b, f, d, col0, extra)}")
     b, nnz, pad = BAG_TIMED
     ids = np.minimum(rng.zipf(1.3, (b, nnz)), table.shape[0]) - 1
     ids[rng.random(ids.shape) < pad] = -1
@@ -593,25 +703,26 @@ def bag_phase(dev, table) -> tuple[float, tuple]:
         return emb_bag(lib_ids, table, mode="sum", per_sample_weights=lib_w)
 
     torch.testing.assert_close(library(), got, atol=BAG_TOL, rtol=BAG_TOL)
-    times = (cuda_ms(lambda: eb_ops.embedding_bag(table, ids, w), 20),
-             cuda_ms(lambda: embedding_bag_ref(table, ids, w), 5),
-             cuda_ms(library, 20), *bag_bound(table, ids, True))
-    log(f"  embedding_bag at ids {list(ids.shape)} "
-        f"({int((ids >= 0).sum())} valid, "
-        f"{int(torch.unique(ids[ids >= 0]).numel())} distinct, Zipf 1.3) "
-        f"into {list(table.shape)} "
-        f"f32, weighted sum: {times[0]} ms (plain {times[1]} ms, "
-        f"F.embedding_bag {times[2]} ms, bound {times[3]} ms by {times[4]})")
-    return err, times
+    what = (f"multi-hot ids {list(ids.shape)} ({int((ids >= 0).sum())} "
+            f"valid, {int(torch.unique(ids[ids >= 0]).numel())} distinct, "
+            f"Zipf 1.3) into {list(table.shape)} f32, weighted sum")
+    rows = [bag_times(what, lambda: eb_ops.embedding_bag(table, ids, w),
+                      lambda: embedding_bag_ref(table, ids, w), library,
+                      bag_bound(table, ids, True), cold=cold)
+            for cold in (False, True)]
+    return err, rows
 
 
-def recsys_phase(dev) -> tuple[float, tuple, int]:
-    """DCN-v2 serving at full width through the EmbeddingBag kernel:
-    returns (the kernel's max abs err, its times, its launches on the main
-    path)."""
+def recsys_phase(dev) -> tuple[float, list[dict], int]:
+    """DCN-v2 serving at full width through the grouped EmbeddingBag
+    kernel: returns (the kernels' max abs err, their timed rows, the
+    first the grouped lookup at serve_bulk's shape, and their launches on
+    the main path)."""
     from repro_torch.configs import RECSYS_SHAPES, get_arch
     from repro_torch.data import recsys_synthetic_stream
     from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_grouped_ref
     from repro_torch.models import recsys as rec
 
     check(not torch.backends.cuda.matmul.allow_tf32
@@ -630,7 +741,7 @@ def recsys_phase(dev) -> tuple[float, tuple, int]:
         f"f32, {n_params} parameters ({n_params * 4 / 2**30:.2f} GiB), random "
         f"from seed {RECSYS_SEED}, drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    err, times = bag_phase(dev, params["tables"]["table_0"])
+    err, multi_hot = bag_phase(dev, params["tables"]["table_0"])
 
     shapes = {s.name: s for s in RECSYS_SHAPES}
     batches = {name: rec.batch_to_device(next(recsys_synthetic_stream(
@@ -649,9 +760,9 @@ def recsys_phase(dev) -> tuple[float, tuple, int]:
                                     cand, cfg, top_k=RETRIEVAL_TOP_K,
                                     impl=impl)
 
-    requests = (("serve_p99", forward, cfg.n_sparse),
-                ("serve_bulk", forward, cfg.n_sparse),
-                ("retrieval_cand", retrieve, cfg.n_sparse + 1))
+    requests = (("serve_p99", forward, 1),       # x0's 26 fields
+                ("serve_bulk", forward, 1),
+                ("retrieval_cand", retrieve, 2))  # and the candidates' rows
     for name, fn, _ in requests:          # warm-up: cuBLAS picks per shape
         for impl in ("cuda", "torch"):
             fn(batches[name], impl)
@@ -693,23 +804,70 @@ def recsys_phase(dev) -> tuple[float, tuple, int]:
             check(out.shape == (shapes[name].batch,)
                   and bool(out.isfinite().all()), f"{name}: bad logits")
             n, unit = shapes[name].batch, "rows/s"
-        log(f"  {name}: {ms:.3f} ms warm ({n / ms * 1e3:.0f} {unit}; "
-            f"impl=torch {plain_ms:.3f} ms), peak device memory "
+        again = []
+        for _ in range(REQUEST_REPS):
+            t0 = time.perf_counter()
+            fn(batches[name], "cuda")
+            torch.cuda.synchronize()
+            again.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(again))
+        log(f"  {name}: {ms:.3f} ms warm, then median {med:.3f} ms (min "
+            f"{min(again):.3f}) of {REQUEST_REPS} more ({n / med * 1e3:.0f} "
+            f"{unit}; impl=torch {plain_ms:.3f} ms), peak device memory "
             f"{peak:.2f} GiB, bit-equal to impl=torch")
-    # The kernel at the main path's own single-hot shape, beside the plain
-    # version and F.embedding (one row per id).
-    t0_ids = batches["serve_bulk"]["sparse"][:, :1].contiguous()
-    t0_tab = params["tables"]["table_0"]
-    single = (cuda_ms(lambda: eb_ops.embedding_bag(t0_tab, t0_ids), 20),
-              cuda_ms(lambda: rec.embedding_bag(t0_tab, t0_ids, impl="torch"),
-                      20),
-              cuda_ms(lambda: torch.nn.functional.embedding(
-                  t0_ids[:, 0].long(), t0_tab), 20),
-              *bag_bound(t0_tab, t0_ids, False))
-    log(f"  embedding_bag at serve_bulk's table_0 lookup (ids "
-        f"{list(t0_ids.shape)}): {single[0]} ms (plain {single[1]} ms, "
-        f"F.embedding {single[2]} ms, bound {single[3]} ms by {single[4]})")
-    return err, times, launches
+    # The grouped kernel at each lookup of the main path, held against its
+    # plain version and beside F.embedding, once per field (which leaves
+    # out x0's dense columns, 13 of 429).
+    tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
+    d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
+
+    def grouped(what, tabs, ids, ld, col0, prefix):
+        nonlocal err
+        check(all(bool(((ids[:, f] >= 0) & (ids[:, f] < t.shape[0])).all())
+                  for f, t in enumerate(tabs)),
+              f"{what}: ids outside the tables (F.embedding would differ)")
+        out = torch.zeros(ids.shape[0], ld, device=dev)
+        want = embedding_bag_grouped_ref(tabs, ids, out.clone(), col0, True,
+                                         prefix)
+        got = eb_ops.embedding_bag_grouped(tabs, ids, out, col0, True,
+                                           prefix)
+        err = max(err, max_abs_err(got, want))
+        check(torch.equal(got, want), f"embedding_bag_grouped != plain at "
+                                      f"{what}")
+        long_ids = [ids[:, f].long() for f in range(len(tabs))]
+        emb = torch.nn.functional.embedding
+
+        def library():
+            return [emb(i, t) for i, t in zip(long_ids, tabs)]
+
+        check(torch.equal(torch.cat(library(), dim=1),
+                          got[:, col0:col0 + len(tabs) * tabs[0].shape[1]]),
+              f"{what}: F.embedding differs from the grouped kernel")
+        return bag_times(
+            f"grouped {what}: ids {list(ids.shape)} into out "
+            f"[{ids.shape[0]}, {ld}] from column {col0}"
+            + ("" if prefix is None else ", prefix copied in"),
+            lambda: eb_ops.embedding_bag_grouped(tabs, ids, out, col0, True,
+                                                 prefix),
+            lambda: embedding_bag_grouped_ref(tabs, ids, out, col0, True,
+                                              prefix),
+            library, grouped_bound(tabs, ids, prefix))
+
+    timed = [grouped(f"{name} x0", tables, batches[name]["sparse"], d0,
+                     cfg.n_dense, batches[name]["dense"])
+             for name in ("serve_bulk", "serve_p99", "retrieval_cand")]
+    timed.append(grouped("retrieval_cand candidates", tables[:1],
+                         cand[:, None].contiguous(), cfg.embed_dim, 0, None))
+    # Why the kernel copies the dense columns in: the same lookup with them
+    # left to a copy_ of their own.
+    bulk = batches["serve_bulk"]
+    x0 = torch.empty(bulk["sparse"].shape[0], d0, device=dev)
+    apart = (cuda_ms(lambda: eb_ops.embedding_bag_grouped(
+        tables, bulk["sparse"], x0, cfg.n_dense, True), 20),
+        cuda_ms(lambda: x0[:, :cfg.n_dense].copy_(bulk["dense"]), 20))
+    log(f"  grouped serve_bulk x0 without the prefix: {apart[0]} ms, and the "
+        f"dense columns' copy_ {apart[1]} ms")
+    return err, timed + multi_hot, launches
 
 
 def padded_phase(dev, graph, index, bucket) -> tuple[float, tuple, int]:
@@ -1012,11 +1170,16 @@ def main() -> int:
     # ---------------- 7. recsys serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
-    errs["embedding_bag"], timing["embedding_bag"], \
-        launches["embedding_bag"] = recsys_phase(dev)
-    log(f"[7/9] {RECSYS_ARCH} served through the embedding_bag kernel: "
-        f"{launches['embedding_bag']} launches, logits and retrieval "
-        f"bit-equal to the plain path")
+    errs["embedding_bag"], bag_rows, launches["embedding_bag"] = \
+        recsys_phase(dev)
+    # The kernels line gives the grouped lookup at serve_bulk's shape, the
+    # largest of the main path; every timed shape rides along.
+    timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
+    shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
+    log(f"[7/9] {RECSYS_ARCH} served through the grouped embedding_bag "
+        f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
+        f"and retrieval bit-equal to the plain path")
 
     # ---------------- 8. padded-CSR relax ----------------
     gc.collect()
@@ -1044,7 +1207,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": library})
+            "bound_ms": bound, "bound_by": by, "library_ms": library,
+            **shapes.get(name, {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

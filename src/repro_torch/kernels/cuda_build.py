@@ -34,17 +34,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
+# library -> {C entry point: argument types}; every entry returns an int.
 SIGNATURES = {
-    "subset_combine": ("dks_subset_combine", (_P, _P, _L, _I, _I, _P)),
-    "lane_superstep": ("dks_lane_superstep",
+    "subset_combine": {"dks_subset_combine": (_P, _P, _L, _I, _I, _P)},
+    "lane_superstep": {"dks_lane_superstep":
                        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
-                        _I, _P)),
-    "flash_attention": ("flash_attention_fwd",
+                        _I, _P)},
+    "flash_attention": {"flash_attention_fwd":
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _P)),
-    "embedding_bag": ("embedding_bag_fwd",
-                      (_P, _L, _I, _P, _P, _P, _L, _I, _I, _P)),
-    "padded_topk": ("dks_padded_topk", (_P, _P, _L, _I, _I, _I, _P)),
+                         _P)},
+    "embedding_bag": {
+        "embedding_bag_fwd": (_P, _L, _I, _P, _P, _P, _L, _I, _I, _P),
+        "embedding_bag_grouped_fwd": (_P, _L, _I, _P, _P, _I, _P, _P, _L,
+                                      _I, _I, _P)},
+    "padded_topk": {"dks_padded_topk": (_P, _P, _L, _I, _I, _I, _P)},
 }
 
 # name -> {"seconds": build wall time, "log": nvcc's stderr (ptxas -v)}.
@@ -124,10 +127,10 @@ def library(name: str) -> ctypes.CDLL:
     if not lib_path(name).exists():
         build_all()
     lib = ctypes.CDLL(str(lib_path(name)))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
 

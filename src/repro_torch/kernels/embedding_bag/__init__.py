@@ -1,1 +1,2 @@
-from repro_torch.kernels.embedding_bag.ops import embedding_bag  # noqa: F401
+from repro_torch.kernels.embedding_bag.ops import (  # noqa: F401
+    embedding_bag, embedding_bag_grouped)

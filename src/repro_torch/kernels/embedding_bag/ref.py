@@ -1,7 +1,8 @@
-"""Plain torch version of the EmbeddingBag kernel (the CPU path and the
-card-side oracle of ``csrc/embedding_bag.cu``): ``repro``'s
+"""Plain torch versions of the EmbeddingBag kernels (the CPU path and the
+card-side oracles of ``csrc/embedding_bag.cu``): ``repro``'s
 ``kernels/embedding_bag/ref.py::embedding_bag_ref``, gather plus a masked,
-weighted sum over each bag.
+weighted sum over each bag; and the grouped single-hot lookup, one gather
+per field into its columns of a shared output.
 
 An id outside ``[0, V)`` is padding: ``-1`` as in ``repro``, and an id
 ``>= V`` too (``repro`` has no defined result there; the kernel skips such
@@ -29,4 +30,30 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     out = rows.sum(dim=1)
     if mode == "mean":
         out = out / valid.sum(dim=1, keepdim=True).clamp(min=1)
+    return out
+
+
+def embedding_bag_grouped_ref(tables, ids: torch.Tensor, out: torch.Tensor,
+                              col0: int = 0, clip: bool = False,
+                              prefix: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """tables: F tensors [rows_f, D]; ids [B, F]; out [B, >= col0 + F*D],
+    written in place and returned: ``out[:, col0 + f*D : col0 + (f+1)*D] =
+    tables[f][ids[:, f]]``, and ``out[:, :col0] = prefix`` when a prefix is
+    given.  ``clip`` clamps each id into ``[0, rows_f - 1]``; otherwise an
+    id outside the table gives a row of zeros."""
+    if prefix is not None:
+        out[:, :col0] = prefix
+    for f, table in enumerate(tables):
+        rows, d = table.shape
+        idx = ids[:, f]
+        if clip:
+            idx = torch.clamp(idx, 0, rows - 1)
+        cols = out[:, col0 + f * d:col0 + (f + 1) * d]
+        if rows == 0:
+            cols.zero_()
+            continue
+        valid = (idx >= 0) & (idx < rows)
+        got = table[torch.where(valid, idx, torch.zeros_like(idx)).long()]
+        cols.copy_(torch.where(valid[:, None], got, torch.zeros_like(got)))
     return out

@@ -5,13 +5,16 @@ Parameters are a plain dict shaped like ``repro``'s tree: ``tables``
 (``table_i`` f32[rows_i, embed_dim]), ``cross`` and ``deep`` (lists of
 ``{"w", "b"}`` in ``x @ W`` orientation), ``logit`` and ``item``.
 
-Every table lookup goes through :func:`embedding_bag`: ``repro`` looks up
-its single-hot fields with ``jnp.take`` on clipped ids; the port looks up
-each field as a bag of one id (``ids[:, None]``, no weights, ``"sum"``), so
-on the card the EmbeddingBag kernel runs 26 times per :func:`dcn_forward`
-and 27 times per :func:`retrieval_scores`.  A bag of one gives
-``0 + row * 1 = row``, the row itself (``-0.0`` entries come back as
-``+0.0``, which compares equal).
+``impl="cuda"`` builds x0 with one launch of the grouped EmbeddingBag
+kernel (:func:`eb_ops.embedding_bag_grouped`), which copies the dense
+features in, writes each field's row straight into its columns and clamps
+each id into its own table, as ``repro``'s ``jnp.take`` on clipped ids
+does: one launch per :func:`dcn_forward` and two per
+:func:`retrieval_scores` (the user's fields, then the candidates' rows of
+``table_0``).  ``impl="torch"`` is the oracle: each field as a bag of one
+id (``ids[:, None]``, no weights, ``"sum"``) through the plain EmbeddingBag
+and a ``torch.cat``.  A bag of one gives ``0 + row * 1 = row``, the row
+itself (``-0.0`` entries come back as ``+0.0``, which compares equal).
 
 Serving paths: pointwise scoring (:func:`dcn_forward`) and retrieval
 (:func:`retrieval_scores`: user tower against candidate item vectors).
@@ -108,17 +111,31 @@ def batch_to_device(batch: dict,
 
 
 def _lookup(table: torch.Tensor, ids: torch.Tensor, impl: str) -> torch.Tensor:
-    """``repro``'s ``jnp.take(table, clip(ids, 0, rows - 1))`` as bags of
-    one id.  ids: int32[N] -> [N, D]."""
+    """``repro``'s ``jnp.take(table, clip(ids, 0, rows - 1))``.  ids:
+    int32[N] -> [N, D]: the grouped kernel with one field on
+    ``impl="cuda"``, a bag of one id per row on ``"torch"``."""
+    if impl == "cuda":
+        out = torch.empty(ids.shape[0], table.shape[1], dtype=table.dtype,
+                          device=table.device)
+        return eb_ops.embedding_bag_grouped([table], ids[:, None].contiguous(),
+                                            out, clip=True)
     ids = torch.clamp(ids, 0, table.shape[0] - 1)
     return embedding_bag(table, ids[:, None], None, "sum", impl)
 
 
 def _features(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
               cfg: RecsysConfig, impl: str) -> torch.Tensor:
-    """dense f32[B, n_dense]; sparse_ids int32[B, n_sparse] -> x0 [B, d0]."""
-    embs = [_lookup(params["tables"][f"table_{i}"], sparse_ids[:, i], impl)
-            for i in range(cfg.n_sparse)]
+    """dense f32[B, n_dense]; sparse_ids int32[B, n_sparse] -> x0 [B, d0].
+    ``impl="cuda"``: one grouped launch writes every row of x0 whole, the
+    dense columns and each field's row."""
+    tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
+    if impl == "cuda":
+        x0 = torch.empty(dense.shape[0], cfg.n_dense + cfg.n_sparse *
+                         cfg.embed_dim, dtype=dense.dtype, device=dense.device)
+        return eb_ops.embedding_bag_grouped(
+            tables, sparse_ids.contiguous(), x0, cfg.n_dense, clip=True,
+            prefix=dense.contiguous())
+    embs = [_lookup(t, sparse_ids[:, i], impl) for i, t in enumerate(tables)]
     return torch.cat([dense] + embs, dim=-1)
 
 

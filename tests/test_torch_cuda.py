@@ -14,7 +14,8 @@ kernels (``padded_topk`` included) — every lattice value is a min, a
 compare or one f32 add; 2e-5 (f32) and 2e-2 (bf16) for flash attention and
 1e-5 for multi-hot EmbeddingBag, the JAX package's own
 (``tests/test_kernels.py``), since their sums run in another order; none
-for single-hot bags and the DCN-v2 logits built on them.
+for single-hot bags, the grouped lookup and the DCN-v2 logits built on
+them.
 """
 
 import numpy as np
@@ -28,7 +29,8 @@ from repro_torch.core.semiring import sorted_unique_k
 from repro_torch.data import recsys_synthetic_stream
 from repro_torch.graph.generators import lod_like_graph
 from repro_torch.kernels.embedding_bag import ops as eb_ops
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grouped_ref,
+                                                   embedding_bag_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.lane_superstep import ops as ls_ops
@@ -300,6 +302,86 @@ def test_embedding_bag_kernel_single_hot_is_the_row(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nnz", [1, 31, 32, 33, 300])
+@pytest.mark.parametrize("d", [8, 12, 16, 64])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_multi_hot_matches_plain(cuda_device, nnz, d, mode,
+                                               weighted):
+    """Bags around the kernel's 32-id stage and past it, -1 pads, ids >= V,
+    all-pad bags, a batch that is no multiple of the bags a block holds;
+    within 1e-5."""
+    rng = np.random.default_rng(nnz * d)
+    b, v = 203, 500
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                             ).to(cuda_device)
+    ids = rng.integers(-1, v + 40, size=(b, nnz)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.3] = -1
+    ids[0] = -1
+    ids[-1] = v + 7
+    ids = torch.from_numpy(ids).to(cuda_device)
+    w = (torch.from_numpy(rng.normal(size=(b, nnz)).astype(np.float32)
+                          ).to(cuda_device) if weighted else None)
+    launched = eb_ops.launches
+    got = eb_ops.embedding_bag(table, ids, w, mode)
+    torch.cuda.synchronize()
+    assert eb_ops.launches == launched + 1
+    torch.testing.assert_close(got, embedding_bag_ref(table, ids, w, mode),
+                               atol=1e-5, rtol=1e-5)
+    assert not got[0].any() and not got[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fields", [1, 3, 26])
+@pytest.mark.parametrize("b,col0,ld_extra", [(1, 0, 0), (300, 13, 0),
+                                             (1031, 5, 3)])
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("with_prefix", [False, True])
+def test_embedding_bag_grouped_kernel_equals_plain(cuda_device, n_fields, b,
+                                                   col0, ld_extra, clip,
+                                                   with_prefix):
+    """One launch for all fields, into columns at a misaligned col0 and row
+    stride, with or without the prefix columns; ids past both ends;
+    bit-equal to the plain version, the other columns untouched."""
+    rng = np.random.default_rng(n_fields * b + col0)
+    d = 16
+    tables = [torch.from_numpy(rng.normal(size=(int(rows), d)).astype(
+        np.float32)).to(cuda_device)
+        for rows in rng.integers(1, 3000, n_fields)]
+    ids = torch.from_numpy(np.stack(
+        [rng.integers(-3, t.shape[0] + 3, b) for t in tables],
+        axis=1).astype(np.int32)).to(cuda_device)
+    ld = col0 + n_fields * d + ld_extra
+    prefix = (torch.from_numpy(rng.normal(size=(b, col0)).astype(np.float32)
+                               ).to(cuda_device) if with_prefix else None)
+    got = torch.full((b, ld), 7.0, device=cuda_device)
+    launched = eb_ops.launches
+    eb_ops.embedding_bag_grouped(tables, ids, got, col0, clip, prefix)
+    torch.cuda.synchronize()
+    assert eb_ops.launches == launched + 1
+    want = embedding_bag_grouped_ref(tables, ids, torch.full_like(got, 7.0),
+                                     col0, clip, prefix)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_grouped_kernel_takes_any_d(cuda_device):
+    """D = 12 and D = 1 from misaligned tables, and more requests than one
+    sweep of the grid: the row itself, or zeros for padding."""
+    rng = np.random.default_rng(1)
+    for d, b in ((12, 40_000), (1, 300_000)):
+        flat = torch.from_numpy(rng.normal(size=999 * d + 1).astype(
+            np.float32)).to(cuda_device)
+        tables = [flat[1:].view(999, d), flat[:-1].view(999, d)]
+        ids = torch.from_numpy(rng.integers(-2, 1001, (b, 2)).astype(
+            np.int32)).to(cuda_device)
+        got = torch.full((b, 2 * d + 1), 5.0, device=cuda_device)
+        want = embedding_bag_grouped_ref(tables, ids, got.clone(), 1)
+        eb_ops.embedding_bag_grouped(tables, ids, got, 1)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("vv,c,f,k", [(8, 16, 4, 2), (16, 64, 16, 2),
                                       (8, 128, 16, 4), (24, 32, 8, 1),
                                       (1001, 192, 8, 3), (33, 12, 32, 4),
@@ -342,7 +424,7 @@ def test_segment_minplus_padded_on_the_kernel_equals_relax(cuda_device, m, k,
 
 @pytest.mark.cuda
 def test_smoke_dcn_through_the_kernel_is_bit_equal_to_plain(cuda_device):
-    """26 launches per forward, 27 per retrieval; logits, scores and
+    """One grouped launch per forward, two per retrieval; logits, scores and
     positions bit-equal to the plain path."""
     cfg = DCN_V2.smoke()
     params = rec_lib.init_dcn(cfg, torch.Generator(cuda_device).manual_seed(0))
@@ -351,14 +433,14 @@ def test_smoke_dcn_through_the_kernel_is_bit_equal_to_plain(cuda_device):
     cand = torch.arange(-5, 500, dtype=torch.int32, device=cuda_device) % 97
     launched = eb_ops.launches
     got = rec_lib.dcn_forward(params, batch["dense"], batch["sparse"], cfg)
-    assert eb_ops.launches == launched + cfg.n_sparse
+    assert eb_ops.launches == launched + 1
     want = rec_lib.dcn_forward(params, batch["dense"], batch["sparse"], cfg,
                                impl="torch")
     assert torch.equal(got, want)
     d1, s1 = batch["dense"][:1], batch["sparse"][:1]
     launched = eb_ops.launches
     got = rec_lib.retrieval_scores(params, d1, s1, cand, cfg, top_k=50)
-    assert eb_ops.launches == launched + cfg.n_sparse + 1
+    assert eb_ops.launches == launched + 2
     want = rec_lib.retrieval_scores(params, d1, s1, cand, cfg, top_k=50,
                                     impl="torch")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -151,8 +151,9 @@ def test_dcn_params_from_numpy_checks_the_tree(smoke_params):
 
 
 def test_features_through_embedding_bag_equal_jnp_take(smoke_params):
-    """Each field looked up as a bag of one id equals ``jnp.take`` on the
-    clipped id exactly, ids below 0 and past the table included."""
+    """Both impls (one grouped lookup; a bag of one id per field) equal
+    ``jnp.take`` on the clipped id exactly, ids below 0 and past the table
+    included."""
     params_j, params_t, _ = smoke_params
     dense, sparse = batch(40, seed=1)
     sparse[:5, 0] = -7
@@ -165,6 +166,25 @@ def test_features_through_embedding_bag_equal_jnp_take(smoke_params):
                                jnp.asarray(sparse), CFG_J)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert eb_ops.launches == launched   # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("bsz", [1, 257])
+def test_features_of_one_and_of_odd_batches_equal_jax(smoke_params, bsz):
+    """B = 1 and a B that is no multiple of the kernel's 256-thread block,
+    ids below 0 and past every table: both impls equal ``repro``'s
+    ``_features`` exactly."""
+    params_j, params_t, _ = smoke_params
+    dense, sparse = batch(bsz, seed=bsz)
+    rng = np.random.default_rng(bsz)
+    hit = rng.random(sparse.shape) < 0.2
+    sparse[hit] = rng.choice([-1, -(2 ** 31), 10 ** 6, 2 ** 31 - 1],
+                             size=int(hit.sum()))
+    want = np.asarray(rec_j._features(params_j, jnp.asarray(dense),
+                                      jnp.asarray(sparse), CFG_J))
+    for impl in rec_t.IMPLS:
+        got = rec_t._features(params_t, torch.from_numpy(dense),
+                              torch.from_numpy(sparse), CFG_T, impl)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("impl", rec_t.IMPLS)
@@ -286,3 +306,93 @@ def test_embedding_bag_checks_inputs():
         eb_ops.embedding_bag(torch.zeros(4, 10).T, ids)
     assert eb_ops.embedding_bag(table, ids[:0]).shape == (0, 4)
     assert not eb_ops.embedding_bag(table, ids[:, :0]).any()
+
+
+# --------------------------------------------------------------------------
+# the grouped lookup's plain version
+# --------------------------------------------------------------------------
+
+
+def grouped_case(bsz, n_fields, d, seed):
+    """Tables of assorted row counts, ids past both ends of each."""
+    rng = np.random.default_rng(seed)
+    tables = [torch.from_numpy(rng.normal(size=(int(rows), d)).astype(
+        np.float32)) for rows in rng.integers(1, 60, n_fields)]
+    ids = np.stack([rng.integers(-5, t.shape[0] + 5, bsz)
+                    for t in tables], axis=1).astype(np.int32)
+    return tables, torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("bsz", [1, 37, 300])
+@pytest.mark.parametrize("n_fields", [1, 3, 26])
+def test_grouped_lookup_equals_per_field_lookups(bsz, n_fields):
+    """``clip=True`` into x0-shaped columns (col0 = 13, ld = 13 + F*D + 3)
+    equals one ``_lookup`` (a clipped bag of one id) per field and a
+    ``torch.cat``, exactly; the columns around them are left alone."""
+    d = 16
+    tables, ids = grouped_case(bsz, n_fields, d, seed=bsz + n_fields)
+    out = torch.full((bsz, 13 + n_fields * d + 3), 7.0)
+    launched = eb_ops.launches
+    got = eb_ops.embedding_bag_grouped(tables, ids, out, col0=13, clip=True)
+    assert got is out and eb_ops.launches == launched
+    want = torch.cat([rec_t._lookup(t, ids[:, i], "torch")
+                      for i, t in enumerate(tables)], dim=-1)
+    assert torch.equal(out[:, 13:13 + n_fields * d], want)
+    assert bool((out[:, :13] == 7.0).all() and (out[:, -3:] == 7.0).all())
+    single = rec_t._lookup(tables[0], ids[:, 0], "cuda")
+    assert torch.equal(single, want[:, :d])
+
+
+def test_grouped_lookup_copies_the_prefix():
+    """A prefix fills the first col0 columns in the same call: x0 =
+    [dense | fields], as ``torch.cat`` builds it."""
+    tables, ids = grouped_case(37, 3, 16, seed=5)
+    dense = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(37, 13)).astype(np.float32))
+    got = eb_ops.embedding_bag_grouped(tables, ids, torch.empty(37, 61), 13,
+                                       clip=True, prefix=dense)
+    want = torch.cat([dense] + [rec_t._lookup(t, ids[:, i], "torch")
+                                for i, t in enumerate(tables)], dim=-1)
+    assert torch.equal(got, want)
+
+
+def test_grouped_lookup_without_clip_pads_with_zeros():
+    tables, ids = grouped_case(50, 4, 12, seed=9)
+    out = eb_ops.embedding_bag_grouped(tables, ids, torch.full((50, 48), 3.0))
+    for f, t in enumerate(tables):
+        cols = out[:, f * 12:(f + 1) * 12]
+        valid = (ids[:, f] >= 0) & (ids[:, f] < t.shape[0])
+        assert bool(valid.any() and (~valid).any())
+        assert torch.equal(cols[valid], t[ids[valid, f].long()])
+        assert not cols[~valid].any()
+
+
+def test_grouped_lookup_checks_inputs():
+    tables = [torch.zeros(5, 4), torch.zeros(7, 4)]
+    ids = torch.zeros(3, 2, dtype=torch.int32)
+    out = torch.zeros(3, 10)
+    with pytest.raises(ValueError, match="one table per field"):
+        eb_ops.embedding_bag_grouped(tables[:1], ids, out)
+    with pytest.raises(ValueError, match="1 to 64 fields"):
+        eb_ops.embedding_bag_grouped([tables[0]] * 65,
+                                     torch.zeros(3, 65, dtype=torch.int32),
+                                     torch.zeros(3, 300))
+    with pytest.raises(ValueError, match="one D"):
+        eb_ops.embedding_bag_grouped([tables[0], torch.zeros(7, 3)], ids, out)
+    with pytest.raises(ValueError, match="int32 ids"):
+        eb_ops.embedding_bag_grouped(tables, ids.long(), out)
+    with pytest.raises(ValueError, match="float32"):
+        eb_ops.embedding_bag_grouped(tables, ids, out.double())
+    with pytest.raises(ValueError, match="do not fit"):
+        eb_ops.embedding_bag_grouped(tables, ids, out, col0=3)
+    with pytest.raises(ValueError, match="prefix"):
+        eb_ops.embedding_bag_grouped(tables, ids, out, col0=2,
+                                     prefix=torch.zeros(3, 3))
+    with pytest.raises(ValueError, match="needs every table"):
+        eb_ops.embedding_bag_grouped([tables[0], torch.zeros(0, 4)], ids, out,
+                                     clip=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_ops.embedding_bag_grouped(tables, ids, torch.zeros(10, 3).T)
+    got = eb_ops.embedding_bag_grouped([tables[0], torch.zeros(0, 4)],
+                                       ids, torch.ones(3, 8))
+    assert torch.equal(got[:, 4:], torch.zeros(3, 4))
