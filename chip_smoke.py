@@ -13,7 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    flash library's SASS (``cuobjdump``), which must be there.
 3. DKS kernels against their plain torch versions on the card, exact
    equality (tolerance 0: every lattice value is a min, a compare or one
-   f32 add): random small shapes, then the main path's shapes (the
+   f32 add; the backtrace records are integers): random small shapes
+   (``subset_combine``, ``lane_superstep`` and ``padded_topk`` up to m = 6
+   keywords and K = 8 slots; the ``batched_backtrace`` walk on the final
+   tables of 8 random buckets, stragglers included), then the main path's
+   shapes (the
    paper-scale sec-rdfabout graph, an 8-lane m=3 K=3 bucket, a real mid-run
    state with one lane done; the hub count and threshold of
    ``lane_superstep``'s warp-per-hub rows), each kernel and plain version
@@ -25,7 +29,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    50,000, seed 7, tau 1001) on ``QueryEngine(backend="cuda")``: one
    ``query_batch`` bucket of 8 lanes (m=3, k=3) and two ``query`` calls
    (m=4, k=2), with the kernels' launch counters set to 0 just before and
-   read just after; every result must equal the ``backend="torch"`` run.
+   read just after (one ``batched_backtrace`` launch for the bucket); every
+   result, answer trees and ``extraction_stats`` included, must equal the
+   ``backend="torch"`` run.  Then the bucket's extraction is split on its
+   final tables (device sort + walk, host replay + ``finish_tree``) beside
+   the 981.2 ms the host collector took (PERF.md), and the walk kernel is
+   held against
+   its plain version there and timed beside a bytes floor.
 6. LM serving — the flash-attention kernel against its plain version
    (random small shapes: MHA, GQA, MQA, ragged lengths, ``q_offset``; f32
    within 2e-5, bf16 within 2e-2; then the main path's shape, timed beside
@@ -122,6 +132,10 @@ BAG_TIMED = (65_536, 32, 0.3)   # bags, ids per bag, share of -1 pads
 L2_FLUSH_BYTES = 128 << 20  # written between cold launches: > 2 x 50 MB L2
 SPIN_CYCLES_PER_S = 2e9     # at or above the H100's top SM clock (1.98 GHz)
 PADDED_STEPS, PADDED_DMAX = 3, 64
+# The bucket's extraction through the host collector, before the batched
+# backtracer (PERF.md §5, on an H100 at 700 W).
+EXTRACTION_HOST_MS = 981.2
+TIGHT = {"degree_cap": 1, "buffer": 3}   # backtrace caps that make stragglers
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
     (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
@@ -354,6 +368,76 @@ def lane_breakdown(dg, S0, changed, done, m, full_out, fused, hub_nodes,
         f"share of gathered rows into nodes of finite in-degree > {heavy}":
             float(chain[:, fin_deg > heavy].sum() / chain.sum()),
     }
+
+
+def extraction_parts(bt, S, kw, lanes, n_nodes) -> dict:
+    """One more ``extract_lanes`` of the bucket, its host side split: the
+    stragglers' host searches (the top-level ``backtrace`` calls), the
+    lane tables copied to the host for them, and ``finish_tree``; with the
+    straggler counts (records failed in the window, scan positions past
+    it)."""
+    from repro_torch.answers import batched as bt_mod
+    from repro_torch.core import reconstruct as rc_mod
+
+    spent = {"stragglers' host backtrace": 0.0, "table copies": 0.0,
+             "finish_tree": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return run
+
+    saved = (bt_mod.backtrace, rc_mod.finish_tree)
+    bt_mod.backtrace = timed("stragglers' host backtrace", bt_mod.backtrace)
+    rc_mod.finish_tree = timed("finish_tree", rc_mod.finish_tree)
+    bt._host_table = timed("table copies", bt._host_table)
+    before = (bt.host_fallbacks, bt.table_copies)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt.extract_lanes(S, kw, k=BUCKET_K, lanes=lanes, n_nodes=n_nodes)
+        total = time.perf_counter() - t0
+    finally:
+        bt_mod.backtrace, rc_mod.finish_tree = saved
+        del bt._host_table
+    recs = bt.backtrace_lanes(S, kw, BUCKET_K)
+    out = {"extract_lanes ms": total * 1e3}
+    out.update({f"{name} ms": x * 1e3 for name, x in spent.items()})
+    out["stragglers"] = bt.host_fallbacks - before[0]
+    out["of them failed walks in the window, per lane"] = \
+        recs.fail.sum(axis=1).tolist()
+    out["lane tables copied"] = bt.table_copies - before[1]
+    return out
+
+
+def held_records(got: dict, want: dict, what: str) -> float:
+    """Max abs difference over the backtrace's record arrays; fails unless
+    every array is equal."""
+    err = max(max_abs_err(got[n].int(), want[n].int()) for n in want)
+    for name in want:
+        check(torch.equal(got[name], want[name]),
+              f"batched_backtrace {name} != plain at {what} (max abs err "
+              f"{err})")
+    return err
+
+
+def backtrace_bound(recs: dict, m: int) -> tuple[float, str]:
+    """A floor on the walk's bytes for these records: every record array
+    written once and the candidates read once, plus, per obligation it
+    resolved, what its match reads at the least — m mask bytes for a leaf,
+    two table cells for a split, the node's two offsets, one CSR entry
+    and one cell for an edge.  The scan items tested before each first
+    match are left out, so the true least time is higher."""
+    kind = recs["kind"]
+    lanes, c, b = kind.shape
+    nbytes = (5 * kind.numel() * 4 + lanes * c + lanes * c * 8
+              + int((kind == 1).sum()) * m + int((kind == 2).sum()) * 8
+              + int((kind == 3).sum()) * (16 + 8 + 4))
+    return _bound(nbytes, 0)
 
 
 def combine_bound(S, m) -> tuple[float, str]:
@@ -953,6 +1037,12 @@ def main() -> int:
     from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
     from repro_torch.kernels.subset_combine import ops as sc_ops
     from repro_torch.kernels.subset_combine.ref import subset_combine_ref
+    from repro_torch.answers import BatchedBacktracer
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.batched_backtrace.ref import \
+        batched_backtrace_ref
+    from repro_torch.kernels.segment_minplus import ops as sm_ops
+    from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -983,7 +1073,8 @@ def main() -> int:
     log(f"  flash_attention SASS (cuobjdump): {counts}")
 
     # ---------------- 3. kernels vs plain ----------------
-    errs = {"subset_combine": 0.0, "lane_superstep": 0.0}
+    errs = {"subset_combine": 0.0, "lane_superstep": 0.0,
+            "padded_topk": 0.0, "batched_backtrace": 0.0}
 
     def held(name, got, want, what):
         err = max_abs_err(got, want)
@@ -991,15 +1082,18 @@ def main() -> int:
         check(torch.equal(got, want), f"{name} != plain at {what} "
                                       f"(max abs err {err})")
 
+    # Up to m = 6 keywords and K = 8 slots, the kernels' range.
     for m, k in ((1, 3), (2, 1), (3, 2), (3, 3), (4, 2), (4, 4), (5, 2),
-                 (5, 4)):
+                 (5, 4), (6, 1), (6, 4), (6, 8), (3, 5), (2, 6), (4, 7),
+                 (5, 8)):
         S = sorted_unique_tables((3, 1001), m, k, seed=10 * m + k, device=dev)
         held("subset_combine", sc_ops.subset_combine(S, m),
              subset_combine_ref(S, m), f"m={m} k={k}")
     g_small, _ = lod_like_graph(200, 2000, seed=5, vocab=40)
     dg_small = g_small.to_device(dev)
     rng = np.random.default_rng(0)
-    for m, k in ((1, 2), (2, 2), (3, 3), (4, 2), (5, 4)):
+    for m, k in ((1, 2), (2, 2), (3, 3), (4, 2), (5, 4), (6, 3), (6, 8),
+                 (2, 5), (4, 7)):
         cfg = dks.DKSConfig(m=m, k=k)
         masks = torch.from_numpy(rng.random((3, m, dg_small.v_pad)) < 0.03)
         st = dks.superstep(dg_small, driver.lane_init(
@@ -1010,7 +1104,34 @@ def main() -> int:
         held("lane_superstep",
              ls_ops.fused_lane_step(*args, m, dg_small.hub_nodes),
              fused_lane_step_ref(*args, m), f"small graph m={m} k={k}")
-    log("[3/9] kernels == plain versions at small shapes")
+    for vv, c, f, k in ((64, 40, 8, 2), (64, 40, 8, 5), (33, 64, 16, 6),
+                        (17, 9, 64, 7), (100, 128, 8, 8)):
+        r = np.random.default_rng(vv + c + k)
+        cand = r.integers(1, 30, size=(vv, c, f)).astype(np.float32)
+        cand[r.random(cand.shape) > 0.6] = INF
+        cand = torch.from_numpy(cand).to(dev)
+        held("padded_topk", sm_ops.padded_topk(cand, k),
+             padded_topk_ref(cand, k), f"cand {[vv, c, f]} k={k}")
+    # The backtrace walk on final tables of random buckets (lane 0 has a
+    # keyword on no node: every candidate INF), stragglers under TIGHT.
+    for m, k, caps in ((2, 1, {}), (3, 3, {}), (4, 2, {}), (6, 1, {}),
+                       (2, 5, {}), (3, 8, {}), (3, 3, TIGHT), (6, 2, TIGHT)):
+        masks = rng.random((4, m, dg_small.v_pad)) < 0.05
+        masks[:, :, g_small.n_nodes:] = False
+        masks[0, 0] = False
+        kw = torch.from_numpy(masks).to(dev)
+        st = driver.run_lanes(dg_small, kw, dks.DKSConfig(
+            m=m, k=k, max_supersteps=32))
+        bt = BatchedBacktracer(g_small, device=dev, **caps)
+        args = bt._walk_args(st.S.contiguous(), kw, k)[2]
+        got = bt_ops.batched_backtrace(*args)
+        torch.cuda.synchronize()
+        errs["batched_backtrace"] = max(
+            errs["batched_backtrace"],
+            held_records(got, batched_backtrace_ref(*args),
+                         f"small graph m={m} k={k} {caps}"))
+    log("[3/9] kernels == plain versions at small shapes (DKS kernels to "
+        "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
     cfg_sec = SEC_RDFABOUT
@@ -1103,8 +1224,9 @@ def main() -> int:
         if b == "cuda":
             sc_ops.launches = 0
             ls_ops.launches = 0
+            bt_ops.launches = 0
         t0 = time.perf_counter()
-        batch = eng.query_batch(bucket, k=BUCKET_K)
+        batch = eng.query_batch(bucket, k=BUCKET_K, keep_state=b == "cuda")
         t_batch = time.perf_counter() - t0
         single = []
         for q in singles:
@@ -1113,7 +1235,8 @@ def main() -> int:
                            time.perf_counter() - t0))
         if b == "cuda":
             launches = {"subset_combine": sc_ops.launches,
-                        "lane_superstep": ls_ops.launches}
+                        "lane_superstep": ls_ops.launches,
+                        "batched_backtrace": bt_ops.launches}
         runs[b] = (batch, t_batch, single)
     batch, t_batch, single = runs["cuda"]
     steps_batch = max(r.supersteps for r in batch)
@@ -1124,6 +1247,13 @@ def main() -> int:
     check(launches["lane_superstep"] == steps,
           f"lane_superstep launched {launches['lane_superstep']} times, "
           f"want once per superstep ({steps})")
+    check(launches["batched_backtrace"] == 1,
+          f"batched_backtrace launched {launches['batched_backtrace']} "
+          f"times, want once per bucket (1)")
+    stats = {b: eng.extraction_stats for b, eng in engines.items()}
+    check(stats["cuda"] == stats["torch"] and
+          stats["cuda"]["device_resolved"] > 0,
+          f"extraction_stats differ or resolved nothing: {stats}")
     for i, (rc, rt) in enumerate(zip(batch, runs["torch"][0])):
         same_results(rc, rt, f"bucket lane {i}")
     for i, ((rc, _), (rt, _)) in enumerate(zip(single, runs["torch"][2])):
@@ -1154,6 +1284,48 @@ def main() -> int:
             log(f"    {b}: {split(sg[i][0], sg[i][1], rc.supersteps)}")
     log(f"  launches on the main path: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    bt = engines["cuda"]._backtracer()
+    log(f"  extraction_stats {stats['cuda']}; lane tables copied to the "
+        f"host for stragglers: {bt.table_copies}")
+
+    # The bucket's extraction split, on its final tables: the device part
+    # (stable sort of the 8 full-set columns + the walk kernel), then the
+    # whole extract_lanes, whose rest is host replay + finish_tree.
+    S_b = torch.cat([r.state.S for r in batch]).contiguous()
+    kw_b = torch.from_numpy(np.stack([index.keyword_masks(
+        q, graph.n_nodes, v_pad=S_b.shape[1]) for q in bucket])).to(dev)
+    lanes_b = list(range(BUCKET_LANES))
+    flat_b = S_b[:, :, (1 << BUCKET_M) - 1, :].reshape(BUCKET_LANES, -1)
+    sort_s = host_s(lambda: torch.sort(flat_b, dim=1, stable=True))
+    walk_s = host_s(lambda: bt._walk(S_b, kw_b, BUCKET_K, 4))
+    ext_s = host_s(lambda: bt.extract_lanes(
+        S_b, kw_b, k=BUCKET_K, lanes=lanes_b, n_nodes=graph.n_nodes))
+    parts = extraction_parts(bt, S_b, kw_b, lanes_b, graph.n_nodes)
+    bt_args = bt._walk_args(S_b, kw_b, BUCKET_K)[2]
+    recs = bt_ops.batched_backtrace(*bt_args)
+    plain = batched_backtrace_ref(*bt_args)
+    errs["batched_backtrace"] = max(
+        errs["batched_backtrace"],
+        held_records(recs, plain, "the sec-rdfabout bucket's tables"))
+    walked = int((recs["kind"] > 0).sum())
+    timing["batched_backtrace"] = (
+        cuda_ms(lambda: bt_ops.batched_backtrace(*bt_args), 20),
+        cuda_ms(lambda: batched_backtrace_ref(*bt_args), 3), None,
+        *backtrace_bound(recs, BUCKET_M))
+    ms = timing["batched_backtrace"]
+    log(f"  bucket extraction (host clock, synchronised): "
+        f"{ext_s * 1e3:.1f} ms (host collector: {EXTRACTION_HOST_MS} ms) = "
+        f"device {walk_s * 1e3:.1f} ms (stable sort of {list(flat_b.shape)} cells "
+        f"{sort_s * 1e3:.2f} ms, the walk kernel, its records to the host) "
+        f"+ host replay and finish_tree {(ext_s - walk_s) * 1e3:.1f} ms")
+    log("  of which (host clock, one more call): " + "; ".join(
+        f"{name} {x}" for name, x in parts.items()))
+    log(f"  batched_backtrace at S {list(S_b.shape)}, "
+        f"{bt_args[2].shape[1]} candidates per lane, {walked} obligations "
+        f"walked (buffer {bt.buffer}, degree cap {bt.degree_cap}): "
+        f"{ms[0]} ms (plain {ms[1]} ms, bound {ms[3]} ms by {ms[4]}), "
+        f"records == plain walk")
+    del S_b, kw_b, flat_b, bt_args, recs, plain
 
     # ---------------- 6. LM serving ----------------
     del engines, runs, batch, single, tokens, g_small, dg_small
@@ -1184,8 +1356,9 @@ def main() -> int:
     # ---------------- 8. padded-CSR relax ----------------
     gc.collect()
     torch.cuda.empty_cache()
-    errs["padded_topk"], timing["padded_topk"], launches["padded_topk"] = \
+    err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
+    errs["padded_topk"] = max(errs["padded_topk"], err)
     log(f"[8/9] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
@@ -1199,7 +1372,11 @@ def main() -> int:
                "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                                  "src/repro/kernels/embedding_bag/kernel.py:50"),
                "padded_topk": ("src/repro_torch/csrc/padded_topk.cu",
-                               "src/repro/kernels/segment_minplus/kernel.py:44")}
+                               "src/repro/kernels/segment_minplus/kernel.py:44"),
+               "batched_backtrace": (
+                   "src/repro_torch/csrc/batched_backtrace.cu",
+                   "src/repro/answers/batched.py:303 (jitted while_loop, "
+                   "no pallas_call)")}
     kernels = []
     for name, (source, replaces) in sources.items():
         ms, plain, library, bound, by = timing[name]

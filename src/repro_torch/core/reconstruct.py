@@ -17,7 +17,9 @@ redundant branches, the true weight is recomputed over the deduped edge set,
 and identical trees found at different roots collapse.
 
 A numpy copy of ``repro.core.reconstruct``: the port hands it the final
-table as a host array.
+table as a host array, or (``collect_answers``' ``scan`` and
+``backtrace_fn``) the device-sorted order and decomposition records of
+:mod:`repro_torch.answers.batched`.
 """
 
 from __future__ import annotations
@@ -93,21 +95,25 @@ def backtrace(
                             continue
                         return left + right
         a = (a - 1) & ks
-    # Edge decompositions.
+    # Edge decompositions, in the scalar scan's order: neighbours in CSR
+    # order, slots until the first INF.  The tests are one numpy pass per
+    # node (a hub has thousands of neighbours); each comparison is the
+    # scalar one's, in f32 — NumPy 2 casts a Python float operand to the
+    # array's f32, as it does for an f32 scalar.
     nbrs, ws = g.neighbors(root)
-    for u, w in zip(nbrs, ws):
-        if w >= INF or w > val + _TOL:
-            continue
-        target = val - float(w)
-        for j in range(S.shape[2]):
-            vu = S[int(u), ks, j]
-            if vu >= INF:
-                break
-            if abs(vu - target) <= _TOL:
-                sub = backtrace(S, g, kw_masks, int(u), ks, float(vu), _depth + 1)
-                if sub is not None:
-                    e = (min(root, int(u)), max(root, int(u)))
-                    return sub + [e]
+    keep = (ws < INF) & (ws <= val + _TOL)
+    if keep.any():
+        us = nbrs[keep].astype(np.int64)
+        target = (val - ws[keep].astype(np.float64)).astype(np.float32)
+        Su = S[us, ks, :]
+        alive = np.cumprod(Su < INF, axis=1).astype(bool)
+        match = alive & (np.abs(Su - target[:, None]) <= _TOL)
+        for d, j in zip(*np.nonzero(match)):
+            u = int(us[d])
+            sub = backtrace(S, g, kw_masks, u, ks, float(Su[d, j]),
+                            _depth + 1)
+            if sub is not None:
+                return sub + [(min(root, u), max(root, u))]
     return None
 
 
@@ -209,13 +215,37 @@ def finish_tree(
     )
 
 
+class HostScan:
+    """The collector's default scan: the full-set column's cells
+    ``[V, K]`` in *stable* value-ascending order (ties at the lower cell
+    index first), argsorted on the host.  ``scan[pos]`` is the
+    ``(root, value)`` of the ``pos``-th cell; ``len(scan)`` counts every
+    cell."""
+
+    def __init__(self, column: np.ndarray) -> None:
+        self.k = column.shape[1]
+        self.flat = column.reshape(-1)
+        # Stable: equal values scan in cell-index order (argpartition
+        # would pick an arbitrary representative set at the window
+        # boundary).
+        self.order = np.argsort(self.flat, kind="stable")
+
+    def __len__(self) -> int:
+        return len(self.order)
+
+    def __getitem__(self, pos: int) -> tuple[int, float]:
+        fi = int(self.order[pos])
+        return fi // self.k, float(self.flat[fi])
+
+
 def collect_answers(
-    S: np.ndarray,
+    S: np.ndarray | None,
     g: Graph,
     kw_masks: np.ndarray,
     k: int,
     candidate_factor: int = 4,
     backtrace_fn=None,
+    scan=None,
 ) -> tuple[list[AnswerTree], bool]:
     """Global top-K minimal answer-trees from the final DP table, with an
     exhaustion flag.
@@ -236,30 +266,29 @@ def collect_answers(
 
     ``backtrace_fn(pos, root, val)``: optional override returning an edge
     list (or None) for the candidate at scan position ``pos`` — the hook
-    a device-batched backtracer plugs in; the
-    default is the host :func:`backtrace`.
+    a device-batched backtracer plugs in; the default is the host
+    :func:`backtrace`.  ``scan``: optional source of that order, indexed
+    like :class:`HostScan` (the default, over ``S``'s full-set column) —
+    the device-sorted order a batched backtracer hands in.  With both
+    given, ``S`` is not read and may be None.
     """
     m = kw_masks.shape[0]
     full = (1 << m) - 1
-    K = S.shape[2]
-    flat = S[:, full, :].reshape(-1)
-    # Stable: equal values scan in cell-index order (argpartition would
-    # pick an arbitrary representative set at the window boundary).
-    order = np.argsort(flat, kind="stable")
+    if scan is None:
+        scan = HostScan(S[:, full, :])
     if backtrace_fn is None:
         def backtrace_fn(pos: int, root: int, val: float):
             return backtrace(S, g, kw_masks, root, full, val)
-    window = min(len(order), max(k, 1) * candidate_factor)
+    n_cells = len(scan)
+    window = min(n_cells, max(k, 1) * candidate_factor)
     answers: dict[tuple, AnswerTree] = {}
     pos = 0
-    while pos < len(order):
+    while pos < n_cells:
         if pos >= window and len(answers) >= k:
             break
-        fi = int(order[pos])
-        val = float(flat[fi])
+        root, val = scan[pos]
         if val >= INF:
             break
-        root = fi // K
         edges = backtrace_fn(pos, root, val)
         pos += 1
         if edges is None:

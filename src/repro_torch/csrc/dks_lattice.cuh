@@ -13,10 +13,11 @@
 
 #define DKS_INF 1e9f
 #define DKS_HALF_INF 5e8f   // bump_to_inf threshold: 0.5 * INF
-#define DKS_MAX_M 5
-#define DKS_MAX_K 4
+#define DKS_MAX_M 6
+#define DKS_MAX_K 8
 #define DKS_MAX_THREADS 256
-#define DKS_SLAB_BYTES (48 * 1024)
+#define DKS_SLAB_AIM (48 * 1024)     // the slab size blocks are sized for
+#define DKS_SMEM_MAX (227 * 1024)    // the most a block may have on sm_90
 
 // Insert x into the sorted-unique INF-padded K-vector r, keeping the K
 // smallest distinct values.  The result is a function of the value set
@@ -115,15 +116,43 @@ __device__ void dks_combine_sweep(float* tab, int stride, int m) {
   }
 }
 
-// Threads per block for rows of fk floats: a multiple of 32, at most
-// DKS_MAX_THREADS, with the slab inside the default 48 KB of shared memory
-// (fk <= 2^DKS_MAX_M * DKS_MAX_K = 128 gives 64 threads).
+// Threads per block for rows of fk floats: a multiple of 32 (so that
+// lane_superstep's warp-per-hub rows get 32 slab columns), at most
+// DKS_MAX_THREADS, as many as keep the slab within DKS_SLAB_AIM, and at
+// least 32.  Up to fk = 2^5 * 4 = 128 that is the 48 KB the slab always
+// had (fk = 24 gives 256 threads, fk = 128 gives 64); past 368 floats it
+// is 32 threads and a slab of 33 rows, 66 KB at m = 6, K = 8 (fk = 512),
+// which needs dks_allow_slab.
 static inline int dks_block_threads(int fk) {
-  int t = DKS_SLAB_BYTES / (fk * (int)sizeof(float)) - 1;
+  int t = DKS_SLAB_AIM / (fk * (int)sizeof(float)) - 1;
   t = t / 32 * 32;
+  if (t < 32) t = 32;
   return t > DKS_MAX_THREADS ? DKS_MAX_THREADS : t;
 }
 
 static inline size_t dks_slab_bytes(int fk, int threads) {
   return (size_t)fk * (size_t)(threads + 1) * sizeof(float);
 }
+
+// Let `kernel` take `bytes` of dynamic shared memory (past 48 KB a kernel
+// must opt in); call before each launch.  Returns the CUDA error.
+template <typename Kernel>
+static inline cudaError_t dks_allow_slab(Kernel kernel, size_t bytes) {
+  if (bytes > DKS_SMEM_MAX) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The switch over the instantiated K = 1..DKS_MAX_K: LAUNCH(K) for the
+// run-time k.
+#define DKS_SWITCH_K(k, LAUNCH) \
+  switch (k) {                  \
+    case 1: LAUNCH(1); break;   \
+    case 2: LAUNCH(2); break;   \
+    case 3: LAUNCH(3); break;   \
+    case 4: LAUNCH(4); break;   \
+    case 5: LAUNCH(5); break;   \
+    case 6: LAUNCH(6); break;   \
+    case 7: LAUNCH(7); break;   \
+    case 8: LAUNCH(8); break;   \
+  }

@@ -192,16 +192,14 @@ extern "C" int dks_lane_superstep(const float* S0,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = dks_slab_bytes(fk, threads);
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
 #define DKS_LANE_LAUNCH(KK)                                                  \
+  err = dks_allow_slab(lane_superstep_kernel<KK>, smem);                     \
+  if (err != cudaSuccess) return (int)err;                                   \
   lane_superstep_kernel<KK><<<(unsigned)blocks, threads, smem, s>>>(         \
       S0, changed, done, offsets, src, w, hubs, out, lanes, n_nodes, n_hubs, \
       hub_degree, (int)hub_blocks, m)
-  switch (k) {
-    case 1: DKS_LANE_LAUNCH(1); break;
-    case 2: DKS_LANE_LAUNCH(2); break;
-    case 3: DKS_LANE_LAUNCH(3); break;
-    case 4: DKS_LANE_LAUNCH(4); break;
-  }
+  DKS_SWITCH_K(k, DKS_LANE_LAUNCH)
 #undef DKS_LANE_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,7 @@
 // K-vector in registers.  Neighbouring threads take neighbouring keyword
 // sets of one row, so each of a warp's loads reads whole 32-byte sectors
 // (F = 8: 4 rows x 8 sets), and the K outputs of a warp's threads are one
-// contiguous span.  Any F works (it only sets the stride); K is 1..4, the
+// contiguous span.  Any F works (it only sets the stride); K is 1..8, the
 // instantiations.  Nothing is allocated here; the wrapper allocates the
 // output.
 #include "dks_lattice.cuh"
@@ -57,11 +57,9 @@ extern "C" int dks_padded_topk(const float* cand, float* out, long long rows,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned g = (unsigned)blocks;
-  switch (k) {
-    case 1: padded_topk_kernel<1><<<g, DKS_MAX_THREADS, 0, s>>>(cand, out, rows, c, f); break;
-    case 2: padded_topk_kernel<2><<<g, DKS_MAX_THREADS, 0, s>>>(cand, out, rows, c, f); break;
-    case 3: padded_topk_kernel<3><<<g, DKS_MAX_THREADS, 0, s>>>(cand, out, rows, c, f); break;
-    case 4: padded_topk_kernel<4><<<g, DKS_MAX_THREADS, 0, s>>>(cand, out, rows, c, f); break;
-  }
+#define DKS_TOPK_LAUNCH(KK) \
+  padded_topk_kernel<KK><<<g, DKS_MAX_THREADS, 0, s>>>(cand, out, rows, c, f)
+  DKS_SWITCH_K(k, DKS_TOPK_LAUNCH)
+#undef DKS_TOPK_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -52,11 +52,12 @@ extern "C" int dks_subset_combine(const float* S, float* out,
   const unsigned blocks = (unsigned)((n_rows + threads - 1) / threads);
   const size_t smem = dks_slab_bytes(fk, threads);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (k) {
-    case 1: subset_combine_kernel<1><<<blocks, threads, smem, s>>>(S, out, n_rows, m); break;
-    case 2: subset_combine_kernel<2><<<blocks, threads, smem, s>>>(S, out, n_rows, m); break;
-    case 3: subset_combine_kernel<3><<<blocks, threads, smem, s>>>(S, out, n_rows, m); break;
-    case 4: subset_combine_kernel<4><<<blocks, threads, smem, s>>>(S, out, n_rows, m); break;
-  }
+  cudaError_t err = cudaSuccess;
+#define DKS_COMBINE_LAUNCH(KK)                                              \
+  err = dks_allow_slab(subset_combine_kernel<KK>, smem);                    \
+  if (err != cudaSuccess) return (int)err;                                  \
+  subset_combine_kernel<KK><<<blocks, threads, smem, s>>>(S, out, n_rows, m)
+  DKS_SWITCH_K(k, DKS_COMBINE_LAUNCH)
+#undef DKS_COMBINE_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,11 @@ of lanes.  The twin of ``repro.engine.QueryEngine`` for the ``graph=`` /
     result = engine.query([17, 42], k=3)
     results = engine.query_batch(queries, k=1)
 
-``device=None`` puts the engine on the card (``cuda:0``) and raises when
-there is no GPU; tests pass ``device="cpu"``.
+``query_batch`` reconstructs a bucket's answer trees through the
+device-batched backtracer (:mod:`repro_torch.answers`); ``query`` keeps the
+host collector, as ``repro``'s does.  ``device=None`` puts the engine on
+the card (``cuda:0``) and raises when there is no GPU; tests pass
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import INF
+from repro_torch.answers.batched import BatchedBacktracer
 from repro_torch.core.dks import DKSConfig, DKSState
 from repro_torch.core.driver import lane_view, run_lanes
 from repro_torch.core.reconstruct import collect_answers
@@ -56,6 +60,12 @@ class QueryEngine:
         self.version = next(QueryEngine._build_counter)
         self._e_min = float(device_graph.e_min())
         self._execute_count = 0
+        # The device-batched backtracers, one per backend a bucket ran
+        # on (built at first use, on the engine's device).
+        # ``batched_extraction = False`` sends query_batch through the host
+        # collector instead — a debugging escape hatch, as in ``repro``.
+        self._backtracers: dict[str, BatchedBacktracer] = {}
+        self.batched_extraction = True
 
     @classmethod
     def build(
@@ -114,6 +124,41 @@ class QueryEngine:
         """Driver runs dispatched by ``query`` / ``query_batch`` (one per
         query, one per keyword-count bucket)."""
         return self._execute_count
+
+    @property
+    def extraction_stats(self) -> dict[str, int]:
+        """Device-batched backtracer counters — ``device_resolved``
+        candidates whose trees the device pass reconstructed, vs
+        ``host_fallbacks`` ragged stragglers that re-ran the host search.
+        Zeros before the backtracer is first used (it builds lazily)."""
+        out = {"device_resolved": 0, "host_fallbacks": 0}
+        for bt in self._backtracers.values():
+            for name, n in bt.stats().items():
+                out[name] += n
+        return out
+
+    def node_label(self, v: int) -> str:
+        """Entity string for a node: the graph's labels when present, else
+        ``node:<id>`` — the label function answer rendering plugs in."""
+        v = int(v)
+        if self.graph.labels is not None:
+            return str(self.graph.labels[v])
+        return f"node:{v}"
+
+    def edge_info(self, u: int, v: int) -> tuple[str | None, float] | None:
+        """``(predicate_name, confidence)`` of the effective edge between
+        ``u`` and ``v`` (the cheapest parallel entry — the one backtrace
+        resolved), or None on untyped graphs."""
+        return self.graph.edge_channel(int(u), int(v))
+
+    def _backtracer(self, backend: str | None = None) -> BatchedBacktracer:
+        """The lazily-built device-batched backtracer of ``backend``
+        (default the policy's), shared across buckets."""
+        backend = backend or self.policy.backend
+        if backend not in self._backtracers:
+            self._backtracers[backend] = BatchedBacktracer(
+                self.graph, device=self.device, backend=backend)
+        return self._backtracers[backend]
 
     def cache_token(self, keywords: Sequence, k: int = 1,
                     **overrides) -> tuple:
@@ -190,8 +235,12 @@ class QueryEngine:
         driver.  Results come back in input order; ``wall_time_s`` is the
         bucket's time and ``own_time_s`` is None (lanes advance in
         lockstep).  Queries at index >= ``n_real`` are padding lanes: they
-        ride in their bucket but come back as None.  Answer trees come from
-        the host :func:`collect_answers`, lane by lane."""
+        ride in their bucket but come back as None.  Answer trees of the
+        bucket's real lanes with a finite answer come from the
+        device-batched backtracer (one sort and one walk per bucket; only
+        ragged stragglers copy their lane's table to the host), or, with
+        ``batched_extraction`` off, from the host :func:`collect_answers`,
+        lane by lane."""
         n_real = len(queries) if n_real is None else n_real
         results: list[QueryResult | None] = [None] * len(queries)
         buckets: dict[int, list[int]] = {}
@@ -204,13 +253,23 @@ class QueryEngine:
             t0 = time.perf_counter()
             states = self._run(cfg, masks)
             dt = time.perf_counter() - t0
+            pre: dict[int, tuple] = {}
+            if extract and self.batched_extraction:
+                best = states.topk_w[:, 0].cpu().numpy()
+                lanes = [bi for bi in range(len(idxs))
+                         if idxs[bi] < n_real and best[bi] < INF]
+                if lanes:
+                    bt = self._backtracer(cfg.backend)
+                    pre = dict(zip(lanes, bt.extract_lanes(
+                        states.S, masks, k=max(cfg.k, extract_pool or 0),
+                        lanes=lanes, n_nodes=self.n_nodes)))
             for bi, i in enumerate(idxs):
                 if i >= n_real:
                     continue
                 results[i] = self._make_result(
                     list(queries[i]), masks[bi], lane_view(states, bi), cfg,
                     dt, extract, keep_state, unmatched=pairs[bi][1],
-                    extract_pool=extract_pool)
+                    extract_pool=extract_pool, answers_pre=pre.get(bi))
         return results
 
     # ------------------------------------------------------------------
@@ -258,8 +317,12 @@ class QueryEngine:
         unmatched: tuple = (),
         own_time_s: float | None = None,
         extract_pool: int | None = None,
+        answers_pre: tuple | None = None,
     ) -> QueryResult:
-        """Result of one lane (``state`` has a lane axis of 1)."""
+        """Result of one lane (``state`` has a lane axis of 1).
+        ``answers_pre``: a ready ``(ranked, exhausted)`` pair from the
+        batched backtracer; without it the host collector runs on a host
+        copy of the lane's table."""
         weights = state.topk_w[0].cpu().numpy()
         roots = state.topk_root[0].cpu().numpy()
         budget_hit = bool(state.budget_hit[0])
@@ -275,9 +338,13 @@ class QueryEngine:
         answers_exhausted = pool_exhausted = False
         answer_pool = None
         if extract and weights[0] < INF:
-            ranked, exhausted = collect_answers(
-                state.S[0].cpu().numpy(), self.graph,
-                masks[:, : self.n_nodes], k=max(cfg.k, extract_pool or 0))
+            if answers_pre is not None:
+                ranked, exhausted = answers_pre
+            else:
+                ranked, exhausted = collect_answers(
+                    state.S[0].cpu().numpy(), self.graph,
+                    masks[:, : self.n_nodes],
+                    k=max(cfg.k, extract_pool or 0))
             answers = ranked[: cfg.k]
             answers_exhausted = len(ranked) < cfg.k
             if extract_pool:

@@ -142,6 +142,24 @@ class Graph:
         s, e = self.indptr[v], self.indptr[v + 1]
         return self.indices[s:e], self.ew[s:e]
 
+    def edge_channel(self, u: int, v: int) -> tuple[str | None, float] | None:
+        """``(predicate_name, confidence)`` of the *cheapest* parallel
+        edge between ``u`` and ``v`` — the entry ``_edge_weight`` (and so
+        backtrace / rendering) resolves to.  None on untyped graphs or
+        when no such edge exists."""
+        if self.csr_pred is None:
+            return None
+        s, e = self.indptr[u], self.indptr[u + 1]
+        hits = np.nonzero(self.indices[s:e] == v)[0]
+        if not len(hits):
+            return None
+        j = int(hits[int(np.argmin(self.ew[s:e][hits]))])
+        pid = int(self.csr_pred[s:e][j])
+        name = None
+        if self.pred_names is not None and 0 <= pid < len(self.pred_names):
+            name = self.pred_names[pid]
+        return name, float(self.csr_conf[s:e][j])
+
     def sym_sorted_edges(
         self, cache: bool = False,
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -11,5 +11,7 @@ beside its plain torch version:
 - ``embedding_bag`` — multi-hot weighted gather-sum (replaces
   ``repro.kernels.embedding_bag``'s ``embedding_bag_kernel``);
 - ``segment_minplus`` — the padded-CSR relax reduce ``padded_topk``
-  (replaces ``repro.kernels.segment_minplus``'s ``padded_topk``).
+  (replaces ``repro.kernels.segment_minplus``'s ``padded_topk``);
+- ``batched_backtrace`` — the answer-tree obligation walk of a lane bucket
+  (no Pallas kernel: ``repro.answers.batched``'s jitted ``while_loop``).
 """

@@ -28,6 +28,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "embedding_bag": "embedding_bag.cu",
     "padded_topk": "padded_topk.cu",
+    "batched_backtrace": "batched_backtrace.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +49,9 @@ SIGNATURES = {
         "embedding_bag_grouped_fwd": (_P, _L, _I, _P, _P, _I, _P, _P, _L,
                                       _I, _I, _P)},
     "padded_topk": {"dks_padded_topk": (_P, _P, _L, _I, _I, _I, _P)},
+    "batched_backtrace": {"bt_batched_backtrace":
+                          (_P,) * 15 + (_I, _I, _L, _I, _I, _I, _I, _I, _L,
+                                        _L, _P)},
 }
 
 # name -> {"seconds": build wall time, "log": nvcc's stderr (ptxas -v)}.

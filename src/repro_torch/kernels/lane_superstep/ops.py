@@ -52,7 +52,6 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
         raise ValueError(f"fused_lane_step wants S0 f32[L, V, {1 << m}, K], "
                          f"got {S0.dtype}{list(S0.shape)}")
     lanes, v, _, k = S0.shape
-    check_range(m, k, "fused_lane_step")
     want = {"changed": (changed, torch.bool, (lanes, v)),
             "done": (done, torch.bool, (lanes,)),
             "offsets": (offsets, torch.int64, (v + 1,)),
@@ -71,6 +70,7 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
         raise ValueError("fused_lane_step wants contiguous tensors")
     if S0.device.type == "cpu":
         return fused_lane_step_ref(*tensors, m)
+    check_range(m, k, "fused_lane_step")
     if S0.device.type != "cuda":
         raise ValueError(f"fused_lane_step: unsupported device {S0.device}")
     fn = cuda_build.library("lane_superstep").dks_lane_superstep

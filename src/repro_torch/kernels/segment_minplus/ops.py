@@ -92,13 +92,16 @@ def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"padded_topk wants f32[Vv, C, F], got "
                          f"{cand.dtype}{list(cand.shape)}")
     vv, c, f = cand.shape
-    if not 1 <= k <= MAX_K or c < k:
-        raise ValueError(f"padded_topk: the CUDA kernel supports 1 <= k <= "
-                         f"{MAX_K} and C >= k, got k={k}, C={c}")
+    if k < 1 or c < k:
+        raise ValueError(f"padded_topk wants 1 <= k and C >= k, got k={k}, "
+                         f"C={c}")
     if not cand.is_contiguous():
         raise ValueError("padded_topk wants a contiguous candidate tensor")
     if cand.device.type == "cpu":
         return padded_topk_ref(cand, k)
+    if k > MAX_K:
+        raise ValueError(f"padded_topk: the CUDA kernel supports 1 <= k <= "
+                         f"{MAX_K}, got k={k}")
     if cand.device.type != "cuda":
         raise ValueError(f"padded_topk: unsupported device {cand.device}")
     out = torch.empty(vv, f, k, dtype=torch.float32, device=cand.device)

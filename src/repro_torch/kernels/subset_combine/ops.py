@@ -1,8 +1,10 @@
 """Wrapper of the subset-combine kernel (``csrc/subset_combine.cu``):
 engine layout ``S[..., V, 2^m, K]`` in and out.
 
-On a CPU tensor it takes the plain version (:mod:`.ref`); on a CUDA tensor
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+On a CPU tensor it takes the plain version (:mod:`.ref`), for any (m, K);
+on a CUDA tensor it launches the kernel or raises, also outside the
+kernels' (m, K) range (:func:`check_range`).  ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -12,14 +14,15 @@ import torch
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.subset_combine.ref import subset_combine_ref
 
-MAX_M = 5   # keyword count: 2^m tables of K floats per node in the slab
-MAX_K = 4   # top-K width: the kernels are instantiated for K = 1..4
+MAX_M = 6   # keyword count: 2^m tables of K floats per node in the slab
+MAX_K = 8   # top-K width: the kernels are instantiated for K = 1..8
 
 launches = 0
 
 
 def check_range(m: int, k: int, what: str) -> None:
-    """The (m, K) range the CUDA kernels are built for."""
+    """The (m, K) range the DKS CUDA kernels are built for (checked before
+    a launch; the plain versions take any)."""
     if not (1 <= m <= MAX_M and 1 <= k <= MAX_K):
         raise ValueError(
             f"{what}: the CUDA kernels support 1 <= m <= {MAX_M} keywords "
@@ -34,11 +37,11 @@ def subset_combine(S: torch.Tensor, m: int) -> torch.Tensor:
         raise ValueError(f"subset_combine wants f32[..., {1 << m}, K], "
                          f"got {S.dtype}{list(S.shape)}")
     k = S.shape[-1]
-    check_range(m, k, "subset_combine")
     if not S.is_contiguous():
         raise ValueError("subset_combine wants a contiguous table")
     if S.device.type == "cpu":
         return subset_combine_ref(S, m)
+    check_range(m, k, "subset_combine")
     if S.device.type != "cuda":
         raise ValueError(f"subset_combine: unsupported device {S.device}")
     fn = cuda_build.library("subset_combine").dks_subset_combine

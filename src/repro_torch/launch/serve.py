@@ -7,10 +7,10 @@
 Weights are random, drawn from ``--seed`` (no checkpoint is in the
 repository).  The prefill's attention is ``--attn-impl`` (default "cuda":
 the flash kernel on the card, its plain version on the CPU); decode uses
-"auto", which picks naive attention at one query row.  The cache is grown
-to ``prompt_len + gen`` after the prefill, and ``--gen`` decode steps
-follow the prefill's token.  Without ``--device`` it runs on ``cuda:0``
-and raises when there is no GPU.
+"auto", which picks naive attention at one query row.  ``--gen N``
+returns N tokens per prompt, as ``repro``'s CLI does: the prefill's token,
+then N - 1 greedy decode steps.  Without ``--device`` it runs on
+``cuda:0`` and raises when there is no GPU.
 """
 
 from __future__ import annotations
@@ -75,7 +75,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
-    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="tokens per prompt (the prefill's, then N - 1 "
+                         "decode steps)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -83,6 +85,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--attn-impl", default="cuda", choices=IMPLS,
                     help="the prefill's attention")
     args = ap.parse_args(argv)
+    if args.gen < 1:
+        ap.error("--gen must be at least 1")
 
     cfg = get_arch(args.arch)
     if not isinstance(cfg, LMConfig):
@@ -95,7 +99,7 @@ def main(argv: list[str] | None = None) -> int:
                             generator=gen, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    res = generate(model, prompts, args.gen, attn_impl=args.attn_impl)
+    res = generate(model, prompts, args.gen - 1, attn_impl=args.attn_impl)
     n = args.batch * args.prompt_len
     print(f"{cfg.name} on {device}: {cfg.param_count_analytic() / 1e9:.2f} B "
           f"parameters, {cfg.param_dtype}, prefill attention "
@@ -108,6 +112,7 @@ def main(argv: list[str] | None = None) -> int:
     if device.type == "cuda":
         print(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    print(f"generated {res.tokens.shape[1]} tokens per prompt")
     print("sample generations (token ids):")
     for row in res.tokens[:2].tolist():
         print("  ", row[:16])

@@ -15,7 +15,8 @@ compare or one f32 add; 2e-5 (f32) and 2e-2 (bf16) for flash attention and
 1e-5 for multi-hot EmbeddingBag, the JAX package's own
 (``tests/test_kernels.py``), since their sums run in another order; none
 for single-hot bags, the grouped lookup and the DCN-v2 logits built on
-them.
+them, and none for the batched backtrace's records (integers).  The DKS
+kernels run at m = 1..6 and K = 1..8.
 """
 
 import numpy as np
@@ -28,6 +29,11 @@ from repro_torch.core import dks, driver
 from repro_torch.core.semiring import sorted_unique_k
 from repro_torch.data import recsys_synthetic_stream
 from repro_torch.graph.generators import lod_like_graph
+from repro_torch.answers import BatchedBacktracer
+from repro_torch.engine import ExecutionPolicy, QueryEngine
+from repro_torch.graph.generators import grid_graph
+from repro_torch.kernels.batched_backtrace import ops as bt_ops
+from repro_torch.kernels.batched_backtrace.ref import batched_backtrace_ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grouped_ref,
                                                    embedding_bag_ref)
@@ -54,7 +60,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k", [(1, 3), (2, 1), (3, 3), (4, 4), (5, 2)])
+@pytest.mark.parametrize("m,k", [(1, 3), (2, 1), (3, 3), (4, 4), (5, 2),
+                                 (6, 1), (6, 4), (6, 8), (3, 5), (2, 6),
+                                 (4, 7), (5, 8)])
 def test_subset_combine_kernel_matches_plain(cuda_device, m, k):
     rng = np.random.default_rng(10 * m + k)
     s = rng.integers(1, 20, size=(1001, 1 << m, k)).astype(np.float32)
@@ -68,7 +76,8 @@ def test_subset_combine_kernel_matches_plain(cuda_device, m, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k", [(1, 2), (3, 3), (5, 4)])
+@pytest.mark.parametrize("m,k", [(1, 2), (3, 3), (5, 4), (6, 3), (6, 8),
+                                 (2, 5), (4, 7)])
 def test_lane_superstep_kernel_matches_plain(cuda_device, m, k):
     """A real mid-run state on a hub-heavy graph, one of 3 lanes done."""
     g, _ = lod_like_graph(200, 2000, seed=5, vocab=40)
@@ -96,7 +105,7 @@ def hub_graph():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k", [(1, 2), (3, 3), (5, 4)])
+@pytest.mark.parametrize("m,k", [(1, 2), (3, 3), (5, 4), (6, 8), (3, 6)])
 def test_lane_superstep_hub_warps_match_plain(cuda_device, hub_graph, m, k):
     """A real mid-run state, lanes 1 and 3 of 4 done: the rows of hubs
     (one warp per lane and hub) and of light nodes bit-equal to the plain
@@ -385,7 +394,9 @@ def test_embedding_bag_grouped_kernel_takes_any_d(cuda_device):
 @pytest.mark.parametrize("vv,c,f,k", [(8, 16, 4, 2), (16, 64, 16, 2),
                                       (8, 128, 16, 4), (24, 32, 8, 1),
                                       (1001, 192, 8, 3), (33, 12, 32, 4),
-                                      (5, 3, 1, 3)])
+                                      (5, 3, 1, 3), (8, 64, 8, 5),
+                                      (16, 40, 8, 8), (7, 9, 4, 6),
+                                      (8, 16, 3, 7)])
 def test_padded_topk_kernel_matches_plain(cuda_device, vv, c, f, k):
     rng = np.random.default_rng(vv + c)
     cand = rng.integers(1, 30, size=(vv, c, f)).astype(np.float32)
@@ -399,7 +410,8 @@ def test_padded_topk_kernel_matches_plain(cuda_device, vv, c, f, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,dmax", [(3, 3, 64), (2, 2, 4), (5, 4, 16)])
+@pytest.mark.parametrize("m,k,dmax", [(3, 3, 64), (2, 2, 4), (5, 4, 16),
+                                      (6, 5, 16), (2, 8, 8)])
 def test_segment_minplus_padded_on_the_kernel_equals_relax(cuda_device, m, k,
                                                            dmax):
     """A real mid-run lane on a hub-heavy graph: one kernel launch, the
@@ -444,3 +456,69 @@ def test_smoke_dcn_through_the_kernel_is_bit_equal_to_plain(cuda_device):
     want = rec_lib.retrieval_scores(params, d1, s1, cand, cfg, top_k=50,
                                     impl="torch")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def final_tables(graph, m, k, n_lanes, seed, device, density=0.05):
+    """Final lane tables of a random bucket (the plain driver), and its
+    keyword masks; lane 0 has a keyword on no node (an INF lane)."""
+    dg = graph.to_device(device)
+    masks = np.random.default_rng(seed).random((n_lanes, m, dg.v_pad)) \
+        < density
+    masks[:, :, graph.n_nodes:] = False
+    masks[0, 0] = False
+    kw = torch.from_numpy(masks).to(device)
+    st = driver.run_lanes(dg, kw, dks.DKSConfig(m=m, k=k, max_supersteps=32))
+    return st.S.contiguous(), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [{}, {"degree_cap": 1, "buffer": 3},
+                                  {"degree_cap": 4, "buffer": 6}],
+                         ids=["default", "tight", "narrow"])
+@pytest.mark.parametrize("graph,m,k", [("lod", 2, 1), ("lod", 3, 3),
+                                       ("lod", 4, 2), ("lod", 6, 1),
+                                       ("lod", 2, 5), ("lod", 3, 8),
+                                       ("grid", 2, 4), ("grid", 3, 2)])
+def test_batched_backtrace_kernel_matches_plain(cuda_device, graph, m, k,
+                                                caps):
+    """Records of every candidate of a bucket (an INF lane, stragglers
+    under tight caps, a tied unit grid) equal the plain walk's, in one
+    launch."""
+    g = (lod_like_graph(300, 1500, seed=m + k, vocab=40)[0]
+         if graph == "lod" else grid_graph(7, 7))
+    S, kw = final_tables(g, m, k, 4, seed=10 * m + k, device=cuda_device,
+                         density=0.05 if graph == "lod" else 0.08)
+    bt = BatchedBacktracer(g, device=cuda_device, **caps)
+    args = bt._walk_args(S, kw, 4 * k)[2]
+    launched = bt_ops.launches
+    got = bt_ops.batched_backtrace(*args)
+    torch.cuda.synchronize()
+    assert bt_ops.launches == launched + 1
+    want = batched_backtrace_ref(*args)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+    assert bool(got["fail"][0].all())  # the INF lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(3, 3), (6, 1), (2, 5), (4, 8)])
+def test_query_batch_on_the_kernels_equals_torch(cuda_device, m, k):
+    """A bucket end to end on ``backend="cuda"`` (every DKS kernel and one
+    backtrace launch) answers as ``"torch"``, trees included."""
+    g, tokens = lod_like_graph(400, 2000, seed=3, vocab=30)
+    engines = {b: QueryEngine.build(g, tokens=tokens, policy=ExecutionPolicy(
+        backend=b, max_supersteps=24), device=cuda_device)
+        for b in ("cuda", "torch")}
+    rng = np.random.default_rng(m * 10 + k)
+    queries = [list(rng.choice(30, size=m, replace=False)) for _ in range(4)]
+    launched = bt_ops.launches
+    got = engines["cuda"].query_batch(queries, k=k)
+    assert bt_ops.launches == launched + 1
+    want = engines["torch"].query_batch(queries, k=k)
+    assert bt_ops.launches == launched + 1
+    for rc, rt in zip(got, want):
+        np.testing.assert_array_equal(rc.weights, rt.weights)
+        assert [(a.root, a.edges, a.weight) for a in rc.answers] == \
+            [(a.root, a.edges, a.weight) for a in rt.answers]
+    assert engines["cuda"].extraction_stats == \
+        engines["torch"].extraction_stats

@@ -189,8 +189,11 @@ def test_cache_token_execute_count_and_guards(engines):
         eng.query([toks[0], 10_000])
     res = eng.query([toks[0], 10_000], strict=False, extract=False)
     assert res.unmatched == (10_000,) and not res.found
-    with pytest.raises(ValueError, match="m <= 5"):
-        port["cuda"].query(toks[:6], k=1)
+    # The plain path has no (m, K) limit: on CPU tensors six keywords on
+    # "cuda" answer as on "torch".
+    wide = port["cuda"].query(toks[:6], k=1, extract=False)
+    np.testing.assert_array_equal(
+        wide.weights, port["torch"].query(toks[:6], k=1, extract=False).weights)
 
 
 def test_backend_override_runs_the_fused_superstep(engines, monkeypatch):
@@ -215,3 +218,23 @@ def test_backend_override_runs_the_fused_superstep(engines, monkeypatch):
     assert_same_result(rt, port["cuda"].query(query, k=2))
     with pytest.raises(ValueError, match="unknown backend"):
         port["torch"].query(query, k=2, backend="pallas")
+
+
+@pytest.mark.parametrize("query,k", [([0, 3, 5, 10, 12, 15], 1),
+                                     ([0, 15], 5)], ids=["m6k1", "m2k5"])
+def test_wide_m_and_k_on_cuda_equal_torch_and_pallas(query, k):
+    """Past the old kernel range (m = 6; k = 5): ``backend="cuda"`` (the
+    wrappers' plain versions on CPU tensors) answers as ``"torch"`` and as
+    ``repro``'s ``"pallas"``, through ``query`` and ``query_batch``, on a
+    grid with one token per node."""
+    tokens = np.arange(16)[:, None]
+    ej = EngineJ.build(gen_j.grid_graph(4, 4), tokens=tokens,
+                       policy=PolicyJ(backend="pallas"))
+    rj = ej.query(query, k=k)
+    assert rj.found
+    for backend in TWIN:
+        et = EngineT.build(gen_t.grid_graph(4, 4), tokens=tokens,
+                           policy=PolicyT(backend=backend), device="cpu")
+        assert_same_result(et.query(query, k=k), rj)
+        [rb] = et.query_batch([query], k=k)
+        assert_same_result(rb, rj)

@@ -85,10 +85,16 @@ def test_subset_combine_takes_lane_axis_and_checks_inputs():
     for lane in range(3):
         np.testing.assert_array_equal(
             got[lane].numpy(), np.asarray(sc_ref_j(jnp.asarray(s[lane]), 3)))
-    with pytest.raises(ValueError, match="m <= 5"):
-        sc_ops.subset_combine(torch.full((4, 64, 2), INF), 6)
-    with pytest.raises(ValueError, match="k <= 4"):
-        sc_ops.subset_combine(torch.full((4, 8, 5), INF), 3)
+    # Outside the kernel's (m, K) range a tensor off the CPU is refused
+    # before any launch; the plain version takes it.
+    with pytest.raises(ValueError, match="m <= 6"):
+        sc_ops.subset_combine(torch.full((4, 128, 2), INF, device="meta"), 7)
+    with pytest.raises(ValueError, match="k <= 8"):
+        sc_ops.subset_combine(torch.full((4, 8, 9), INF, device="meta"), 3)
+    wide = np.stack([random_table(8, 6, 2, seed=s) for s in range(2)])
+    np.testing.assert_array_equal(
+        sc_ops.subset_combine(torch.from_numpy(wide), 6)[1].numpy(),
+        np.asarray(sc_ref_j(jnp.asarray(wide[1]), 6)))
     with pytest.raises(ValueError, match="contiguous"):
         sc_ops.subset_combine(torch.from_numpy(s).transpose(0, 1), 3)
     assert sc_ops.launches == launched  # the CPU path launches nothing
@@ -176,9 +182,18 @@ def test_lane_step_checks_inputs(hub_graphs):
     S = torch.full((2, dt.v_pad, 4, 2), INF)
     changed = torch.zeros(2, dt.v_pad, dtype=torch.bool)
     done = torch.zeros(2, dtype=torch.bool)
-    with pytest.raises(ValueError, match="m <= 5"):
-        ls_ops.fused_lane_step(torch.full((2, dt.v_pad, 64, 2), INF),
-                               changed, done, off, dt.src, dt.w, 6)
+    meta = [t.to("meta") for t in (changed, done, off, dt.src, dt.w)]
+    with pytest.raises(ValueError, match="m <= 6"):
+        ls_ops.fused_lane_step(
+            torch.full((2, dt.v_pad, 128, 2), INF, device="meta"), *meta, 7,
+            dt.hub_nodes.to("meta"))
+    with pytest.raises(ValueError, match="k <= 8"):
+        ls_ops.fused_lane_step(
+            torch.full((2, dt.v_pad, 4, 9), INF, device="meta"), *meta, 2,
+            dt.hub_nodes.to("meta"))
+    wide = ls_ops.fused_lane_step(torch.full((2, dt.v_pad, 64, 5), INF),
+                                  changed, done, off, dt.src, dt.w, 6)
+    assert torch.equal(wide, torch.full((2, dt.v_pad, 64, 5), INF))
     with pytest.raises(ValueError, match="offsets"):
         ls_ops.fused_lane_step(S, changed, done, off.int(), dt.src, dt.w, 2)
     with pytest.raises(ValueError, match="changed"):

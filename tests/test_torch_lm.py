@@ -10,6 +10,8 @@ order through two layers and the head), 2e-5 / 2e-2 for the flash kernel
 ``tests/test_kernel_integration.py`` holds bf16 hidden states).
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 from repro.configs import get_arch as get_arch_j
 from repro.kernels.flash_attention import flash_attention as flash_j
 from repro.kernels.flash_attention.ref import attention_ref as attention_ref_j
+from repro.launch import serve as serve_j
 from repro.models import attention as attn_j
 from repro.models import lm as lm_j
 from repro.models import transformer as tfm_j
@@ -248,6 +251,32 @@ def test_serve_smoke_on_cpu(capsys):
                        "4"]) == 0
     out = capsys.readouterr().out
     assert "prefill" in out and "decode" in out and "tokens/s" in out
+
+
+def sample_row_lengths(out: str) -> list[int]:
+    """Token counts of the sample rows a serve CLI prints (numpy or list
+    rows, at most 16 tokens each)."""
+    rows = out.split("sample generations (token ids):")[1].strip()
+    return [len(line.strip(" []").replace(",", " ").split())
+            for line in rows.splitlines()]
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_serve_gen_n_returns_n_tokens_per_prompt(capsys, monkeypatch, n):
+    """``--gen N`` gives N tokens per prompt (the prefill's, then N - 1
+    decode steps), as ``repro``'s CLI does."""
+    assert serve.main(["--arch", "chatglm3-6b", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "8", "--gen",
+                       str(n)]) == 0
+    out = capsys.readouterr().out
+    assert f"generated {n} tokens per prompt" in out
+    assert f"over {n - 1} steps" in out
+    assert sample_row_lengths(out) == [n, n]
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "chatglm3-6b", "--smoke", "--batch", "2",
+        "--prompt-len", "8", "--gen", str(n)])
+    assert serve_j.main() == 0
+    assert sample_row_lengths(capsys.readouterr().out) == [n, n]
 
 
 def test_serve_without_device_needs_a_gpu(monkeypatch):

@@ -80,8 +80,9 @@ def test_padded_topk_plain_matches_pallas_and_ref(vv, c, f, k):
 
 def test_padded_topk_checks_inputs():
     cand = torch.full((8, 6, 4), INF)
-    with pytest.raises(ValueError, match="k <= 4"):
-        sm_t.padded_topk(cand, 5)
+    with pytest.raises(ValueError, match="k <= 8"):
+        sm_t.padded_topk(torch.full((8, 12, 4), INF, device="meta"), 9)
+    assert torch.equal(sm_t.padded_topk(cand, 5), torch.full((8, 4, 5), INF))
     with pytest.raises(ValueError, match="C >= k"):
         sm_t.padded_topk(cand[:, :2].contiguous(), 3)
     with pytest.raises(ValueError, match="f32"):
