@@ -79,8 +79,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``segment_minplus_padded`` at dmax=64 (one ``padded_topk`` launch):
    equal, exactly, to its plain version and to ``core/dks.py::relax``;
    ``padded_topk`` timed at that candidate shape beside its plain version.
-9. The kernels line: one JSON object with each kernel's launches, error,
-   times and bound.
+9. Serving — the sec-rdfabout engines of phase 5 behind
+   ``repro_torch.serve.DKSService`` on ``"cuda"``: a ``make_trace`` of 32
+   requests (8 unique keyword sets, a quarter under a 75 ms deadline)
+   from 8 client threads in ``serve_dks --smoke``'s settings (max_batch
+   4, a 50 ms window), asserting coalescing, warm cache hits, a
+   multi-lane deadline bucket, served trees, a ``/metrics`` scrape and
+   every exact answer equal to ``engine.query`` on ``"cuda"`` and on
+   ``"torch"`` (the kernels held at the replay's own shapes); then the
+   phase 5 bucket
+   through ``query_deadline_batch`` at ``deadline_s=0`` and at a deadline
+   no run reaches, one ``query_stream`` (every update's weights and
+   bounds) and telemetry-carrying engines (results equal to telemetry
+   off, rows equal across backends), each held exactly against
+   ``"torch"``.  Prints served p50 / p99 latency, the replay's requests/s
+   (``ServeStats.throughput_rps``, first submit to last resolve), batch fill,
+   cache hit rate, the bucket's driver vs lane supersteps and
+   ``ExtractionOverlap``'s overlapped/inline split, ms per superstep of a
+   stream (bounds every superstep) against a deadline run (bounds once),
+   and the service's own launches of ``lane_superstep``, ``subset_combine``
+   and ``batched_backtrace`` (zeroed just before the service starts, read
+   just after it stops; each must be above zero).
+10. The kernels line: one JSON object with each kernel's launches on the
+   DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
+   in phase 9 for the three kernels it runs), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -132,6 +154,9 @@ BAG_TIMED = (65_536, 32, 0.3)   # bags, ids per bag, share of -1 pads
 L2_FLUSH_BYTES = 128 << 20  # written between cold launches: > 2 x 50 MB L2
 SPIN_CYCLES_PER_S = 2e9     # at or above the H100's top SM clock (1.98 GHz)
 PADDED_STEPS, PADDED_DMAX = 3, 64
+SERVE_REQUESTS, SERVE_UNIQUE, SERVE_CLIENTS = 32, 8, 8
+SERVE_DEADLINE_FRAC, SERVE_DEADLINE_MS = 0.25, 75.0
+SERVE_TIMEOUT_S = 120       # the most any served request is waited for
 # The bucket's extraction through the host collector, before the batched
 # backtracer (PERF.md §5, on an H100 at 700 W).
 EXTRACTION_HOST_MS = 981.2
@@ -1016,6 +1041,157 @@ def padded_phase(dev, graph, index, bucket) -> tuple[float, tuple, int]:
     return err, times, launches
 
 
+def same_stream(got, want) -> None:
+    """Two backends' stream updates, exactly."""
+    check(len(got) == len(want), f"stream lengths {len(got)} != {len(want)}")
+    for uc, ut in zip(got, want):
+        check(np.array_equal(uc.weights, ut.weights)
+              and np.array_equal(uc.roots, ut.roots),
+              f"stream step {uc.step}: weights/roots differ")
+        for f in ("step", "frontier", "msgs_bfs", "msgs_deep", "nu_full",
+                  "spa", "opt_lower_bound", "sound_opt_lower_bound",
+                  "spa_ratio", "done"):
+            check(getattr(uc, f) == getattr(ut, f),
+                  f"stream step {uc.step}: {f} {getattr(uc, f)} != "
+                  f"{getattr(ut, f)}")
+
+
+def serving_phase(graph, index, engines, bucket, singles) -> dict:
+    """Phase 9: the serving path on ``"cuda"``, held against ``"torch"``.
+    Returns the phase's launch counts and a one-line summary."""
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+    from repro_torch.launch.serve_dks import (check_smoke, serve_replay,
+                                              verify_served)
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.loadgen import make_trace
+
+    eng_c, eng_t = engines["cuda"], engines["torch"]
+    t_phase = time.perf_counter()
+
+    # The load replay, in serve_dks --smoke's settings.  The launch counts
+    # are the service's own: zeroed just before it starts, read just after
+    # it stops.
+    trace = make_trace(index, SERVE_REQUESTS, unique=SERVE_UNIQUE, k=1,
+                       deadline_frac=SERVE_DEADLINE_FRAC,
+                       deadline_ms=SERVE_DEADLINE_MS, seed=0)
+    cfg = ServeConfig(max_batch=4, max_wait_ms=50.0, cache_size=256,
+                      trace_seed=0)
+    sc_ops.launches = ls_ops.launches = bt_ops.launches = 0
+    run = serve_replay(eng_c, trace, cfg, clients=SERVE_CLIENTS, smoke=True,
+                       k=1, timeout=SERVE_TIMEOUT_S)
+    launches = {"lane_superstep": ls_ops.launches,
+                "subset_combine": sc_ops.launches,
+                "batched_backtrace": bt_ops.launches}
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched by DKSService")
+    summary = check_smoke(run["stats"], run["tree_check"],
+                          SERVE_DEADLINE_FRAC)
+    # Every exact served answer, bit for bit, against the direct engine on
+    # both backends: "torch" holds the kernels at the replay's own shapes.
+    n_exact, n_approx = verify_served(eng_c, trace, run["served"])
+    check(verify_served(eng_t, trace, run["served"]) == (n_exact, n_approx),
+          "served answers checked differently against cuda and torch")
+    st = run["replay_stats"]
+    lat = np.asarray([r.latency_ms for r in run["served"]])
+    log(f"  replay: {len(trace)} requests ({SERVE_UNIQUE} unique, "
+        f"{SERVE_CLIENTS} clients) in {run['replay_s']:.3f} s (the service "
+        f"with its tree and /metrics checks {run['wall_s']:.3f} s): served "
+        f"p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms, {st.throughput_rps:.2f} "
+        f"requests/s (first submit to last resolve); batch fill "
+        f"{st.mean_batch_fill:.3f} over {st.batch_dispatches} dispatches, "
+        f"deadline fill {st.mean_deadline_fill:.3f} over "
+        f"{st.deadline_dispatches}; cache hit rate {st.cache_hit_rate:.3f} "
+        f"({st.cache_hits} hits, {st.single_flight_hits} single-flight); "
+        f"{n_exact} exact answers == engine.query on cuda and on torch, "
+        f"{n_approx} approximate within their sound bounds")
+    log(f"  {summary}")
+    log(f"  launches by DKSService (replay, trees, scrape): {launches}")
+
+    # The bucket of phase 5 as one deadline bucket, at 0 and never.
+    for deadline_s in (0.0, 600.0):
+        outs, secs = {}, {}
+        for b, eng in (("cuda", eng_c), ("torch", eng_t)):
+            t0 = time.perf_counter()
+            outs[b] = eng.query_deadline_batch(bucket, k=BUCKET_K,
+                                               deadline_s=deadline_s,
+                                               keep_state=True)
+            secs[b] = time.perf_counter() - t0
+        for i, ((rc, ic), (rt, it)) in enumerate(zip(outs["cuda"],
+                                                     outs["torch"])):
+            same_results(rc, rt, f"deadline {deadline_s} lane {i}")
+            check(ic == it, f"deadline {deadline_s} lane {i}: {ic} != {it}")
+        info = outs["cuda"][0][1]
+        check(info["interrupted"] == (deadline_s == 0.0),
+              f"deadline {deadline_s}: interrupted {info['interrupted']}")
+        lanes = [r.supersteps for r, _ in outs["cuda"]]
+        # ExtractionOverlap.submit copies a frozen lane's table to the
+        # host, synchronously and pageable: one such copy, timed.
+        lane_S = outs["cuda"][0][0].state.S[0]
+        copy_ms = host_s(lambda: lane_S.cpu()) * 1e3
+        log(f"  deadline bucket of {BUCKET_LANES} at {deadline_s} s: driver "
+            f"{info['driver_supersteps']} supersteps vs {sum(lanes)} lane "
+            f"supersteps {lanes}; ExtractionOverlap {info['extraction']}; "
+            f"cuda {secs['cuda'] * 1e3:.1f} ms (its superstep loop, lane "
+            f"copies included, {outs['cuda'][0][0].wall_time_s * 1e3:.1f} "
+            f"ms; one pageable lane-table copy of "
+            f"{lane_S.numel() * 4 / 2**20:.1f} MiB {copy_ms:.2f} ms), torch "
+            f"{secs['torch'] * 1e3:.1f} ms (host clock)")
+        del outs, lane_S
+
+    # One stream, every update held; its cost beside a deadline run.
+    query = singles[0]
+    streams, stream_s = {}, {}
+    for b, eng in (("cuda", eng_c), ("torch", eng_t)):
+        t0 = time.perf_counter()
+        streams[b] = list(eng.query_stream(query, k=SINGLE_K))
+        stream_s[b] = time.perf_counter() - t0
+    same_stream(streams["cuda"], streams["torch"])
+    t0 = time.perf_counter()
+    res, _ = eng_c.query_deadline(query, k=SINGLE_K, deadline_s=600.0,
+                                  extract=False)
+    dl_s = time.perf_counter() - t0
+    steps = len(streams["cuda"]) - 1
+    check(res.supersteps == steps, f"stream {steps} vs deadline "
+          f"{res.supersteps} supersteps")
+    log(f"  stream of {query} (m={SINGLE_M}, k={SINGLE_K}): {steps} "
+        f"supersteps, bounds every superstep: "
+        f"{stream_s['cuda'] * 1e3 / (steps + 1):.2f} ms per superstep "
+        f"(cuda, init included) vs {dl_s * 1e3 / (steps + 1):.2f} ms for "
+        f"query_deadline with bounds once; torch "
+        f"{stream_s['torch'] * 1e3 / (steps + 1):.2f} ms per superstep; "
+        f"final bound {streams['cuda'][-1].sound_opt_lower_bound}, "
+        f"weights {streams['cuda'][-1].weights.tolist()}")
+
+    # Telemetry on: the same answers, the same rows on both backends.
+    rows = {}
+    for b, eng in (("cuda", eng_c), ("torch", eng_t)):
+        tel = QueryEngine.build(graph, index=index, policy=ExecutionPolicy(
+            backend=b, telemetry=True))
+        rt, rb = tel.query(query, k=SINGLE_K), eng.query(query, k=SINGLE_K)
+        same_results(rt, rb, f"telemetry on vs off ({b})")
+        check(rt.telemetry is not None and rb.telemetry is None,
+              f"telemetry missing or leaking ({b})")
+        rows[b] = rt.telemetry
+        del tel
+    check(rows["cuda"].rows() == rows["torch"].rows()
+          and np.array_equal(rows["cuda"].frozen, rows["torch"].frozen),
+          "telemetry rows differ between cuda and torch")
+    log(f"  telemetry == off on both backends; rows equal "
+        f"({rows['cuda'].n_steps} steps, peak frontier "
+        f"{rows['cuda'].summary()['peak_frontier']})")
+
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches,
+            "summary": f"{len(trace)} requests, p99 "
+                       f"{np.percentile(lat, 99):.1f} ms, "
+                       f"{st.throughput_rps:.1f} requests/s, "
+                       f"launches {launches}"}
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -1049,14 +1225,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/9] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/10] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/9] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/10] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -1130,7 +1306,7 @@ def main() -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/9] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/10] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -1193,7 +1369,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/9] kernels == plain versions at the main path's shapes")
+    log("[3/10] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -1212,7 +1388,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/9] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/10] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -1260,7 +1436,7 @@ def main() -> int:
         same_results(rc, rt, f"single query {i}")
     for r in batch + [r for r, _ in single]:
         check(r.found and len(r.answers) > 0, f"no answer for {r.query}")
-    log(f"[5/9] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/10] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -1328,14 +1504,15 @@ def main() -> int:
     del S_b, kw_b, flat_b, bt_args, recs, plain
 
     # ---------------- 6. LM serving ----------------
-    del engines, runs, batch, single, tokens, g_small, dg_small
+    # The engines stay for phase 9 (serving); their states go.
+    del runs, batch, single, tokens, g_small, dg_small
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/9] flash_attention == plain version at small shapes and the "
+    log("[6/10] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/9] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/10] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -1349,7 +1526,7 @@ def main() -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/9] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/10] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -1359,10 +1536,20 @@ def main() -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/9] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/10] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
-    # ---------------- 9. kernels line ----------------
+    # ---------------- 9. serving ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = serving_phase(graph, index, engines, bucket, singles)
+    log(f"[9/10] {cfg_sec.name} served on backend=cuda through DKSService: "
+        f"{serving['summary']}; deadline bucket, stream and telemetry == "
+        f"backend=torch")
+    log(f"  card: {card}")
+    del engines
+
+    # ---------------- 10. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
@@ -1386,6 +1573,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library,
             **shapes.get(name, {})})
+        if name in serving["launches"]:
+            kernels[-1]["serving_launches"] = serving["launches"][name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,9 @@ SEC_RDFABOUT_CPU = DKSBenchConfig(
 BLUK_BNB_CPU = DKSBenchConfig(
     name="bluk-bnb-cpu", n_nodes=80_000, n_edges=230_000, vocab=8_000)
 
+DKS_CONFIGS = {c.name: c for c in (SEC_RDFABOUT, BLUK_BNB, SEC_RDFABOUT_CPU,
+                                   BLUK_BNB_CPU)}
+
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:

@@ -20,6 +20,8 @@ function here carries the lane axis explicitly — a single query is the
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ import torch
 from repro_torch import INF
 from repro_torch.core import semiring, spa
 from repro_torch.graph.structure import DeviceGraph
+from repro_torch.obs.telemetry import HostTelemetryCollector
 
 BACKENDS = ("torch", "cuda")
 
@@ -151,20 +154,34 @@ def relax_edges(S: torch.Tensor, changed: torch.Tensor, src: torch.Tensor,
                 dst: torch.Tensor, w: torch.Tensor,
                 valid: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`relax` over an explicit edge list (``valid=None``: all real)."""
+    cand = edge_candidates(S, changed, src, w, valid)
+    return receive_candidates(cand, dst, S.shape[1])
+
+
+def edge_candidates(S: torch.Tensor, changed: torch.Tensor,
+                    src: torch.Tensor, w: torch.Tensor,
+                    valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The send half of the relax: ``cand[l, e, ks, k] = S[l, src(e), ks,
+    k] + w(e)`` where ``src(e)`` is active, else INF.  [L, E, 2^m, K]."""
     src = src.long()
     send = changed[:, src]                                  # [L, E]
     if valid is not None:
         send = send & valid
-    # cand[l, e, ks, k] = S[l, src(e), ks, k] + w(e)
     cand = S[:, src] + w[None, :, None, None]
     cand = torch.where(send[:, :, None, None], cand,
                        torch.full_like(cand, INF))
-    cand = semiring.bump_to_inf(cand)
+    return semiring.bump_to_inf(cand)
+
+
+def receive_candidates(cand: torch.Tensor, dst: torch.Tensor,
+                       v_pad: int) -> torch.Tensor:
+    """The receive half of the relax: every destination keeps the
+    per-keyword-set top-K of the candidates that arrive.  [L, V, 2^m, K]."""
     lanes, n_e, n, k = cand.shape
     # Candidate axis = (edge, slot); segment by destination.
     vals = cand.permute(1, 3, 0, 2).reshape(n_e * k, lanes, n)
     seg = dst.long().repeat_interleave(k)
-    red = semiring.segment_topk_min(vals, seg, S.shape[1], k)
+    red = semiring.segment_topk_min(vals, seg, v_pad, k)
     return red.permute(1, 0, 2, 3)                          # [L, V, 2^m, K]
 
 
@@ -321,3 +338,111 @@ def superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
         step=state.step + 1,
     )
     return finish_superstep(graph, S0, nxt, cfg)
+
+
+# --------------------------------------------------------------------------
+# Drivers
+# --------------------------------------------------------------------------
+
+
+def run_dks(graph: DeviceGraph, kw_masks: torch.Tensor, cfg: DKSConfig
+            ) -> DKSState:
+    """Full DKS run of one query (``kw_masks``: bool[m, V]): the 1-lane
+    case of the lane driver.  The state keeps its lane axis of 1."""
+    from repro_torch.core.driver import run_lanes
+
+    return run_lanes(graph, kw_masks[None], cfg)
+
+
+def run_dks_batched(graph: DeviceGraph, kw_masks_batch: torch.Tensor,
+                    cfg: DKSConfig) -> DKSState:
+    """Serve a batch of queries (``kw_masks_batch``: bool[Q, m, V]) as the
+    lanes of one driver run; finished lanes freeze, so their counters stop
+    with them.  An alias of :func:`repro_torch.core.driver.run_lanes`."""
+    from repro_torch.core.driver import run_lanes
+
+    return run_lanes(graph, kw_masks_batch, cfg)
+
+
+def _sync(t: torch.Tensor) -> None:
+    """End a timed phase: wait for the card, so that its time is honest."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def run_dks_instrumented(
+    graph: DeviceGraph,
+    kw_masks: torch.Tensor,
+    cfg: DKSConfig,
+    exit_hook: Callable[[DKSState], bool] | None = None,
+) -> tuple[DKSState, dict[str, Any]]:
+    """Host-driven superstep loop with per-phase wall times (paper Table 1)
+    for one query (``kw_masks``: bool[m, V]; the final state keeps a lane
+    axis of 1).
+
+    The phases are the torch ones whatever the backend (``"cuda"`` reaches
+    the subset-combine kernel in "evaluate", as ``repro``'s ``"pallas"``
+    reaches its combine kernel), each ended by a device synchronisation:
+    send_bfs (gather + add candidates), receive (segment top-K + merge),
+    evaluate (subset combine), send_agg (aggregators + exit).
+    ``exit_hook``: an optional host-side exit criterion evaluated between
+    supersteps.  Per-superstep rows accumulate on a
+    :class:`HostTelemetryCollector`; ``info`` carries ``timings``,
+    ``history`` (the collector's rows) and ``telemetry``.
+    """
+    timings = {"send_bfs": 0.0, "receive": 0.0, "evaluate": 0.0,
+               "send_agg": 0.0}
+    state = init_state(graph, kw_masks[None], cfg)
+    _sync(state.S)
+    collector = HostTelemetryCollector()
+    while not bool(state.done[0]):
+        n_bfs, n_deep = message_counts(graph, state)
+
+        t0 = time.perf_counter()
+        cand = edge_candidates(state.S, state.changed, graph.src, graph.w,
+                               graph.valid)
+        _sync(cand)
+        t1 = time.perf_counter()
+        S1 = semiring.topk_merge(
+            state.S, receive_candidates(cand, graph.dst, graph.v_pad))
+        _sync(S1)
+        t2 = time.perf_counter()
+        S1 = combine(S1, cfg)
+        _sync(S1)
+        t3 = time.perf_counter()
+        S0 = state.S
+        state = dataclasses.replace(
+            state,
+            S=S1,
+            msgs_bfs=state.msgs_bfs + n_bfs,
+            msgs_deep=state.msgs_deep + n_deep,
+            step=state.step + 1,
+        )
+        state = finish_superstep(graph, S0, state, cfg)
+        _sync(state.S)
+        t4 = time.perf_counter()
+        del cand
+
+        timings["send_bfs"] += t1 - t0
+        timings["receive"] += t2 - t1
+        timings["evaluate"] += t3 - t2
+        timings["send_agg"] += t4 - t3
+        collector.record(
+            frontier=int(state.changed[0].sum()),
+            msgs_bfs=float(state.msgs_bfs[0]),
+            msgs_deep=float(state.msgs_deep[0]),
+            frozen=int(state.done.sum()),
+            best=float(state.topk_w[0, 0]),
+        )
+        if exit_hook is not None and exit_hook(state):
+            state = dataclasses.replace(
+                state, done=torch.ones_like(state.done))
+    telemetry = collector.build()
+    info = dict(timings=timings, history=telemetry.rows(),
+                telemetry=telemetry)
+    return state, info
+
+
+def extract_answer_weights(state: DKSState, cfg: DKSConfig) -> np.ndarray:
+    """Global top-K distinct answer weights (INF-padded), per lane."""
+    return state.topk_w.cpu().numpy()

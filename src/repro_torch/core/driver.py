@@ -6,7 +6,8 @@ and one ``lane_superstep(graph, state, cfg)`` that advances all lanes.
 ``repro`` runs the loop as one ``lax.while_loop``; torch has none, so
 :func:`run_lanes` is a host loop that reads ``done`` after every superstep
 and freezes finished lanes every time, one lane or many (a finished lane's
-counters must stop with it).
+counters must stop with it).  :func:`run_lanes_telemetry` is the same loop
+with a per-superstep counter row written into a device buffer.
 """
 
 from __future__ import annotations
@@ -22,6 +23,10 @@ from repro_torch.core.dks import (
     superstep,
 )
 from repro_torch.graph.structure import DeviceGraph
+from repro_torch.obs.telemetry import (
+    N_COLS as TELEMETRY_COLS,
+    TELEMETRY_MAX_SUPERSTEPS,
+)
 
 
 def lane_view(state: DKSState, i: int) -> DKSState:
@@ -65,3 +70,49 @@ def run_lanes(graph: DeviceGraph, kw_masks: torch.Tensor, cfg: DKSConfig
     while not bool(state.done.all()):
         state = lane_superstep(graph, state, cfg)
     return state
+
+
+# --------------------------------------------------------------------------
+# Superstep telemetry (paper §6's per-superstep curves, from the driver's
+# own loop)
+# --------------------------------------------------------------------------
+
+
+def telemetry_capacity(cfg: DKSConfig) -> int:
+    """Device-buffer row count for a config: one row per superstep, capped
+    at TELEMETRY_MAX_SUPERSTEPS (a capped run sets ``done`` anyway, so the
+    cap only matters for configs with a larger max_supersteps)."""
+    return max(1, min(int(cfg.max_supersteps), TELEMETRY_MAX_SUPERSTEPS))
+
+
+def telemetry_row(state: DKSState) -> torch.Tensor:
+    """One lane-summed counter row for the post-step state: ``[frontier,
+    msgs_bfs (cumulative), msgs_deep (cumulative), frozen lanes]`` — the
+    column order repro_torch.obs.telemetry decodes.  Pure reads, so
+    telemetry-on is bit-identical to telemetry-off."""
+    return torch.stack([
+        state.changed.sum().to(torch.float32),
+        state.msgs_bfs.sum(),
+        state.msgs_deep.sum(),
+        state.done.sum().to(torch.float32),
+    ])
+
+
+def run_lanes_telemetry(graph: DeviceGraph, kw_masks: torch.Tensor,
+                        cfg: DKSConfig) -> tuple[DKSState, torch.Tensor, int]:
+    """:func:`run_lanes` with a telemetry carry: one :func:`telemetry_row`
+    per superstep written into a bounded ``[T, 4]`` f32 device buffer
+    (rows past T overwrite the last slot — the decoder flags truncation),
+    with no host sync beyond the loop's own ``done`` check.  Returns
+    ``(final state, buffer, supersteps run)``; the state trajectory is
+    exactly :func:`run_lanes`'s."""
+    T = telemetry_capacity(cfg)
+    state = lane_init(graph, kw_masks, cfg)
+    buf = torch.zeros((T, TELEMETRY_COLS), dtype=torch.float32,
+                      device=state.S.device)
+    i = 0
+    while not bool(state.done.all()):
+        state = lane_superstep(graph, state, cfg)
+        buf[min(i, T - 1)] = telemetry_row(state)
+        i += 1
+    return state, buf, i

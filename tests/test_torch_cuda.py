@@ -16,7 +16,9 @@ compare or one f32 add; 2e-5 (f32) and 2e-2 (bf16) for flash attention and
 (``tests/test_kernels.py``), since their sums run in another order; none
 for single-hot bags, the grouped lookup and the DCN-v2 logits built on
 them, and none for the batched backtrace's records (integers).  The DKS
-kernels run at m = 1..6 and K = 1..8.
+kernels run at m = 1..6 and K = 1..8.  The stepwise surfaces (streams,
+deadline buckets, telemetry) and the service on ``"cuda"`` equal
+``"torch"`` exactly, times excluded.
 """
 
 import numpy as np
@@ -48,6 +50,8 @@ from repro_torch.kernels.subset_combine.ref import subset_combine_ref
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
+from repro_torch.serve import DKSService, ServeConfig
+from repro_torch.serve.loadgen import make_trace, replay
 
 
 @pytest.fixture
@@ -522,3 +526,124 @@ def test_query_batch_on_the_kernels_equals_torch(cuda_device, m, k):
             [(a.root, a.edges, a.weight) for a in rt.answers]
     assert engines["cuda"].extraction_stats == \
         engines["torch"].extraction_stats
+
+
+# ---------------------------------------------------------------------------
+# The stepwise surfaces and the service on the kernels
+# ---------------------------------------------------------------------------
+
+SERVE_WAIT = 60  # seconds: the most any future is waited for
+
+
+@pytest.fixture(scope="module")
+def serving_engines():
+    """``"cuda"`` and ``"torch"`` engines, with and without telemetry, on
+    ``lod_like_graph(600, 1800, seed=11, vocab=120)`` (built lazily: the
+    module's tests skip without a card)."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            g, tokens = lod_like_graph(600, 1800, seed=11, vocab=120)
+            for b in ("cuda", "torch"):
+                for tel in (False, True):
+                    cache[(b, tel)] = QueryEngine.build(
+                        g, tokens=tokens, policy=ExecutionPolicy(
+                            backend=b, max_supersteps=32, telemetry=tel),
+                        device=device)
+            index = cache[("torch", False)].index
+            cache["toks"] = [t for t in sorted(index.vocabulary(),
+                                               key=index.df)
+                             if 2 <= index.df(t) <= 60]
+        return cache
+
+    return get
+
+
+def same_served(rc, rt):
+    np.testing.assert_array_equal(rc.weights, rt.weights)
+    np.testing.assert_array_equal(rc.roots, rt.roots)
+    for f in ("supersteps", "msgs_bfs", "msgs_deep", "explored_frac",
+              "done", "budget_hit", "capped", "spa", "spa_ratio"):
+        assert getattr(rc, f) == getattr(rt, f), f
+    assert [(a.root, a.edges, a.weight) for a in rc.answers] == \
+        [(a.root, a.edges, a.weight) for a in rt.answers]
+
+
+@pytest.mark.cuda
+def test_stream_on_the_kernels_equals_torch(cuda_device, serving_engines):
+    """Per-superstep weights, roots, frontier, messages and bounds of a
+    stream: one lane_superstep launch per superstep after init."""
+    e = serving_engines(cuda_device)
+    query = e["toks"][0:3]
+    launched = ls_ops.launches
+    got = list(e[("cuda", False)].query_stream(query, k=2))
+    assert ls_ops.launches - launched == len(got) - 1 > 0
+    want = list(e[("torch", False)].query_stream(query, k=2))
+    assert len(got) == len(want)
+    for uc, ut in zip(got, want):
+        np.testing.assert_array_equal(uc.weights, ut.weights)
+        np.testing.assert_array_equal(uc.roots, ut.roots)
+        for f in ("step", "frontier", "msgs_bfs", "msgs_deep", "nu_full",
+                  "spa", "opt_lower_bound", "sound_opt_lower_bound",
+                  "spa_ratio", "done"):
+            assert getattr(uc, f) == getattr(ut, f), (uc.step, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deadline_s", [0.0, 600.0], ids=["at0", "never"])
+def test_deadline_bucket_on_the_kernels_equals_torch(cuda_device,
+                                                     serving_engines,
+                                                     deadline_s):
+    e = serving_engines(cuda_device)
+    toks = e["toks"]
+    queries = [toks[0:2], toks[2:4], toks[4:6], toks[1:3]]
+    got = e[("cuda", False)].query_deadline_batch(
+        queries, k=2, deadline_s=deadline_s)
+    want = e[("torch", False)].query_deadline_batch(
+        queries, k=2, deadline_s=deadline_s)
+    for (rc, ic), (rt, it) in zip(got, want):
+        same_served(rc, rt)
+        assert ic == it
+    assert got[0][1]["interrupted"] == (deadline_s == 0.0)
+
+
+@pytest.mark.cuda
+def test_telemetry_on_the_kernels_equals_torch(cuda_device, serving_engines):
+    e = serving_engines(cuda_device)
+    toks = e["toks"]
+    queries = [toks[0:2], toks[2:4], toks[1:3]]
+    for tel_b in ("cuda", "torch"):
+        for rt, rb in zip(e[(tel_b, True)].query_batch(queries, k=2),
+                          e[(tel_b, False)].query_batch(queries, k=2)):
+            same_served(rt, rb)
+    tc = e[("cuda", True)].query_batch(queries, k=2)[0].telemetry
+    tt = e[("torch", True)].query_batch(queries, k=2)[0].telemetry
+    assert tc.rows() == tt.rows() and tc.n_steps == tt.n_steps > 0
+    np.testing.assert_array_equal(tc.frozen, tt.frozen)
+    rc, ic = e[("cuda", False)].query_instrumented(toks[0:3], k=2)
+    rt, it = e[("torch", False)].query_instrumented(toks[0:3], k=2)
+    same_served(rc, rt)
+    assert ic["history"] == it["history"]
+
+
+@pytest.mark.cuda
+def test_service_on_the_kernels_equals_torch(cuda_device, serving_engines):
+    """A make_trace replay through DKSService on each backend: the same
+    served answers, and served trees equal too."""
+    e = serving_engines(cuda_device)
+    trace = make_trace(e[("torch", False)].index, 16, unique=5, k=2,
+                       seed=3)
+    served = {}
+    for b in ("cuda", "torch"):
+        with DKSService(e[(b, False)], ServeConfig(
+                max_batch=4, max_wait_ms=5.0, cache_size=64)) as svc:
+            out = replay(svc, trace, n_clients=4, timeout=SERVE_WAIT)
+            pages = [svc.submit(list(t.keywords), k=2, return_trees=True
+                                ).result(SERVE_WAIT).trees
+                     for t in trace[:3]]
+            served[b] = (out, [[(t.root, t.weight, t.node_labels)
+                                for t in p.items] for p in pages])
+    for sc, st in zip(served["cuda"][0], served["torch"][0]):
+        same_served(sc.result, st.result)
+    assert served["cuda"][1] == served["torch"][1]

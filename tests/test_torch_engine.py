@@ -238,3 +238,157 @@ def test_wide_m_and_k_on_cuda_equal_torch_and_pallas(query, k):
         assert_same_result(et.query(query, k=k), rj)
         [rb] = et.query_batch([query], k=k)
         assert_same_result(rb, rj)
+
+
+# ---------------------------------------------------------------------------
+# The stepwise surfaces: streams, deadline buckets, executor accounting
+# ---------------------------------------------------------------------------
+
+UPDATE_FIELDS = ("step", "frontier", "msgs_bfs", "msgs_deep", "nu_full",
+                 "spa", "opt_lower_bound", "sound_opt_lower_bound",
+                 "spa_ratio", "done", "unmatched", "proven_optimal")
+
+
+@pytest.fixture(scope="module")
+def stepwise():
+    """``repro``'s ``"jnp"`` engine and the port's two backends on
+    ``lod_like_graph(600, 1800, seed=11, vocab=120)``."""
+    gj, tokens = gen_j.lod_like_graph(600, 1800, seed=11, vocab=120)
+    gt, _ = gen_t.lod_like_graph(600, 1800, seed=11, vocab=120)
+    ref = EngineJ.build(gj, tokens=tokens, policy=PolicyJ(max_supersteps=32))
+    port = {b: EngineT.build(gt, tokens=tokens, policy=PolicyT(
+        backend=b, max_supersteps=32), device="cpu") for b in TWIN}
+    index = ref.index
+    toks = [t for t in sorted(index.vocabulary(), key=index.df)
+            if 2 <= index.df(t) <= 60]
+    return ref, port, toks
+
+
+def same_updates(got, want):
+    assert len(got) == len(want) > 0
+    for ut, uj in zip(got, want):
+        for f in UPDATE_FIELDS:
+            assert getattr(ut, f) == getattr(uj, f), (ut.step, f)
+        np.testing.assert_array_equal(ut.weights, uj.weights)
+        np.testing.assert_array_equal(ut.roots, uj.roots)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_stream_matches_reference(stepwise, backend):
+    """Every update, step by step: weights, roots, frontier, messages,
+    ``nu_full``, ``spa``, both running bounds and ``spa_ratio``."""
+    ref, port, toks = stepwise
+    for query, k in ((toks[0:3], 2), (toks[3:5], 1)):
+        got = list(port[backend].query_stream(query, k=k))
+        same_updates(got, list(ref.query_stream(query, k=k)))
+        assert got[0].step == 0 and got[-1].done
+        ratios = [u.spa_ratio for u in got]
+        assert all(cur <= prev for prev, cur in zip(ratios, ratios[1:]))
+        result = port[backend].query_streamed(query, k=k)
+        assert_same_result(result, ref.query_streamed(query, k=k))
+        np.testing.assert_array_equal(result.weights, got[-1].weights)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_streamed_until_matches_reference(stepwise, backend):
+    ref, port, toks = stepwise
+    query = toks[0:3]
+    seen_t, seen_j = [], []
+    rt = port[backend].query_streamed(
+        query, k=2, on_update=seen_t.append, until=lambda u: u.step >= 2)
+    rj = ref.query_streamed(
+        query, k=2, on_update=seen_j.append, until=lambda u: u.step >= 2)
+    same_updates(seen_t, seen_j)
+    assert len(seen_t) == 3 and not rt.done and rt.spa is not None
+    assert_same_result(rt, rj)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_capped_and_unmatched_streams_match_reference(backend):
+    """A superstep cap on a grid (a forced stop, never proven optimal)
+    and a query with a token on no node (strict raises at the call, not
+    at the first iteration; best-effort reports it on every update)."""
+    tokens = np.arange(16)[:, None]
+    ej = EngineJ.build(gen_j.grid_graph(4, 4), tokens=tokens)
+    et = EngineT.build(gen_t.grid_graph(4, 4), tokens=tokens,
+                       policy=PolicyT(backend=backend), device="cpu")
+    got = list(et.query_stream([0, 15], k=1, max_supersteps=2))
+    same_updates(got, list(ej.query_stream([0, 15], k=1, max_supersteps=2)))
+    # The cap fires ``done`` (and ``capped``) but proves nothing.
+    assert len(got) == 3 and got[-1].done and not got[-1].proven_optimal
+    with pytest.raises(KeyError):
+        et.query_stream([0, 99], k=1)
+    got = list(et.query_stream([0, 99], k=1, strict=False))
+    same_updates(got, list(ej.query_stream([0, 99], k=1, strict=False)))
+    assert got[-1].unmatched == (99,) and got[-1].best_weight >= INF
+
+
+def same_deadline_out(got, want):
+    assert len(got) == len(want)
+    for pt, pj in zip(got, want):
+        if pj is None:
+            assert pt is None
+            continue
+        (rt, it), (rj, ij) = pt, pj
+        assert_same_result(rt, rj)
+        assert it == ij
+
+
+@pytest.mark.parametrize("deadline_s", [0.0, 600.0], ids=["at0", "never"])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_deadline_batch_matches_reference(stepwise, backend, deadline_s):
+    """``deadline_s=0`` interrupts after ``init`` on every backend; 600 s
+    is a deadline no run reaches.  Results, per-lane bounds,
+    ``interrupted``, ``driver_supersteps`` and the extraction split equal
+    ``repro``'s; padding lanes come back as None."""
+    ref, port, toks = stepwise
+    queries = [toks[0:2], toks[2:4], toks[4:6], toks[1:3]]
+    kw = dict(k=2, deadline_s=deadline_s, n_real=3)
+    got = port[backend].query_deadline_batch(queries, **kw)
+    same_deadline_out(got, ref.query_deadline_batch(queries, **kw))
+    assert got[3] is None
+    info = got[0][1]
+    assert info["interrupted"] == (deadline_s == 0.0)
+    if deadline_s == 0.0:
+        assert info["driver_supersteps"] == 0
+        assert info["extraction"] == {"overlapped": 0, "inline": 0}
+    else:
+        lanes = [r.supersteps for r, _ in got[:3]]
+        assert info["driver_supersteps"] == max(lanes) < sum(lanes)
+        assert info["extraction"]["overlapped"] == 3
+    one = port[backend].query_deadline(toks[0:3], k=2, deadline_s=deadline_s,
+                                       extract_pool=4)
+    same_deadline_out([one], [ref.query_deadline(
+        toks[0:3], k=2, deadline_s=deadline_s, extract_pool=4)])
+    with pytest.raises(ValueError, match="same keyword count"):
+        port[backend].query_deadline_batch([toks[0:2], toks[0:3]], k=1,
+                                           deadline_s=1.0)
+    assert port[backend].query_deadline_batch([], k=1, deadline_s=1.0) == []
+
+
+def test_executor_accounting_matches_reference(stepwise):
+    """``trace_count`` reads as ``repro``'s: 1 for the fused executor, 2
+    for the stepwise pair, per (m, k, overrides); ``execute_count``
+    counts one per bucket and one per stepwise superstep."""
+    gj, tokens = gen_j.lod_like_graph(600, 1800, seed=11, vocab=120)
+    gt, _ = gen_t.lod_like_graph(600, 1800, seed=11, vocab=120)
+    ref = EngineJ.build(gj, tokens=tokens, policy=PolicyJ(max_supersteps=32))
+    port = EngineT.build(gt, tokens=tokens, policy=PolicyT(max_supersteps=32),
+                         device="cpu")
+    toks = stepwise[2]
+    for eng in (port, ref):
+        eng.query(toks[0:3], k=2, extract=False)
+        eng.query(toks[3:6], k=2, extract=False)
+        list(eng.query_stream(toks[0:3], k=2))
+        eng.query_deadline(toks[0:2], k=1, deadline_s=600.0, extract=False)
+        eng.query(toks[0:2], k=1, extract=False, message_budget=50.0)
+    for kind in ("fused", "stepwise"):
+        for m, k, over in ((3, 2, {}), (2, 1, {}),
+                           (2, 1, {"message_budget": 50.0})):
+            assert port.trace_count(m, k, kind=kind, **over) == \
+                ref.trace_count(m, k, kind=kind, **over), (kind, m, k, over)
+    assert port.trace_count(3, 2, kind="stepwise") == 2
+    assert port.cache_stats == ref.cache_stats == {"executables": 4,
+                                                   "traces": 6}
+    assert port.execute_count == ref.execute_count
+    assert port.n_edges == ref.n_edges

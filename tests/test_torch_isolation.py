@@ -46,7 +46,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "repro_torch.models.transformer" in seen["modules"]
     assert "repro_torch.kernels.flash_attention.ops" in seen["modules"]
     assert "repro_torch.launch.serve" in seen["modules"]
-    for name in ("repro_torch.models.recsys", "repro_torch.data.pipeline",
+    for name in ("repro_torch.obs.trace", "repro_torch.obs.metrics",
+                 "repro_torch.obs.export", "repro_torch.obs.telemetry",
+                 "repro_torch.serve.service", "repro_torch.serve.batcher",
+                 "repro_torch.serve.loadgen", "repro_torch.launch.serve_dks",
+                 "repro_torch.launch.dks_query",
+                 "repro_torch.models.recsys", "repro_torch.data.pipeline",
                  "repro_torch.kernels.embedding_bag.ops",
                  "repro_torch.kernels.embedding_bag.ref",
                  "repro_torch.kernels.segment_minplus.ops",
