@@ -100,9 +100,34 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and the service's own launches of ``lane_superstep``, ``subset_combine``
    and ``batched_backtrace`` (zeroed just before the service starts, read
    just after it stops; each must be above zero).
-10. The kernels line: one JSON object with each kernel's launches on the
+10. Store and live graphs — phase 5's sec-rdfabout graph and index
+   through ``repro_torch.store`` on ``"cuda"``: ``from_graph`` ->
+   ``write_artifact`` (a temporary directory) -> ``open_artifact`` with
+   every buffer re-hashed -> ``QueryEngine.build(artifact=...)``, whose
+   bucket and two m = 4 queries equal phase 5's exactly (weights,
+   supersteps, trees; the same launches), ``version`` the artifact's hash;
+   artifact bytes, write MB/s, open and build ms.  Then the live leg: the
+   graph's edges as a TSV whose entity names carry each node's tokens,
+   ``ingest_tsv`` -> ``LiveDir.initialize`` -> an engine on the chain ->
+   ``DKSService`` (``serve_dks --smoke``'s settings) under 4 client threads,
+   and a fragment dropped into a watched directory (a shortcut between a
+   probe pair 3 hops apart, a new entity with a fresh keyword):
+   ``GraphWatcher`` publishes the delta and ``EngineSwapper`` builds, warms
+   and swaps on the watcher's thread.  Asserted: no failed request, every
+   served probe weight the base engine's or the union's, post-swap answers
+   equal to engines on ``compact_chain`` (the union) on ``"cuda"`` and
+   ``"torch"``, the chained version, staleness 0, build/warm/swap spans,
+   every hot shape warmed, the warm's launches (counted on the watcher's
+   thread while the dispatcher launched) equal to the same warm replayed
+   alone, and device memory after three swaps and ``gc.collect()`` within
+   one build's bytes of where it started.  Prints ingest edges/s, the
+   delta's write ms, the swap's build / warm / swap ms, requests served
+   across it, the service's and the warm's launches and the memory.
+11. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
-   in phase 9 for the three kernels it runs), error, times and bound.
+   in phase 9 for the three kernels it runs; ``store_launches`` and
+   ``live_launches`` phase 10's artifact engine, live service and warm),
+   error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -110,6 +135,7 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -157,6 +183,8 @@ PADDED_STEPS, PADDED_DMAX = 3, 64
 SERVE_REQUESTS, SERVE_UNIQUE, SERVE_CLIENTS = 32, 8, 8
 SERVE_DEADLINE_FRAC, SERVE_DEADLINE_MS = 0.25, 75.0
 SERVE_TIMEOUT_S = 120       # the most any served request is waited for
+LIVE_CLIENTS = 4            # phase 10's client threads across the swap
+LIVE_PROBE_HOPS = 3         # the live probe pair's hop distance
 # The bucket's extraction through the host collector, before the batched
 # backtracer (PERF.md §5, on an H100 at 700 W).
 EXTRACTION_HOST_MS = 981.2
@@ -259,25 +287,26 @@ def sorted_unique_tables(shape, m, k, seed, device):
     return t.contiguous()
 
 
-def component_of(graph, start: int) -> np.ndarray:
-    """bool[V]: the nodes joined to ``start`` by finite-weight edges (host
-    BFS over the CSR)."""
+def hops_within(graph, start: int, depth: int | None = None) -> np.ndarray:
+    """int[V]: hop distance from ``start`` over finite-weight edges (host
+    BFS over the CSR); -1 for nodes it does not reach within ``depth``
+    hops (no limit when None)."""
     from repro_torch import INF
 
-    seen = np.zeros(graph.n_nodes, bool)
-    seen[start] = True
+    dist = np.full(graph.n_nodes, -1, np.int64)
+    dist[start] = 0
     front = np.array([start])
     deg = np.diff(graph.indptr)
-    while front.size:
-        starts = graph.indptr[front]
-        idx = np.repeat(starts, deg[front]) + (
-            np.arange(deg[front].sum()) - np.repeat(np.cumsum(deg[front])
-                                                    - deg[front], deg[front]))
+    d = 0
+    while front.size and (depth is None or d < depth):
+        d += 1
+        counts = deg[front]
+        idx = np.repeat(graph.indptr[front] - np.cumsum(counts) + counts,
+                        counts) + np.arange(counts.sum())
         nbr = graph.indices[idx][graph.ew[idx] < INF]
-        nbr = np.unique(nbr[~seen[nbr]])
-        seen[nbr] = True
-        front = nbr
-    return seen
+        front = np.unique(nbr[dist[nbr] < 0])
+        dist[front] = d
+    return dist
 
 
 def draw_queries(graph, index, n: int, m: int, rng) -> list[list[int]]:
@@ -289,7 +318,7 @@ def draw_queries(graph, index, n: int, m: int, rng) -> list[list[int]]:
     finite_deg = np.bincount(
         np.repeat(np.arange(graph.n_nodes), np.diff(graph.indptr))[
             graph.ew < INF], minlength=graph.n_nodes)
-    comp = component_of(graph, int(np.argmax(finite_deg)))
+    comp = hops_within(graph, int(np.argmax(finite_deg))) >= 0
     pool = sorted(t for t, d in index.token_dfs()
                   if 2 <= d <= 200 and comp[index.lookup(t)].any())
     check(len(pool) >= n * m, f"only {len(pool)} query tokens")
@@ -622,8 +651,8 @@ def lm_phase(dev) -> int:
     total = 0
     for p in requests:
         torch.cuda.reset_peak_memory_stats()
-        fa_ops.launches = 0
-        fa_ops.launches_by_route = {r: 0 for r in fa_ops.launches_by_route}
+        for c in (fa_ops.counter, *fa_ops.route_counters.values()):
+            c.reset()
         res = serve.generate(model, p, LM_GEN, attn_impl="cuda")
         launched = fa_ops.launches
         by_route = dict(fa_ops.launches_by_route)
@@ -877,7 +906,7 @@ def recsys_phase(dev) -> tuple[float, list[dict], int]:
             fn(batches[name], impl)
     torch.cuda.synchronize()
     served = {}
-    eb_ops.launches = 0
+    eb_ops.counter.reset()
     for name, fn, per in requests:
         before = eb_ops.launches
         torch.cuda.reset_peak_memory_stats()
@@ -1005,7 +1034,7 @@ def padded_phase(dev, graph, index, bucket) -> tuple[float, tuple, int]:
                                        dmax=PADDED_DMAX, device=dev)
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
-    sm_ops.launches = 0
+    sm_ops.counter.reset()
     t0 = time.perf_counter()
     got = sm_ops.segment_minplus_padded(S, csr, changed, BUCKET_K, dg.v_pad)
     torch.cuda.synchronize()
@@ -1079,7 +1108,8 @@ def serving_phase(graph, index, engines, bucket, singles) -> dict:
                        deadline_ms=SERVE_DEADLINE_MS, seed=0)
     cfg = ServeConfig(max_batch=4, max_wait_ms=50.0, cache_size=256,
                       trace_seed=0)
-    sc_ops.launches = ls_ops.launches = bt_ops.launches = 0
+    for ops in (sc_ops, ls_ops, bt_ops):
+        ops.counter.reset()
     run = serve_replay(eng_c, trace, cfg, clients=SERVE_CLIENTS, smoke=True,
                        k=1, timeout=SERVE_TIMEOUT_S)
     launches = {"lane_superstep": ls_ops.launches,
@@ -1192,6 +1222,313 @@ def serving_phase(graph, index, engines, bucket, singles) -> dict:
                        f"launches {launches}"}
 
 
+def live_probe(graph, rng) -> tuple[int, int]:
+    """Two nodes exactly ``LIVE_PROBE_HOPS`` finite hops apart: ``a`` of
+    small degree, ``b`` with fewer than 9 in-edges, so that a shortcut
+    edge between them weighs 1 (the paper's weights are at least 1 per
+    hop, so the pair's tree weighs at least ``LIVE_PROBE_HOPS`` before)."""
+    deg = np.diff(graph.indptr)
+    d_in = np.bincount(graph.dst, minlength=graph.n_nodes)
+    for a in rng.permutation(np.flatnonzero((deg >= 1) & (deg <= 4))):
+        dist = hops_within(graph, int(a), LIVE_PROBE_HOPS)
+        far = np.flatnonzero((dist == LIVE_PROBE_HOPS) & (d_in < 9))
+        if far.size:
+            return int(a), int(far[0])
+    raise RuntimeError("chip_smoke: no live probe pair")
+
+
+def store_phase(dev, graph, tokens, index, bucket, singles,
+                phase5: list) -> dict:
+    """Phase 10: the graph store and live graphs on ``dev``.  Returns the
+    launch counts (the artifact engine's, the live service's, the
+    warm's) and a one-line summary."""
+    import os
+    import tempfile
+    import threading
+
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+    from repro_torch.launch.serve_dks import wait_for
+    from repro_torch.live import EngineSwapper, GraphWatcher, LiveDir
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.serve import DKSService, ServeConfig
+    from repro_torch.graph.index import mid_df_tokens
+    from repro_torch.store import (DeltaBuilder, chained_hash, compact_chain,
+                                   from_graph, ingest_tsv, open_artifact,
+                                   open_chain, open_delta, write_artifact)
+
+    kernels = {"lane_superstep": ls_ops, "subset_combine": sc_ops,
+               "batched_backtrace": bt_ops}
+    t_phase = time.perf_counter()
+    mem: dict[str, int] = {}
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="chip-smoke-store-")
+    tmp = Path(tmp_ctx.name)
+
+    # (1) The artifact: written, reopened with every buffer re-hashed, and
+    # an engine on it answering bit for bit as phase 5's graph-built one.
+    result = from_graph(graph, index=index)
+    t0 = time.perf_counter()
+    art = write_artifact(tmp / "artifact", result.graph, result.index,
+                         tau=result.tau, stats=result.stats.as_dict())
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = open_artifact(art.path)
+    open_meta_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = open_artifact(art.path, verify="full")
+    open_full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = QueryEngine.build(artifact=art,
+                            policy=ExecutionPolicy(backend="cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(eng.device == dev, f"artifact engine on {eng.device}")
+    check(eng.version == f"artifact:{art.content_hash}",
+          f"artifact engine version {eng.version}")
+    for ops in kernels.values():
+        ops.counter.reset()
+    got = eng.query_batch(bucket, k=BUCKET_K) + [
+        eng.query(q, k=SINGLE_K) for q in singles]
+    store_launches = {n: ops.launches for n, ops in kernels.items()}
+    for i, (rc, rp) in enumerate(zip(got, phase5)):
+        same_results(rc, rp, f"artifact engine vs phase 5, result {i}")
+    steps = max(r.supersteps for r in got[:BUCKET_LANES]) + sum(
+        r.supersteps for r in got[BUCKET_LANES:])
+    check(store_launches == {"lane_superstep": steps,
+                             "subset_combine": 1 + N_SINGLE,
+                             "batched_backtrace": 1},
+          f"artifact engine launches {store_launches}")
+    nbytes = art.nbytes()
+    log(f"  artifact: {nbytes / 1e6:.1f} MB of buffers, written in "
+        f"{write_s * 1e3:.1f} ms ({nbytes / 1e6 / write_s:.1f} MB/s, "
+        f"sha256 included); open {open_meta_s * 1e3:.2f} ms (meta), "
+        f"{open_full_s * 1e3:.1f} ms (every buffer re-hashed); engine build "
+        f"{build_s * 1e3:.1f} ms; bucket and {N_SINGLE} queries == phase 5 "
+        f"(weights, supersteps, trees), launches {store_launches}")
+    del eng, got, art, result
+
+    # (2) The live leg.  sec-rdfabout's edges as a TSV whose entity names
+    # carry each node's tokens, so keywords are shared as in the graph.
+    names = [f"n{v} " + " ".join(f"t{t}" for t in row)
+             for v, row in enumerate(tokens.tolist())]
+    tsv = tmp / "sec.tsv"
+    tsv.write_text("".join(f"{names[a]}\t{names[b]}\n"
+                           for a, b in zip(graph.src.tolist(),
+                                           graph.dst.tolist())))
+    t0 = time.perf_counter()
+    ingested = ingest_tsv(tsv)
+    ingest_s = time.perf_counter() - t0
+    a, b = live_probe(ingested.graph, np.random.default_rng(QUERY_SEED))
+    name_a, name_b = ingested.names[a], ingested.names[b]
+    probe = [name_a.split()[0], name_b.split()[0]]
+    live = LiveDir.initialize(tmp / "live", ingested)
+    del ingested, names
+    # One build's device bytes: the engine, and the backtracer its first
+    # bucket builds.
+    mem_before_build = torch.cuda.memory_allocated()
+    engine = QueryEngine.build(artifact=live.chain(),
+                               policy=ExecutionPolicy(backend="cuda"))
+    base_probe = float(engine.query_batch([probe], k=1)[0].weights[0])
+    mem["before the service"] = torch.cuda.memory_allocated()
+    build_bytes = mem["before the service"] - mem_before_build
+    old_version = engine.version
+    pool = [probe] + [[f"t{t}" for t in q] for q in bucket[:3]]
+    watch_dir = tmp / "incoming"
+    watch_dir.mkdir()
+    # serve_dks --smoke's settings; a trace ring that keeps the swap's
+    # trace through the cache hits of the load.
+    cfg = ServeConfig(max_batch=4, max_wait_ms=50.0, cache_size=256,
+                      trace_seed=0, trace_capacity=1 << 20)
+    probe_weights: list[float] = []
+    served = [0] * LIVE_CLIENTS
+    failures: list = []
+    stop = threading.Event()
+
+    def client(i: int) -> None:
+        while not stop.is_set():
+            q = pool[i % len(pool)]
+            try:
+                srv = svc.query(list(q), k=1, timeout=SERVE_TIMEOUT_S)
+            except Exception as exc:
+                failures.append((q, repr(exc)))
+                return
+            served[i] += 1
+            if q is probe:
+                probe_weights.append(float(srv.result.weights[0]))
+
+    for ops in kernels.values():
+        ops.counter.reset()
+    with DKSService(engine, cfg) as svc:
+        del engine      # the service holds the only reference now
+        swapper = EngineSwapper(svc)
+        swapper.wire_metrics()
+        watcher = GraphWatcher(live, watch_dir, poll_s=0.05,
+                               on_delta=swapper.on_delta).start()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True,
+                                    name=f"live-client-{i}")
+                   for i in range(LIVE_CLIENTS)]
+        try:
+            for t in threads:
+                t.start()
+            # Every client's query served twice (the second a cache hit),
+            # so every pool shape is hot when the swap comes.
+            wait_for(lambda: failures or min(served) >= 2,
+                     SERVE_TIMEOUT_S, "pre-swap load")
+            mem["before the first swap"] = torch.cuda.memory_allocated()
+            # The fragment: a shortcut between the probe pair, and a new
+            # entity with a fresh keyword; dropped atomically.
+            frag = tmp / "frag.part"
+            frag.write_text(f"{name_a}\t{name_b}\nzzfresh kwfresh\t"
+                            f"{name_a}\n")
+            t_drop = time.perf_counter()
+            os.replace(frag, watch_dir / "frag-0001.tsv")
+            wait_for(lambda: swapper.swaps >= 1 or watcher.error
+                     or failures, SERVE_TIMEOUT_S, "the hot swap")
+            swap_wall_s = time.perf_counter() - t_drop
+            mem["after swap 1"] = torch.cuda.memory_allocated()
+            at_swap = list(served)
+            wait_for(lambda: failures or all(
+                n >= at + 2 for n, at in zip(served, at_swap)),
+                SERVE_TIMEOUT_S, "post-swap load")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(SERVE_TIMEOUT_S)
+            watcher.stop(SERVE_TIMEOUT_S)
+        check(not any(t.is_alive() for t in threads),
+              "a live client outlived its join")
+        check(watcher.error is None and not failures,
+              f"requests failed across the swap: {failures} "
+              f"(watcher: {watcher.error!r})")
+        served_total = svc.stats().requests
+        trace = [t for t in svc.recent_traces() if t.name == "dks.swap"][-1]
+        spans = {sp.name: sp.duration_ms for sp in trace.spans}
+        check(list(spans) == ["build", "warm", "swap"],
+              f"dks.swap spans {list(spans)}")
+        check(swapper.last_hot and swapper.last_warmed == swapper.last_hot,
+              f"hot shapes {swapper.last_hot}, warmed "
+              f"{swapper.last_warmed}")
+        warmed = list(swapper.last_warmed)
+        chain = live.chain()
+        delta = open_delta(live.delta_paths[0])
+        check(chain.depth == 1 and svc.engine.version
+              == f"artifact:{chain.content_hash}" == "artifact:"
+              + chained_hash(live.base().content_hash, delta.content_hash),
+              f"serving version {svc.engine.version}")
+        check(svc.engine.device == dev, f"successor on {svc.engine.device}")
+        samples = parse_prometheus(svc.registry.render())
+        check(samples["dks_graph_staleness_seconds"] == 0.0
+              and samples["dks_delta_applied_total"] == 1,
+              f"staleness {samples['dks_graph_staleness_seconds']}, "
+              f"applied {samples['dks_delta_applied_total']}")
+        # Two more swaps onto the same chain, with no client load: each
+        # retires a build, and their spans time the warm alone.
+        quiet = []
+        for i in (2, 3):
+            swapper.swap_to(chain)
+            mem[f"after swap {i}"] = torch.cuda.memory_allocated()
+            check(swapper.last_warmed == swapper.last_hot,
+                  f"swap {i}: warmed {swapper.last_warmed} of "
+                  f"{swapper.last_hot}")
+            quiet.append({sp.name: sp.duration_ms for sp in [
+                t for t in svc.recent_traces()
+                if t.name == "dks.swap"][-1].spans})
+        post = {tuple(q): svc.query(list(q), k=1, timeout=SERVE_TIMEOUT_S)
+                .result for q in pool + [["kwfresh", probe[0]]]}
+        gc.collect()
+        mem["after gc"] = torch.cuda.memory_allocated()
+        ts = svc.tracer.stats()
+    by_thread = {n: ops.counter.by_thread() for n, ops in kernels.items()}
+    service = {n: t.get("dks-serve-dispatcher", 0)
+               for n, t in by_thread.items()}
+    warm = {n: t.get("repro-graph-watcher", 0) for n, t in by_thread.items()}
+    check(all(service.values()), f"service launches {service}")
+    check(warm["lane_superstep"] > 0 and warm["subset_combine"] > 0,
+          f"warm launches {warm}")
+    check(ts["begun"] == ts["finished"], f"traces incomplete: {ts}")
+    check(abs(mem["after gc"] - mem["before the service"]) <= build_bytes,
+          f"device memory after 3 swaps {mem} vs one build {build_bytes}")
+
+    # The warm's count, exact though the dispatcher launched beside it:
+    # the same warm queries again, on this thread alone.
+    successor = QueryEngine.build(artifact=chain,
+                                  policy=ExecutionPolicy(backend="cuda"))
+    for ops in kernels.values():
+        ops.counter.reset()
+    toks = mid_df_tokens(successor.index)
+    for m, k, lanes in warmed:
+        successor.query_batch([list(toks[:m])] * lanes, k=k, extract=False,
+                              strict=False, n_real=1)
+    again = {n: ops.launches for n, ops in kernels.items()}
+    check(again == warm, f"warm launches {warm} on the watcher's thread vs "
+                         f"{again} replayed alone")
+
+    # Post-swap answers against engines on the compacted union.
+    union = {bk: QueryEngine.build(
+        artifact=compact_chain(chain, tmp / f"union-{bk}"),
+        policy=ExecutionPolicy(backend=bk)) for bk in ("cuda", "torch")}
+    union_probe = float(union["torch"].query(probe, k=1).weights[0])
+    check(union_probe < base_probe,
+          f"the shortcut left the probe at {union_probe} (base "
+          f"{base_probe})")
+    bad = sorted({w for w in probe_weights} - {base_probe, union_probe})
+    check(not bad, f"probe weights {bad} are neither the base engine's "
+                   f"{base_probe} nor the union's {union_probe}")
+    check(probe_weights[-1] == union_probe, "the last probe missed the swap")
+    for q, res in post.items():
+        for bk, ue in union.items():
+            same_results(res, ue.query_batch([list(q)], k=1)[0],
+                         f"post-swap {list(q)} vs union on {bk}")
+    check(post[("kwfresh", probe[0])].found, "the fresh keyword found nothing")
+    for bk, ue in union.items():
+        check(ue.version == f"artifact:{ue.artifact.content_hash}",
+              f"union engine version on {bk}")
+    n_before = sum(1 for w in probe_weights if w == base_probe)
+    # The delta's build and write, timed alone on the same fragment.
+    (tmp / "frag-timed.tsv").write_text(f"{name_a}\t{name_b}\n"
+                                        f"zzfresh kwfresh\t{name_a}\n")
+    t0 = time.perf_counter()
+    builder = DeltaBuilder(open_chain(live.base_path))
+    builder.add_file(tmp / "frag-timed.tsv")
+    timed = builder.write(tmp / "delta-timed")
+    delta_s = time.perf_counter() - t0
+    check(timed.content_hash == delta.content_hash,
+          "the timed delta differs from the published one")
+    log(f"  live leg: {graph.n_edges_directed} edges as TSV, ingested in "
+        f"{ingest_s:.2f} s ({graph.n_edges_directed / ingest_s:,.0f} edges/s), "
+        f"base {live.base().content_hash[:12]}; the delta (2 edges, 1 new "
+        f"entity) built and written in {delta_s * 1e3:.1f} ms; the swap "
+        f"{swap_wall_s:.3f} s from the drop: build "
+        f"{spans['build']:.1f} ms, warm {spans['warm']:.1f} ms "
+        f"({warmed}), swap {spans['swap']:.3f} ms; with no client load "
+        f"(swaps 2 and 3): " + ", ".join(
+            f"build {q['build']:.1f} ms, warm {q['warm']:.1f} ms"
+            for q in quiet) + f" (switch interval "
+        f"{sys.getswitchinterval() * 1e3:g} ms)")
+    log(f"  served {served_total} requests from {LIVE_CLIENTS} clients "
+        f"across the swap, 0 failed; probe {probe} {base_probe} -> "
+        f"{union_probe} ({n_before} probes before, "
+        f"{len(probe_weights) - n_before} after, none mixed); post-swap "
+        f"answers == union on cuda and torch; version "
+        f"{old_version[:20]}… -> {svc.engine.version[:20]}…; staleness 0; "
+        f"dks.swap spans build/warm/swap")
+    log(f"  launches: the service {service}, the warm {warm} (the warm "
+        f"runs extract=False, so no backtrace), replayed alone {again}")
+    log(f"  device memory (MiB): " + ", ".join(
+        f"{k} {v / 2**20:.1f}" for k, v in mem.items())
+        + f"; one build {build_bytes / 2**20:.1f}")
+    del union, successor, svc, swapper, watcher, chain, post
+    tmp_ctx.cleanup()
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"store_launches": store_launches,
+            "live_launches": {n: {"service": service[n], "warm": warm[n]}
+                              for n in kernels},
+            "summary": f"artifact == phase 5; {served_total} requests "
+                       f"across a hot swap, 0 failed; post-swap == union"}
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -1225,14 +1562,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/10] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/11] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/10] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/11] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -1306,7 +1643,7 @@ def main() -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/10] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/11] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -1369,7 +1706,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/10] kernels == plain versions at the main path's shapes")
+    log("[3/11] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -1388,7 +1725,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/10] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/11] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -1398,9 +1735,8 @@ def main() -> int:
     runs = {}
     for b, eng in engines.items():
         if b == "cuda":
-            sc_ops.launches = 0
-            ls_ops.launches = 0
-            bt_ops.launches = 0
+            for ops in (sc_ops, ls_ops, bt_ops):
+                ops.counter.reset()
         t0 = time.perf_counter()
         batch = eng.query_batch(bucket, k=BUCKET_K, keep_state=b == "cuda")
         t_batch = time.perf_counter() - t0
@@ -1436,7 +1772,10 @@ def main() -> int:
         same_results(rc, rt, f"single query {i}")
     for r in batch + [r for r, _ in single]:
         check(r.found and len(r.answers) > 0, f"no answer for {r.query}")
-    log(f"[5/10] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    # Phase 10 holds an artifact-built engine to these, state dropped.
+    phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
+        r for r, _ in single]
+    log(f"[5/11] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -1505,14 +1844,14 @@ def main() -> int:
 
     # ---------------- 6. LM serving ----------------
     # The engines stay for phase 9 (serving); their states go.
-    del runs, batch, single, tokens, g_small, dg_small
+    del runs, batch, single, g_small, dg_small
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/10] flash_attention == plain version at small shapes and the "
+    log("[6/11] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/10] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/11] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -1526,7 +1865,7 @@ def main() -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/10] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/11] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -1536,20 +1875,27 @@ def main() -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/10] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/11] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     # ---------------- 9. serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/10] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/11] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
     del engines
 
-    # ---------------- 10. kernels line ----------------
+    # ---------------- 10. store and live graphs ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
+    log(f"[10/11] {cfg_sec.name} through the graph store on backend=cuda: "
+        f"{store['summary']}")
+
+    # ---------------- 11. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
@@ -1575,6 +1921,9 @@ def main() -> int:
             **shapes.get(name, {})})
         if name in serving["launches"]:
             kernels[-1]["serving_launches"] = serving["launches"][name]
+        if name in store["live_launches"]:
+            kernels[-1]["store_launches"] = store["store_launches"][name]
+            kernels[-1]["live_launches"] = store["live_launches"][name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,7 +44,7 @@ import torch
 from repro_torch import INF
 from repro_torch.core.dks import BACKENDS
 from repro_torch.core.reconstruct import AnswerTree, backtrace, collect_answers
-from repro_torch.device import resolve_device
+from repro_torch.device import host_tensor, resolve_device
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.batched_backtrace import ops as bt_ops
 from repro_torch.kernels.batched_backtrace.ref import (EDGE, LEAF, SPLIT,
@@ -195,12 +195,10 @@ class BatchedBacktracer:
         if indices.size == 0:
             indices, ews = np.zeros(1, np.int32), np.full(1, INF, np.float32)
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        self._indptr = put(np.asarray(graph.indptr, np.int64))
-        self._esrc = put(indices)
-        self._ew = put(ews)
+        self._indptr = host_tensor(np.asarray(graph.indptr, np.int64),
+                                   self.device)
+        self._esrc = host_tensor(indices, self.device)
+        self._ew = host_tensor(ews, self.device)
         self._pairs: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         # Introspection: how much the device pass actually resolved, and
         # how many lane tables went to the host for the stragglers.

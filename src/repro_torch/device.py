@@ -8,6 +8,7 @@ caller asked for (the tests pass ``device="cpu"``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "port's plain torch path on the CPU")
         return torch.device("cuda", 0)
     return torch.device(device)
+
+
+def host_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``.  A read-only array (an mmapped
+    artifact buffer) is copied first: ``torch.from_numpy`` would alias its
+    pages, and on the CPU ``.to`` does not copy, so the tensor would sit
+    on read-only memory."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)

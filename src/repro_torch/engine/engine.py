@@ -4,8 +4,8 @@ The paper's end-to-end flow (Fig. 2c): inverted-index lookup ->
 keyword-node masks -> DKS supersteps -> aggregator-side answer trees.  The
 engine owns the device-resident graph, the inverted index and the
 lane-batched driver (:mod:`repro_torch.core.driver`).  The twin of
-``repro.engine.QueryEngine`` for the ``graph=`` / ``tokens=`` / ``index=``
-entry modes::
+``repro.engine.QueryEngine``, with its ``graph=`` / ``tokens=`` /
+``index=`` and ``artifact=`` entry modes::
 
     engine = QueryEngine.build(graph, tokens=tokens,
                                policy=ExecutionPolicy(backend="cuda"))
@@ -38,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+from pathlib import Path
 from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
@@ -76,15 +77,25 @@ class QueryEngine:
     Build one per (graph, policy); serve many queries."""
 
     # Monotone build ids: cache keys of one build never match another's.
+    # An engine built from a persisted artifact takes the artifact's
+    # content hash instead: stable across rebuilds of the same artifact,
+    # different for any other graph content.
     _build_counter = itertools.count(1)
 
     def __init__(self, graph: Graph, index: InvertedIndex,
-                 policy: ExecutionPolicy, device_graph: DeviceGraph) -> None:
+                 policy: ExecutionPolicy, device_graph: DeviceGraph,
+                 graph_hash: str | None = None) -> None:
         self.graph = graph
         self.index = index
         self.policy = policy
         self.device_graph = device_graph
-        self.version = next(QueryEngine._build_counter)
+        self.graph_hash = graph_hash
+        self.version: int | str = (
+            f"artifact:{graph_hash}" if graph_hash is not None
+            else next(QueryEngine._build_counter))
+        # The artifact (or chain) the engine was built from: labels for
+        # answer rendering.
+        self.artifact: Any = None
         self._e_min = float(device_graph.e_min())
         # (DKSConfig, "fused" | "stepwise") -> preparations: repro's jit
         # trace counts (1 for the fused driver, 2 for the stepwise pair).
@@ -104,19 +115,41 @@ class QueryEngine:
         tokens: np.ndarray | None = None,
         index: InvertedIndex | None = None,
         policy: ExecutionPolicy | None = None,
+        artifact: Any = None,
         device: str | torch.device | None = None,
     ) -> "QueryEngine":
         """Build an engine: inverted index + device-resident graph.
 
-        ``graph=`` plus exactly one of ``tokens`` (int[V, L] token matrix)
-        or ``index`` — or neither, when ``graph.labels`` is set.
+        Two entry modes:
+
+        - ``graph=`` plus exactly one of ``tokens`` (int[V, L] token
+          matrix) or ``index`` — or neither, when ``graph.labels`` is set;
+        - ``artifact=`` — a :class:`repro_torch.store.GraphArtifact` (or a
+          path to one), or a :class:`repro_torch.store.GraphChain` (a base
+          plus stacked deltas): graph and persisted index come straight
+          off the mmapped buffers, and the artifact's ``content_hash``
+          (for a chain, the chained hash) becomes ``version =
+          "artifact:<hash>"``.
+
         ``device``: where the graph and every query run; ``None`` is the
         card, and raises ``RuntimeError`` when there is none.
         """
         device = resolve_device(device)
         policy = policy or ExecutionPolicy()
+        graph_hash = None
+        if artifact is not None:
+            if graph is not None or tokens is not None or index is not None:
+                raise ValueError(
+                    "pass artifact= alone — it already carries the graph "
+                    "and the persisted index")
+            if isinstance(artifact, (str, Path)):
+                from repro_torch.store import open_artifact
+                artifact = open_artifact(artifact)
+            graph = artifact.graph()
+            index = artifact.index()
+            graph_hash = artifact.content_hash
         if graph is None:
-            raise ValueError("QueryEngine.build needs graph=")
+            raise ValueError("QueryEngine.build needs graph= or artifact=")
         if index is not None and tokens is not None:
             raise ValueError(
                 "pass either tokens= or index=, not both (the tokens would "
@@ -131,7 +164,10 @@ class QueryEngine:
                     "QueryEngine.build needs tokens=, index=, or graph.labels")
         # Fold the weight policy into the weights once, before packing.
         graph = apply_weight_policy(graph, policy.weights)
-        return cls(graph, index, policy, graph.to_device(device))
+        engine = cls(graph, index, policy, graph.to_device(device),
+                     graph_hash=graph_hash)
+        engine.artifact = artifact
+        return engine
 
     # ------------------------------------------------------------------
     # Introspection
@@ -201,10 +237,13 @@ class QueryEngine:
 
     def node_label(self, v: int) -> str:
         """Entity string for a node: the graph's labels when present, else
+        the artifact's label blob (decoded per node, off the mmap), else
         ``node:<id>`` — the label function answer rendering plugs in."""
         v = int(v)
         if self.graph.labels is not None:
             return str(self.graph.labels[v])
+        if self.artifact is not None and self.artifact.has_labels:
+            return self.artifact.label(v)
         return f"node:{v}"
 
     def edge_info(self, u: int, v: int) -> tuple[str | None, float] | None:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import INF
-from repro_torch.device import resolve_device
+from repro_torch.device import host_tensor, resolve_device
 
 # Floor for effective edge weights (Theorem 1 needs w > 0): weights in
 # [0, MIN_EDGE_WEIGHT) clamp up to it; negative weights raise.
@@ -227,7 +227,7 @@ class Graph:
         np.cumsum(np.bincount(dst[:e], minlength=v_pad), out=in_offsets[1:])
 
         def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return host_tensor(a, dev)
 
         pred = conf = None
         typed = self.sym_typed_edges()

@@ -10,13 +10,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.batched_backtrace.ref import batched_backtrace_ref
 
 MAX_M = 6          # keyword count: the leaf test gives a warp lane to each
 MAX_K = 8          # top-K width: the kernel is instantiated for K = 1..8
 MAX_BUFFER = 2048  # obligations per candidate: 4 queues in 227 KB
 
-launches = 0
+counter = LaunchCounter()
 
 RECORDS = ("node", "kind", "child0", "child1", "edge_u")
 
@@ -29,7 +30,6 @@ def batched_backtrace(S: torch.Tensor, kw: torch.Tensor,
     """Decomposition records of every candidate (shapes and meaning as
     :func:`.ref.batched_backtrace_ref`): ``node``, ``kind``, ``child0``,
     ``child1``, ``edge_u`` int32[L, C, buffer] and ``fail`` bool[L, C]."""
-    global launches
     if S.dtype != torch.float32 or S.dim() != 4:
         raise ValueError(f"batched_backtrace wants S f32[L, V, 2^m, K], got "
                          f"{S.dtype}{list(S.shape)}")
@@ -83,6 +83,14 @@ def batched_backtrace(S: torch.Tensor, kw: torch.Tensor,
              lanes, c, vp, m, k, pa.shape[1], buffer, degree_cap,
              indptr.numel() - 1, esrc.numel(),
              torch.cuda.current_stream(S.device).cuda_stream)
-    launches += 1
+    counter.add()
     cuda_build.check(err, "batched_backtrace")
     return out
+
+
+def __getattr__(name: str):
+    # ``ops.launches``: the total of ``counter`` over every thread (and,
+    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -14,13 +14,14 @@ import array
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grouped_ref,
                                                    embedding_bag_ref)
 
 MODES = {"sum": 0, "mean": 1}
 MAX_FIELDS = 64     # table pointers that fit the grouped kernel's parameter
 
-launches = 0
+counter = LaunchCounter()
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -31,7 +32,6 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     or None (all 1) -> f32[B, D], ``sum_j w_j * table[ids_j]`` per bag,
     divided by ``max(valid count, 1)`` for ``mode="mean"``.  All
     contiguous, on one device."""
-    global launches
     if mode not in MODES:
         raise ValueError(f"embedding_bag: mode must be one of {sorted(MODES)}, "
                          f"got {mode!r}")
@@ -70,7 +70,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
              None if weights is None else weights.data_ptr(), out.data_ptr(),
              b, nnz, MODES[mode],
              torch.cuda.current_stream(table.device).cuda_stream)
-    launches += 1
+    counter.add()
     cuda_build.check(err, "embedding_bag")
     return out
 
@@ -89,7 +89,6 @@ def embedding_bag_grouped(tables, ids: torch.Tensor, out: torch.Tensor,
     rows_f - 1]`` (every table then needs a row); otherwise an id outside
     its table is padding, a row of zeros.  1 <= F <= :data:`MAX_FIELDS`.
     All contiguous, on one device."""
-    global launches
     tables = list(tables)
     if ids.dim() != 2 or out.dim() != 2 or ids.shape[0] != out.shape[0]:
         raise ValueError(f"embedding_bag_grouped wants ids [B, F] and out "
@@ -151,6 +150,14 @@ def embedding_bag_grouped(tables, ids: torch.Tensor, out: torch.Tensor,
              None if prefix is None else prefix.data_ptr(), out.data_ptr(),
              out.shape[1], col0, int(clip),
              torch.cuda.current_stream(out.device).cuda_stream)
-    launches += 1
+    counter.add()
     cuda_build.check(err, "embedding_bag_grouped")
     return out
+
+
+def __getattr__(name: str):
+    # ``ops.launches``: the total of ``counter`` over every thread (and,
+    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

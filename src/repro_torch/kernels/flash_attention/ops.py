@@ -17,13 +17,14 @@ import math
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel is instantiated for these
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
-launches_by_route = {"wgmma": 0, "wmma": 0}
+counter = LaunchCounter()
+route_counters = {"wgmma": LaunchCounter(), "wmma": LaunchCounter()}
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
@@ -41,7 +42,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query row ``i`` sits at position ``q_offset + i`` and sees the keys at
     positions ``<=`` its own.
     """
-    global launches
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"flash_attention wants q [B, Sq, Hq, Dh] and k, v "
@@ -80,7 +80,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              skv, hq, hkv, dh, DTYPES[q.dtype], int(q_offset),
              ctypes.c_float(1.0 / math.sqrt(dh)),
              torch.cuda.current_stream(q.device).cuda_stream)
-    launches += 1
-    launches_by_route[route(q.dtype, dh)] += 1
+    counter.add()
+    route_counters[route(q.dtype, dh)].add()
     cuda_build.check(err, "flash_attention")
     return out
+
+
+def __getattr__(name: str):
+    # ``ops.launches``: the total of ``counter`` over every thread (and,
+    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    if name == "launches":
+        return counter.total
+    if name == "launches_by_route":
+        return {r: c.total for r, c in route_counters.items()}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

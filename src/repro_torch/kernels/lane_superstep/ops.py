@@ -28,10 +28,11 @@ from repro_torch.core.dks import (DKSConfig, DKSState, finish_superstep,
 from repro_torch.graph.structure import (
     HUB_IN_DEGREE, DeviceGraph, hub_nodes)
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
 from repro_torch.kernels.subset_combine.ops import check_range
 
-launches = 0
+counter = LaunchCounter()
 
 
 def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
@@ -45,7 +46,6 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
     past ``HUB_IN_DEGREE`` in-edges on its one-thread-per-node path, so a
     hub left out of the list keeps an unwritten row (entries that are not
     hubs are skipped).  The plain version needs no list."""
-    global launches
     if hubs is None:
         hubs = hub_nodes(offsets)
     if S0.dtype != torch.float32 or S0.dim() != 4 or S0.shape[2] != 1 << m:
@@ -78,7 +78,7 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
     err = fn(*(t.data_ptr() for t in (*tensors, hubs)), out.data_ptr(),
              lanes, v, hubs.shape[0], HUB_IN_DEGREE, m, k,
              torch.cuda.current_stream(S0.device).cuda_stream)
-    launches += 1
+    counter.add()
     cuda_build.check(err, "fused_lane_step")
     return out
 
@@ -101,3 +101,11 @@ def fused_lane_superstep(graph: DeviceGraph, state: DKSState,
         step=state.step + 1,
     )
     return finish_superstep(graph, S0, nxt, cfg)
+
+
+def __getattr__(name: str):
+    # ``ops.launches``: the total of ``counter`` over every thread (and,
+    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

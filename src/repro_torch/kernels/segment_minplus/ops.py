@@ -23,10 +23,11 @@ from repro_torch import INF
 from repro_torch.core import semiring
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
 from repro_torch.kernels.subset_combine.ops import MAX_K
 
-launches = 0
+counter = LaunchCounter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +88,6 @@ def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
     """cand f32[Vv, C, F] (candidates <= INF, as ``bump_to_inf`` leaves
     them; C >= k) -> f32[Vv, F, K]: per row and keyword set the K smallest
     distinct candidates, ascending, INF-padded."""
-    global launches
     if cand.dtype != torch.float32 or cand.dim() != 3:
         raise ValueError(f"padded_topk wants f32[Vv, C, F], got "
                          f"{cand.dtype}{list(cand.shape)}")
@@ -110,7 +110,7 @@ def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
     fn = cuda_build.library("padded_topk").dks_padded_topk
     err = fn(cand.data_ptr(), out.data_ptr(), vv, c, f, k,
              torch.cuda.current_stream(cand.device).cuda_stream)
-    launches += 1
+    counter.add()
     cuda_build.check(err, "padded_topk")
     return out
 
@@ -151,3 +151,11 @@ def segment_minplus_padded(S: torch.Tensor, csr: PaddedCSR,
                          f"{list(S.shape)}")
     red = padded_topk(padded_candidates(S, csr, changed), k)
     return merge_virtual_rows(red, csr, n_nodes)
+
+
+def __getattr__(name: str):
+    # ``ops.launches``: the total of ``counter`` over every thread (and,
+    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,12 +12,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.subset_combine.ref import subset_combine_ref
 
 MAX_M = 6   # keyword count: 2^m tables of K floats per node in the slab
 MAX_K = 8   # top-K width: the kernels are instantiated for K = 1..8
 
-launches = 0
+counter = LaunchCounter()
 
 
 def check_range(m: int, k: int, what: str) -> None:
@@ -32,7 +33,6 @@ def check_range(m: int, k: int, what: str) -> None:
 def subset_combine(S: torch.Tensor, m: int) -> torch.Tensor:
     """Closed table of ``S`` (f32[..., 2^m, K]): one popcount-ordered
     sweep over ``split_pairs(m)``, top-K distinct, saturated at INF."""
-    global launches
     if S.dtype != torch.float32 or S.dim() < 2 or S.shape[-2] != 1 << m:
         raise ValueError(f"subset_combine wants f32[..., {1 << m}, K], "
                          f"got {S.dtype}{list(S.shape)}")
@@ -49,6 +49,14 @@ def subset_combine(S: torch.Tensor, m: int) -> torch.Tensor:
     n_rows = S.numel() // ((1 << m) * k)
     err = fn(S.data_ptr(), out.data_ptr(), n_rows, m, k,
              torch.cuda.current_stream(S.device).cuda_stream)
-    launches += 1
+    counter.add()
     cuda_build.check(err, "subset_combine")
     return out
+
+
+def __getattr__(name: str):
+    # ``ops.launches``: the total of ``counter`` over every thread (and,
+    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

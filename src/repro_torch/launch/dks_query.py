@@ -13,8 +13,10 @@ span tree.  ``--telemetry`` carries the per-superstep counters through the
 driver's loop in a device buffer and prints the frontier/message table.
 ``--extract`` prints label-rendered answer trees.  ``--parity`` (with
 ``--backend cuda``) builds a ``"torch"`` twin and asserts bit-identical
-top-K weights and superstep counts.  ``--artifact`` waits for the graph
-store (ROADMAP queue 1 item 6).
+top-K weights and superstep counts.  ``--artifact PATH`` mmap-loads a
+graph-store artifact (``python -m repro_torch.launch.ingest`` writes one;
+so does ``repro.launch.ingest``: the format is shared) instead of
+generating ``--dataset``.
 """
 
 from __future__ import annotations
@@ -56,14 +58,6 @@ def weight_policy_from_args(args) -> WeightPolicy:
                         predicates=preds)
 
 
-def no_artifact(artifact) -> None:
-    """Refuse ``--artifact``: the graph store is not ported yet."""
-    if artifact is not None:
-        raise NotImplementedError(
-            "--artifact needs the graph store (repro.store), which the port "
-            "does not have yet: ROADMAP queue 1 item 6.  Use --dataset.")
-
-
 def load_dataset(name: str):
     ds = DKS_CONFIGS[name]
     g, tokens = lod_like_graph(ds.n_nodes, ds.n_edges, seed=ds.seed,
@@ -72,13 +66,24 @@ def load_dataset(name: str):
     return ds, g, index
 
 
-def build_engine(name: str, policy: ExecutionPolicy | None = None,
-                 device=None):
-    """Dataset name -> (dataset config, ready engine on ``device``; None
-    is the card)."""
+def engine_source(name: str, artifact: str | None = None):
+    """Dataset name (or artifact path) -> (dataset config, the
+    ``QueryEngine.build`` arguments that name the graph).  An artifact's
+    graph and persisted index mmap-load straight into the engine; ``name``
+    then only names the printed config."""
+    if artifact is not None:
+        from repro_torch.store import open_artifact
+        return DKS_CONFIGS.get(name), {"artifact": open_artifact(artifact)}
     ds, g, index = load_dataset(name)
-    return ds, QueryEngine.build(g, index=index, policy=policy,
-                                 device=device)
+    return ds, {"graph": g, "index": index}
+
+
+def build_engine(name: str, policy: ExecutionPolicy | None = None,
+                 device=None, artifact: str | None = None):
+    """Dataset name (or artifact path) -> (dataset config, ready engine on
+    ``device``; None is the card)."""
+    ds, source = engine_source(name, artifact)
+    return ds, QueryEngine.build(**source, policy=policy, device=device)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -86,8 +91,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--dataset", default="sec-rdfabout-cpu",
                     choices=sorted(DKS_CONFIGS))
     ap.add_argument("--artifact", default=None,
-                    help="a graph-store artifact (not ported yet: ROADMAP "
-                         "queue 1 item 6)")
+                    help="path to a graph-store artifact: mmap-load the "
+                         "graph + persisted index instead of generating "
+                         "--dataset (python -m repro_torch.launch.ingest "
+                         "writes one)")
     ap.add_argument("--query", default=None,
                     help="comma-separated token ids (default: auto-pick)")
     ap.add_argument("--m", type=int, default=3,
@@ -118,7 +125,6 @@ def main(argv: list[str] | None = None) -> int:
                          "and assert bit-identical top-K weights and "
                          "superstep count")
     args = ap.parse_args(argv)
-    no_artifact(args.artifact)
     if args.explain and args.stream:
         ap.error("--explain and --stream are mutually exclusive "
                  "(streaming runs outside the serving path)")
@@ -138,17 +144,27 @@ def main(argv: list[str] | None = None) -> int:
         weights=weight_policy_from_args(args),
         telemetry=args.telemetry,
     )
-    ds, g, index = load_dataset(args.dataset)
-    engine = QueryEngine.build(g, index=index, policy=policy,
-                               device=args.device)
-    print(f"loaded {ds.name}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
+    ds, source = engine_source(args.dataset, args.artifact)
+    engine = QueryEngine.build(**source, policy=policy, device=args.device)
+    print(f"loaded {args.artifact or ds.name}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
           f"on {engine.device} ({time.time()-t0:.1f}s)")
     if not policy.weights.is_default:
         print(f"weight policy: {policy.weights}")
 
+    index = engine.index
     if args.query:
-        query = [int(t) if t.lstrip("-").isdigit() else t
-                 for t in args.query.split(",")]
+        def parse_token(t: str):
+            # Int ids for synthetic token-matrix vocabularies; the literal
+            # string when only it is in the vocabulary (ingested dumps
+            # index label text, numeric strings included).
+            if t.lstrip("-").isdigit():
+                ti = int(t)
+                if index.df(ti) == 0 and index.df(t) > 0:
+                    return t
+                return ti
+            return t
+
+        query = [parse_token(t) for t in args.query.split(",")]
     else:
         mid = mid_df_tokens(index)
         query = mid[:: max(1, len(mid) // args.m)][: args.m]
@@ -202,8 +218,7 @@ def main(argv: list[str] | None = None) -> int:
 
         import numpy as np
         twin = QueryEngine.build(
-            g, index=index, policy=dataclasses.replace(policy,
-                                                       backend="torch"),
+            **source, policy=dataclasses.replace(policy, backend="torch"),
             device=engine.device)
         ref = twin.query(query, k=args.k)
         if not np.array_equal(res.weights, ref.weights):

@@ -22,24 +22,35 @@ and an identical follow-up is served warm from the tree-pool cache), and
 its own ``/metrics`` scraped over HTTP (ephemeral port) with the counters
 equal to ``ServeStats``.
 
-``--live``, ``--watch``, ``--swap-mid-run`` and ``--artifact`` need the
-graph store and live graphs, which the port does not have yet (ROADMAP
-queue 1 item 6): they raise.
+``--artifact PATH`` serves a graph-store artifact (its content hash keys
+the result cache).  ``--live DIR`` serves the delta chain of a
+:class:`repro_torch.live.LiveDir` (engine version = the chained hash);
+``--watch WATCH_DIR`` also tails a fragment directory for the duration of
+the replay, hot-swapping the engine on every published delta.
+``--swap-mid-run`` appends the swap-under-load leg (:func:`swap_smoke`):
+open-ended client load over a live ring graph, a fragment dropped
+mid-run, and hard asserts that no request fails, no request sees a
+half-swapped graph, post-swap requests see the chained version, traces
+stay complete and the swap counters land on ``/metrics``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
+import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
 from repro_torch.configs import DKS_CONFIGS
-from repro_torch.engine import ExecutionPolicy
+from repro_torch.engine import ExecutionPolicy, QueryEngine
 from repro_torch.launch.dks_query import (add_weight_policy_args,
-                                          build_engine, no_artifact,
+                                          build_engine,
                                           weight_policy_from_args)
 from repro_torch.obs import MetricsServer, parse_prometheus
 from repro_torch.serve import DKSService, ServeConfig
@@ -175,20 +186,30 @@ def verify_metrics_scrape(svc, server):
 
 def serve_replay(engine, trace, cfg: ServeConfig, *, clients: int,
                  smoke: bool, k: int = 1, metrics_port: int | None = None,
-                 timeout: float | None = None) -> dict:
+                 timeout: float | None = None, watch=None) -> dict:
     """Replay ``trace`` through a :class:`DKSService` over ``engine`` with
     ``clients`` closed-loop clients; under ``smoke`` also serve trees and
-    scrape ``/metrics`` (ephemeral port unless one is given).  Returns the
-    served results, the stats, the tree check, the scrape and the wall
-    time; ``replay_s`` and ``replay_stats`` are the replay's own time and
-    a stats snapshot taken as it returns (before the tree and scrape
-    checks).  The service is stopped on return."""
+    scrape ``/metrics`` (ephemeral port unless one is given).  ``watch``:
+    a ``(LiveDir, watch directory)`` pair whose fragments are hot-swapped
+    into the service while it runs.  Returns the served results, the
+    stats, the tree check, the scrape and the wall time; ``replay_s`` and
+    ``replay_stats`` are the replay's own time and a stats snapshot taken
+    as it returns (before the tree and scrape checks).  The service is
+    stopped on return."""
     if smoke and metrics_port is None:
         metrics_port = 0
     out: dict = {"tree_check": None, "scraped": None}
     t0 = time.perf_counter()
     with DKSService(engine, cfg) as svc:
-        server = None
+        server = watcher = None
+        if watch is not None:
+            from repro_torch.live import EngineSwapper, GraphWatcher
+            swapper = EngineSwapper(svc)
+            swapper.wire_metrics()
+            watcher = GraphWatcher(*watch,
+                                   on_delta=swapper.on_delta).start()
+            print(f"watching {watch[1]} for fragments (hot swap on every "
+                  f"delta)")
         if metrics_port is not None:
             server = MetricsServer(svc.registry, tracer=svc.tracer,
                                    port=metrics_port).start()
@@ -207,6 +228,8 @@ def serve_replay(engine, trace, cfg: ServeConfig, *, clients: int,
         finally:
             if server is not None:
                 server.stop()
+            if watcher is not None:
+                watcher.stop()
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -245,19 +268,161 @@ def check_smoke(stats, tree_check, deadline_frac: float) -> str:
             f"{stats.tree_cache_hits}/{stats.tree_requests} warm")
 
 
+def wait_for(cond, timeout: float, what: str) -> None:
+    """Poll ``cond`` every 20 ms; AssertionError after ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out waiting: {what}"
+        time.sleep(0.02)
+
+
+def swap_smoke(args, timeout: float = 120.0) -> None:
+    """The swap-under-load leg: a live ring graph served under open-ended
+    client load, one fragment dropped mid-run, one hot swap.
+
+    The ring makes the swap observable in the answers: the probe pair
+    sits 8 hops apart (tree weight 8.0) until the delta's shortcut edge
+    collapses it to 1.0 — so every served probe weight in {8.0, 1.0}
+    shows that no request saw a half-swapped graph, and post-swap probes
+    at 1.0 show that the swap landed.  Every wait and join is bounded by
+    ``timeout`` seconds.
+    """
+    from repro_torch.live import EngineSwapper, GraphWatcher, LiveDir
+    from repro_torch.store import ingest_tsv
+
+    with tempfile.TemporaryDirectory(prefix="repro-swap-smoke-") as tmp:
+        tmp = Path(tmp)
+        n, groups = 32, 4
+        lines = [f"e{i:03d} g{i % groups}\t"
+                 f"e{(i + 1) % n:03d} g{(i + 1) % n % groups}\tknows\t1.0"
+                 for i in range(n)]
+        base = tmp / "base.tsv"
+        base.write_text("\n".join(lines) + "\n")
+        live = LiveDir.initialize(tmp / "live", ingest_tsv(base))
+        watch_dir = tmp / "incoming"
+        watch_dir.mkdir()
+
+        policy = ExecutionPolicy(
+            backend=args.backend, max_supersteps=max(args.max_supersteps, 12),
+            weights=weight_policy_from_args(args))
+        engine = QueryEngine.build(artifact=live.chain(), policy=policy,
+                                   device=args.device)
+        old_version = engine.version
+        cfg = ServeConfig(max_batch=4, max_wait_ms=10.0, cache_size=64,
+                          trace_seed=args.seed)
+
+        probe = ["e000", "e008"]   # 8 hops apart until the shortcut lands
+        pool = [probe, ["e004", "g1"], ["e010", "g2"], ["e020", "g3"]]
+        probe_weights: list = []
+        failures: list = []
+        stop = threading.Event()
+
+        def client(i: int) -> None:
+            while not stop.is_set():
+                q = pool[i % len(pool)]
+                try:
+                    srv = svc.query(list(q), k=1, timeout=timeout)
+                    if q is probe:
+                        probe_weights.append(float(srv.result.weights[0]))
+                except Exception as exc:
+                    failures.append((q, exc))
+                    return
+
+        with DKSService(engine, cfg) as svc:
+            swapper = EngineSwapper(svc)
+            swapper.wire_metrics()
+            watcher = GraphWatcher(live, watch_dir, poll_s=0.05,
+                                   on_delta=swapper.on_delta).start()
+            threads = [threading.Thread(target=client, args=(i,),
+                                        daemon=True) for i in range(4)]
+            try:
+                for t in threads:
+                    t.start()
+                wait_for(lambda: svc.stats().requests >= 12, timeout,
+                         "pre-swap load")
+                # Drop the fragment atomically; the watcher publishes the
+                # delta and the swapper rebuilds + swaps off the
+                # dispatcher.
+                frag_tmp = tmp / "frag.tsv.part"
+                frag_tmp.write_text("e000 g0\te008 g0\tshortcut\t1.0\n"
+                                    "zzz fresh\te000 g0\tmentions\t0.9\n")
+                os.replace(frag_tmp, watch_dir / "frag-0001.tsv")
+                wait_for(lambda: swapper.swaps >= 1 or watcher.error,
+                         timeout, "the hot swap")
+                wait_for(lambda: failures or svc.stats().requests >= 24,
+                         timeout, "post-swap load")
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join(timeout)
+                watcher.stop(timeout)
+            assert not any(t.is_alive() for t in threads), \
+                "a client thread outlived its join"
+
+            assert not failures, f"requests failed across the swap: {failures}"
+            chain = live.chain()
+            assert chain.depth == 1
+            assert svc.engine.version == f"artifact:{chain.content_hash}", \
+                "serving engine is not on the chained version"
+            assert svc.engine.version != old_version
+            assert svc.engine.device == engine.device
+
+            # Post-swap answers: the shortcut collapsed the probe, and the
+            # delta-only keyword resolves.
+            post = svc.query(list(probe), k=1, timeout=timeout)
+            assert float(post.result.weights[0]) == 1.0, \
+                f"post-swap probe weight {post.result.weights[0]} != 1.0"
+            fresh = svc.query(["fresh", "g0"], k=1, timeout=timeout)
+            assert float(fresh.result.weights[0]) == 1.0, \
+                f"post-delta keyword probe weight {fresh.result.weights[0]}"
+            bad = [w for w in probe_weights if w not in (8.0, 1.0)]
+            assert not bad, (
+                f"probe weights outside {{8.0, 1.0}}: {sorted(set(bad))} — "
+                "a request saw a half-swapped graph")
+
+            stats = svc.stats()
+            assert stats.engine_swaps >= 1, stats.engine_swaps
+            samples = parse_prometheus(svc.registry.render())
+            assert samples["dks_engine_swaps_total"] == stats.engine_swaps
+            assert samples["dks_delta_applied_total"] >= 1
+            assert samples["dks_graph_staleness_seconds"] == 0.0, \
+                "staleness gauge nonzero after the swap landed"
+
+            ts = svc.tracer.stats()
+            assert ts["begun"] == ts["finished"], (
+                f"trace completeness broke across the swap: {ts}")
+            swaps = [t for t in svc.recent_traces() if t.name == "dks.swap"]
+            assert swaps, "no dks.swap trace recorded"
+            span_names = [sp.name for sp in swaps[-1].spans]
+            assert span_names == ["build", "warm", "swap"], span_names
+            n_probe = len(probe_weights)
+    print(f"swap smoke invariants hold: {stats.requests} requests, 0 "
+          f"failures across {stats.engine_swaps} hot swap(s); probe "
+          f"weight 8.0 -> 1.0 ({n_probe} probes, no mixed-build "
+          f"answers); version {old_version[:21]}… -> "
+          f"{svc.engine.version[:21]}…; traces complete "
+          f"({ts['begun']} begun == finished), dks.swap spans "
+          f"{span_names}; warmed {len(swapper.last_warmed)} hot shapes")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="sec-rdfabout-cpu",
                     choices=sorted(DKS_CONFIGS))
-    for flag, what in (("--artifact", "serve a graph-store artifact"),
-                       ("--live", "serve a live graph's delta chain"),
-                       ("--watch", "tail a fragment directory")):
-        ap.add_argument(flag, default=None,
-                        help=f"{what} (not ported yet: ROADMAP queue 1 "
-                             f"item 6)")
+    ap.add_argument("--artifact", default=None,
+                    help="serve a graph-store artifact (mmap-load; its "
+                         "content hash keys the result cache)")
+    ap.add_argument("--live", default=None, metavar="DIR",
+                    help="serve a LiveDir's delta chain (engine version = "
+                         "the chained hash)")
+    ap.add_argument("--watch", default=None, metavar="WATCH_DIR",
+                    help="with --live: tail this fragment directory during "
+                         "the replay, hot-swapping the engine on every "
+                         "published delta")
     ap.add_argument("--swap-mid-run", action="store_true",
-                    help="the swap-under-load leg (not ported yet: "
-                         "ROADMAP queue 1 item 6)")
+                    help="append the swap-under-load leg (live ring graph, "
+                         "fragment dropped mid-run, hard asserts on zero "
+                         "failures and build isolation)")
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--unique", type=int, default=8,
@@ -293,12 +458,8 @@ def main(argv: list[str] | None = None) -> int:
                          "hits, answer parity, trees and the /metrics "
                          "scrape")
     args = ap.parse_args(argv)
-    no_artifact(args.artifact)
-    if args.live is not None or args.watch is not None or args.swap_mid_run:
-        raise NotImplementedError(
-            "--live, --watch and --swap-mid-run need live graphs "
-            "(repro.live over repro.store), which the port does not have "
-            "yet: ROADMAP queue 1 item 6")
+    if args.watch is not None and args.live is None:
+        ap.error("--watch needs --live DIR")
 
     if args.smoke:
         args.requests = min(args.requests, 20)
@@ -311,8 +472,18 @@ def main(argv: list[str] | None = None) -> int:
     policy = ExecutionPolicy(
         backend=args.backend, max_supersteps=args.max_supersteps,
         weights=weight_policy_from_args(args))
-    ds, engine = build_engine(args.dataset, policy, device=args.device)
-    print(f"loaded {ds.name}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
+    live = None
+    if args.live is not None:
+        from repro_torch.live import LiveDir
+        live = LiveDir(args.live)
+        engine = QueryEngine.build(artifact=live.chain(), policy=policy,
+                                   device=args.device)
+        source = repr(live)
+    else:
+        ds, engine = build_engine(args.dataset, policy, device=args.device,
+                                  artifact=args.artifact)
+        source = args.artifact or ds.name
+    print(f"loaded {source}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
           f"on {engine.device} ({time.time()-t0:.1f}s)")
     if not policy.weights.is_default:
         print(f"weight policy: {policy.weights}")
@@ -332,7 +503,8 @@ def main(argv: list[str] | None = None) -> int:
           f"max_wait_ms={cfg.max_wait_ms:g}")
     run = serve_replay(engine, trace, cfg, clients=args.clients,
                        smoke=args.smoke, k=args.k,
-                       metrics_port=args.metrics_port)
+                       metrics_port=args.metrics_port,
+                       watch=(live, args.watch) if args.watch else None)
     if run["scraped"] is not None:
         print(f"metrics scrape verified: {len(run['scraped'])} samples "
               f"parsed, counters match ServeStats")
@@ -353,6 +525,8 @@ def main(argv: list[str] | None = None) -> int:
               f"bounds")
     if args.smoke:
         print(check_smoke(stats, run["tree_check"], args.deadline_frac))
+    if args.swap_mid_run:
+        swap_smoke(args)
     return 0
 
 

@@ -647,3 +647,90 @@ def test_service_on_the_kernels_equals_torch(cuda_device, serving_engines):
     for sc, st in zip(served["cuda"][0], served["torch"][0]):
         same_served(sc.result, st.result)
     assert served["cuda"][1] == served["torch"][1]
+
+
+@pytest.mark.cuda
+def test_artifact_engine_on_the_kernels_equals_graph_built(cuda_device,
+                                                           tmp_path):
+    """An engine built from a written and reopened artifact on the card
+    answers as the graph-built ``"cuda"`` engine and as ``"torch"`` on the
+    artifact: weights, supersteps and trees, with its kernels launched."""
+    from repro_torch.store import from_graph, open_artifact, write_artifact
+    g, tokens = lod_like_graph(600, 1800, seed=11, vocab=120)
+    result = from_graph(g, tokens=tokens)
+    art = write_artifact(tmp_path / "a", result.graph, result.index)
+    engines = {
+        "graph": QueryEngine.build(g, tokens=tokens, device=cuda_device,
+                                   policy=ExecutionPolicy(backend="cuda")),
+        "artifact": QueryEngine.build(
+            artifact=open_artifact(art.path, verify="full"),
+            device=cuda_device, policy=ExecutionPolicy(backend="cuda")),
+        "torch": QueryEngine.build(artifact=art.path, device=cuda_device,
+                                   policy=ExecutionPolicy(backend="torch")),
+    }
+    assert engines["artifact"].version == f"artifact:{art.content_hash}"
+    index = engines["torch"].index
+    toks = [t for t in sorted(index.vocabulary(), key=index.df)
+            if 2 <= index.df(t) <= 60]
+    queries = [toks[0:3], toks[3:5], toks[5:8], toks[1:3]]
+    launched = (ls_ops.launches, bt_ops.launches)
+    got = engines["artifact"].query_batch(queries, k=2)
+    assert ls_ops.launches > launched[0] and bt_ops.launches > launched[1]
+    for other in ("graph", "torch"):
+        for rc, rt in zip(got, engines[other].query_batch(queries, k=2)):
+            same_served(rc, rt)
+
+
+@pytest.mark.cuda
+def test_swap_on_the_card_warms_on_the_watcher_thread(cuda_device,
+                                                      tmp_path):
+    """A live graph served on the card: a fragment published through the
+    watcher's thread swaps in a successor built on the same card, warmed
+    there (its launches counted on that thread, apart from the
+    dispatcher's), answering as a ``"torch"`` engine on the compacted
+    union."""
+    import threading
+
+    from repro_torch.live import EngineSwapper, GraphWatcher, LiveDir
+    from repro_torch.store import compact_chain, ingest_tsv
+
+    lines = [f"e{i:03d} g{i % 4}\te{(i + 1) % 32:03d} g{(i + 1) % 4}"
+             for i in range(32)]
+    (tmp_path / "base.tsv").write_text("\n".join(lines) + "\n")
+    live = LiveDir.initialize(tmp_path / "live",
+                              ingest_tsv(tmp_path / "base.tsv"))
+    policy = ExecutionPolicy(backend="cuda", max_supersteps=24)
+    e0 = QueryEngine.build(artifact=live.chain(), policy=policy,
+                           device=cuda_device)
+    probe = ["e000", "e008"]
+    incoming = tmp_path / "incoming"
+    incoming.mkdir()
+    with DKSService(e0, ServeConfig(max_batch=2, max_wait_ms=1.0,
+                                    cache_size=0)) as svc:
+        assert svc.query(probe, k=1, timeout=SERVE_WAIT).result.weights[0] \
+            == 8.0
+        swapped = threading.Event()
+        swapper = EngineSwapper(svc)
+        for ops in (ls_ops, sc_ops):
+            ops.counter.reset()
+        watcher = GraphWatcher(
+            live, incoming, poll_s=0.02,
+            on_delta=lambda lv, d: (swapper.on_delta(lv, d),
+                                    swapped.set())).start()
+        try:
+            (incoming / "frag.tsv").write_text("e000 g0\te008 g0\n")
+            assert swapped.wait(SERVE_WAIT), "no swap"
+        finally:
+            watcher.stop(SERVE_WAIT)
+        warm = {ops: ops.counter.by_thread().get("repro-graph-watcher", 0)
+                for ops in (ls_ops, sc_ops)}
+        assert all(n > 0 for n in warm.values()), warm
+        assert swapper.last_warmed, "the warm ran no hot shape"
+        assert svc.engine.device == cuda_device
+        post = svc.query(probe, k=1, timeout=SERVE_WAIT).result
+        assert post.weights[0] == 1.0
+    union = QueryEngine.build(
+        artifact=compact_chain(live.chain(), tmp_path / "union"),
+        policy=ExecutionPolicy(backend="torch", max_supersteps=24),
+        device=cuda_device)
+    same_served(post, union.query(probe, k=1))

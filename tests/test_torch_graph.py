@@ -98,6 +98,80 @@ def test_weight_policy_identical(kw):
     np.testing.assert_array_equal(np.asarray(dj.w), dt.w.numpy())
 
 
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(kind="confidence", blend=1.0),
+    dict(predicates=("funds",)),
+])
+def test_typed_artifact_weight_policy_identical(tmp_path, kw):
+    """A typed (format v2) artifact written by repro opens in the port
+    with its predicate table and typed buffers, and the port's engine
+    packs the same effective weights as repro's under every policy."""
+    from repro.engine import ExecutionPolicy as PolicyJ
+    from repro.engine import QueryEngine as EngineJ
+    from repro.store import write_artifact as write_artifact_j
+
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.store import open_artifact
+
+    tokens = np.arange(40, dtype=np.int32).reshape(40, 1)
+    gj = typed_graph(st_j)   # the writer caches its sorted layouts
+    art_j = write_artifact_j(tmp_path / "typed", gj,
+                             IndexJ.from_token_matrix(tokens))
+    art = open_artifact(art_j.path, verify="full")
+    assert art.typed and art.predicates == ["knows", "funds", "cites"]
+    assert art.content_hash == art_j.content_hash
+    assert_same_graph(gj, art.graph())
+    ej = EngineJ.build(artifact=art_j,
+                       policy=PolicyJ(weights=wt_j.WeightPolicy(**kw)))
+    et = QueryEngine.build(artifact=art, device="cpu", policy=ExecutionPolicy(
+        weights=wt_t.WeightPolicy(**kw)))
+    np.testing.assert_array_equal(np.asarray(ej.device_graph.w),
+                                  et.device_graph.w.numpy())
+    assert et.edge_info(int(art.graph().src[0]), int(art.graph().dst[0])) \
+        == ej.edge_info(int(art.graph().src[0]), int(art.graph().dst[0]))
+
+
+def test_v1_artifact_opens_and_serves_bit_identically(tmp_path):
+    """An untyped artifact whose manifest says format v1 (the pre-typed
+    layout) opens in the port, and its engine answers as the in-memory
+    build and as repro's engine on it under the default WeightPolicy;
+    non-default policies need the typed channel it lacks."""
+    import json
+
+    from repro.engine import QueryEngine as EngineJ
+    from repro.store import open_artifact as open_artifact_j
+
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.store import from_graph, open_artifact, write_artifact
+
+    g, tokens = gen_t.lod_like_graph(400, 1200, seed=5, vocab=80)
+    result = from_graph(g, tokens=tokens)
+    art = write_artifact(tmp_path / "a", result.graph, result.index)
+    assert art.format_version == 2 and not art.typed
+    manifest = json.loads((art.path / "manifest.json").read_text())
+    manifest["format_version"] = 1
+    (art.path / "manifest.json").write_text(json.dumps(manifest))
+
+    reopened = open_artifact(art.path)
+    assert reopened.format_version == 1
+    assert not reopened.typed and reopened.predicates == []
+    e_mem = QueryEngine.build(g, index=result.index, device="cpu")
+    e_art = QueryEngine.build(artifact=reopened, device="cpu")
+    ref = EngineJ.build(artifact=open_artifact_j(art.path))
+    toks = sorted(result.index.vocabulary(), key=result.index.df)
+    q = [t for t in toks if 2 <= result.index.df(t) <= 40][:3]
+    r_mem, r_art = (e.query(q, k=2, extract=False) for e in (e_mem, e_art))
+    r_ref = ref.query(q, k=2, extract=False)
+    for other in (r_mem, r_ref):
+        np.testing.assert_array_equal(r_art.weights, other.weights)
+        assert r_art.supersteps == other.supersteps
+    with pytest.raises(ValueError, match="typed"):
+        QueryEngine.build(artifact=reopened, device="cpu",
+                          policy=ExecutionPolicy(
+                              weights=wt_t.WeightPolicy(kind="confidence")))
+
+
 @pytest.mark.parametrize("pad", [(None, None), (260, 2100)])
 def test_to_device_identical(pad):
     gj, _ = gen_j.lod_like_graph(250, 900, seed=4, vocab=30)

@@ -55,6 +55,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.kernels.embedding_bag.ops",
                  "repro_torch.kernels.embedding_bag.ref",
                  "repro_torch.kernels.segment_minplus.ops",
-                 "repro_torch.kernels.segment_minplus.ref"):
+                 "repro_torch.kernels.segment_minplus.ref",
+                 "repro_torch.kernels.counting",
+                 "repro_torch.store", "repro_torch.store.artifact",
+                 "repro_torch.store.ingest", "repro_torch.store.delta",
+                 "repro_torch.live", "repro_torch.live.state",
+                 "repro_torch.live.watch", "repro_torch.live.swap",
+                 "repro_torch.launch.ingest"):
         assert name in seen["modules"], name
     assert seen["bad"] == []

@@ -503,6 +503,49 @@ def test_return_trees_render_labels_and_cache():
                              timeout=WAIT).cache_hit
 
 
+def test_return_trees_end_to_end_from_artifact(tmp_path):
+    """The answer pipeline off an ingested artifact: served trees are
+    label-rendered from the artifact's label blob (the graph carries no
+    labels in memory), equal to what repro serves from the same artifact,
+    and a warm identical request comes whole from the tree-pool cache."""
+    from repro.store import open_artifact as open_artifact_j
+
+    from repro_torch.graph.index import InvertedIndex
+    from repro_torch.store import open_artifact, write_artifact
+
+    labels = ["paris hotel", "piano bar", "cafe central", "bistro nord",
+              "museum", "shop"]
+    g = build_graph_t([0, 2, 0, 3, 4, 5], [2, 1, 3, 1, 0, 1], 6,
+                      w=np.ones(6, np.float32), labels=labels)
+    art = write_artifact(tmp_path / "art", g, InvertedIndex.from_labels(labels))
+    engine = EngineT.build(artifact=open_artifact(art.path), device="cpu")
+    ref = EngineJ.build(artifact=open_artifact_j(art.path))
+    assert engine.graph.labels is None  # labels live only in the blob
+    assert engine.version == ref.version
+    cfg = dict(cache_size=8, tree_page_size=2)
+    with DKSService(engine, ServeConfig(**cfg)) as svc, \
+            ServiceJ(ref, ConfigJ(**cfg)) as svc_j:
+        page = svc.query(["paris", "piano"], k=2, return_trees=True,
+                         timeout=WAIT).trees
+        page_j = svc_j.query(["paris", "piano"], k=2,
+                             return_trees=True).trees
+        assert page.total == page_j.total >= 2 and len(page.items) == 2
+        assert [(tree_key(t), t.node_labels, t.root_label)
+                for t in page.items] == \
+            [(tree_key(t), t.node_labels, t.root_label)
+             for t in page_j.items]
+        for t in page.items:
+            assert all(lbl == labels[n]
+                       for n, lbl in zip(t.nodes, t.node_labels))
+        executes = engine.execute_count
+        warm = svc.query(["paris", "piano"], k=2, return_trees=True,
+                         timeout=WAIT)
+        assert warm.cache_hit and engine.execute_count == executes
+        assert [tree_key(t) for t in warm.trees.items] == \
+            [tree_key(t) for t in page.items]
+        assert svc.stats().tree_cache_hits == 1
+
+
 def test_tree_ranking_and_pagination(engine):
     toks = mid_df_tokens(engine.index, 2)
     with DKSService(engine, ServeConfig(cache_size=8, tree_page_size=2,
@@ -629,12 +672,55 @@ def test_dks_query_cli(tiny_dataset, capsys, flags):
 @pytest.mark.parametrize("argv", [
     ["--artifact", "x"], ["--live", "x"], ["--watch", "x"],
     ["--swap-mid-run"]])
-def test_store_and_live_flags_raise_until_ported(argv):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve_dks.main(["--smoke", "--device", "cpu", *argv])
+def test_store_and_live_flags_raise_until_ported(tiny_dataset, capsys, argv):
+    """The graph store is ported: each flag now reaches it, and none
+    raises NotImplementedError.  A missing artifact or live dir raises the
+    store's own error, ``--watch`` needs ``--live``, and
+    ``--swap-mid-run`` runs the swap-under-load leg to its invariants."""
+    from repro_torch.store import ArtifactError
+    cli = ["--smoke", "--dataset", "tiny", "--backend", "torch",
+           "--device", "cpu", *argv]
+    if argv[0] == "--swap-mid-run":
+        assert serve_dks.main(cli) == 0
+        assert "swap smoke invariants hold" in capsys.readouterr().out
+    elif argv[0] == "--watch":
+        with pytest.raises(SystemExit):
+            serve_dks.main(cli)
+        assert "--watch needs --live" in capsys.readouterr().err
+    else:
+        with pytest.raises(ArtifactError, match="no (graph artifact|live "
+                                                "graph) at x"):
+            serve_dks.main(cli)
     if argv[0] == "--artifact":
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(ArtifactError, match="no graph artifact"):
             dks_query.main(["--device", "cpu", *argv])
+
+
+def test_serve_dks_live_watch_and_artifact(tiny_dataset, tmp_path, capsys):
+    """``serve_dks --live DIR --watch WATCH_DIR`` serves a LiveDir's chain
+    with the watcher running, and ``--artifact`` serves an ingested
+    artifact; both verify every served answer against the direct engine."""
+    from repro_torch.launch import ingest as ingest_cli
+    art = str(tmp_path / "art")
+    assert ingest_cli.main(["--dataset", "tiny", "--out", art,
+                            "--device", "cpu", "--verify-queries", "0"]) == 0
+    assert serve_dks.main(["--artifact", art, "--requests", "8",
+                           "--clients", "2", "--backend", "torch",
+                           "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"loaded {art}" in out and "exact answers equal" in out
+    lines = [f"a{i} g{i % 8}\ta{i + 1} g{(i + 1) % 8}" for i in range(24)]
+    (tmp_path / "base.tsv").write_text("\n".join(lines) + "\n")
+    (tmp_path / "incoming").mkdir()
+    assert ingest_cli.main(["--input", str(tmp_path / "base.tsv"), "--live",
+                            str(tmp_path / "live"), "--device", "cpu"]) == 0
+    assert serve_dks.main(["--live", str(tmp_path / "live"), "--watch",
+                           str(tmp_path / "incoming"), "--requests", "8",
+                           "--unique", "4", "--clients", "2", "--backend",
+                           "torch", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "loaded LiveDir(" in out and "watching" in out
+    assert "exact answers equal" in out
 
 
 def test_sharded_partition_raises_until_ported():
