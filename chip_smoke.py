@@ -123,11 +123,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    one build's bytes of where it started.  Prints ingest edges/s, the
    delta's write ms, the swap's build / warm / swap ms, requests served
    across it, the service's and the warm's launches and the memory.
-11. The kernels line: one JSON object with each kernel's launches on the
+12. Sharded partition — phase 5's sec-rdfabout graph and index on
+   ``ExecutionPolicy(partition="sharded", n_shards=4)`` (the
+   frontier-compressed partition: 4 shards of the node axis on the one
+   card, ``backend="torch"``): uncapped (``frontier_frac=1.0``), the
+   bucket and the two m = 4 queries equal phase 5 exactly (weights,
+   supersteps, flags, answer trees); at the default cap (0.25) each lane
+   of the bucket equals phase 5 or stops with ``budget_hit`` and a sound
+   bound, SPA <= phase 5's exact top-1 <= its own top-1; a small graph
+   whose cap overflows answers on the card exactly as on the CPU
+   (``query_batch`` and a stream); phase 9's ``make_trace`` served through
+   ``DKSService`` on the sharded engine, every exact answer equal to
+   ``engine.query``.  Prints the driver's ms per superstep beside phase
+   5's ``"cuda"`` and ``"torch"``, the frontier bytes gathered per
+   superstep against the dense table's, ``e_cap`` and the shard
+   imbalance, peak device memory, and the hand-written kernels'
+   launches on this path (zeroed just before, read just after: 0, since
+   the sharded engine runs stock torch).
+13. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
    in phase 9 for the three kernels it runs; ``store_launches`` and
-   ``live_launches`` phase 10's artifact engine, live service and warm),
-   error, times and bound.
+   ``live_launches`` phase 10's artifact engine, live service and warm;
+   ``sharded_launches`` phase 12's), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -185,6 +202,9 @@ SERVE_DEADLINE_FRAC, SERVE_DEADLINE_MS = 0.25, 75.0
 SERVE_TIMEOUT_S = 120       # the most any served request is waited for
 LIVE_CLIENTS = 4            # phase 10's client threads across the swap
 LIVE_PROBE_HOPS = 3         # the live probe pair's hop distance
+SHARDS = 4                  # phase 12's shards, all on the one card
+SHARDED_CAP = 0.25          # phase 12's capped run: the default cap
+SMALL_SHARDED = (3001, 12000, 0.05)  # phase 12's small graph and its cap
 # The bucket's extraction through the host collector, before the batched
 # backtracer (PERF.md §5, on an H100 at 700 W).
 EXTRACTION_HOST_MS = 981.2
@@ -1529,6 +1549,159 @@ def store_phase(dev, graph, tokens, index, bucket, singles,
                        f"across a hot swap, 0 failed; post-swap == union"}
 
 
+def sharded_phase(dev, graph, index, bucket, singles, phase5,
+                  per_step) -> dict:
+    """Phase 12: the sharded partition on the card, held against phase 5
+    (``phase5``: its bucket and queries; ``per_step``: its driver ms per
+    superstep by backend).  Returns the phase's launch counts and a
+    one-line summary."""
+    from repro_torch.core.dks_sharded import frontier_cap
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.graph.generators import lod_like_graph
+    from repro_torch.graph.index import InvertedIndex
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+    from repro_torch.launch.serve_dks import serve_replay, verify_served
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.loadgen import make_trace
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    kernels = {"lane_superstep": ls_ops, "subset_combine": sc_ops,
+               "batched_backtrace": bt_ops}
+    for ops in kernels.values():
+        ops.counter.reset()
+    # Telemetry reads the frontier per superstep; it changes no answer.
+    t0 = time.perf_counter()
+    eng = QueryEngine.build(graph, index=index, device=dev,
+                            policy=ExecutionPolicy(
+                                partition="sharded", n_shards=SHARDS,
+                                frontier_frac=1.0, telemetry=True))
+    build_ms = (time.perf_counter() - t0) * 1e3
+    fg = eng.device_graph
+    check(fg.n_shards == SHARDS and fg.device == dev,
+          f"sharded graph: {fg.n_shards} shards on {fg.device}")
+
+    # Uncapped: exactly phase 5.
+    t0 = time.perf_counter()
+    batch = eng.query_batch(bucket, k=BUCKET_K)
+    t_batch = time.perf_counter() - t0
+    single = []
+    for q in singles:
+        t0 = time.perf_counter()
+        single.append((eng.query(q, k=SINGLE_K), time.perf_counter() - t0))
+    for i, (r, p) in enumerate(zip(batch + [r for r, _ in single], phase5)):
+        same_results(r, p, f"sharded result {i} vs phase 5")
+        check(not r.budget_hit, f"sharded result {i}: budget_hit uncapped")
+
+    # The default cap: exact, or a forced stop with a sound bound.
+    t0 = time.perf_counter()
+    capped = eng.query_batch(bucket, k=BUCKET_K, frontier_frac=SHARDED_CAP)
+    t_capped = time.perf_counter() - t0
+    bounds = []
+    for i, (r, p) in enumerate(zip(capped, phase5)):
+        if not r.budget_hit:
+            same_results(r, p, f"capped lane {i} vs phase 5")
+            continue
+        exact, own = float(p.weights[0]), float(r.weights[0])
+        check(r.spa is not None and r.spa <= exact <= own,
+              f"capped lane {i}: SPA {r.spa} <= exact {exact} <= own "
+              f"{own} does not hold")
+        bounds.append((r.supersteps, r.spa, exact, own))
+
+    # A small graph whose cap overflows: the card answers as the CPU.
+    n_s, e_s, frac_s = SMALL_SHARDED
+    gs, toks_s = lod_like_graph(n_s, e_s, seed=5, vocab=200)
+    idx_s = InvertedIndex.from_token_matrix(toks_s)
+    qs = draw_queries(gs, idx_s, 4, BUCKET_M, np.random.default_rng(
+        QUERY_SEED))
+    small = [QueryEngine.build(gs, index=idx_s, device=d,
+                               policy=ExecutionPolicy(
+                                   partition="sharded", n_shards=SHARDS,
+                                   frontier_frac=frac_s))
+             for d in (dev, "cpu")]
+    on_card, on_cpu = (e.query_batch(qs, k=2) for e in small)
+    for i, (rc, rt) in enumerate(zip(on_card, on_cpu)):
+        same_results(rc, rt, f"small sharded graph, lane {i}, cuda vs cpu")
+        check(rc.spa == rt.spa, f"small graph lane {i}: spa differs")
+    check(any(r.budget_hit for r in on_card),
+          "small sharded graph: no lane overflowed its cap")
+    same_stream(*(list(e.query_stream(qs[0], k=2)) for e in small))
+    del small
+
+    # Phase 9's trace through DKSService on the sharded engine.
+    trace = make_trace(index, SERVE_REQUESTS, unique=SERVE_UNIQUE, k=1,
+                       deadline_frac=SERVE_DEADLINE_FRAC,
+                       deadline_ms=SERVE_DEADLINE_MS, seed=0)
+    run = serve_replay(eng, trace, ServeConfig(
+        max_batch=4, max_wait_ms=50.0, cache_size=256, trace_seed=0),
+        clients=SERVE_CLIENTS, smoke=False, k=1, timeout=SERVE_TIMEOUT_S)
+    n_exact, n_approx = verify_served(eng, trace, run["served"])
+    check(n_exact > 0, "no exact served answer on the sharded engine")
+    launches = {name: ops.launches for name, ops in kernels.items()}
+    check(not any(launches.values()),
+          f"hand-written kernels launched on the sharded path: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = max(r.supersteps for r in batch)
+    drv = batch[0].wall_time_s * 1e3 / steps
+    log(f"  sharded engine: {SHARDS} shards of {fg.n_loc} nodes (V_pad "
+        f"{fg.v_pad}), built in {build_ms:.1f} ms; bucket of "
+        f"{BUCKET_LANES} and {N_SINGLE} queries == phase 5 exactly")
+    log(f"  bucket (m={BUCKET_M}, k={BUCKET_K}): {steps} supersteps, "
+        f"{t_batch * 1e3:.1f} ms = driver {batch[0].wall_time_s * 1e3:.1f} "
+        f"ms ({drv:.2f} ms per superstep; phase 5: cuda "
+        f"{per_step['cuda'][0]:.2f}, torch {per_step['torch'][0]:.2f}) + "
+        f"extraction {(t_batch - batch[0].wall_time_s) * 1e3:.1f} ms")
+    for i, (r, t) in enumerate(single):
+        log(f"  query {i} (m={SINGLE_M}, k={SINGLE_K}): {r.supersteps} "
+            f"supersteps, {t * 1e3:.1f} ms, driver "
+            f"{r.wall_time_s * 1e3 / r.supersteps:.2f} ms per superstep "
+            f"(phase 5: cuda {per_step['cuda'][1][i]:.2f}, torch "
+            f"{per_step['torch'][1][i]:.2f})")
+    cfg = ExecutionPolicy(partition="sharded").dks_config(BUCKET_M,
+                                                          BUCKET_K)
+    cell = (1 << BUCKET_M) * BUCKET_K * 4          # one node's table, bytes
+    dense = BUCKET_LANES * graph.n_nodes * cell
+    for frac in (1.0, SHARDED_CAP):
+        f_cap = frontier_cap(fg, dataclasses.replace(cfg,
+                                                     frontier_frac=frac))
+        gathered = BUCKET_LANES * SHARDS * f_cap * (cell + 4)
+        log(f"  frontier_frac={frac}: f_cap {f_cap} per shard and lane, "
+            f"{gathered / 2**20:.1f} MiB gathered per superstep (ids and "
+            f"tables) against the dense table's {dense / 2**20:.1f} MiB")
+    front = batch[0].telemetry.frontier
+    log(f"  the bucket's changed nodes after each superstep (all lanes): "
+        f"{front.tolist()}, mean {front.mean():.0f}, whose tables are "
+        f"{front.mean() * cell / 2**20:.1f} MiB")
+    counts = (fg.edge_src >= 0).sum(dim=1).cpu().numpy()
+    log(f"  e_cap {fg.e_cap} ({fg.n_edges} symmetric edges); edges per "
+        f"shard {counts.tolist()}, imbalance (largest / mean) "
+        f"{counts.max() / counts.mean():.4f}")
+    log(f"  capped at {SHARDED_CAP}: {len(bounds)} of {BUCKET_LANES} lanes "
+        f"stopped by overflow, (supersteps, SPA, exact, own top-1) "
+        f"{bounds}; {t_capped * 1e3:.1f} ms")
+    lat = np.asarray([r.latency_ms for r in run["served"]])
+    st = run["replay_stats"]
+    log(f"  served: {len(trace)} requests in {run['replay_s']:.3f} s, p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f}"
+        f" ms, {st.throughput_rps:.2f} requests/s, batch fill "
+        f"{st.mean_batch_fill:.3f}; {n_exact} exact answers == "
+        f"engine.query, {n_approx} approximate within sound bounds")
+    log(f"  small graph ({n_s} nodes, frontier_frac={frac_s}): cuda == cpu,"
+        f" {sum(r.budget_hit for r in on_card)} of {len(qs)} lanes "
+        f"overflowed")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB ({mem0 / 2**30:.2f} "
+        f"GiB held before the phase); hand-written kernel launches "
+        f"{launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches,
+            "summary": f"{steps} supersteps at {drv:.2f} ms each, "
+                       f"{len(bounds)} capped lanes sound, {n_exact} exact "
+                       f"served answers"}
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -1562,14 +1735,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/11] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/13] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/11] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/13] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -1643,7 +1816,7 @@ def main() -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/11] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/13] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -1706,7 +1879,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/11] kernels == plain versions at the main path's shapes")
+    log("[3/13] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -1725,7 +1898,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/11] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/13] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -1775,7 +1948,7 @@ def main() -> int:
     # Phase 10 holds an artifact-built engine to these, state dropped.
     phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
         r for r, _ in single]
-    log(f"[5/11] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/13] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -1797,6 +1970,10 @@ def main() -> int:
             f"{rc.supersteps} supersteps, weights {rc.weights.tolist()}")
         for b, (_, _, sg) in runs.items():
             log(f"    {b}: {split(sg[i][0], sg[i][1], rc.supersteps)}")
+    # Phase 12 sets the sharded driver beside these: ms per superstep.
+    per_step = {b: (bb[0].wall_time_s * 1e3 / steps_batch,
+                    [r.wall_time_s * 1e3 / r.supersteps for r, _ in sg])
+                for b, (bb, _, sg) in runs.items()}
     log(f"  launches on the main path: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     bt = engines["cuda"]._backtracer()
@@ -1848,10 +2025,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/11] flash_attention == plain version at small shapes and the "
+    log("[6/13] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/11] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/13] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -1865,7 +2042,7 @@ def main() -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/11] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/13] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -1875,14 +2052,14 @@ def main() -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/11] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/13] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     # ---------------- 9. serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/11] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/13] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
@@ -1892,10 +2069,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
-    log(f"[10/11] {cfg_sec.name} through the graph store on backend=cuda: "
+    log(f"[10/13] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
-    # ---------------- 11. kernels line ----------------
+    # ---------------- 12. sharded partition ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(dev, graph, index, bucket, singles, phase5,
+                            per_step)
+    log(f"[12/13] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
+        f" backend=torch) == phase 5; {sharded['summary']}")
+
+    # ---------------- 13. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
@@ -1924,6 +2109,8 @@ def main() -> int:
         if name in store["live_launches"]:
             kernels[-1]["store_launches"] = store["store_launches"][name]
             kernels[-1]["live_launches"] = store["live_launches"][name]
+        if name in sharded["launches"]:
+            kernels[-1]["sharded_launches"] = sharded["launches"][name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,8 @@ class DKSConfig:
     exit_mode: str = "sound"    # "sound" | "none"
     backend: str = "torch"      # "torch" | "cuda"
     combine_passes: int | None = None  # default ceil(log2 m)
+    frontier_frac: float = 0.25  # per-shard frontier cap (sharded relax);
+    # overflow marks budget_hit, the paper's Sec. 5.4 forced stop + SPA.
 
     def __post_init__(self) -> None:
         if self.backend not in BACKENDS:
@@ -105,8 +107,10 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(DKSState))
 def init_state(graph: DeviceGraph, kw_masks: torch.Tensor,
                cfg: DKSConfig) -> DKSState:
     """Superstep 0 for ``L`` lanes (``kw_masks``: bool[L, m, V]):
-    keyword-nodes hold weight-0 singletons and are active."""
-    dev = graph.device
+    keyword-nodes hold weight-0 singletons and are active.  Reads only
+    ``v_pad`` and ``node_valid`` of the graph, which a sharded
+    :class:`~repro_torch.core.dks_sharded.FrontierGraph` also has."""
+    dev = graph.node_valid.device
     lanes = kw_masks.shape[0]
     v_pad = graph.v_pad
     n, k = cfg.n_sets, cfg.k
@@ -290,12 +294,19 @@ def freeze_finished(old: DKSState, new: DKSState) -> DKSState:
                        for f in STATE_FIELDS})
 
 
-def finish_superstep(graph: DeviceGraph, S0: torch.Tensor, state: DKSState,
-                     cfg: DKSConfig) -> DKSState:
-    """The post-combine tail of every superstep flavor: recompute the
-    active set from the table delta, fold visit tracking, run the
-    aggregators and the exit check.  ``state.S`` holds the combined table;
-    ``S0`` is the pre-relax table; counters/step are the caller's."""
+def finish_superstep(graph: Any, S0: torch.Tensor, state: DKSState,
+                     cfg: DKSConfig, overflow: torch.Tensor | None = None,
+                     ) -> DKSState:
+    """The post-combine tail of every superstep flavor (dense and
+    frontier-sharded): recompute the active set from the table delta,
+    fold visit tracking, run the aggregators and the exit check.
+    ``state.S`` holds the combined table; ``S0`` is the pre-relax table;
+    counters/step are the caller's.
+
+    ``overflow``: bool[L], the sharded relax's frontier-overflow flag; it
+    folds into ``budget_hit`` and ``done`` (frontier overflow is the
+    paper's Sec. 5.4 message-budget forced stop).
+    """
     changed = (state.S < S0).any(dim=3).any(dim=2) & graph.node_valid
     st = dataclasses.replace(
         state,
@@ -304,7 +315,11 @@ def finish_superstep(graph: DeviceGraph, S0: torch.Tensor, state: DKSState,
         visited=state.visited | changed,
     )
     st = aggregate(graph, st, cfg)
-    return exit_check(graph, st, cfg)
+    st = exit_check(graph, st, cfg)
+    if overflow is not None:
+        st = dataclasses.replace(st, budget_hit=st.budget_hit | overflow,
+                                 done=st.done | overflow)
+    return st
 
 
 def message_counts(graph: DeviceGraph, state: DKSState
@@ -382,11 +397,46 @@ def run_dks_instrumented(
 
     The phases are the torch ones whatever the backend (``"cuda"`` reaches
     the subset-combine kernel in "evaluate", as ``repro``'s ``"pallas"``
-    reaches its combine kernel), each ended by a device synchronisation:
-    send_bfs (gather + add candidates), receive (segment top-K + merge),
-    evaluate (subset combine), send_agg (aggregators + exit).
+    reaches its combine kernel): send_bfs (gather + add candidates),
+    receive (segment top-K + merge), evaluate (subset combine), send_agg
+    (aggregators + exit).  See :func:`host_instrumented_loop` for
+    ``exit_hook`` and ``info``.
+    """
+    return host_instrumented_loop(
+        graph, kw_masks, cfg, exit_hook,
+        phase_relax=lambda S, changed: edge_candidates(
+            S, changed, graph.src, graph.w, graph.valid),
+        phase_receive=lambda S, cand: semiring.topk_merge(
+            S, receive_candidates(cand, graph.dst, graph.v_pad)),
+        phase_combine=lambda S: combine(S, cfg),
+        phase_agg=lambda S0, state, _cand: finish_superstep(
+            graph, S0, state, cfg))
+
+
+def host_instrumented_loop(
+    graph: Any,
+    kw_masks: torch.Tensor,
+    cfg: DKSConfig,
+    exit_hook: Callable[[DKSState], bool] | None,
+    phase_relax: Callable,
+    phase_receive: Callable,
+    phase_combine: Callable,
+    phase_agg: Callable,
+) -> tuple[DKSState, dict[str, Any]]:
+    """The timed superstep loop shared by the dense and the sharded
+    instrumented runners: one copy of the timing buckets, the message
+    accounting, the history rows and the ``exit_hook`` contract.  Each
+    phase is ended by a device synchronisation, so its time is honest::
+
+      phase_relax(S, changed) -> aux           "send_bfs"
+      phase_receive(S, aux) -> S1              "receive"
+      phase_combine(S1) -> S1                  "evaluate"
+      phase_agg(S0, state, aux) -> state       "send_agg"
+
+    ``aux`` is what the relax hands forward (the per-edge candidates on
+    the dense path; ``(R, overflow)`` on the sharded one).
     ``exit_hook``: an optional host-side exit criterion evaluated between
-    supersteps.  Per-superstep rows accumulate on a
+    supersteps on the 1-lane state.  Per-superstep rows accumulate on a
     :class:`HostTelemetryCollector`; ``info`` carries ``timings``,
     ``history`` (the collector's rows) and ``telemetry``.
     """
@@ -399,15 +449,13 @@ def run_dks_instrumented(
         n_bfs, n_deep = message_counts(graph, state)
 
         t0 = time.perf_counter()
-        cand = edge_candidates(state.S, state.changed, graph.src, graph.w,
-                               graph.valid)
-        _sync(cand)
+        aux = phase_relax(state.S, state.changed)
+        _sync(state.S)
         t1 = time.perf_counter()
-        S1 = semiring.topk_merge(
-            state.S, receive_candidates(cand, graph.dst, graph.v_pad))
+        S1 = phase_receive(state.S, aux)
         _sync(S1)
         t2 = time.perf_counter()
-        S1 = combine(S1, cfg)
+        S1 = phase_combine(S1)
         _sync(S1)
         t3 = time.perf_counter()
         S0 = state.S
@@ -418,10 +466,10 @@ def run_dks_instrumented(
             msgs_deep=state.msgs_deep + n_deep,
             step=state.step + 1,
         )
-        state = finish_superstep(graph, S0, state, cfg)
+        state = phase_agg(S0, state, aux)
         _sync(state.S)
         t4 = time.perf_counter()
-        del cand
+        del aux
 
         timings["send_bfs"] += t1 - t0
         timings["receive"] += t2 - t1

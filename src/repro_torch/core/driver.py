@@ -1,8 +1,11 @@
 """The lane-batched superstep driver — one step function for every surface.
 
-The twin of ``repro.core.driver`` on dense graphs: a :class:`DKSState`
-whose every field carries a leading lane axis (``L`` concurrent queries)
-and one ``lane_superstep(graph, state, cfg)`` that advances all lanes.
+The twin of ``repro.core.driver``: a :class:`DKSState` whose every field
+carries a leading lane axis (``L`` concurrent queries) and one
+``lane_superstep(graph, state, cfg)`` that advances all lanes, on both
+partitionings — a dense :class:`DeviceGraph` or a sharded
+:class:`~repro_torch.core.dks_sharded.FrontierGraph`, whose lanes share
+one frontier exchange per superstep.
 ``repro`` runs the loop as one ``lax.while_loop``; torch has none, so
 :func:`run_lanes` is a host loop that reads ``done`` after every superstep
 and freezes finished lanes every time, one lane or many (a finished lane's
@@ -11,6 +14,8 @@ with a per-superstep counter row written into a device buffer.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 
@@ -22,11 +27,16 @@ from repro_torch.core.dks import (
     init_state,
     superstep,
 )
-from repro_torch.graph.structure import DeviceGraph
 from repro_torch.obs.telemetry import (
     N_COLS as TELEMETRY_COLS,
     TELEMETRY_MAX_SUPERSTEPS,
 )
+
+
+def is_frontier_graph(graph: Any) -> bool:
+    """Sharded (FrontierGraph) vs dense (DeviceGraph) residency, without
+    importing dks_sharded at module load (it imports from dks)."""
+    return hasattr(graph, "edge_dst_l")
 
 
 def lane_view(state: DKSState, i: int) -> DKSState:
@@ -34,7 +44,7 @@ def lane_view(state: DKSState, i: int) -> DKSState:
     return DKSState(**{f: getattr(state, f)[i:i + 1] for f in STATE_FIELDS})
 
 
-def lane_init(graph: DeviceGraph, kw_masks: torch.Tensor, cfg: DKSConfig
+def lane_init(graph: Any, kw_masks: torch.Tensor, cfg: DKSConfig
               ) -> DKSState:
     """Superstep 0 for a batch of lanes.  ``kw_masks``: bool[L, m, V]."""
     return init_state(graph, kw_masks, cfg)
@@ -45,15 +55,22 @@ def lane_init(graph: DeviceGraph, kw_masks: torch.Tensor, cfg: DKSConfig
 freeze_lanes = freeze_finished
 
 
-def lane_superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
+def lane_superstep(graph: Any, state: DKSState, cfg: DKSConfig
                    ) -> DKSState:
     """One Pregel superstep for every lane at once, finished lanes frozen.
 
+    A :class:`~repro_torch.core.dks_sharded.FrontierGraph`: relax every
+    lane's frontier through one exchange, then the node-local tail (the
+    shard body stays stock torch, as ``repro``'s stays jnp).  Otherwise
     ``cfg.backend == "cuda"``: the whole inner loop (relax + receive +
     combine + per-lane freeze) is ONE kernel launch over the lane axis;
     "torch": the stock torch superstep.
     """
-    if cfg.backend == "cuda":
+    if is_frontier_graph(graph):
+        from repro_torch.core.dks_sharded import superstep_frontier
+
+        nxt = superstep_frontier(graph, state, cfg)
+    elif cfg.backend == "cuda":
         from repro_torch.kernels.lane_superstep import fused_lane_superstep
 
         nxt = fused_lane_superstep(graph, state, cfg)
@@ -62,7 +79,7 @@ def lane_superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
     return freeze_lanes(state, nxt)
 
 
-def run_lanes(graph: DeviceGraph, kw_masks: torch.Tensor, cfg: DKSConfig
+def run_lanes(graph: Any, kw_masks: torch.Tensor, cfg: DKSConfig
               ) -> DKSState:
     """Full lane-batched DKS run: steps until every lane's exit criterion
     fires, checking ``done`` on the host after every superstep."""
@@ -98,7 +115,7 @@ def telemetry_row(state: DKSState) -> torch.Tensor:
     ])
 
 
-def run_lanes_telemetry(graph: DeviceGraph, kw_masks: torch.Tensor,
+def run_lanes_telemetry(graph: Any, kw_masks: torch.Tensor,
                         cfg: DKSConfig) -> tuple[DKSState, torch.Tensor, int]:
     """:func:`run_lanes` with a telemetry carry: one :func:`telemetry_row`
     per superstep written into a bounded ``[T, 4]`` f32 device buffer

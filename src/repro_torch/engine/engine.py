@@ -31,6 +31,12 @@ host collector of frozen lanes with the remaining supersteps
 (:class:`~repro_torch.answers.ExtractionOverlap`).  ``device=None`` puts
 the engine on the card (``cuda:0``) and raises when there is no GPU; tests
 pass ``device="cpu"``.
+
+``ExecutionPolicy(partition="sharded")`` packs a
+:class:`~repro_torch.core.dks_sharded.FrontierGraph` instead of the dense
+:class:`DeviceGraph`; every surface runs on it unchanged (the driver
+takes the frontier-compressed superstep), with the node axis padded to
+``n_shards`` and the tables cut back to ``n_nodes`` rows for extraction.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ import torch
 from repro_torch import INF
 from repro_torch.answers.batched import BatchedBacktracer
 from repro_torch.core.dks import DKSConfig, DKSState, run_dks_instrumented
+from repro_torch.core.dks_sharded import (FrontierGraph, pack_frontier_graph,
+                                          run_dks_frontier_instrumented)
 from repro_torch.core.driver import (lane_init, lane_superstep, lane_view,
                                      run_lanes, run_lanes_telemetry)
 from repro_torch.core.reconstruct import collect_answers
@@ -83,7 +91,8 @@ class QueryEngine:
     _build_counter = itertools.count(1)
 
     def __init__(self, graph: Graph, index: InvertedIndex,
-                 policy: ExecutionPolicy, device_graph: DeviceGraph,
+                 policy: ExecutionPolicy,
+                 device_graph: DeviceGraph | FrontierGraph,
                  graph_hash: str | None = None) -> None:
         self.graph = graph
         self.index = index
@@ -162,9 +171,20 @@ class QueryEngine:
             else:
                 raise ValueError(
                     "QueryEngine.build needs tokens=, index=, or graph.labels")
-        # Fold the weight policy into the weights once, before packing.
+        # Fold the weight policy into the weights once, before packing:
+        # the dense DeviceGraph, the sharded FrontierGraph, backtrace and
+        # rendering all read the same effective weights.
         graph = apply_weight_policy(graph, policy.weights)
-        engine = cls(graph, index, policy, graph.to_device(device),
+        if policy.partition == "sharded":
+            n_shards = policy.n_shards
+            if n_shards is None:
+                n_shards = (torch.cuda.device_count()
+                            if device.type == "cuda" else 1)
+            device_graph = pack_frontier_graph(graph, n_shards,
+                                               device=device)
+        else:
+            device_graph = graph.to_device(device)
+        engine = cls(graph, index, policy, device_graph,
                      graph_hash=graph_hash)
         engine.artifact = artifact
         return engine
@@ -279,15 +299,23 @@ class QueryEngine:
 
     @staticmethod
     def _check_overrides(overrides: dict) -> None:
-        """The weight policy and telemetry are fixed at build: the device
-        graph holds the effective weights, and telemetry picks the fused
-        executor's variant."""
+        """The weight policy, the partition and telemetry are fixed at
+        build: the device graph holds the effective weights in its
+        partition's layout, and telemetry picks the fused executor's
+        variant."""
         if "weights" in overrides:
             raise ValueError(
                 "the weight policy is fixed at engine build (the device "
                 "graph is packed with its effective weights) — build an "
                 "engine with ExecutionPolicy(weights=...) instead of "
                 "overriding per call")
+        for name in ("partition", "n_shards"):
+            if name in overrides:
+                raise ValueError(
+                    f"{name} is fixed at engine build (the device graph is "
+                    f"packed in its layout) — build an engine with "
+                    f"ExecutionPolicy({name}=...) instead of overriding "
+                    f"per call")
         if "telemetry" in overrides:
             raise ValueError(
                 "telemetry is fixed at engine build (it selects the fused "
@@ -374,7 +402,9 @@ class QueryEngine:
                 if lanes:
                     bt = self._backtracer(cfg.backend)
                     pre = dict(zip(lanes, bt.extract_lanes(
-                        states.S, masks, k=max(cfg.k, extract_pool or 0),
+                        states.S[:, : self.n_nodes],
+                        masks[:, :, : self.n_nodes],
+                        k=max(cfg.k, extract_pool or 0),
                         lanes=lanes, n_nodes=self.n_nodes)))
             for bi, i in enumerate(idxs):
                 if i >= n_real:
@@ -536,7 +566,7 @@ class QueryEngine:
                     # time, while the driver keeps stepping the others.
                     own_t[i] = now - t0
                     if overlap is not None and best[i] < INF:
-                        overlap.submit(i, state.S[i],
+                        overlap.submit(i, state.S[i, : self.n_nodes],
                                        masks[i][:, : self.n_nodes])
             if done[:n_real].all() or now >= deadline_t:
                 break
@@ -554,7 +584,7 @@ class QueryEngine:
                 # Overlapped result for frozen lanes; inline best-so-far
                 # extraction for lanes the deadline interrupted.
                 answers_pre = overlap.result(i) if overlap.pending(i) \
-                    else overlap.result(i, lane.S[0],
+                    else overlap.result(i, lane.S[0, : self.n_nodes],
                                         masks[i][:, : self.n_nodes])
             interrupted = not bool(lane.done[0])
             forced = bool(lane.budget_hit[0]) or bool(lane.capped[0])
@@ -670,13 +700,20 @@ class QueryEngine:
         **overrides,
     ) -> tuple[QueryResult, dict[str, Any]]:
         """Host-driven run with per-phase wall times (paper Table 1) and an
-        optional host-side exit criterion; ``info`` carries ``timings``,
-        ``history`` and ``telemetry``."""
+        optional host-side exit criterion (e.g.
+        :func:`repro_torch.core.fagin.paper_exit_hook`); ``info`` carries
+        ``timings``, ``history`` and ``telemetry``.  On a sharded engine
+        the pack, the frontier exchange and the edge relax all land in
+        "send_bfs" (:func:`~repro_torch.core.dks_sharded.
+        run_dks_frontier_instrumented`)."""
+        run_fn = (run_dks_frontier_instrumented
+                  if isinstance(self.device_graph, FrontierGraph)
+                  else run_dks_instrumented)
         keywords = list(keywords)
         cfg = self._config(len(keywords), k, **overrides)
         masks, unmatched = self._masks(keywords, strict)
         t0 = time.perf_counter()
-        state, info = run_dks_instrumented(
+        state, info = run_fn(
             self.device_graph, torch.from_numpy(masks).to(self.device), cfg,
             exit_hook=exit_hook)
         dt = time.perf_counter() - t0
@@ -789,7 +826,7 @@ class QueryEngine:
                 ranked, exhausted = answers_pre
             else:
                 ranked, exhausted = collect_answers(
-                    state.S[0].cpu().numpy(), self.graph,
+                    state.S[0, : self.n_nodes].cpu().numpy(), self.graph,
                     masks[:, : self.n_nodes],
                     k=max(cfg.k, extract_pool or 0))
             answers = ranked[: cfg.k]

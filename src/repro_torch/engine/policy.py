@@ -1,6 +1,6 @@
-"""Execution policy: every backend knob of a DKS run in one place, chosen
-once at engine build (the twin of ``repro.engine.policy.ExecutionPolicy``
-for the dense single-device partition), and the serve layer's adaptive
+"""Execution policy: every backend and partitioning knob of a DKS run in
+one place, chosen once at engine build (the twin of
+``repro.engine.policy.ExecutionPolicy``), and the serve layer's adaptive
 lane-occupancy policy (:class:`AdaptiveLanePolicy`)."""
 
 from __future__ import annotations
@@ -23,9 +23,13 @@ class ExecutionPolicy:
                  subset-combine kernel at superstep 0).
       exit_mode: "sound" (stop once no better answer can appear, Sec. 6) or
                  "none" (run to frontier exhaustion).
-      partition: "single" (dense single-device residency).  "sharded"
-                 raises ``NotImplementedError``: the frontier-partitioned
-                 graph is ROADMAP queue 1 item 8.
+      partition: "single" (dense residency) or "sharded" (the
+                 frontier-compressed partition,
+                 :mod:`repro_torch.core.dks_sharded`: ``n_shards`` shards
+                 of the node axis, all on the engine's device, exchanging
+                 only their frontiers).  "sharded" runs on "torch" only.
+      n_shards:  shard count for "sharded"; ``None`` is the number of
+                 CUDA devices on a CUDA engine and 1 on the CPU.
       weights:   :class:`~repro_torch.graph.weights.WeightPolicy`, applied
                  once at build; it cannot be overridden per query.
       telemetry: carry per-superstep counters (frontier size, message
@@ -35,15 +39,19 @@ class ExecutionPolicy:
                  (:class:`repro_torch.obs.SuperstepTelemetry`).  Answers
                  are bit-identical with it on or off; it is excluded from
                  ``cache_token`` and fixed at build.
-      max_supersteps / message_budget / combine_passes: forwarded to
-                 :class:`DKSConfig`.
+      max_supersteps / message_budget / frontier_frac / combine_passes:
+                 forwarded to :class:`DKSConfig` (``frontier_frac``: the
+                 per-shard frontier cap; overflow is a forced stop with
+                 the SPA bound, paper Sec. 5.4).
     """
 
     backend: str = "torch"          # "torch" | "cuda"
-    partition: str = "single"       # "single"
+    partition: str = "single"       # "single" | "sharded"
+    n_shards: int | None = None
     exit_mode: str = "sound"        # "sound" | "none"
     max_supersteps: int = 64
     message_budget: float = float("inf")
+    frontier_frac: float = 0.25
     combine_passes: int | None = None
     weights: WeightPolicy = WeightPolicy()
     telemetry: bool = False
@@ -51,13 +59,18 @@ class ExecutionPolicy:
     def __post_init__(self) -> None:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.partition == "sharded":
-            raise NotImplementedError(
-                'partition="sharded" is not ported yet: the frontier-'
-                "partitioned graph and its torch.distributed exchange are "
-                "ROADMAP queue 1 item 8.  Use partition=\"single\".")
-        if self.partition != "single":
+        if self.partition not in ("single", "sharded"):
             raise ValueError(f"unknown partition {self.partition!r}")
+        if self.backend == "cuda" and self.partition == "sharded":
+            # Refuse up front rather than silently running torch: the
+            # fused lane-superstep kernel is dense-only, and the sharded
+            # shard body keeps stock torch ops (as repro's keeps jnp).
+            raise NotImplementedError(
+                'backend="cuda" with partition="sharded" is not '
+                "implemented: the frontier-compressed shard body still "
+                'runs the torch relax/combine ops.  Use backend="torch" '
+                'for sharded engines, or partition="single" for the '
+                "fused CUDA kernel.")
         if self.exit_mode not in ("sound", "none"):
             raise ValueError(f"unknown exit_mode {self.exit_mode!r}")
         if not isinstance(self.weights, WeightPolicy):
@@ -74,6 +87,7 @@ class ExecutionPolicy:
             exit_mode=self.exit_mode,
             backend=self.backend,
             combine_passes=self.combine_passes,
+            frontier_frac=self.frontier_frac,
         )
 
 

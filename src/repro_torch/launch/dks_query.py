@@ -13,7 +13,9 @@ span tree.  ``--telemetry`` carries the per-superstep counters through the
 driver's loop in a device buffer and prints the frontier/message table.
 ``--extract`` prints label-rendered answer trees.  ``--parity`` (with
 ``--backend cuda``) builds a ``"torch"`` twin and asserts bit-identical
-top-K weights and superstep counts.  ``--artifact PATH`` mmap-loads a
+top-K weights and superstep counts.  ``--partition sharded`` runs the
+frontier-compressed sharded partition (one shard per CUDA device, one on
+the CPU; its backend is ``"torch"``).  ``--artifact PATH`` mmap-loads a
 graph-store artifact (``python -m repro_torch.launch.ingest`` writes one;
 so does ``repro.launch.ingest``: the format is shared) instead of
 generating ``--dataset``.
@@ -78,6 +80,36 @@ def engine_source(name: str, artifact: str | None = None):
     return ds, {"graph": g, "index": index}
 
 
+def add_partition_args(ap: argparse.ArgumentParser) -> None:
+    """``--backend`` and ``--partition``, shared with ``serve_dks``."""
+    ap.add_argument("--backend", default=None, choices=["torch", "cuda"],
+                    help='default "cuda"; "torch" under --partition '
+                         "sharded, its only backend")
+    ap.add_argument("--partition", default="single",
+                    choices=["single", "sharded"],
+                    help="sharded = the frontier-compressed partition "
+                         "(one shard per CUDA device, one on the CPU; all "
+                         "on the engine's device)")
+
+
+def resolve_backend(ap: argparse.ArgumentParser,
+                    args: argparse.Namespace) -> None:
+    """Fill in ``args.backend``'s default for the partition; refuse
+    ``cuda`` with ``sharded`` (the shard body is stock torch)."""
+    if args.backend is None:
+        args.backend = "torch" if args.partition == "sharded" else "cuda"
+    elif args.backend == "cuda" and args.partition == "sharded":
+        ap.error("--partition sharded runs on --backend torch only: the "
+                 "fused CUDA kernel is dense-only")
+
+
+def describe_partition(engine: QueryEngine) -> str:
+    """One line on a sharded engine's layout."""
+    fg = engine.device_graph
+    return (f"partition: sharded, {fg.n_shards} shard(s) of {fg.n_loc:,} "
+            f"nodes, e_cap {fg.e_cap:,}, backend {engine.policy.backend}")
+
+
 def build_engine(name: str, policy: ExecutionPolicy | None = None,
                  device=None, artifact: str | None = None):
     """Dataset name (or artifact path) -> (dataset config, ready engine on
@@ -104,7 +136,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--message-budget", type=float, default=float("inf"))
     ap.add_argument("--exit-mode", default="sound",
                     choices=["sound", "none"])
-    ap.add_argument("--backend", default="cuda", choices=["torch", "cuda"])
+    add_partition_args(ap)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card, cuda:0)")
     add_weight_policy_args(ap)
@@ -125,6 +157,7 @@ def main(argv: list[str] | None = None) -> int:
                          "and assert bit-identical top-K weights and "
                          "superstep count")
     args = ap.parse_args(argv)
+    resolve_backend(ap, args)
     if args.explain and args.stream:
         ap.error("--explain and --stream are mutually exclusive "
                  "(streaming runs outside the serving path)")
@@ -138,6 +171,7 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.time()
     policy = ExecutionPolicy(
         backend=args.backend,
+        partition=args.partition,
         exit_mode=args.exit_mode,
         max_supersteps=args.max_supersteps,
         message_budget=args.message_budget,
@@ -148,6 +182,8 @@ def main(argv: list[str] | None = None) -> int:
     engine = QueryEngine.build(**source, policy=policy, device=args.device)
     print(f"loaded {args.artifact or ds.name}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
           f"on {engine.device} ({time.time()-t0:.1f}s)")
+    if policy.partition == "sharded":
+        print(describe_partition(engine))
     if not policy.weights.is_default:
         print(f"weight policy: {policy.weights}")
 

@@ -11,6 +11,9 @@ the direct single-query engine — the port of ``repro.launch.serve_dks``:
     python -m repro_torch.launch.serve_dks --smoke \\
         --dataset sec-rdfabout-cpu --backend torch --device cpu
 
+``--partition sharded`` serves the frontier-compressed sharded partition
+(``--backend`` then defaults to ``torch``, its only backend).
+
 ``--smoke`` shrinks the run and *asserts* the serving invariants: mean
 batch-fill > 1 (the micro-batcher coalesced concurrent clients), warm
 reuse > 0 (cache hits or single-flight), at least one multi-lane deadline
@@ -49,8 +52,10 @@ import numpy as np
 
 from repro_torch.configs import DKS_CONFIGS
 from repro_torch.engine import ExecutionPolicy, QueryEngine
-from repro_torch.launch.dks_query import (add_weight_policy_args,
-                                          build_engine,
+from repro_torch.launch.dks_query import (add_partition_args,
+                                          add_weight_policy_args,
+                                          build_engine, describe_partition,
+                                          resolve_backend,
                                           weight_policy_from_args)
 from repro_torch.obs import MetricsServer, parse_prometheus
 from repro_torch.serve import DKSService, ServeConfig
@@ -303,7 +308,8 @@ def swap_smoke(args, timeout: float = 120.0) -> None:
         watch_dir.mkdir()
 
         policy = ExecutionPolicy(
-            backend=args.backend, max_supersteps=max(args.max_supersteps, 12),
+            backend=args.backend, partition=args.partition,
+            max_supersteps=max(args.max_supersteps, 12),
             weights=weight_policy_from_args(args))
         engine = QueryEngine.build(artifact=live.chain(), policy=policy,
                                    device=args.device)
@@ -436,7 +442,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="fraction of requests carrying a latency budget")
     ap.add_argument("--deadline-ms", type=float, default=75.0)
     ap.add_argument("--max-supersteps", type=int, default=24)
-    ap.add_argument("--backend", default="cuda", choices=["torch", "cuda"])
+    add_partition_args(ap)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card, cuda:0)")
     add_weight_policy_args(ap)
@@ -458,6 +464,7 @@ def main(argv: list[str] | None = None) -> int:
                          "hits, answer parity, trees and the /metrics "
                          "scrape")
     args = ap.parse_args(argv)
+    resolve_backend(ap, args)
     if args.watch is not None and args.live is None:
         ap.error("--watch needs --live DIR")
 
@@ -470,7 +477,8 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.time()
     policy = ExecutionPolicy(
-        backend=args.backend, max_supersteps=args.max_supersteps,
+        backend=args.backend, partition=args.partition,
+        max_supersteps=args.max_supersteps,
         weights=weight_policy_from_args(args))
     live = None
     if args.live is not None:
@@ -485,6 +493,8 @@ def main(argv: list[str] | None = None) -> int:
         source = args.artifact or ds.name
     print(f"loaded {source}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
           f"on {engine.device} ({time.time()-t0:.1f}s)")
+    if policy.partition == "sharded":
+        print(describe_partition(engine))
     if not policy.weights.is_default:
         print(f"weight policy: {policy.weights}")
 

@@ -734,3 +734,43 @@ def test_swap_on_the_card_warms_on_the_watcher_thread(cuda_device,
         policy=ExecutionPolicy(backend="torch", max_supersteps=24),
         device=cuda_device)
     same_served(post, union.query(probe, k=1))
+
+
+# ---------------------------------------------------------------------------
+# The sharded partition on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [1.0, 0.1], ids=["uncapped", "capped"])
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_sharded_engine_on_the_card_equals_cpu(cuda_device, n_shards, frac):
+    """A sharded engine on the card answers as the same engine on the CPU,
+    uncapped and capped (overflow forces stops): ``query_batch`` with its
+    trees, and ``query_stream`` update by update.  The sharded path runs
+    stock torch: no hand-written kernel launches."""
+    g, tokens = lod_like_graph(401, 1800, seed=11, vocab=60)
+    engines = {dev: QueryEngine.build(
+        g, tokens=tokens, device=dev, policy=ExecutionPolicy(
+            partition="sharded", n_shards=n_shards, frontier_frac=frac,
+            max_supersteps=24)) for dev in ("cuda", "cpu")}
+    assert engines["cuda"].device == cuda_device
+    index = engines["cpu"].index
+    toks = [t for t in sorted(index.vocabulary(), key=index.df)
+            if 2 <= index.df(t) <= 60]
+    queries = [toks[0:3], toks[3:6], toks[6:9], toks[1:4]]
+    launched = [ops.launches for ops in (ls_ops, sc_ops, bt_ops)]
+    got = engines["cuda"].query_batch(queries, k=2)
+    for rc, rt in zip(got, engines["cpu"].query_batch(queries, k=2)):
+        same_served(rc, rt)
+    assert any(r.budget_hit for r in got) == (frac < 1.0)
+    stream = {dev: list(eng.query_stream(toks[0:3], k=2))
+              for dev, eng in engines.items()}
+    assert len(stream["cuda"]) == len(stream["cpu"]) > 1
+    for uc, ut in zip(stream["cuda"], stream["cpu"]):
+        np.testing.assert_array_equal(uc.weights, ut.weights)
+        np.testing.assert_array_equal(uc.roots, ut.roots)
+        for f in ("step", "frontier", "msgs_bfs", "msgs_deep", "nu_full",
+                  "spa", "opt_lower_bound", "sound_opt_lower_bound",
+                  "spa_ratio", "done"):
+            assert getattr(uc, f) == getattr(ut, f), (uc.step, f)
+    assert [ops.launches for ops in (ls_ops, sc_ops, bt_ops)] == launched

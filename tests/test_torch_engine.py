@@ -98,6 +98,21 @@ def both_engines(n, groups, edges, backend, max_supersteps=64):
     return ej, et, toks
 
 
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_sharded_engine_matches_reference_dense(engines, n_shards):
+    """The port's sharded partition, uncapped, answers a bucket exactly as
+    ``repro``'s dense engine does: weights, roots, counters, trees."""
+    ref, port, toks = engines
+    sharded = EngineT.build(
+        port["torch"].graph, index=port["torch"].index, device="cpu",
+        policy=PolicyT(partition="sharded", n_shards=n_shards,
+                       frontier_frac=1.0, max_supersteps=16))
+    queries = [toks[0:2], toks[2:5], toks[5:8], toks[1:3]]
+    for rt, rj in zip(sharded.query_batch(queries, k=2),
+                      ref["jnp"].query_batch(queries, k=2)):
+        assert_same_result(rt, rj)
+
+
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 def test_tie_order_keeps_lower_index_first(backend):
     """A unit-weight ring with keywords at opposite nodes: every node roots

@@ -61,6 +61,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.store.ingest", "repro_torch.store.delta",
                  "repro_torch.live", "repro_torch.live.state",
                  "repro_torch.live.watch", "repro_torch.live.swap",
-                 "repro_torch.launch.ingest"):
+                 "repro_torch.launch.ingest",
+                 "repro_torch.core.dks_sharded", "repro_torch.core.fagin",
+                 "repro_torch.core.baselines"):
         assert name in seen["modules"], name
     assert seen["bad"] == []

@@ -724,7 +724,56 @@ def test_serve_dks_live_watch_and_artifact(tiny_dataset, tmp_path, capsys):
 
 
 def test_sharded_partition_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PolicyT(partition="sharded")
+    """Ported: ``partition="sharded"`` builds on ``"torch"``; with
+    ``"cuda"`` it raises ``NotImplementedError``, as ``repro``'s
+    ``"pallas"`` with ``"sharded"`` does."""
+    assert PolicyT(partition="sharded").backend == "torch"
+    with pytest.raises(NotImplementedError, match="sharded"):
+        PolicyT(partition="sharded", backend="cuda")
+    with pytest.raises(NotImplementedError, match="sharded"):
+        PolicyJ(partition="sharded", backend="pallas")
     with pytest.raises(ValueError, match="partition"):
         PolicyT(partition="bogus")
+
+
+def test_service_on_a_sharded_engine_serves_engine_answers(engine):
+    """``DKSService`` over a sharded CPU engine (3 shards, uncapped)
+    serves ``engine.query``'s answers, which are the single engine's."""
+    sharded = EngineT.build(engine.graph, index=engine.index, device="cpu",
+                            policy=PolicyT(partition="sharded", n_shards=3,
+                                           frontier_frac=1.0,
+                                           max_supersteps=32))
+    toks = mid_df_tokens(engine.index, 9)
+    pool = [tuple(toks[0:2]), tuple(toks[2:4]), tuple(toks[6:9]),
+            tuple(toks[3:6])]
+    trace = [TraceRequest(pool[i % len(pool)]) for i in range(10)]
+    with DKSService(sharded, ServeConfig(max_batch=4, max_wait_ms=5.0,
+                                         cache_size=64)) as svc:
+        served = replay(svc, trace, n_clients=4, timeout=WAIT)
+        assert svc.stats().requests == len(trace)
+    for req, srv in zip(trace, served):
+        ref = sharded.query(list(req.keywords), k=1)
+        assert not srv.approximate
+        np.testing.assert_array_equal(srv.result.weights, ref.weights)
+        assert answer_keys(srv.result) == answer_keys(ref)
+        np.testing.assert_array_equal(
+            ref.weights, engine.query(list(req.keywords), k=1).weights)
+
+
+def test_serve_dks_and_dks_query_take_the_partition(tiny_dataset, capsys):
+    """``--partition sharded``: the serve smoke holds its invariants on
+    ``"torch"`` (the backend's default there), ``dks_query`` answers, and
+    an explicit ``--backend cuda`` is refused."""
+    assert serve_dks.main(["--smoke", "--dataset", "tiny", "--partition",
+                           "sharded", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "partition: sharded, 1 shard(s) of 600 nodes" in out
+    assert "backend torch" in out and "smoke invariants hold" in out
+    assert dks_query.main(["--dataset", "tiny", "--device", "cpu",
+                           "--partition", "sharded", "--extract"]) == 0
+    assert "DKS finished in" in capsys.readouterr().out
+    for cli in (serve_dks, dks_query):
+        with pytest.raises(SystemExit):
+            cli.main(["--dataset", "tiny", "--device", "cpu", "--partition",
+                      "sharded", "--backend", "cuda"])
+        assert "--backend torch only" in capsys.readouterr().err
