@@ -140,11 +140,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    imbalance, peak device memory, and the hand-written kernels'
    launches on this path (zeroed just before, read just after: 0, since
    the sharded engine runs stock torch).
+11. MoE and the int8 KV cache — the flash kernel at granite-moe-3b-a800m's
+   prefill shape (q bf16 [4, 2048, 24, 64], k/v [4, 2048, 8, 64]) against
+   its plain version, timed beside it and SDPA with its bound; then
+   granite at full width and depth (32 layers, 40 experts top-8, head dim
+   64; 3,374,295,552 bf16 parameters, random from a seeded CUDA
+   generator, the router in f32) through ``serve.generate`` with phase 6's
+   traffic and checks (4 x 2,048 and 1 x 1,000 tokens, 32 greedy steps
+   each, 32 ``"wgmma"`` flash launches per prefill, logits within 5e-2 x
+   max |logit| of naive attention), each prefill's per-layer
+   ``dropped_frac`` and ``load_balance``, and a torch.profiler split.
+   The int8 cache: the 4 x 2,048 prefill's K/V through ``quantize_kv``
+   into a cache of 4,096 positions, 32 ``decode_step_quant`` steps fed
+   the bf16-cache decode's greedy tokens, logits within atol = rtol =
+   0.25 of its (``tests/test_kvcache.py``'s bound) and the greedy token
+   equal wherever the top-2 margin exceeds the difference; then both
+   caches grown to 32,768 positions (decode_32k's length at batch 4) and
+   8 steps of each timed and held there, with the cache bytes.  Then
+   dbrx-132b and command-r-plus-104b at full width and cut depth (4 of 40
+   and 2 of 64 layers; full depth does not fit one card): a 4 x 2,048
+   prefill through the kernel against naive attention and 8 decode steps.
 13. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
    in phase 9 for the three kernels it runs; ``store_launches`` and
    ``live_launches`` phase 10's artifact engine, live service and warm;
-   ``sharded_launches`` phase 12's), error, times and bound.
+   ``sharded_launches`` phase 12's; the flash row's ``moe_launches`` and
+   ``cut_depth_launches`` phase 11's, and ``moe_shape`` its times at
+   granite's shape), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -172,6 +194,11 @@ QUERY_SEED = 2024
 LM_ARCH, LM_SEED = "chatglm3-6b", 0
 LM_BATCH, LM_PROMPT, LM_LONG, LM_GEN = 4, 2048, 1000, 32
 LM_TOL = 5e-2               # bf16 logits against naive: x max |logit|
+MOE_ARCH = "granite-moe-3b-a800m"   # phase 11, at full width and depth
+QUANT_SEQ, QUANT_LONG, QUANT_LONG_STEPS = 4096, 32768, 8  # int8 cache legs
+QUANT_TOL = 0.25            # tests/test_kvcache.py: int8 against bf16 cache
+CUT_DEPTH = {"dbrx-132b": 4, "command-r-plus-104b": 2}  # layers one card holds
+CUT_GEN = 8                 # decode steps of the cut-depth models
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RECSYS_ARCH, RECSYS_SEED, RETRIEVAL_TOP_K, CAND_SEED = "dcn-v2", 0, 100, 11
 REQUEST_REPS = 9            # host-clock repeats of each recsys request
@@ -620,6 +647,16 @@ def flash_phase(dev) -> tuple[float, tuple]:
     q, k, v = qkv(LM_BATCH, LM_PROMPT, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
                   cfg.head_dim, torch.bfloat16)
     held(q, k, v, 0, "main path shape")
+    return err, time_flash(q, k, v)
+
+
+def time_flash(q, k, v) -> tuple:
+    """The flash kernel at one shape beside its plain version and
+    ``scaled_dot_product_attention``: (ms, plain ms, SDPA ms, bound ms,
+    bound by)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
     torch.cuda.synchronize()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -635,31 +672,19 @@ def flash_phase(dev) -> tuple[float, tuple]:
         f"% of the bound (plain {times[1]} ms, SDPA {times[2]} ms = "
         f"{flops / times[2] / 1e9:.1f} TFLOP/s, bound {times[3]} ms by "
         f"{times[4]})")
-    return err, times
+    return times
 
 
 def lm_phase(dev) -> int:
     """ChatGLM3-6B serving through ``repro_torch.launch.serve.generate``:
     returns the flash kernel's launches on the main path."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
     from repro_torch.models import lm as lm_lib
-    from repro_torch.models import transformer as tfm
 
     cfg = get_arch(LM_ARCH)
     gen = torch.Generator(dev).manual_seed(LM_SEED)
-    t0 = time.perf_counter()
-    model = tfm.init_lm(cfg, gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == cfg.param_count_analytic(),
-          f"{n_params} parameters, config says {cfg.param_count_analytic()}")
-    log(f"  {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, head dim "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), bf16, random "
-        f"from seed {LM_SEED}, drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+    model = lm_init(cfg, gen)
     requests = (torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                               generator=gen, device=dev),
                 torch.randint(0, cfg.vocab, (1, LM_LONG), generator=gen,
@@ -667,70 +692,106 @@ def lm_phase(dev) -> int:
     for p in requests:       # warm-up: cuBLAS picks its kernels per shape
         serve.generate(model, p, 2)
     prefill, naive = (lm_lib.make_prefill_step(i) for i in ("cuda", "naive"))
-    vocab = cfg.vocab
     total = 0
     for p in requests:
-        torch.cuda.reset_peak_memory_stats()
-        for c in (fa_ops.counter, *fa_ops.route_counters.values()):
-            c.reset()
-        res = serve.generate(model, p, LM_GEN, attn_impl="cuda")
-        launched = fa_ops.launches
-        by_route = dict(fa_ops.launches_by_route)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        check(launched == cfg.n_layers, f"flash_attention launched "
-              f"{launched} times in one prefill, want {cfg.n_layers}")
-        check(by_route == {"wgmma": cfg.n_layers, "wmma": 0},
-              f"flash_attention launches by route {by_route}, want all "
-              f"{cfg.n_layers} on wgmma")
-        total += launched
-        bsz, s = p.shape
-        check(res.tokens.shape == (bsz, LM_GEN + 1)
-              and bool(((res.tokens >= 0) & (res.tokens < vocab)).all())
-              and bool(res.logits_last.isfinite().all()),
-              "generated tokens or logits out of range")
-        # Prefill: the kernel against naive attention.
-        t0 = time.perf_counter()
-        want, _ = naive(model, p)
-        torch.cuda.synchronize()
-        naive_ms = (time.perf_counter() - t0) * 1e3
-        diff = max_abs_err(res.logits_last, want)
-        room = elementwise_room(res.logits_last, want)
-        top = float(want.abs().max())
-        check(diff <= LM_TOL * top, f"prefill logits differ by {diff}, "
-                                    f"limit {LM_TOL} x {top}")
-        top2 = want[:, :vocab].topk(2).values
-        sure = (top2[:, 0] - top2[:, 1]) > diff
-        check(torch.equal(res.tokens[sure, 0], want[sure, :vocab].argmax(-1)),
-              "first greedy token differs from naive attention's")
-        # Decode: the served tokens fed back through the cache, step by
-        # step; the last step's logits against a naive prefill of the
-        # prompt and every token before the last.
-        _, cache = prefill(model, p)
-        cache = lm_lib.grow_cache(cfg, cache, s + LM_GEN)
-        with torch.no_grad():
-            for t in range(LM_GEN):
-                step, cache = model.decode_step(cache,
-                                                res.tokens[:, t:t + 1])
-        full, _ = naive(model, torch.cat([p, res.tokens[:, :-1]], dim=1))
-        ddiff = max_abs_err(step[:, -1], full)
-        droom = elementwise_room(step[:, -1], full)
-        dtop = float(full.abs().max())
-        check(ddiff <= LM_TOL * dtop, f"decode logits differ by {ddiff} "
-                                      f"from a naive prefill, limit "
-                                      f"{LM_TOL} x {dtop}")
-        n = bsz * s
-        log(f"  {bsz} x {s} tokens: prefill {res.prefill_ms:.2f} ms "
-            f"({n / res.prefill_ms * 1e3:.0f} tokens/s; naive attention "
-            f"{naive_ms:.2f} ms), decode {res.decode_ms_per_step:.3f} ms per "
-            f"step over {res.steps} steps ({res.steps * bsz / res.decode_ms * 1e3:.1f} "
-            f"tokens/s), peak device memory {peak:.2f} GiB")
-        log(f"    prefill: max |logits_last| {top:.4f}, max |kernel - naive| "
-            f"{diff:.6f} (element-wise {room:.4f}), first token checked in "
-            f"{int(sure.sum())} of {bsz} rows; decode step {LM_GEN}: max "
-            f"|logits| {dtop:.4f}, max |decode - naive prefill| {ddiff:.6f} "
-            f"(element-wise {droom:.4f})")
+        total += serve_held(model, p, LM_GEN, prefill, naive)
     device_split(model, requests[0], prefill, lm_lib.make_decode_step())
     return total
+
+
+def serve_held(model, p, gen: int, prefill, naive, twin=None) -> int:
+    """One request through ``repro_torch.launch.serve.generate``: a prefill
+    through the flash kernel (its counters set to 0 just before and read
+    just after: one ``"wgmma"`` launch per layer) and ``gen`` greedy decode
+    steps.  The prefill's last logits and the first token, then the served
+    tokens fed back through the KV cache, are held against naive attention
+    within ``LM_TOL`` x max |logit|.  A MoE model's decode is held on
+    ``twin`` (``no_drop_twin``): a prefill of more tokens drops other
+    assignments, so only a model that drops none decodes as it prefills.
+    Returns the launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm as lm_lib
+
+    cfg = model.cfg
+    vocab = cfg.vocab
+    torch.cuda.reset_peak_memory_stats()
+    for c in (fa_ops.counter, *fa_ops.route_counters.values()):
+        c.reset()
+    res = serve.generate(model, p, gen, attn_impl="cuda")
+    launched = fa_ops.launches
+    by_route = dict(fa_ops.launches_by_route)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launched == cfg.n_layers, f"flash_attention launched "
+          f"{launched} times in one prefill, want {cfg.n_layers}")
+    check(by_route == {"wgmma": cfg.n_layers, "wmma": 0},
+          f"flash_attention launches by route {by_route}, want all "
+          f"{cfg.n_layers} on wgmma")
+    bsz, s = p.shape
+    check(res.tokens.shape == (bsz, gen + 1)
+          and bool(((res.tokens >= 0) & (res.tokens < vocab)).all())
+          and bool(res.logits_last.isfinite().all()),
+          "generated tokens or logits out of range")
+    # Prefill: the kernel against naive attention.
+    t0 = time.perf_counter()
+    want, _ = naive(model, p)
+    torch.cuda.synchronize()
+    naive_ms = (time.perf_counter() - t0) * 1e3
+    diff = max_abs_err(res.logits_last, want)
+    room = elementwise_room(res.logits_last, want)
+    top = float(want.abs().max())
+    check(diff <= LM_TOL * top, f"prefill logits differ by {diff}, "
+                                f"limit {LM_TOL} x {top}")
+    top2 = want[:, :vocab].topk(2).values
+    sure = (top2[:, 0] - top2[:, 1]) > diff
+    check(torch.equal(res.tokens[sure, 0], want[sure, :vocab].argmax(-1)),
+          "first greedy token differs from naive attention's")
+    # Decode: the served tokens fed back through the cache, step by
+    # step; the last step's logits against a naive prefill of the
+    # prompt and every token before the last.
+    ref = twin or model
+    _, cache = prefill(ref, p)
+    cache = lm_lib.grow_cache(cfg, cache, s + gen)
+    with torch.no_grad():
+        for t in range(gen):
+            step, cache = ref.decode_step(cache, res.tokens[:, t:t + 1])
+    full, _ = naive(ref, torch.cat([p, res.tokens[:, :-1]], dim=1))
+    ddiff = max_abs_err(step[:, -1], full)
+    droom = elementwise_room(step[:, -1], full)
+    dtop = float(full.abs().max())
+    check(ddiff <= LM_TOL * dtop, f"decode logits differ by {ddiff} "
+                                  f"from a naive prefill, limit "
+                                  f"{LM_TOL} x {dtop}")
+    n = bsz * s
+    log(f"  {bsz} x {s} tokens: prefill {res.prefill_ms:.2f} ms "
+        f"({n / res.prefill_ms * 1e3:.0f} tokens/s; naive attention "
+        f"{naive_ms:.2f} ms), decode {res.decode_ms_per_step:.3f} ms per "
+        f"step over {res.steps} steps ({res.steps * bsz / res.decode_ms * 1e3:.1f} "
+        f"tokens/s), peak device memory {peak:.2f} GiB")
+    log(f"    prefill: max |logits_last| {top:.4f}, max |kernel - naive| "
+        f"{diff:.6f} (element-wise {room:.4f}), first token checked in "
+        f"{int(sure.sum())} of {bsz} rows; decode step {gen}"
+        f"{' (no-drop twin)' if twin is not None else ''}: max "
+        f"|logits| {dtop:.4f}, max |decode - naive prefill| {ddiff:.6f} "
+        f"(element-wise {droom:.4f})")
+    return launched
+
+
+def no_drop_twin(model):
+    """``model``'s weights, shared, under its config with the experts'
+    capacity factor raised to E / k, the least at which no assignment can
+    drop (capacity >= the token count).  ``repro``'s own prefill/decode
+    consistency test raises it the same way
+    (``tests/test_models_smoke.py``)."""
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    spec = cfg.moe
+    twin = tfm.LM(cfg.scaled(moe=dataclasses.replace(
+        spec, capacity_factor=spec.n_experts / spec.top_k)),
+        device="meta", dtype=model.embed.dtype)
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin
 
 
 def device_split(model, prompts, prefill, decode) -> None:
@@ -775,6 +836,244 @@ def device_split(model, prompts, prefill, decode) -> None:
             f"{wall:.3f} ms wall ({100 * busy / wall:.1f} %), "
             f"{sum(e.count for e in kernels) // per} kernel launches; top: "
             f"{top}")
+
+
+def router_stats(model, p, what: str) -> float:
+    """One prefill of ``p`` with each MoE layer's aux recorded by a forward
+    hook: prints the forward's aux (means over layers) and each layer's
+    ``dropped_frac`` and ``load_balance``; returns the largest drop."""
+    per_layer = []
+    hooks = [layer.moe.register_forward_hook(
+        lambda mod, args, out: per_layer.append(out[1]))
+        for layer in model.layers]
+    try:
+        with torch.no_grad():
+            _, _, aux = model(p, attn_impl="cuda")
+    finally:
+        for h in hooks:
+            h.remove()
+    dropped = [round(float(a["dropped_frac"]), 5) for a in per_layer]
+    balance = [round(float(a["load_balance"]), 4) for a in per_layer]
+    for name, value in aux.items():
+        check(bool(torch.isfinite(value)), f"{what}: aux {name} {value}")
+    log(f"    {what} router, {p.shape[0]} x {p.shape[1]} tokens (capacity "
+        f"factor {model.cfg.moe.capacity_factor}): forward aux load_balance "
+        f"{float(aux['load_balance']):.4f}, router_z "
+        f"{float(aux['router_z']):.4f}; per layer dropped_frac {dropped}; "
+        f"load_balance {balance}")
+    return max(dropped)
+
+
+def quant_held(got, want, what: str) -> tuple[float, float, int, int]:
+    """Each step's int8-cache logits against the bf16-cache decode's within
+    atol = rtol = ``QUANT_TOL``, and the greedy token equal wherever the
+    bf16 decode's top-2 margin exceeds twice the row's largest difference
+    (past that no difference can reorder the two).  Returns (the
+    element-wise reading, max |d|, rows whose token was checked, rows)."""
+    room, diff, checked, rows = 0.0, 0.0, 0, 0
+    for t, (g, w) in enumerate(zip(got, want)):
+        d = (g - w).abs()
+        room = max(room, float((d / (QUANT_TOL + QUANT_TOL * w.abs())).max()))
+        diff = max(diff, float(d.max()))
+        top2 = w.topk(2).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * d.max(dim=-1).values
+        check(torch.equal(g[sure].argmax(-1), w[sure].argmax(-1)),
+              f"{what}: greedy token differs at step {t}")
+        checked += int(sure.sum())
+        rows += sure.numel()
+    check(room <= 1, f"{what}: logits past atol = rtol = {QUANT_TOL} of the "
+                     f"bf16-cache decode (element-wise {room})")
+    return room, diff, checked, rows
+
+
+def decode_timed(step, cache, feed) -> tuple[list, dict, float]:
+    """``step(cache, tok)`` over the tokens ``feed``: (each step's last
+    logits, the cache, host ms per step ended by a synchronize)."""
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for tok in feed:
+            logits, cache = step(cache, tok)
+            out.append(logits[:, -1])
+    torch.cuda.synchronize()
+    return out, cache, (time.perf_counter() - t0) * 1e3 / len(feed)
+
+
+def greedy_feed(model, cache, tok, steps: int) -> tuple[list, list, dict,
+                                                        float]:
+    """``steps`` greedy bf16-cache decode steps from ``tok``: (the tokens
+    fed, each step's logits, the cache, ms per step)."""
+    fed, want = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(steps):
+            fed.append(tok)
+            logits, cache = model.decode_step(cache, tok)
+            want.append(logits[:, -1])
+            tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    fed.append(tok)
+    return fed, want, cache, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def int8_leg(model, p) -> dict:
+    """The int8 KV cache on the served model: the prefill's K/V through
+    ``quantize_kv`` into a cache of ``QUANT_SEQ`` positions, then
+    ``LM_GEN`` ``decode_step_quant`` steps fed the bf16-cache decode's
+    greedy tokens and held against its logits; then both caches grown to
+    ``QUANT_LONG`` positions and ``QUANT_LONG_STEPS`` steps of each timed
+    and held there."""
+    from repro_torch.models import kvcache
+    from repro_torch.models import lm as lm_lib
+
+    cfg = model.cfg
+    bsz, s = p.shape
+    names = ("k_q", "k_s", "v_q", "v_s")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, cache = lm_lib.make_prefill_step("cuda")(model, p)
+        cq = kvcache.init_cache_quant(cfg, bsz, QUANT_SEQ, device=p.device)
+        for src in ("k", "v"):
+            cq[f"{src}_q"][:, :, :s], cq[f"{src}_s"][:, :, :s] = \
+                kvcache.quantize_kv(cache[src])
+        cq["pos"] = s
+        cb = lm_lib.grow_cache(cfg, cache, QUANT_SEQ)
+        del cache
+    tok = logits.argmax(-1)[:, None]
+    fed, want, cb, ms_b = greedy_feed(model, cb, tok, LM_GEN)
+    got, cq, ms_q = decode_timed(model.decode_step_quant, cq, fed[:-1])
+    short = quant_held(got, want, f"int8 decode at {QUANT_SEQ}")
+    log(f"  int8 cache, {bsz} x {s} prefill quantized into {QUANT_SEQ} "
+        f"positions, {LM_GEN} steps teacher-forced by the bf16-cache "
+        f"decode: bf16 cache {ms_b:.3f} ms per step, int8 {ms_q:.3f} ms; "
+        f"max |int8 - bf16| {short[1]:.6f} (element-wise {short[0]:.4f} of "
+        f"atol = rtol = {QUANT_TOL}), greedy token checked in {short[2]} of "
+        f"{short[3]} rows")
+    # Both caches grown to decode_32k's length: each step reads all of it.
+    cb = lm_lib.grow_cache(cfg, cb, QUANT_LONG)
+    big = kvcache.init_cache_quant(cfg, bsz, QUANT_LONG, device=p.device)
+    for n in names:
+        big[n][:, :, :QUANT_SEQ] = cq[n]
+    big["pos"] = cq["pos"]
+    cq = big
+    del big
+    torch.cuda.empty_cache()
+    bytes_b = sum(cb[n].numel() * cb[n].element_size() for n in ("k", "v"))
+    bytes_q = sum(cq[n].numel() * cq[n].element_size() for n in names)
+    fed, want, cb, ms_b32 = greedy_feed(model, cb, fed[-1], QUANT_LONG_STEPS)
+    got, cq, ms_q32 = decode_timed(model.decode_step_quant, cq, fed[:-1])
+    long = quant_held(got, want, f"int8 decode at {QUANT_LONG}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  at {QUANT_LONG} positions (decode_32k's length, batch {bsz}), "
+        f"{QUANT_LONG_STEPS} steps from position {cq['pos'] - QUANT_LONG_STEPS}"
+        f": bf16 cache {bytes_b} bytes, {ms_b32:.3f} ms per step "
+        f"({bsz / ms_b32 * 1e3:.1f} tokens/s; reading the cache once takes "
+        f"{bytes_b / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S:.3g} "
+        f"B/s); int8 cache {bytes_q} bytes, {ms_q32:.3f} ms per step "
+        f"({bsz / ms_q32 * 1e3:.1f} tokens/s; its read "
+        f"{bytes_q / HBM_BYTES_PER_S * 1e3:.3f} ms); max |int8 - bf16| "
+        f"{long[1]:.6f} (element-wise {long[0]:.4f}), greedy token checked "
+        f"in {long[2]} of {long[3]} rows; peak device memory {peak:.2f} GiB")
+    return {"ms_bf16": ms_b, "ms_int8": ms_q, "ms_bf16_32k": ms_b32,
+            "ms_int8_32k": ms_q32, "bytes_bf16": bytes_b,
+            "bytes_int8": bytes_q}
+
+
+def lm_init(cfg, gen, what: str = ""):
+    """``init_lm`` on the generator's card, its parameter count checked
+    against the config's and logged."""
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    model = tfm.init_lm(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count_analytic(),
+          f"{n_params} parameters, config says {cfg.param_count_analytic()}")
+    ffn = (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.d_ff_expert}, f32 router" if cfg.moe else
+           f"d_ff {cfg.d_ff}")
+    log(f"  {cfg.name}{what}: {n_params} parameters ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, "
+        f"head dim {cfg.head_dim}, {ffn}, vocab {cfg.vocab}), "
+        f"{cfg.param_dtype}, random "
+        f"from seed {LM_SEED}, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def moe_phase(dev) -> dict:
+    """Phase 11: the flash kernel at granite-moe-3b-a800m's prefill shape;
+    granite at full width and depth served through ``serve.generate`` (the
+    flash launches counted per prefill); the int8 cache on it; dbrx-132b
+    and command-r-plus-104b at full width and cut depth.  Returns the
+    flash kernel's launches on the MoE path and at cut depth, its error
+    and its times at granite's shape."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import lm as lm_lib
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(MOE_ARCH)
+    gen = torch.Generator(dev).manual_seed(LM_SEED)
+    q, k, v = (torch.randn(LM_BATCH, LM_PROMPT, h, cfg.head_dim,
+                           generator=gen, device=dev).bfloat16()
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    got = fa_ops.flash_attention(q, k, v).float()
+    want = attention_ref(q, k, v).float()
+    err = max_abs_err(got, want)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol,
+                               msg=lambda m: f"granite's shape: {m}")
+    timing, shapes = time_flash(q, k, v), (list(q.shape), list(k.shape))
+    del q, k, v, got, want
+
+    model = lm_init(cfg, gen)
+    requests = (torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                              generator=gen, device=dev),
+                torch.randint(0, cfg.vocab, (1, LM_LONG), generator=gen,
+                              device=dev))
+    for p in requests:       # warm-up: cuBLAS picks its kernels per shape
+        serve.generate(model, p, 2)
+    prefill, naive = (lm_lib.make_prefill_step(i) for i in ("cuda", "naive"))
+    twin = no_drop_twin(model)
+    launches = 0
+    for p in requests:
+        launches += serve_held(model, p, LM_GEN, prefill, naive, twin)
+        router_stats(model, p, cfg.name)
+    device_split(model, requests[0], prefill, lm_lib.make_decode_step())
+    quant = int8_leg(model, requests[0])
+    del model, twin, requests
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = {}
+    for name, depth in CUT_DEPTH.items():
+        full = get_arch(name)
+        cut_cfg = full.scaled(n_layers=depth)
+        gen = torch.Generator(dev).manual_seed(LM_SEED)
+        model = lm_init(cut_cfg, gen, f" at full width, reduced: n_layers "
+                                      f"{full.n_layers}→{depth}")
+        log(f"    full depth: {full.param_count_analytic()} parameters, "
+            f"{full.param_count_analytic() * 2 / 2**30:.1f} GiB in bf16, "
+            f"more than one card holds")
+        p = torch.randint(0, cut_cfg.vocab, (LM_BATCH, LM_PROMPT),
+                          generator=gen, device=dev)
+        serve.generate(model, p, 2)
+        twin = no_drop_twin(model) if cut_cfg.moe is not None else None
+        cut[name] = serve_held(model, p, CUT_GEN, prefill, naive, twin)
+        if twin is not None:
+            router_stats(model, p, f"{name} (cut depth)")
+        del model, twin, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "cut_launches": cut, "err": err,
+            "timing": timing, "shapes": shapes, "quant": quant}
 
 
 def bag_times(what: str, kernel, plain, library, bound: tuple[float, str],
@@ -2072,6 +2371,17 @@ def main() -> int:
     log(f"[10/13] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
+    # ---------------- 11. MoE and the int8 KV cache ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(dev)
+    errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
+    log(f"[11/13] {MOE_ARCH} served through the flash kernel: "
+        f"{moe['launches']} launches, logits and tokens agree with naive "
+        f"attention; int8 cache decode within {QUANT_TOL} of the bf16 cache; "
+        f"at cut depth {moe['cut_launches']} launches")
+    log(f"  card: {card}")
+
     # ---------------- 12. sharded partition ----------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -2111,6 +2421,15 @@ def main() -> int:
             kernels[-1]["live_launches"] = store["live_launches"][name]
         if name in sharded["launches"]:
             kernels[-1]["sharded_launches"] = sharded["launches"][name]
+        if name == "flash_attention":
+            ms, plain, library, bound, by = moe["timing"]
+            kernels[-1].update({
+                "moe_launches": moe["launches"],
+                "cut_depth_launches": moe["cut_launches"],
+                "moe_shape": {"q": moe["shapes"][0], "kv": moe["shapes"][1],
+                              "ms": ms, "plain_ms": plain,
+                              "library_ms": library, "bound_ms": bound,
+                              "bound_by": by}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

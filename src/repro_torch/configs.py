@@ -5,8 +5,9 @@
   structurally-similar stand-ins (power-law degree, Zipf labels) at the
   paper's node/edge scales, plus CPU-scaled variants.  The same values as
   ``repro.configs.dks_paper``.
-- The dense decoder-only LMs the port serves (:func:`get_arch`), with the
-  same values as ``repro.configs.chatglm3_6b`` and ``repro.configs.qwen15_4b``.
+- The decoder-only LMs the port serves (:func:`get_arch`), dense and MoE,
+  with the values of ``repro.configs.chatglm3_6b``, ``qwen15_4b``,
+  ``command_r_plus_104b``, ``dbrx_132b`` and ``granite_moe_3b_a800m``.
 - The DCN-v2 recommender it serves (``get_arch("dcn-v2")``) and the recsys
   shapes, with the values of ``repro.configs.dcn_v2`` and
   ``repro.configs.base``.
@@ -46,9 +47,21 @@ DKS_CONFIGS = {c.name: c for c in (SEC_RDFABOUT, BLUK_BNB, SEC_RDFABOUT_CPU,
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """A Mixture-of-Experts FFN (``repro.configs.base.MoESpec``)."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    router_z_weight: float = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """A dense decoder-only LM (``repro.configs.base.LMConfig`` without the
-    MoE and training fields, which the port does not run yet)."""
+    """A decoder-only LM, dense or MoE (``repro.configs.base.LMConfig``
+    without ``remat``, a training field the port does not run yet)."""
 
     name: str
     n_layers: int
@@ -62,6 +75,7 @@ class LMConfig:
     rotary_pct: float = 1.0
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    moe: MoESpec | None = None
     tie_embeddings: bool = False
     param_dtype: str = "bfloat16"
 
@@ -70,10 +84,15 @@ class LMConfig:
 
     def smoke(self) -> "LMConfig":
         """Reduced config: same family/topology, tiny dims (CPU tests)."""
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 8),
+                top_k=min(self.moe.top_k, 2), d_ff_expert=64)
         return dataclasses.replace(
             self, n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=max(1, min(self.n_kv_heads, 2)),
-            d_ff=128, vocab=256, head_dim=16,
+            d_ff=128, vocab=256, head_dim=16, moe=moe,
         )
 
     def param_count_analytic(self) -> int:
@@ -83,7 +102,11 @@ class LMConfig:
         attn += d * self.n_kv_heads * self.head_dim * 2  # k + v
         if self.qkv_bias:
             attn += (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
-        ffn = 3 * d * self.d_ff
+        if self.moe is not None:
+            ffn = 3 * d * self.moe.d_ff_expert * self.moe.n_experts
+            ffn += d * self.moe.n_experts  # router
+        else:
+            ffn = 3 * d * self.d_ff
         embed = self.vocab * d * (1 if self.tie_embeddings else 2)
         return l * (attn + ffn + 2 * d) + embed + d
 
@@ -97,6 +120,23 @@ CHATGLM3_6B = LMConfig(
 QWEN15_4B = LMConfig(
     name="qwen1.5-4b", n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20,
     d_ff=6912, vocab=151936, head_dim=128, qkv_bias=True)
+# Command R+ [hf:CohereForAI/c4ai-command-r-plus]: dense, GQA kv=8, no
+# bias.  199.2 GiB of bf16 weights: one card holds it only at a cut depth.
+COMMAND_R_PLUS_104B = LMConfig(
+    name="command-r-plus-104b", n_layers=64, d_model=12288, n_heads=96,
+    n_kv_heads=8, d_ff=33792, vocab=256000, head_dim=128)
+# DBRX [hf:databricks/dbrx-base]: MoE, 16 fine-grained experts, top-4.
+# 245.1 GiB of bf16 weights: one card holds it only at a cut depth.
+DBRX_132B = LMConfig(
+    name="dbrx-132b", n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=10752, vocab=100352, head_dim=128,
+    moe=MoESpec(n_experts=16, top_k=4, d_ff_expert=10752))
+# Granite 3.0 3B-A800M [hf:ibm-granite/granite-3.0-3b-a800m]: MoE, 40
+# experts, top-8, head dim 64.  6.29 GiB of bf16 weights.
+GRANITE_MOE_3B_A800M = LMConfig(
+    name="granite-moe-3b-a800m", n_layers=32, d_model=1536, n_heads=24,
+    n_kv_heads=8, d_ff=512, vocab=49155, head_dim=64,
+    moe=MoESpec(n_experts=40, top_k=8, d_ff_expert=512))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,16 +189,16 @@ DCN_V2 = RecsysConfig(
         10_000, 5_000, 5_000, 1_000, 1_000, 1_000, 500, 100, 100, 50,
     ))
 
-ARCHS = {c.name: c for c in (CHATGLM3_6B, QWEN15_4B, DCN_V2)}
+ARCHS = {c.name: c for c in (CHATGLM3_6B, QWEN15_4B, COMMAND_R_PLUS_104B,
+                              DBRX_132B, GRANITE_MOE_3B_A800M, DCN_V2)}
 
 
 def get_arch(arch_id: str) -> LMConfig | RecsysConfig:
-    """The configuration named ``arch_id`` in :data:`ARCHS` (the dense LMs
-    and DCN-v2); any other name raises ``KeyError``."""
+    """The configuration named ``arch_id`` in :data:`ARCHS` (the LMs and
+    DCN-v2); any other name raises ``KeyError``."""
     if arch_id not in ARCHS:
         raise KeyError(
             f"arch {arch_id!r} is not in the port; it serves "
-            f"{sorted(ARCHS)}. The MoE LMs (granite-moe-3b-a800m, "
-            f"dbrx-132b), command-r-plus-104b and the GNN archs wait for "
-            f"later slices (ROADMAP.md, queue 1)")
+            f"{sorted(ARCHS)}. The GNN archs wait for a later slice "
+            f"(ROADMAP.md, queue 1)")
     return ARCHS[arch_id]

@@ -15,10 +15,14 @@ arrays), so this module needs neither ``jax`` nor ``repro``:
 An LM's parameters and KV cache come across the same way:
 
 - :func:`lm_params_from_numpy` — ``repro``'s LM param tree (stacked
-  ``[L, ...]`` layer arrays, ``x @ W`` orientation) -> the port's
+  ``[L, ...]`` layer arrays, ``x @ W`` orientation; a MoE model's experts
+  under ``layers/moe``) -> the port's
   :class:`~repro_torch.models.transformer.LM` with the same weights;
 - :func:`cache_from_numpy` / :func:`cache_to_numpy` — a KV cache dict
-  (``k``, ``v`` [L, B, S, Hkv, Dh], ``pos``) both ways.
+  (``k``, ``v`` [L, B, S, Hkv, Dh], ``pos``) both ways;
+- :func:`cache_quant_from_numpy` / :func:`cache_quant_to_numpy` — an int8
+  KV cache dict (``k_q``, ``v_q`` int8 and ``k_s``, ``v_s`` f32 scales,
+  ``pos``) both ways.
 
 A DCN-v2 recommender's parameters too:
 
@@ -110,11 +114,11 @@ def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
     """``repro``'s LM param tree with numpy leaves (``embed``,
     ``final_norm``, ``head``, and ``layers`` of stacked ``[L, ...]`` arrays)
     -> an :class:`LM` on ``device`` holding the same values, in the tree's
-    dtype.  Names and shapes must match ``cfg`` exactly, as a tree that
-    ``repro`` built at ``tp=1`` does."""
-    layers = params_np["layers"]
-    if "moe" in layers:
-        raise ValueError("MoE layers are not in the port yet (ROADMAP.md)")
+    dtype (a MoE router stays f32).  Names and shapes must match ``cfg``
+    exactly, as a tree that ``repro`` built at ``tp=1`` does."""
+    layers = dict(params_np["layers"])
+    for name, arr in layers.pop("moe", {}).items():
+        layers[f"moe.{name}"] = arr
     state = {name: _tensor(params_np[name])
              for name in ("embed", "final_norm", "head") if name in params_np}
     for key, arr in layers.items():
@@ -143,6 +147,26 @@ def cache_to_numpy(cache: dict) -> dict:
     return {"k": cache["k"].float().cpu().numpy(),
             "v": cache["v"].float().cpu().numpy(),
             "pos": np.int32(cache["pos"])}
+
+
+def cache_quant_from_numpy(cache_np: dict,
+                           device: str | torch.device | None = None) -> dict:
+    """An int8 KV cache dict of numpy arrays -> the port's (``pos`` an
+    int)."""
+    dev = resolve_device(device)
+    out = {name: torch.from_numpy(np.array(cache_np[name], dtype)).to(dev)
+           for name, dtype in (("k_q", np.int8), ("k_s", np.float32),
+                               ("v_q", np.int8), ("v_s", np.float32))}
+    out["pos"] = int(cache_np["pos"])
+    return out
+
+
+def cache_quant_to_numpy(cache: dict) -> dict:
+    """The port's int8 KV cache -> numpy, exactly."""
+    out = {name: cache[name].cpu().numpy()
+           for name in ("k_q", "k_s", "v_q", "v_s")}
+    out["pos"] = np.int32(cache["pos"])
+    return out
 
 
 def dcn_params_from_numpy(params_np: dict, cfg: RecsysConfig,

@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.serve --arch chatglm3-6b --batch 4 \\
         --prompt-len 2048 --gen 32
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
+        --batch 4 --prompt-len 2048 --gen 32
     python -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu
 
 Weights are random, drawn from ``--seed`` (no checkpoint is in the
@@ -10,7 +12,11 @@ the flash kernel on the card, its plain version on the CPU); decode uses
 "auto", which picks naive attention at one query row.  ``--gen N``
 returns N tokens per prompt, as ``repro``'s CLI does: the prefill's token,
 then N - 1 greedy decode steps.  Without ``--device`` it runs on
-``cuda:0`` and raises when there is no GPU.
+``cuda:0`` and raises when there is no GPU.  A model whose weights do not
+fit the card's free memory (dbrx-132b and command-r-plus-104b at full
+depth) is refused before anything is allocated: one card has no
+multi-card model path, and the CLI neither cuts the depth nor falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -70,6 +76,21 @@ def generate(model: tfm.LM, prompts: torch.Tensor, gen: int,
                       steps=gen)
 
 
+def check_fits(cfg: LMConfig, device: torch.device) -> None:
+    """Raise ``RuntimeError`` when ``cfg``'s weights alone exceed the free
+    memory of the CUDA ``device``."""
+    if device.type != "cuda":
+        return
+    need = cfg.param_count_analytic() * tfm.DTYPES[cfg.param_dtype].itemsize
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise RuntimeError(
+            f"{cfg.name}: {need / 2**30:.1f} GiB of {cfg.param_dtype} "
+            f"weights do not fit the {free / 2**30:.1f} GiB free on "
+            f"{device}; a model of this size needs the multi-card model "
+            f"path (ROADMAP.md)")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -93,6 +114,7 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("serve only applies to LM archs")
     device = resolve_device(args.device)
     cfg = cfg.smoke() if args.smoke else cfg
+    check_fits(cfg, device)
     gen = torch.Generator(device).manual_seed(args.seed)
     model = tfm.init_lm(cfg, gen)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),

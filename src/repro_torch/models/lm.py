@@ -20,7 +20,8 @@ def make_prefill_step(attn_impl: str = "auto"):
 
     @torch.no_grad()
     def prefill(model: tfm.LM, tokens: torch.Tensor):
-        hidden, (k, v) = model(tokens, return_cache=True, attn_impl=attn_impl)
+        hidden, (k, v), _ = model(tokens, return_cache=True,
+                                  attn_impl=attn_impl)
         logits_last = model.unembed(hidden[:, -1])
         return logits_last, {"k": k, "v": v, "pos": tokens.shape[1]}
 

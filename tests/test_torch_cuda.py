@@ -47,6 +47,7 @@ from repro_torch.kernels.segment_minplus import ops as sm_ops
 from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
 from repro_torch.kernels.subset_combine import ops as sc_ops
 from repro_torch.kernels.subset_combine.ref import subset_combine_ref
+from repro_torch.models import kvcache
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
@@ -251,7 +252,26 @@ def test_flash_attention_wgmma_route_matches_plain(cuda_device, b, sq, skv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen1.5-4b"])
+@pytest.mark.parametrize("b,s", [(2, 256), (1, 700)])
+def test_flash_attention_at_granite_widths_takes_wgmma(cuda_device, b, s):
+    """granite-moe-3b-a800m's attention: 24 query and 8 KV heads (GQA 3) at
+    head dim 64, bf16, on the Hopper route, within 2e-2 of the plain
+    version."""
+    g = torch.Generator(cuda_device).manual_seed(s)
+    q, k, v = (torch.randn(b, s, h, 64, generator=g, device=cuda_device
+                           ).bfloat16() for h in (24, 8, 8))
+    assert fa_ops.route(q.dtype, 64) == "wgmma"
+    wgmma = fa_ops.launches_by_route["wgmma"]
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_by_route["wgmma"] == wgmma + 1
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen1.5-4b",
+                                  "granite-moe-3b-a800m", "dbrx-132b"])
 def test_smoke_prefill_through_the_kernel_matches_naive(cuda_device, arch):
     """One launch per layer per prefill; f32 logits and caches equal the
     naive attention's to 1e-4."""
@@ -266,6 +286,32 @@ def test_smoke_prefill_through_the_kernel_matches_naive(cuda_device, arch):
     want, cache_n = lm_lib.make_prefill_step("naive")(model, tokens)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(cache["k"], cache_n["k"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "granite-moe-3b-a800m"])
+def test_decode_step_quant_on_the_card_matches_cpu(cuda_device, arch):
+    """An f32 smoke model's int8-cache decode on the card against the same
+    weights on the CPU: 12 teacher-forced steps, greedy tokens equal, logits
+    within 5e-2 (P·V takes P in bf16, so the two devices' f32 exp can move
+    a weight by a bf16 ulp, as between ``repro`` and the port)."""
+    cfg = get_arch(arch).smoke().scaled(param_dtype="float32")
+    cpu = tfm.init_lm(cfg, torch.Generator("cpu").manual_seed(0))
+    card = tfm.LM(cfg, device=cuda_device, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    caches = [kvcache.init_cache_quant(cfg, 2, 16, device=d)
+              for d in ("cpu", cuda_device)]
+    with torch.no_grad():
+        for t in range(tokens.shape[1]):
+            tok = tokens[:, t:t + 1]
+            lc, caches[0] = cpu.decode_step_quant(caches[0], tok, chunk=8)
+            lg, caches[1] = card.decode_step_quant(
+                caches[1], tok.to(cuda_device), chunk=8)
+            torch.testing.assert_close(lg.cpu(), lc, atol=5e-2, rtol=5e-2)
+            assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), t
+    assert caches[1]["pos"] == 12
 
 
 @pytest.mark.cuda

@@ -63,6 +63,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.live.watch", "repro_torch.live.swap",
                  "repro_torch.launch.ingest",
                  "repro_torch.core.dks_sharded", "repro_torch.core.fagin",
-                 "repro_torch.core.baselines"):
+                 "repro_torch.core.baselines",
+                 "repro_torch.models.moe", "repro_torch.models.kvcache"):
         assert name in seen["modules"], name
     assert seen["bad"] == []

@@ -215,23 +215,28 @@ def test_lm_params_from_numpy_checks_the_tree():
                                      device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "granite-moe-3b-a800m",
-                                  "command-r-plus-104b", "gat-cora", "nope"])
+@pytest.mark.parametrize("arch", ["gat-cora", "nope"])
 def test_get_arch_raises_outside_the_ported_lms(arch):
     with pytest.raises(KeyError, match="ROADMAP"):
         get_arch(arch)
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen1.5-4b",
+                                  "command-r-plus-104b", "dbrx-132b",
+                                  "granite-moe-3b-a800m"])
 def test_configs_equal_jax(arch):
     got, want = get_arch(arch), get_arch_j(arch).config
-    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
-              "head_dim", "qkv_bias", "rotary_pct", "rope_theta", "norm_eps",
-              "tie_embeddings", "param_dtype"):
-        assert getattr(got, f) == getattr(want, f), f
-    assert got.param_count_analytic() == want.param_count_analytic()
-    assert got.smoke().param_count_analytic() == \
-        want.smoke().param_count_analytic()
+    for g, w in ((got, want), (got.smoke(), want.smoke())):
+        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                  "vocab", "head_dim", "qkv_bias", "rotary_pct", "rope_theta",
+                  "norm_eps", "tie_embeddings", "param_dtype"):
+            assert getattr(g, f) == getattr(w, f), f
+        assert (g.moe is None) == (w.moe is None)
+        if w.moe is not None:
+            for f in ("n_experts", "top_k", "d_ff_expert", "capacity_factor",
+                      "aux_loss_weight", "router_z_weight"):
+                assert getattr(g.moe, f) == getattr(w.moe, f), f
+        assert g.param_count_analytic() == w.param_count_analytic()
 
 
 def test_init_lm_draws_repro_distribution():
