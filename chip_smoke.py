@@ -160,13 +160,37 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    dbrx-132b and command-r-plus-104b at full width and cut depth (4 of 40
    and 2 of 64 layers; full depth does not fit one card): a 4 x 2,048
    prefill through the kernel against naive attention and 8 decode steps.
-13. The kernels line: one JSON object with each kernel's launches on the
+13. Training — granite-moe-3b-a800m at full width and depth (phase 11's
+   3,374,295,552 bf16 parameters, random from a seeded CUDA generator)
+   through ``repro_torch.launch.train.train_lm``: 16 steps of 4 x 2,048
+   tokens from ``lm_synthetic_stream`` (``repro``'s defaults: lr 3e-4,
+   warm-up max(1, steps // 20), remat, ``"chunked"`` attention, AdamW
+   with f32 moments); each step's loss, grad_norm and lr, its ms split
+   into forward+backward and optimizer (host clock, synchronised),
+   tokens/s, peak memory and the first and last step's per-layer
+   ``dropped_frac``; every loss finite and the last below the first.
+   From a fresh model and one batch, the loss and gradient norm on
+   ``"flash_jax"`` (the hand-written backward) within 2e-2 relative of
+   ``"chunked"``'s (bf16 scores); one step at ``grad_accum=2`` with its
+   peak beside ``grad_accum=1``'s.  A checkpoint: granite at full width
+   cut to 2 layers, saved after 2 steps, restored onto the card from a
+   meta template, every leaf bit-equal, step 3's loss equal to the
+   uninterrupted run's exactly; bytes and seconds.  DCN-v2 at full width
+   through ``train_recsys`` on ``impl="cuda"``: 20 steps of 8,192 rows,
+   one grouped-lookup launch a step (the counter zeroed just before and
+   read just after), the loss falling, ms a step; one batch's table
+   gradients within 1e-5 of ``impl="torch"``'s.  The f32 smoke configs
+   of ChatGLM3-6B and granite: one train step on the card and on the CPU
+   from the same weights, loss, grad_norm and parameters within 1e-4.
+   TF32 is off throughout.
+14. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
    in phase 9 for the three kernels it runs; ``store_launches`` and
    ``live_launches`` phase 10's artifact engine, live service and warm;
    ``sharded_launches`` phase 12's; the flash row's ``moe_launches`` and
    ``cut_depth_launches`` phase 11's, and ``moe_shape`` its times at
-   granite's shape), error, times and bound.
+   granite's shape; the bag row's ``train_launches`` phase 13's DCN-v2
+   steps), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -202,6 +226,7 @@ CUT_GEN = 8                 # decode steps of the cut-depth models
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RECSYS_ARCH, RECSYS_SEED, RETRIEVAL_TOP_K, CAND_SEED = "dcn-v2", 0, 100, 11
 REQUEST_REPS = 9            # host-clock repeats of each recsys request
+LOOKUP_ROUTE_REPS = 300     # serve_p99's x0 by each route, interleaved
 BAG_TOL = 1e-5              # repro's tests/test_kernels.py: sums reorder
 BAG_SHAPES = (              # b, nnz, d, mode, weighted
     (37, 1, 16, "sum", False),
@@ -232,6 +257,13 @@ LIVE_PROBE_HOPS = 3         # the live probe pair's hop distance
 SHARDS = 4                  # phase 12's shards, all on the one card
 SHARDED_CAP = 0.25          # phase 12's capped run: the default cap
 SMALL_SHARDED = (3001, 12000, 0.05)  # phase 12's small graph and its cap
+TRAIN_ARCH, TRAIN_SEED = "granite-moe-3b-a800m", 0   # phase 13
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 16, 4, 2048   # phases 6 and 11's shape
+FLASH_JAX_TOL = 2e-2        # flash_jax against chunked, relative: bf16 scores
+CKPT_LAYERS = 2             # the checkpoint leg's depth, at full width
+DCN_TRAIN_STEPS, DCN_TRAIN_BATCH = 20, 8192
+DCN_GRAD_TOL = 1e-5         # the scatter-add's atomics reorder sums
+SMOKE_TRAIN_TOL = 1e-4      # f32 smoke step, card against CPU
 # The bucket's extraction through the host collector, before the batched
 # backtracer (PERF.md §5, on an H100 at 700 W).
 EXTRACTION_HOST_MS = 981.2
@@ -1170,6 +1202,40 @@ def bag_phase(dev, table) -> tuple[float, list[dict]]:
     return err, rows
 
 
+def lookup_routes(params, cfg, batch) -> dict:
+    """``batch``'s x0 under ``no_grad`` by two routes, interleaved call by
+    call on the host clock: ``grouped_lookup``, which calls the grouped
+    kernel alone when nothing needs a gradient, as serving does, and
+    :class:`GroupedLookup`'s ``apply`` (a ctx and ``save_for_backward``
+    per call).  Returns each route's median and p99 in ms; the two x0
+    must be equal."""
+    from repro_torch.models import recsys as rec
+
+    tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
+    dense, sparse = batch["dense"], batch["sparse"]
+
+    def alone():
+        return rec.grouped_lookup(tables, sparse, prefix=dense)
+
+    def autograd():
+        return rec.GroupedLookup.apply(sparse, dense, cfg.n_dense, *tables)
+
+    routes = {"alone": alone, "autograd": autograd}
+    ms = {name: [] for name in routes}
+    with torch.no_grad():
+        check(torch.equal(alone(), autograd()),
+              "x0 differs between the kernel alone and GroupedLookup")
+        for _ in range(LOOKUP_ROUTE_REPS):
+            for name, fn in routes.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (float(np.median(x)), float(np.percentile(x, 99)))
+            for name, x in ms.items()}
+
+
 def recsys_phase(dev) -> tuple[float, list[dict], int]:
     """DCN-v2 serving at full width through the grouped EmbeddingBag
     kernel: returns (the kernels' max abs err, their timed rows, the
@@ -1272,6 +1338,11 @@ def recsys_phase(dev) -> tuple[float, list[dict], int]:
             f"{min(again):.3f}) of {REQUEST_REPS} more ({n / med * 1e3:.0f} "
             f"{unit}; impl=torch {plain_ms:.3f} ms), peak device memory "
             f"{peak:.2f} GiB, bit-equal to impl=torch")
+    routes = lookup_routes(params, cfg, batches["serve_p99"])
+    log("  serve_p99's x0 under no_grad, median / p99 of "
+        f"{LOOKUP_ROUTE_REPS} calls each, interleaved: " + "; ".join(
+            f"{name} {med:.4f} / {p99:.4f} ms"
+            for name, (med, p99) in routes.items()))
     # The grouped kernel at each lookup of the main path, held against its
     # plain version and beside F.embedding, once per field (which leaves
     # out x0's dense columns, 13 of 429).
@@ -2001,6 +2072,347 @@ def sharded_phase(dev, graph, index, bucket, singles, phase5,
                        f"served answers"}
 
 
+def train_args(arch: str, steps: int, batch: int, seq: int = 128):
+    """``repro_torch.launch.train``'s argument namespace for a run on the
+    card."""
+    from repro_torch.launch import train
+
+    return train.parser().parse_args([
+        "--arch", arch, "--steps", str(steps), "--batch", str(batch),
+        "--seq", str(seq), "--seed", str(TRAIN_SEED), "--device", "cuda",
+        "--log-every", str(steps)])
+
+
+def attention_times(dev, cfg, card: str) -> None:
+    """One layer's attention at the train shape, forward and forward +
+    backward, on ``"chunked"`` and ``"flash_jax"`` (CUDA events, mean of 3):
+    with remat a step runs each layer's forward twice and its backward
+    once."""
+    from repro_torch.models.attention import attention
+
+    gen = torch.Generator(dev).manual_seed(TRAIN_SEED)
+    q, k, v = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, cfg.head_dim,
+                           generator=gen, device=dev).bfloat16()
+               .requires_grad_(True)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    d_o = torch.randn_like(q)
+    parts = []
+    for impl in ("chunked", "flash_jax"):
+        fwd = cuda_ms(lambda: attention(q, k, v, impl=impl), 3)
+        both = cuda_ms(lambda: torch.autograd.grad(
+            attention(q, k, v, impl=impl), (q, k, v), d_o), 3)
+        per_step = cfg.n_layers * (fwd + both)
+        parts.append(f"{impl} forward {fwd:.2f} ms, forward+backward "
+                     f"{both:.2f} ms, x {cfg.n_layers} layers with remat "
+                     f"{per_step:.1f} ms a step")
+    log(f"  attention at q {list(q.shape)}, k/v {list(k.shape)} (bf16, one "
+        f"layer): " + "; ".join(parts) + f" [{card}]")
+
+
+def step_split(state, batch, step, card: str) -> None:
+    """One train step under torch.profiler: kernel time against the host
+    clock (profiled, so the host runs slower than unprofiled), launches,
+    and the kernels that lead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        log("  train step: device time not measured (the profiler saw no "
+            "kernel)")
+        return
+    top = "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.1f} ms "
+                    f"x{e.count}" for e in kernels[:10])
+    log(f"  a train step under torch.profiler: kernels busy {busy:.1f} ms of "
+        f"{wall:.1f} ms wall ({100 * busy / wall:.1f} %), "
+        f"{sum(e.count for e in kernels)} kernel launches; top: {top} "
+        f"[{card}]")
+
+
+def granite_train(dev, card: str) -> dict:
+    """granite-moe-3b-a800m at full width and depth through ``train_lm``:
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens; then,
+    from a fresh model and one batch, the loss and gradient norm on
+    ``"flash_jax"`` against ``"chunked"``; then one step at
+    ``grad_accum=2`` with its peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_synthetic_stream
+    from repro_torch.launch import train
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import global_norm
+
+    cfg = get_arch(TRAIN_ARCH)
+    args = train_args(TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    t0 = time.perf_counter()
+    out = train.train_lm(args)
+    wall = time.perf_counter() - t0
+    steps = out["steps"]
+    for r in steps:
+        check(bool(np.isfinite([r["loss"], r["grad_norm"], r["lr"]]).all()),
+              f"{cfg.name} step {r['step']}: {r}")
+        log(f"    step {r['step']:2d}: loss {r['loss']:.4f}, grad_norm "
+            f"{r['grad_norm']:.4f}, lr {r['lr']:.3e}; {r['step_s'] * 1e3:.1f}"
+            f" ms = forward+backward {r['grad_s'] * 1e3:.1f} + optimizer "
+            f"{r['update_s'] * 1e3:.1f}")
+    check(out["last_loss"] < out["first_loss"],
+          f"{cfg.name}: loss {out['first_loss']} -> {out['last_loss']}")
+    split = {k: 1e3 * float(np.mean([r[k] for r in steps[1:]]))
+             for k in ("step_s", "grad_s", "update_s")}
+    peak1 = out["peak_bytes"]
+    log(f"  {cfg.name} trained at full width and depth "
+        f"({cfg.param_count_analytic()} bf16 parameters; remat, chunked "
+        f"attention, AdamW with f32 moments), {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: loss {out['first_loss']:.4f} "
+        f"-> {out['last_loss']:.4f}; steps 1..{TRAIN_STEPS - 1}: "
+        f"{split['step_s']:.1f} ms a step = forward+backward "
+        f"{split['grad_s']:.1f} + optimizer {split['update_s']:.1f} (host "
+        f"clock, synchronised), {out['tokens_per_s']:.0f} tokens/s; first "
+        f"step {steps[0]['step_s'] * 1e3:.1f} ms; peak "
+        f"{peak1 / 2**30:.2f} GiB; train_lm {wall:.1f} s [{card}]")
+    for r in (steps[0], steps[-1]):
+        log(f"    step {r['step']} dropped_frac per layer: "
+            f"{[round(d, 4) for d in r['dropped_frac']]}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = tfm.init_lm(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED))
+    for p in model.parameters():
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        lm_synthetic_stream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                            seed=TRAIN_SEED + 1)).items()}
+    got = {}
+    for impl in ("chunked", "flash_jax"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, _ = lm_lib.loss_and_grads(model, batch, impl)
+        gn = float(global_norm(grads))
+        got[impl] = (float(loss), gn, time.perf_counter() - t0)
+        del grads
+    (lc, nc, tc), (lf, nf, tf) = got["chunked"], got["flash_jax"]
+    check(abs(lf - lc) <= FLASH_JAX_TOL * abs(lc)
+          and abs(nf - nc) <= FLASH_JAX_TOL * nc,
+          f"flash_jax loss {lf}, grad_norm {nf} against chunked {lc}, {nc}")
+    log(f"  flash_jax against chunked, one state and batch: loss {lf:.6f} / "
+        f"{lc:.6f}, grad_norm {nf:.6f} / {nc:.6f} (limit {FLASH_JAX_TOL} "
+        f"relative); forward+backward {tf * 1e3:.1f} / {tc * 1e3:.1f} ms "
+        f"(one call each, host clock) [{card}]")
+
+    attention_times(dev, cfg, card)
+    state = lm_lib.init_train_state(model)
+    step_split(state, batch, lm_lib.make_train_step(train.opt_config(args),
+                                                    "chunked"), card)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = lm_lib.make_train_step(train.opt_config(args), "chunked",
+                                  grad_accum=2)
+    state, m = step(state, batch)
+    peak2 = torch.cuda.max_memory_allocated(dev)
+    check(bool(torch.isfinite(m["loss"])), f"grad_accum=2 loss {m['loss']}")
+    log(f"  one step at grad_accum=2 (2 microbatches of {TRAIN_BATCH // 2} "
+        f"x {TRAIN_SEQ}): loss {float(m['loss']):.4f}, "
+        f"{(m['grad_s'] + m['update_s']) * 1e3:.1f} ms; peak "
+        f"{peak2 / 2**30:.2f} GiB against {peak1 / 2**30:.2f} at "
+        f"grad_accum=1 [{card}]")
+    return {"split": split, "peak": (peak1, peak2)}
+
+
+def bit_equal(a, b) -> bool:
+    """Two tensors (or ints) with the same device, dtype and bits."""
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    return (a.device == b.device and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def checkpoint_leg(dev, card: str) -> None:
+    """granite at full width cut to ``CKPT_LAYERS`` layers: two steps, a
+    save, a restore into a fresh state on the card from a meta template
+    (every leaf bit-equal), then step 3 from the restored state and from
+    the live one: the same loss, exactly (the forward has no atomics)."""
+    import tempfile
+
+    from repro_torch.checkpoint import Stacked, restore_tree, save_tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_synthetic_stream
+    from repro_torch.launch import train
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import tree_leaves
+
+    full = get_arch(TRAIN_ARCH)
+    cfg = full.scaled(n_layers=CKPT_LAYERS)
+    state = lm_lib.init_train_state(tfm.init_lm(
+        cfg, torch.Generator(dev).manual_seed(TRAIN_SEED)))
+    step = lm_lib.make_train_step(train.opt_config(train_args(
+        TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH)), "chunked")
+    stream = lm_synthetic_stream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                 seed=TRAIN_SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(
+        stream).items()} for _ in range(3)]
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_tree(lm_lib.train_state_tree(state), tmp, 2)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        back = lm_lib.train_state_from_tree(cfg, restore_tree(
+            lm_lib.train_state_template(cfg), tmp, 2, device=dev))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    n = 0
+    for g, w in zip(tree_leaves(lm_lib.train_state_tree(back)),
+                    tree_leaves(lm_lib.train_state_tree(state)), strict=True):
+        for a, b in (zip(g.parts, w.parts, strict=True)
+                     if isinstance(g, Stacked) else [(g, w)]):
+            n += 1
+            check(bit_equal(a, b), f"restored tensor {n} differs from saved")
+    _, resumed = step(back, batches[2])
+    _, live = step(state, batches[2])
+    l_r, l_u = float(resumed["loss"]), float(live["loss"])
+    check(l_r == l_u, f"step 3 after a restore: loss {l_r} != {l_u}")
+    log(f"  checkpoint: {cfg.name} at full width, reduced: n_layers "
+        f"{full.n_layers}→{CKPT_LAYERS}; after 2 steps saved {nbytes} bytes "
+        f"in {t_save:.2f} s ({nbytes / t_save / 1e9:.2f} GB/s), restored "
+        f"onto the card from a meta template in {t_restore:.2f} s; {n} "
+        f"tensors and ints bit-equal; step 3 loss {l_r:.6f} resumed == "
+        f"{l_u:.6f} uninterrupted [{card}]")
+
+
+def dcn_train(dev, card: str) -> int:
+    """DCN-v2 at full width through ``train_recsys`` (``impl="cuda"``):
+    ``DCN_TRAIN_STEPS`` steps of ``DCN_TRAIN_BATCH`` rows, the grouped
+    lookup's launches counted; then one batch's table gradients on
+    ``"cuda"`` against ``"torch"``.  Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_synthetic_stream
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as rec_lib
+
+    cfg = get_arch(RECSYS_ARCH)
+    args = train_args(RECSYS_ARCH, DCN_TRAIN_STEPS, DCN_TRAIN_BATCH)
+    eb_ops.counter.reset()
+    out = train.train_recsys(args)
+    launches = eb_ops.launches
+    check(launches == DCN_TRAIN_STEPS,
+          f"{launches} grouped lookups in {DCN_TRAIN_STEPS} steps")
+    check(out["last_loss"] < out["first_loss"],
+          f"{cfg.name}: loss {out['first_loss']} -> {out['last_loss']}")
+    ms = [r["step_s"] * 1e3 for r in out["steps"]]
+    log(f"  {cfg.name} trained at full width (f32, TF32 off) on "
+        f"impl=cuda: {DCN_TRAIN_STEPS} steps of {DCN_TRAIN_BATCH} rows, "
+        f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}; "
+        f"{launches} grouped lookups; {np.median(ms[1:]):.2f} ms a step "
+        f"(median of steps 1..; first {ms[0]:.1f}) [{card}]")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = rec_lib.init_dcn(cfg, torch.Generator(dev).manual_seed(
+        TRAIN_SEED))
+    batch = rec_lib.batch_to_device(next(recsys_synthetic_stream(
+        cfg, DCN_TRAIN_BATCH, seed=TRAIN_SEED + 1)), dev)
+    tables = [params["tables"][f"table_{i}"].requires_grad_(True)
+              for i in range(cfg.n_sparse)]
+    grads = {}
+    for impl in ("cuda", "torch"):
+        loss = rec_lib.dcn_loss(params, batch, cfg, impl)
+        grads[impl] = torch.autograd.grad(loss, tables)
+    err = max(max_abs_err(g, w) for g, w in zip(grads["cuda"],
+                                                 grads["torch"]))
+    for g, w in zip(grads["cuda"], grads["torch"]):
+        torch.testing.assert_close(g, w, atol=DCN_GRAD_TOL,
+                                   rtol=DCN_GRAD_TOL)
+    log(f"  {cfg.name} table gradients on impl=cuda (the kernel, then a "
+        f"scatter-add) == impl=torch within {DCN_GRAD_TOL} (max abs err "
+        f"{err:.3g}) [{card}]")
+    return launches
+
+
+def smoke_on_card_and_cpu(dev, card: str) -> None:
+    """One f32 train step of each smoke config from the same weights and
+    batch on the card and on the CPU: loss, grad_norm and every parameter
+    after the step within ``SMOKE_TRAIN_TOL``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_synthetic_stream
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig
+
+    for arch in (LM_ARCH, TRAIN_ARCH):
+        cfg = get_arch(arch).smoke().scaled(param_dtype="float32")
+        cpu = tfm.init_lm(cfg, torch.Generator("cpu").manual_seed(TRAIN_SEED))
+        on_card = tfm.LM(cfg, device=dev)
+        on_card.load_state_dict(cpu.state_dict())
+        batch = {k: torch.from_numpy(v) for k, v in next(lm_synthetic_stream(
+            cfg.vocab, 4, 64, seed=TRAIN_SEED)).items()}
+        step = lm_lib.make_train_step(AdamWConfig(warmup_steps=1),
+                                      attn_impl="naive")
+        (s_c, m_c), (s_d, m_d) = (
+            step(lm_lib.init_train_state(model),
+                 {k: v.to(d) for k, v in batch.items()})
+            for model, d in ((cpu, "cpu"), (on_card, dev)))
+        err = 0.0
+        for name in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(m_d[name].cpu(), m_c[name],
+                                       atol=SMOKE_TRAIN_TOL,
+                                       rtol=SMOKE_TRAIN_TOL)
+        for (n, p), (_, q) in zip(s_d.model.named_parameters(),
+                                  s_c.model.named_parameters(), strict=True):
+            err = max(err, max_abs_err(p.detach().cpu(), q.detach()))
+            torch.testing.assert_close(p.detach().cpu(), q.detach(),
+                                       atol=SMOKE_TRAIN_TOL,
+                                       rtol=SMOKE_TRAIN_TOL,
+                                       msg=lambda msg: f"{arch} {n}: {msg}")
+        log(f"  {arch} smoke (f32) train step, card == CPU within "
+            f"{SMOKE_TRAIN_TOL}: loss {float(m_d['loss']):.6f} / "
+            f"{float(m_c['loss']):.6f}, grad_norm "
+            f"{float(m_d['grad_norm']):.6f} / {float(m_c['grad_norm']):.6f}, "
+            f"parameters max abs err {err:.3g} [{card}]")
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 13: training on the card.  Returns the granite numbers and the
+    DCN-v2 train path's grouped-lookup launches."""
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        granite = granite_train(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        checkpoint_leg(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = dcn_train(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        smoke_on_card_and_cpu(dev, card)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {**granite, "launches": launches}
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -2034,14 +2446,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/13] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/14] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/13] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/14] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -2115,7 +2527,7 @@ def main() -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/13] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/14] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -2178,7 +2590,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/13] kernels == plain versions at the main path's shapes")
+    log("[3/14] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -2197,7 +2609,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/13] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/14] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -2247,7 +2659,7 @@ def main() -> int:
     # Phase 10 holds an artifact-built engine to these, state dropped.
     phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
         r for r, _ in single]
-    log(f"[5/13] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/14] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -2324,10 +2736,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/13] flash_attention == plain version at small shapes and the "
+    log("[6/14] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/13] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/14] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -2341,7 +2753,7 @@ def main() -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/13] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/14] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -2351,14 +2763,14 @@ def main() -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/13] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/14] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     # ---------------- 9. serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/13] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/14] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
@@ -2368,7 +2780,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
-    log(f"[10/13] {cfg_sec.name} through the graph store on backend=cuda: "
+    log(f"[10/14] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
     # ---------------- 11. MoE and the int8 KV cache ----------------
@@ -2376,7 +2788,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
-    log(f"[11/13] {MOE_ARCH} served through the flash kernel: "
+    log(f"[11/14] {MOE_ARCH} served through the flash kernel: "
         f"{moe['launches']} launches, logits and tokens agree with naive "
         f"attention; int8 cache decode within {QUANT_TOL} of the bf16 cache; "
         f"at cut depth {moe['cut_launches']} launches")
@@ -2387,10 +2799,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, graph, index, bucket, singles, phase5,
                             per_step)
-    log(f"[12/13] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
+    log(f"[12/14] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
         f" backend=torch) == phase 5; {sharded['summary']}")
 
-    # ---------------- 13. kernels line ----------------
+    # ---------------- 13. training ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phase(dev, card)
+    log(f"[13/14] {TRAIN_ARCH} trained at full width and depth "
+        f"({trained['split']['step_s']:.1f} ms a step); flash_jax == "
+        f"chunked; a checkpoint restored bit-equal; {RECSYS_ARCH} trained on "
+        f"the grouped lookup ({trained['launches']} launches); the smoke "
+        f"steps card == CPU")
+
+    # ---------------- 14. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
@@ -2421,6 +2843,8 @@ def main() -> int:
             kernels[-1]["live_launches"] = store["live_launches"][name]
         if name in sharded["launches"]:
             kernels[-1]["sharded_launches"] = sharded["launches"][name]
+        if name == "embedding_bag":
+            kernels[-1]["train_launches"] = trained["launches"]
         if name == "flash_attention":
             ms, plain, library, bound, by = moe["timing"]
             kernels[-1].update({

@@ -5,11 +5,12 @@
   structurally-similar stand-ins (power-law degree, Zipf labels) at the
   paper's node/edge scales, plus CPU-scaled variants.  The same values as
   ``repro.configs.dks_paper``.
-- The decoder-only LMs the port serves (:func:`get_arch`), dense and MoE,
-  with the values of ``repro.configs.chatglm3_6b``, ``qwen15_4b``,
-  ``command_r_plus_104b``, ``dbrx_132b`` and ``granite_moe_3b_a800m``.
-- The DCN-v2 recommender it serves (``get_arch("dcn-v2")``) and the recsys
-  shapes, with the values of ``repro.configs.dcn_v2`` and
+- The decoder-only LMs the port serves and trains (:func:`get_arch`),
+  dense and MoE, with the values of ``repro.configs.chatglm3_6b``,
+  ``qwen15_4b``, ``command_r_plus_104b``, ``dbrx_132b`` and
+  ``granite_moe_3b_a800m``.
+- The DCN-v2 recommender it serves and trains (``get_arch("dcn-v2")``)
+  and the recsys shapes, with the values of ``repro.configs.dcn_v2`` and
   ``repro.configs.base``.
 """
 
@@ -60,8 +61,9 @@ class MoESpec:
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """A decoder-only LM, dense or MoE (``repro.configs.base.LMConfig``
-    without ``remat``, a training field the port does not run yet)."""
+    """A decoder-only LM, dense or MoE (``repro.configs.base.LMConfig``).
+    ``remat``: under grad, each layer's activations are recomputed in the
+    backward pass (``torch.utils.checkpoint``) instead of kept."""
 
     name: str
     n_layers: int
@@ -78,6 +80,7 @@ class LMConfig:
     moe: MoESpec | None = None
     tie_embeddings: bool = False
     param_dtype: str = "bfloat16"
+    remat: bool = True
 
     def scaled(self, **kw) -> "LMConfig":
         return dataclasses.replace(self, **kw)
@@ -167,8 +170,6 @@ class RecsysShape:
     n_candidates: int = 0
 
 
-# "train_batch" is listed as in ``repro``; the port serves, it does not
-# train yet.
 RECSYS_SHAPES = (
     RecsysShape("train_batch", "train", 65_536),
     RecsysShape("serve_p99", "serve", 512),

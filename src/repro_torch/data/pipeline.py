@@ -1,16 +1,38 @@
-"""Deterministic synthetic recsys batches, a numpy copy of
-``repro.data.pipeline.recsys_synthetic_stream``: the same seed, step and
-shard give the same arrays, batch for batch.
+"""Deterministic synthetic LM and recsys batches and a background
+prefetcher, numpy copies of ``repro.data.pipeline``: the same seed, step
+and shard give the same arrays, batch for batch.
 
-The stream is seeded per step and shard (``shard_id`` / ``n_shards`` skip
-pattern), so a reader resumes at an exact batch index with ``skip``.
+Each stream is seeded per step and shard (``shard_id`` / ``n_shards`` skip
+pattern), so shards read disjoint data without coordination and a reader
+resumes at an exact batch index with ``skip`` (a restarted training run
+re-seeks to its checkpoint's step).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
+
+
+def lm_synthetic_stream(
+    vocab: int, batch: int, seq: int, seed: int = 0,
+    shard_id: int = 0, n_shards: int = 1, skip: int = 0,
+) -> Iterator[dict]:
+    """Zipf-ish token batches with next-token labels: ``{"tokens":
+    i32[B, seq], "labels": i32[B, seq]}``, the labels the tokens shifted by
+    one."""
+    step = skip
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+    while True:
+        rng = np.random.default_rng(
+            (seed * 1_000_003 + step * n_shards + shard_id) % (2**63))
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs).astype(np.int32)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step += 1
 
 
 def recsys_synthetic_stream(
@@ -34,3 +56,38 @@ def recsys_synthetic_stream(
         label = (logit > 0).astype(np.int32)
         yield {"dense": np.log1p(dense), "sparse": sparse, "label": label}
         step += 1
+
+
+class PrefetchIterator:
+    """Iterates ``it`` on a background thread through a queue of ``depth``
+    items, so host batch synthesis overlaps the device's steps.  An error
+    raised by ``it`` is raised again by ``next`` after the items before
+    it."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._done = object()
+        self._err: BaseException | None = None
+
+        def worker():
+            try:
+                for item in it:
+                    self._q.put(item)
+            except BaseException as e:  # noqa: BLE001 -- raised by __next__
+                self._err = e
+            finally:
+                self._q.put(self._done)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item

@@ -29,6 +29,16 @@ A DCN-v2 recommender's parameters too:
 - :func:`dcn_params_from_numpy` — ``repro``'s ``init_dcn`` tree -> the
   port's parameter dict (:mod:`repro_torch.models.recsys`).
 
+And the training states, so that both packages can take the same step:
+
+- :func:`train_state_from_numpy` / :func:`train_state_to_numpy` — an LM
+  ``TrainState`` as the list of ``repro``'s ``jax.tree_util.tree_leaves``
+  (params, then ``opt.mu``, ``opt.nu``, ``opt.count``, then ``step``; dict
+  keys sorted, layers stacked ``[L, ...]``) <->
+  :class:`~repro_torch.models.lm.TrainState`;
+- :func:`dcn_state_from_numpy` / :func:`dcn_state_to_numpy` — DCN-v2's
+  ``(params, OptState)`` pair, ``repro``'s train carry.
+
 bf16 arrays, which numpy holds as ml_dtypes' ``bfloat16``, come across
 exactly (through f32, which holds every bf16 value).
 """
@@ -44,9 +54,12 @@ from repro_torch.core.dks import STATE_FIELDS, DKSState
 from repro_torch.device import resolve_device
 from repro_torch.graph.index import InvertedIndex
 from repro_torch.graph.structure import Graph
+from repro_torch.checkpoint.checkpointer import Stacked, leaf_like
 from repro_torch.configs import LMConfig, RecsysConfig
+from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys
 from repro_torch.models.transformer import LM
+from repro_torch.optim import OptState, tree_leaves, tree_map, tree_unflatten
 
 STATE_DTYPES = {
     "S": np.float32, "changed": np.bool_, "first_fire": np.bool_,
@@ -202,3 +215,63 @@ def dcn_params_from_numpy(params_np: dict, cfg: RecsysConfig,
         "logit": put(params_np["logit"], shapes["logit"], "logit"),
         "item": put(params_np["item"], shapes["item"], "item"),
     }
+
+
+def train_state_from_numpy(leaves: list, cfg: LMConfig,
+                           device: str | torch.device | None = None
+                           ) -> lm_lib.TrainState:
+    """``jax.tree_util.tree_leaves`` of ``repro``'s LM ``TrainState``, as
+    numpy arrays (bf16 ones through ml_dtypes or as f32) -> the port's
+    state on ``device``, in the dtypes of ``cfg`` (moments f32)."""
+    dev = resolve_device(device)
+    template = lm_lib.train_state_template(cfg)
+    want = tree_leaves(template)
+    if len(leaves) != len(want):
+        raise ValueError(f"{len(leaves)} leaves, a {cfg.name} TrainState "
+                         f"has {len(want)}")
+    out = []
+    for i, (arr, leaf) in enumerate(zip(leaves, want)):
+        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+        if tuple(np.shape(arr)) != shape:
+            raise ValueError(f"leaf {i} has shape {list(np.shape(arr))}, the "
+                             f"config {list(shape)}")
+        out.append(leaf_like(_tensor(arr), leaf, dev))
+    return lm_lib.train_state_from_tree(cfg, tree_unflatten(template, out))
+
+
+def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Stacked):
+        return np.stack([_numpy(p) for p in leaf.parts])
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf, np.int32)
+
+
+def train_state_to_numpy(state: lm_lib.TrainState) -> list:
+    """The port's LM state -> numpy leaves in ``repro``'s order (bf16 as
+    f32, exactly)."""
+    return [_numpy(leaf)
+            for leaf in tree_leaves(lm_lib.train_state_tree(state))]
+
+
+def dcn_state_from_numpy(params_np: dict, opt_np: dict, cfg: RecsysConfig,
+                         device: str | torch.device | None = None
+                         ) -> tuple[dict, OptState]:
+    """``repro``'s DCN-v2 ``(params, OptState)`` with numpy leaves
+    (``opt_np``: ``{"mu", "nu"}`` trees shaped like the params, and
+    ``"count"``) -> the port's parameter dict and :class:`OptState` on
+    ``device``."""
+    dev = resolve_device(device)
+    params = dcn_params_from_numpy(params_np, cfg, dev)
+    mu, nu = (dcn_params_from_numpy(opt_np[k], cfg, dev) for k in ("mu", "nu"))
+    count = torch.tensor(int(opt_np["count"]), dtype=torch.int32, device=dev)
+    return params, OptState(mu=mu, nu=nu, count=count)
+
+
+def dcn_state_to_numpy(params: dict, opt: OptState) -> tuple[dict, dict]:
+    """The inverse of :func:`dcn_state_from_numpy`."""
+    to_np = lambda t: t.detach().cpu().numpy()
+    return tree_map(to_np, params), {
+        "mu": tree_map(to_np, opt.mu), "nu": tree_map(to_np, opt.nu),
+        "count": np.int32(opt.count.item())}

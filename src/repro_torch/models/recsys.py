@@ -1,5 +1,5 @@
-"""DCN-v2 (arXiv:2008.13535) serving: embedding tables, cross network and
-deep tower, the counterpart of ``repro.models.recsys``.
+"""DCN-v2 (arXiv:2008.13535): embedding tables, cross network and deep
+tower, served and trained, the counterpart of ``repro.models.recsys``.
 
 Parameters are a plain dict shaped like ``repro``'s tree: ``tables``
 (``table_i`` f32[rows_i, embed_dim]), ``cross`` and ``deep`` (lists of
@@ -16,9 +16,18 @@ id (``ids[:, None]``, no weights, ``"sum"``) through the plain EmbeddingBag
 and a ``torch.cat``.  A bag of one gives ``0 + row * 1 = row``, the row
 itself (``-0.0`` entries come back as ``+0.0``, which compares equal).
 
+Under grad the grouped lookup is a :class:`GroupedLookup` autograd
+function (serving calls the kernel alone, without its per-call cost): the
+forward is the kernel, unchanged (one launch), and the
+backward gives each table the dense gradient that JAX's autodiff of
+``jnp.take(table, clip(ids))`` gives, a scatter-add (``index_add_``) of
+the output's columns over the clipped ids; ``repro`` has no backward
+kernel here, so this one is stock torch.
+
 Serving paths: pointwise scoring (:func:`dcn_forward`) and retrieval
-(:func:`retrieval_scores`: user tower against candidate item vectors).
-Training (``dcn_loss``) waits for a later slice.
+(:func:`retrieval_scores`: user tower against candidate item vectors), both
+under ``no_grad``.  Training: :func:`dcn_loss`, the stable binary cross
+entropy with logits, on the same undecorated forward (:func:`dcn_logits`).
 """
 
 from __future__ import annotations
@@ -110,15 +119,70 @@ def batch_to_device(batch: dict,
     return {name: torch.from_numpy(arr).to(dev) for name, arr in batch.items()}
 
 
+def _grouped(tables, ids: torch.Tensor, col0: int,
+             prefix: torch.Tensor | None) -> torch.Tensor:
+    """One launch of the grouped kernel (its plain version on a CPU
+    tensor) into a new [B, col0 + F * D] tensor, ids clipped."""
+    out = torch.empty(ids.shape[0], col0 + len(tables) * tables[0].shape[1],
+                      dtype=tables[0].dtype, device=tables[0].device)
+    return eb_ops.embedding_bag_grouped(tables, ids, out, col0, clip=True,
+                                        prefix=prefix)
+
+
+class GroupedLookup(torch.autograd.Function):
+    """``grouped_lookup``'s autograd: the forward launches the grouped
+    kernel once (:func:`_grouped`); the backward is stock torch."""
+
+    @staticmethod
+    def forward(ctx, ids, prefix, col0: int, *tables):
+        ctx.save_for_backward(ids)
+        ctx.col0 = col0
+        ctx.rows = [t.shape[0] for t in tables]
+        return _grouped(tables, ids, col0, prefix)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        (ids,) = ctx.saved_tensors
+        col0, d = ctx.col0, (g_out.shape[1] - ctx.col0) // len(ctx.rows)
+        g_tables = []
+        for f, rows in enumerate(ctx.rows):
+            if not ctx.needs_input_grad[3 + f]:
+                g_tables.append(None)
+                continue
+            idx = torch.clamp(ids[:, f], 0, rows - 1)
+            cols = g_out[:, col0 + f * d:col0 + (f + 1) * d]
+            g_tables.append(torch.zeros(rows, d, dtype=g_out.dtype,
+                                        device=g_out.device
+                                        ).index_add_(0, idx, cols))
+        g_prefix = g_out[:, :col0] if ctx.needs_input_grad[1] else None
+        return (None, g_prefix, None, *g_tables)
+
+
+def grouped_lookup(tables, ids: torch.Tensor,
+                   prefix: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, col0 + F * D]: ``prefix`` [B, col0] (or nothing), then field f's
+    row ``tables[f][clip(ids[:, f])]`` for each of the F tables, built by
+    one launch of the grouped kernel and differentiable in the tables (and
+    the prefix).  When nothing needs a gradient (serving) the kernel is
+    called alone: :class:`GroupedLookup`'s ``apply`` costs about 30 us a
+    call at ``serve_p99``'s shape on an H100 (``chip_smoke.py``'s
+    ``lookup_routes``)."""
+    ids = ids.contiguous()
+    col0 = 0 if prefix is None else prefix.shape[1]
+    if prefix is not None:
+        prefix = prefix.contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (prefix, *tables)):
+        return GroupedLookup.apply(ids, prefix, col0, *tables)
+    return _grouped(tables, ids, col0, prefix)
+
+
 def _lookup(table: torch.Tensor, ids: torch.Tensor, impl: str) -> torch.Tensor:
     """``repro``'s ``jnp.take(table, clip(ids, 0, rows - 1))``.  ids:
     int32[N] -> [N, D]: the grouped kernel with one field on
     ``impl="cuda"``, a bag of one id per row on ``"torch"``."""
     if impl == "cuda":
-        out = torch.empty(ids.shape[0], table.shape[1], dtype=table.dtype,
-                          device=table.device)
-        return eb_ops.embedding_bag_grouped([table], ids[:, None].contiguous(),
-                                            out, clip=True)
+        return grouped_lookup([table], ids[:, None])
     ids = torch.clamp(ids, 0, table.shape[0] - 1)
     return embedding_bag(table, ids[:, None], None, "sum", impl)
 
@@ -130,11 +194,7 @@ def _features(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
     dense columns and each field's row."""
     tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
     if impl == "cuda":
-        x0 = torch.empty(dense.shape[0], cfg.n_dense + cfg.n_sparse *
-                         cfg.embed_dim, dtype=dense.dtype, device=dense.device)
-        return eb_ops.embedding_bag_grouped(
-            tables, sparse_ids.contiguous(), x0, cfg.n_dense, clip=True,
-            prefix=dense.contiguous())
+        return grouped_lookup(tables, sparse_ids, prefix=dense)
     embs = [_lookup(t, sparse_ids[:, i], impl) for i, t in enumerate(tables)]
     return torch.cat([dense] + embs, dim=-1)
 
@@ -153,13 +213,30 @@ def _deep_tower(params: dict, x0: torch.Tensor) -> torch.Tensor:
     return h
 
 
-@torch.no_grad()
-def dcn_forward(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
-                cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
-    """Pointwise CTR logits f32[B]."""
+def dcn_logits(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
+               cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
+    """Pointwise CTR logits f32[B], differentiable in ``params``."""
     x0 = _features(params, dense, sparse_ids, cfg, impl)
     z = torch.cat([_cross_tower(params, x0), _deep_tower(params, x0)], dim=-1)
     return (z @ params["logit"])[:, 0]
+
+
+@torch.no_grad()
+def dcn_forward(params: dict, dense: torch.Tensor, sparse_ids: torch.Tensor,
+                cfg: RecsysConfig, impl: str = "cuda") -> torch.Tensor:
+    """Pointwise CTR logits f32[B] (serving: no graph is built)."""
+    return dcn_logits(params, dense, sparse_ids, cfg, impl)
+
+
+def dcn_loss(params: dict, batch: dict, cfg: RecsysConfig,
+             impl: str = "cuda") -> torch.Tensor:
+    """Mean binary cross entropy of ``batch["label"]`` given the logits of
+    ``batch["dense"]`` / ``batch["sparse"]``, in ``repro``'s stable form
+    ``max(z, 0) - z * y + log1p(exp(-|z|))``."""
+    logits = dcn_logits(params, batch["dense"], batch["sparse"], cfg, impl)
+    y = batch["label"].float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 @torch.no_grad()

@@ -1,17 +1,22 @@
-"""Decoder-only transformer, dense and MoE, for serving
-(``repro.models.transformer`` without remat, sharding and the tp padding).
+"""Decoder-only transformer, dense and MoE, for serving and training
+(``repro.models.transformer`` without sharding and the tp padding).
 
-Serves the LMs of :mod:`repro_torch.configs`: chatglm3-6b (GQA kv=2,
-2d/partial RoPE), qwen1.5-4b (QKV bias, MHA), command-r-plus-104b (GQA
-kv=8), dbrx-132b (MoE 16e top-4) and granite-moe-3b-a800m (MoE 40e top-8,
-head dim 64).  Weights keep ``repro``'s ``x @ W`` orientation and names, one
-:class:`Block` per layer (a MoE layer's experts under ``moe.*``), so
-:func:`repro_torch.interop.lm_params_from_numpy` carries a ``repro`` param
-tree built at ``tp=1`` across unchanged.  The dimensions are the config's:
-one card has no tensor parallelism, so no head, vocabulary entry or expert
-is padded.  This path serves only: the parameters do not require grad.
-Decode runs against a bf16 cache (:meth:`LM.decode_step`) or an int8 one
-(:meth:`LM.decode_step_quant`, :mod:`repro_torch.models.kvcache`).
+Serves and trains the LMs of :mod:`repro_torch.configs`: chatglm3-6b (GQA
+kv=2, 2d/partial RoPE), qwen1.5-4b (QKV bias, MHA), command-r-plus-104b
+(GQA kv=8), dbrx-132b (MoE 16e top-4) and granite-moe-3b-a800m (MoE 40e
+top-8, head dim 64).  Weights keep ``repro``'s ``x @ W`` orientation and
+names, one :class:`Block` per layer (a MoE layer's experts under
+``moe.*``), so :func:`repro_torch.interop.lm_params_from_numpy` carries a
+``repro`` param tree built at ``tp=1`` across unchanged.  The dimensions
+are the config's: one card has no tensor parallelism, so no head,
+vocabulary entry or expert is padded.  The parameters are created with
+``requires_grad=False``, so serving builds no graph;
+:func:`repro_torch.models.lm.init_train_state` turns grad on.  Under grad,
+with ``cfg.remat``, each layer runs under ``torch.utils.checkpoint``
+(``repro``'s ``jax.checkpoint`` of the scan body): its activations are
+recomputed in the backward pass.  Decode runs against a bf16 cache
+(:meth:`LM.decode_step`) or an int8 one (:meth:`LM.decode_step_quant`,
+:mod:`repro_torch.models.kvcache`).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import LMConfig, MoESpec
 from repro_torch.device import resolve_device
@@ -184,15 +190,22 @@ class LM(nn.Module):
         (k, v) each [L, B, S, Hkv, Dh] or None, aux).  ``aux`` holds
         ``load_balance`` and ``router_z``, each the mean over layers (0 for
         a dense model).  Logits are not formed here: :meth:`unembed` the
-        positions that need them."""
+        positions that need them.  Under grad with ``cfg.remat`` each layer
+        is checkpointed (its activations recomputed in the backward)."""
         bsz, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(bsz, s)
         x = F.embedding(tokens, self.embed)
         ks, vs, lb, rz = [], [], [], []
         zero = torch.zeros((), device=x.device)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x, (k, v), aux = layer(x, positions, attn_impl=attn_impl)
+            if remat:
+                x, (k, v), aux = checkpoint(layer, x, positions,
+                                            attn_impl=attn_impl,
+                                            use_reentrant=False)
+            else:
+                x, (k, v), aux = layer(x, positions, attn_impl=attn_impl)
             if return_cache:
                 ks.append(k)
                 vs.append(v)

@@ -29,7 +29,8 @@ from repro_torch import INF
 from repro_torch.configs import DCN_V2, get_arch
 from repro_torch.core import dks, driver
 from repro_torch.core.semiring import sorted_unique_k
-from repro_torch.data import recsys_synthetic_stream
+from repro_torch.checkpoint import Stacked, restore_tree, save_tree
+from repro_torch.data import lm_synthetic_stream, recsys_synthetic_stream
 from repro_torch.graph.generators import lod_like_graph
 from repro_torch.answers import BatchedBacktracer
 from repro_torch.engine import ExecutionPolicy, QueryEngine
@@ -51,6 +52,7 @@ from repro_torch.models import kvcache
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import tree_leaves
 from repro_torch.serve import DKSService, ServeConfig
 from repro_torch.serve.loadgen import make_trace, replay
 
@@ -820,3 +822,93 @@ def test_sharded_engine_on_the_card_equals_cpu(cuda_device, n_shards, frac):
                   "spa_ratio", "done"):
             assert getattr(uc, f) == getattr(ut, f), (uc.step, f)
     assert [ops.launches for ops in (ls_ops, sc_ops, bt_ops)] == launched
+
+
+# --------------------------------------------------------------------------
+# training on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_grouped_lookup_autograd_on_the_card_equals_plain(cuda_device):
+    """``dcn_loss`` on ``impl="cuda"`` (one grouped launch forward, a
+    scatter-add backward) against ``impl="torch"`` (autograd through the
+    per-field bags): the loss bit-equal, every gradient within 1e-5 (the
+    scatter-add's atomics reorder sums); ids past a table are clipped."""
+    cfg = DCN_V2.smoke()
+    params = rec_lib.init_dcn(cfg, torch.Generator(cuda_device).manual_seed(1))
+    batch = rec_lib.batch_to_device(next(recsys_synthetic_stream(cfg, 500)),
+                                    cuda_device)
+    batch["sparse"][:3, 0] = torch.tensor([-5, 10 ** 6, 99])
+    leaves = [p.requires_grad_(True) for p in
+              [t for _, t in sorted(params["tables"].items())]]
+    got = {}
+    for impl in ("cuda", "torch"):
+        launched = eb_ops.launches
+        loss = rec_lib.dcn_loss(params, batch, cfg, impl)
+        grads = torch.autograd.grad(loss, leaves)
+        assert eb_ops.launches == launched + (impl == "cuda")
+        got[impl] = (loss, grads)
+    assert torch.equal(got["cuda"][0], got["torch"][0])
+    for g, w in zip(got["cuda"][1], got["torch"][1]):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "granite-moe-3b-a800m"])
+def test_smoke_train_step_on_the_card_equals_cpu(cuda_device, arch):
+    """One f32 train step of the smoke config (naive attention, TF32 off)
+    from the same weights and batch: loss, grad_norm and every parameter
+    after the step within 1e-4 of the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).smoke().scaled(param_dtype="float32")
+    cpu = tfm.init_lm(cfg, torch.Generator("cpu").manual_seed(0))
+    card = tfm.LM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(lm_synthetic_stream(cfg.vocab, 4, 32, seed=2)).items()}
+    step = lm_lib.make_train_step(lm_lib.AdamWConfig(warmup_steps=1),
+                                  attn_impl="naive")
+    out = {}
+    for name, dev, model in (("cpu", "cpu", cpu), ("card", cuda_device, card)):
+        out[name] = step(lm_lib.init_train_state(model),
+                         {k: v.to(dev) for k, v in batch.items()})
+    for name in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(out["card"][1][name].cpu(),
+                                   out["cpu"][1][name], atol=1e-4, rtol=1e-4)
+    for (n, p), (_, q) in zip(out["card"][0].model.named_parameters(),
+                              out["cpu"][0].model.named_parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), atol=1e-4,
+                                   rtol=1e-4, msg=lambda m: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_from_the_card(cuda_device, tmp_path):
+    """A bf16 train state on the card after one step, saved and restored
+    onto the card from a meta template: every leaf bit-equal, and the next
+    step from either state gives the same loss."""
+    cfg = get_arch("granite-moe-3b-a800m").smoke()
+    state = lm_lib.init_train_state(tfm.init_lm(
+        cfg, torch.Generator(cuda_device).manual_seed(0)))
+    step = lm_lib.make_train_step(lm_lib.AdamWConfig(), attn_impl="naive")
+    stream = lm_synthetic_stream(cfg.vocab, 2, 64, seed=1)
+    batches = [{k: torch.from_numpy(v).to(cuda_device) for k, v in
+                next(stream).items()} for _ in range(2)]
+    state, _ = step(state, batches[0])
+    save_tree(lm_lib.train_state_tree(state), tmp_path, 1)
+    back = lm_lib.train_state_from_tree(cfg, restore_tree(
+        lm_lib.train_state_template(cfg), tmp_path, 1, device=cuda_device))
+    got = tree_leaves(lm_lib.train_state_tree(back))
+    want = tree_leaves(lm_lib.train_state_tree(state))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in (zip(g.parts, w.parts) if isinstance(g, Stacked)
+                     else [(g, w)]):
+            if isinstance(a, torch.Tensor):
+                assert a.device == b.device and a.dtype == b.dtype
+                assert torch.equal(a.reshape(-1).view(torch.uint8),
+                                   b.reshape(-1).view(torch.uint8))
+            else:
+                assert a == b
+    losses = [float(step(s, batches[1])[1]["loss"]) for s in (back, state)]
+    assert losses[0] == losses[1]

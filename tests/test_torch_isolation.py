@@ -1,7 +1,8 @@
-"""Import guard: ``repro_torch`` and ``chip_smoke.py`` never import JAX or
-the JAX package.  A fresh interpreter imports every ``repro_torch`` module
-and every module ``chip_smoke.py`` names (without running it), then no
-``jax*`` and no ``repro`` / ``repro.*`` module may be loaded."""
+"""Import guard: ``repro_torch`` and ``chip_smoke.py`` never import JAX,
+the JAX package or ``ml_dtypes`` (the card's machine has none).  A fresh
+interpreter imports every ``repro_torch`` module and every module
+``chip_smoke.py`` names (without running it), then no ``jax*``, no
+``repro`` / ``repro.*`` and no ``ml_dtypes`` module may be loaded."""
 
 import json
 import os
@@ -28,7 +29,7 @@ for node in ast.walk(tree):
 sys.path.insert(0, sys.argv[2])
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
              or m.startswith("jax"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -64,6 +65,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.launch.ingest",
                  "repro_torch.core.dks_sharded", "repro_torch.core.fagin",
                  "repro_torch.core.baselines",
-                 "repro_torch.models.moe", "repro_torch.models.kvcache"):
+                 "repro_torch.models.moe", "repro_torch.models.kvcache",
+                 "repro_torch.optim", "repro_torch.optim.optimizers",
+                 "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpointer",
+                 "repro_torch.distributed", "repro_torch.distributed.fault",
+                 "repro_torch.launch.train", "repro_torch.models.lm"):
         assert name in seen["modules"], name
     assert seen["bad"] == []

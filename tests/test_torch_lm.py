@@ -87,9 +87,10 @@ def test_attention_impls_match_jax(impl, tol, sq, skv, q_offset):
 
 
 def test_attention_rejects_unknown_impl():
+    """``"pallas"`` is ``repro``'s name; the port's kernel is ``"cuda"``."""
     q = torch.zeros(1, 2, 2, 16)
-    with pytest.raises(ValueError, match="flash_jax"):
-        attn_t.attention(q, q, q, impl="flash_jax")
+    with pytest.raises(ValueError, match="not one of .*flash_jax"):
+        attn_t.attention(q, q, q, impl="pallas")
 
 
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,dh", [
@@ -229,7 +230,7 @@ def test_configs_equal_jax(arch):
     for g, w in ((got, want), (got.smoke(), want.smoke())):
         for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
                   "vocab", "head_dim", "qkv_bias", "rotary_pct", "rope_theta",
-                  "norm_eps", "tie_embeddings", "param_dtype"):
+                  "norm_eps", "tie_embeddings", "param_dtype", "remat"):
             assert getattr(g, f) == getattr(w, f), f
         assert (g.moe is None) == (w.moe is None)
         if w.moe is not None:
