@@ -183,14 +183,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    of ChatGLM3-6B and granite: one train step on the card and on the CPU
    from the same weights, loss, grad_norm and parameters within 1e-4.
    TF32 is off throughout.
-14. The kernels line: one JSON object with each kernel's launches on the
+14. bluk-bnb — the paper's large dataset at full size (16,100,000 nodes,
+   46,600,000 generated edges, vocabulary 500,000, seed 7, tau 1001),
+   generated, indexed and built on ``QueryEngine(backend="cuda")`` (host
+   ms each, the device graph's bytes); phase 5's traffic (a bucket of 8,
+   m=3, k=3, and two m=4, k=2 queries) with the launch counters set to 0
+   just before and read just after; per query supersteps, driver ms and
+   ms per superstep, extraction ms, ``extraction_stats``, rows fetched
+   and lane tables copied (0) for stragglers; a second run of the bucket
+   checks every per-superstep message count against its int64 sum
+   rounded to f32 and prints the largest beside 2^24; the three DKS
+   kernels held exactly against their plain versions at its shapes
+   (``batched_backtrace`` on the bucket's final tables,
+   ``subset_combine`` on its ``init_state`` table, ``lane_superstep`` two
+   supersteps in with lane 0 done) and timed beside their bounds; a
+   ``backend="torch"`` twin of the bucket's first ``BLUK_TWIN_LANES``
+   lanes and the first m=4 query equal to the ``"cuda"`` lanes exactly,
+   ``extraction_stats`` and rows fetched included.
+15. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
    in phase 9 for the three kernels it runs; ``store_launches`` and
    ``live_launches`` phase 10's artifact engine, live service and warm;
    ``sharded_launches`` phase 12's; the flash row's ``moe_launches`` and
    ``cut_depth_launches`` phase 11's, and ``moe_shape`` its times at
    granite's shape; the bag row's ``train_launches`` phase 13's DCN-v2
-   steps), error, times and bound.
+   steps; the DKS rows' ``bluk_launches`` and ``bluk_shape`` phase 14's),
+   error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -268,6 +286,7 @@ SMOKE_TRAIN_TOL = 1e-4      # f32 smoke step, card against CPU
 # backtracer (PERF.md §5, on an H100 at 700 W).
 EXTRACTION_HOST_MS = 981.2
 TIGHT = {"degree_cap": 1, "buffer": 3}   # backtrace caps that make stragglers
+BLUK_TWIN_LANES = 2         # phase 14's "torch" twin: the bucket's first lanes
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
     (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
@@ -340,6 +359,20 @@ def cold_ms(fn, iters: int) -> float:
         torch.cuda.synchronize()
         total += t0.elapsed_time(t1)
     return total / iters
+
+
+def once_ms(fn) -> float:
+    """Device time of one more call of ``fn`` (already run once), by CUDA
+    events: for the plain versions at bluk-bnb's shape, whose call takes
+    seconds and syncs with the host between its chunks."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -505,14 +538,14 @@ def lane_breakdown(dg, S0, changed, done, m, full_out, fused, hub_nodes,
 
 def extraction_parts(bt, S, kw, lanes, n_nodes) -> dict:
     """One more ``extract_lanes`` of the bucket, its host side split: the
-    stragglers' host searches (the top-level ``backtrace`` calls), the
-    lane tables copied to the host for them, and ``finish_tree``; with the
-    straggler counts (records failed in the window, scan positions past
-    it)."""
+    stragglers' host searches (the top-level ``backtrace`` calls, row
+    fetches included), the rows of lane tables fetched for them, and
+    ``finish_tree``; with the straggler counts (records failed in the
+    window, scan positions past it)."""
     from repro_torch.answers import batched as bt_mod
     from repro_torch.core import reconstruct as rc_mod
 
-    spent = {"stragglers' host backtrace": 0.0, "table copies": 0.0,
+    spent = {"stragglers' host backtrace": 0.0, "row fetches": 0.0,
              "finish_tree": 0.0}
 
     def timed(name, fn):
@@ -524,19 +557,18 @@ def extraction_parts(bt, S, kw, lanes, n_nodes) -> dict:
                 spent[name] += time.perf_counter() - t0
         return run
 
-    saved = (bt_mod.backtrace, rc_mod.finish_tree)
+    saved = (bt_mod.backtrace, rc_mod.finish_tree, bt_mod.LaneRows.rows)
     bt_mod.backtrace = timed("stragglers' host backtrace", bt_mod.backtrace)
     rc_mod.finish_tree = timed("finish_tree", rc_mod.finish_tree)
-    bt._host_table = timed("table copies", bt._host_table)
-    before = (bt.host_fallbacks, bt.table_copies)
+    bt_mod.LaneRows.rows = timed("row fetches", bt_mod.LaneRows.rows)
+    before = (bt.host_fallbacks, bt.table_copies, bt.rows_fetched)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         bt.extract_lanes(S, kw, k=BUCKET_K, lanes=lanes, n_nodes=n_nodes)
         total = time.perf_counter() - t0
     finally:
-        bt_mod.backtrace, rc_mod.finish_tree = saved
-        del bt._host_table
+        bt_mod.backtrace, rc_mod.finish_tree, bt_mod.LaneRows.rows = saved
     recs = bt.backtrace_lanes(S, kw, BUCKET_K)
     out = {"extract_lanes ms": total * 1e3}
     out.update({f"{name} ms": x * 1e3 for name, x in spent.items()})
@@ -544,6 +576,7 @@ def extraction_parts(bt, S, kw, lanes, n_nodes) -> dict:
     out["of them failed walks in the window, per lane"] = \
         recs.fail.sum(axis=1).tolist()
     out["lane tables copied"] = bt.table_copies - before[1]
+    out["rows fetched"] = bt.rows_fetched - before[2]
     return out
 
 
@@ -2413,6 +2446,330 @@ def train_phase(dev, card: str) -> dict:
     return {**granite, "launches": launches}
 
 
+def device_bytes(dg) -> int:
+    """Bytes of the tensors a device graph holds."""
+    return sum(t.numel() * t.element_size()
+               for t in vars(dg).values() if isinstance(t, torch.Tensor))
+
+
+def gib(nbytes: float) -> str:
+    return f"{nbytes / 2**30:.2f} GiB"
+
+
+def lanes_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """``max_abs_err`` one lane at a time: a bluk-bnb bucket table is
+    12.4 GB, and the difference of two would not fit beside them."""
+    return max(max_abs_err(x, y) for x, y in zip(a, b))
+
+
+def bluk_counts(dg, kw, cfg, batch) -> None:
+    """A second run of the bucket: every per-superstep message count
+    against its int64 sum rounded to f32 by numpy, the largest beside
+    2^24, each superstep's host ms, and torch.profiler's split of the
+    superstep with the most messages; the final counters equal the main
+    path's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dks, driver
+
+    deg = dg.out_degree.long()
+    st = driver.lane_init(dg, kw, cfg)
+    rows, step_ms = [], []
+    while not bool(st.done.all()):
+        live = (~st.done).cpu().numpy()
+        for fire, got in zip((st.first_fire, st.changed & ~st.first_fire),
+                             dks.message_counts(dg, st)):
+            exact = torch.where(fire, deg, 0).sum(dim=1).cpu().numpy()
+            check(np.array_equal(got.cpu().numpy()[live],
+                                 exact[live].astype(np.float32)),
+                  f"message counts {got} != {exact} rounded to f32")
+        total = torch.where(st.changed, deg, 0).sum(dim=1).cpu().numpy()
+        rows.append(total[live])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = driver.lane_superstep(dg, st, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    for i, r in enumerate(batch):
+        check(float(st.msgs_bfs[i]) == r.msgs_bfs and
+              float(st.msgs_deep[i]) == r.msgs_deep,
+              f"lane {i}: a second run counts other messages")
+    largest = [int(x.max()) for x in rows]
+    peak_step = int(np.argmax(largest))
+    log(f"  largest per-superstep message count of a lane: {max(largest)} "
+        f"(2^24 = {1 << 24}), at superstep {peak_step + 1}; lane-supersteps "
+        f"past 2^24: {sum(int((x > 1 << 24).sum()) for x in rows)} of "
+        f"{sum(len(x) for x in rows)}; per superstep, the largest "
+        f"{largest}, host ms (synchronised) "
+        f"{[round(x, 1) for x in step_ms]}")
+    # The superstep with the most messages again, under the profiler.
+    st = driver.lane_init(dg, kw, cfg)
+    for _ in range(peak_step):
+        st = driver.lane_superstep(dg, st, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = driver.lane_superstep(dg, st, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"  superstep {peak_step + 1} under torch.profiler: kernels busy "
+        f"{busy:.3f} ms of {wall:.3f} ms wall, "
+        f"{sum(e.count for e in kernels)} launches; top: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+            f"x{e.count}" for e in kernels[:8]))
+
+
+def bluk_extraction(eng, S_b, kw_b, twin: int) -> dict:
+    """The bucket's extraction split on its final tables, the deadline
+    path's cost per lane, ``batched_backtrace`` held against its plain
+    version and timed; the twin's lanes extracted again from the
+    ``"cuda"`` tables alone (their stats and rows fetched)."""
+    from repro_torch.answers import BatchedBacktracer
+    from repro_torch.answers.streaming import _host
+    from repro_torch.core.reconstruct import HostScan
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.batched_backtrace.ref import \
+        batched_backtrace_ref
+
+    bt = eng._backtracer()
+    n = eng.n_nodes
+    full = (1 << BUCKET_M) - 1
+    flat = S_b[:, :, full, :].reshape(BUCKET_LANES, -1)
+    sort_s = host_s(lambda: torch.sort(flat, dim=1, stable=True))
+    del flat
+    walk_s = host_s(lambda: bt._walk(S_b, kw_b, BUCKET_K, 4))
+    parts = extraction_parts(bt, S_b, kw_b, list(range(BUCKET_LANES)), n)
+    args = bt._walk_args(S_b, kw_b, BUCKET_K)[2]
+    recs = bt_ops.batched_backtrace(*args)
+    err = held_records(recs, batched_backtrace_ref(*args),
+                       "bluk-bnb's final tables")
+    times = (cuda_ms(lambda: bt_ops.batched_backtrace(*args), 5),
+             once_ms(lambda: batched_backtrace_ref(*args)), None,
+             *backtrace_bound(recs, BUCKET_M))
+    log(f"  bucket extraction on its final tables (host clock, "
+        f"synchronised): device {walk_s * 1e3:.1f} ms (stable sort of "
+        f"{BUCKET_LANES} x {n * BUCKET_K} cells {sort_s * 1e3:.2f} ms, the "
+        f"walk kernel, its records to the host); " + "; ".join(
+            f"{name} {x}" for name, x in parts.items()))
+    # What the deadline path (ExtractionOverlap) and query's host
+    # collector pay per lane: a synchronous host copy of the table and a
+    # host argsort of its full-set column.
+    t0 = time.perf_counter()
+    host0 = _host(S_b[0])
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    HostScan(host0[:, full, :])
+    argsort_s = time.perf_counter() - t0
+    log(f"  a lane's table to the host as ExtractionOverlap takes it: "
+        f"{S_b[0].numel() * 4} bytes in {copy_s * 1e3:.1f} ms; the host "
+        f"collector's stable argsort of its {n * BUCKET_K} full-set cells "
+        f"{argsort_s * 1e3:.1f} ms")
+    bt_twin = BatchedBacktracer(eng.graph, device=S_b.device, backend="cuda")
+    bt_twin.extract_lanes(S_b[:twin], kw_b[:twin], k=BUCKET_K, n_nodes=n)
+    return {"err": err, "times": times,
+            "twin": (bt_twin.stats(), bt_twin.rows_fetched)}
+
+
+def bluk_combine(kw) -> tuple[float, tuple]:
+    """``subset_combine`` on the bucket's ``init_state`` table against its
+    plain version, and its times."""
+    from repro_torch import INF
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+    from repro_torch.kernels.subset_combine.ref import subset_combine_ref
+
+    S = torch.full((BUCKET_LANES, kw.shape[2], 1 << BUCKET_M, BUCKET_K),
+                   INF, device=kw.device)
+    for i in range(BUCKET_M):
+        S[:, :, 1 << i, 0] = torch.where(kw[:, i], 0.0, INF)
+    got = sc_ops.subset_combine(S, BUCKET_M)
+    want = subset_combine_ref(S, BUCKET_M)
+    err = lanes_err(got, want)
+    check(torch.equal(got, want), f"subset_combine != plain at bluk-bnb's "
+                                  f"init_state table (max abs err {err})")
+    del got, want
+    return err, (cuda_ms(lambda: sc_ops.subset_combine(S, BUCKET_M), 5),
+                 once_ms(lambda: subset_combine_ref(S, BUCKET_M)), None,
+                 *combine_bound(S, BUCKET_M))
+
+
+def bluk_lane(dg, kw, cfg) -> tuple[float, tuple]:
+    """``lane_superstep`` on the bucket two supersteps in, lane 0 done,
+    against its plain version, and its times."""
+    from repro_torch.core import driver
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
+
+    st = driver.lane_init(dg, kw, cfg)
+    for _ in range(2):
+        st = driver.lane_superstep(dg, st, cfg)
+    done = torch.zeros(BUCKET_LANES, dtype=torch.bool, device=kw.device)
+    done[0] = True
+    args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
+    del st
+    got = ls_ops.fused_lane_step(*args, BUCKET_M, dg.hub_nodes)
+    want = fused_lane_step_ref(*args, BUCKET_M)
+    err = lanes_err(got, want)
+    check(torch.equal(got, want), f"lane_superstep != plain at bluk-bnb's "
+                                  f"mid-run state (max abs err {err})")
+    del got, want
+    return err, (cuda_ms(lambda: ls_ops.fused_lane_step(
+        *args, BUCKET_M, dg.hub_nodes), 5),
+        once_ms(lambda: fused_lane_step_ref(*args, BUCKET_M)), None,
+        *lane_bound(*args))
+
+
+def bluk_phase(dev) -> dict:
+    """Phase 14: the DKS main path at bluk-bnb's full size on
+    ``backend="cuda"``, phase 5's traffic, the three DKS kernels held
+    against their plain versions at its shapes, a ``"torch"`` twin of the
+    bucket's first ``BLUK_TWIN_LANES`` lanes and the first m = 4 query.
+    Returns the launches, errors and times of the three kernels."""
+    from repro_torch.configs import BLUK_BNB
+    from repro_torch.core import dks
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.graph.generators import lod_like_graph
+    from repro_torch.graph.index import InvertedIndex
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+
+    t_phase = time.perf_counter()
+    cb = BLUK_BNB
+    t0 = time.perf_counter()
+    graph, tokens = lod_like_graph(cb.n_nodes, cb.n_edges, seed=cb.seed,
+                                   vocab=cb.vocab, tau=cb.tau)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = InvertedIndex.from_token_matrix(tokens)
+    index_s = time.perf_counter() - t0
+    del tokens
+    check(graph.n_nodes == cb.n_nodes, f"{cb.name}: {graph.n_nodes} nodes")
+    qrng = np.random.default_rng(QUERY_SEED)
+    bucket = draw_queries(graph, index, BUCKET_LANES, BUCKET_M, qrng)
+    singles = draw_queries(graph, index, N_SINGLE, SINGLE_M, qrng)
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = QueryEngine.build(graph, index=index, device=dev,
+                            policy=ExecutionPolicy(backend="cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dg = eng.device_graph
+    log(f"  {cb.name}: {graph.n_nodes} nodes, {graph.n_edges_sym} symmetric "
+        f"edges, largest degree {int(np.diff(graph.indptr).max())}, "
+        f"{dg.hub_nodes.numel()} hubs; host: generated in "
+        f"{gen_s * 1e3:.1f} ms, indexed in {index_s * 1e3:.1f} ms, engine "
+        f"built in {build_s * 1e3:.1f} ms; device graph {device_bytes(dg)} "
+        f"bytes ({gib(torch.cuda.memory_allocated() - mem0)} allocated); "
+        f"bucket {bucket}, single queries {singles}")
+
+    # ---- the main path, counted ----
+    torch.cuda.reset_peak_memory_stats()
+    for ops in (sc_ops, ls_ops, bt_ops):
+        ops.counter.reset()
+    t0 = time.perf_counter()
+    batch = eng.query_batch(bucket, k=BUCKET_K, keep_state=True)
+    t_batch = time.perf_counter() - t0
+    bt = eng._backtracer()
+    ext_bucket = (dict(eng.extraction_stats), bt.rows_fetched,
+                  bt.table_copies)
+    single = []
+    for q in singles:
+        t0 = time.perf_counter()
+        single.append((eng.query(q, k=SINGLE_K), time.perf_counter() - t0))
+    launches = {"subset_combine": sc_ops.launches,
+                "lane_superstep": ls_ops.launches,
+                "batched_backtrace": bt_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps_batch = max(res.supersteps for res in batch)
+    steps = steps_batch + sum(res.supersteps for res, _ in single)
+    check(launches == {"subset_combine": 1 + N_SINGLE,
+                       "lane_superstep": steps, "batched_backtrace": 1},
+          f"{cb.name} launches {launches}, want subset_combine "
+          f"{1 + N_SINGLE}, lane_superstep {steps}, batched_backtrace 1")
+    check(bt.table_copies == 0, f"{bt.table_copies} lane tables copied")
+    for res in batch + [res for res, _ in single]:
+        check(res.found and len(res.answers) > 0,
+              f"{cb.name}: no answer for {res.query}")
+    # The final tables leave the results: the holds below need the room.
+    S_b = torch.cat([res.state.S for res in batch])
+    batch = [dataclasses.replace(res, state=None) for res in batch]
+    log(f"[14/15] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
+        f"(m={BUCKET_M}, k={BUCKET_K}) and {N_SINGLE} queries (m="
+        f"{SINGLE_M}, k={SINGLE_K}); launches {launches}; peak device "
+        f"memory {gib(peak)}")
+    drv = batch[0].wall_time_s * 1e3
+    log(f"  bucket: {steps_batch} supersteps, lanes "
+        f"{[res.supersteps for res in batch]}, best weights "
+        f"{[float(res.weights[0]) for res in batch]}; {t_batch * 1e3:.1f} "
+        f"ms = driver {drv:.1f} ms ({drv / steps_batch:.2f} ms per "
+        f"superstep) + extraction {t_batch * 1e3 - drv:.1f} ms; "
+        f"extraction_stats {ext_bucket[0]}, rows fetched {ext_bucket[1]}, "
+        f"lane tables copied {ext_bucket[2]}; msgs_bfs + msgs_deep per "
+        f"lane {[res.msgs_bfs + res.msgs_deep for res in batch]}")
+    for res, t in single:
+        drv = res.wall_time_s * 1e3
+        log(f"  query {list(res.query)}: {res.supersteps} supersteps, "
+            f"weights {res.weights.tolist()}; {t * 1e3:.1f} ms = driver "
+            f"{drv:.1f} ms ({drv / res.supersteps:.2f} ms per superstep) + "
+            f"host collector {t * 1e3 - drv:.1f} ms; msgs_bfs + msgs_deep "
+            f"{res.msgs_bfs + res.msgs_deep}")
+
+    kw_b = torch.from_numpy(np.stack([index.keyword_masks(
+        q, graph.n_nodes, v_pad=dg.v_pad) for q in bucket])).to(dev)
+    twin = BLUK_TWIN_LANES
+    ext = bluk_extraction(eng, S_b, kw_b, twin)
+    del S_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  device memory held before the kernel holds: "
+        f"{gib(torch.cuda.memory_allocated())}")
+    cfg = dks.DKSConfig(m=BUCKET_M, k=BUCKET_K, backend="cuda")
+    bluk_counts(dg, kw_b, cfg, batch)
+    torch.cuda.empty_cache()
+    errs, timing = {"batched_backtrace": ext["err"]}, \
+        {"batched_backtrace": ext["times"]}
+    errs["subset_combine"], timing["subset_combine"] = bluk_combine(kw_b)
+    torch.cuda.empty_cache()
+    errs["lane_superstep"], timing["lane_superstep"] = bluk_lane(dg, kw_b,
+                                                                 cfg)
+    torch.cuda.empty_cache()
+    for name, (ms, plain, _, bound, by) in timing.items():
+        log(f"  {name} at {cb.name}'s shape: {ms} ms (plain {plain} ms, "
+            f"bound {bound} ms by {by}), == plain")
+
+    # ---- the "torch" twin: the bucket's first lanes, the first query ----
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    twin_eng = QueryEngine(eng.graph, index, ExecutionPolicy(backend="torch"),
+                           dg)
+    got = twin_eng.query_batch(bucket[:twin], k=BUCKET_K)
+    t_twin_b = time.perf_counter() - t0
+    for i, (rc, rt) in enumerate(zip(batch, got)):
+        same_results(rc, rt, f"{cb.name} bucket lane {i} vs torch twin")
+    check(twin_eng.extraction_stats == ext["twin"][0] and
+          twin_eng._backtracer().rows_fetched == ext["twin"][1],
+          f"{cb.name} twin extraction {twin_eng.extraction_stats} != "
+          f"{ext['twin']}")
+    t0 = time.perf_counter()
+    same_results(single[0][0], twin_eng.query(singles[0], k=SINGLE_K),
+                 f"{cb.name} query 0 vs torch twin")
+    t_twin_q = time.perf_counter() - t0
+    log(f"  backend=torch twin == backend=cuda: bucket lanes 0..{twin - 1} "
+        f"(weights, roots, supersteps, messages, flags, trees, "
+        f"extraction_stats {ext['twin'][0]}, rows fetched {ext['twin'][1]}) "
+        f"in {t_twin_b:.1f} s ({t_twin_b / batch[0].supersteps:.1f} s a "
+        f"superstep with extraction), query 0 in {t_twin_q:.1f} s; peak "
+        f"device memory {gib(torch.cuda.max_memory_allocated())}")
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "errs": errs, "timing": timing}
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -2446,14 +2803,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/14] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/15] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/14] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/15] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -2527,7 +2884,7 @@ def main() -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/14] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/15] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -2590,7 +2947,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/14] kernels == plain versions at the main path's shapes")
+    log("[3/15] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -2609,7 +2966,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/14] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/15] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -2659,7 +3016,7 @@ def main() -> int:
     # Phase 10 holds an artifact-built engine to these, state dropped.
     phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
         r for r, _ in single]
-    log(f"[5/14] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/15] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -2688,8 +3045,9 @@ def main() -> int:
     log(f"  launches on the main path: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     bt = engines["cuda"]._backtracer()
-    log(f"  extraction_stats {stats['cuda']}; lane tables copied to the "
-        f"host for stragglers: {bt.table_copies}")
+    log(f"  extraction_stats {stats['cuda']}; for stragglers: lane tables "
+        f"copied to the host {bt.table_copies}, rows fetched "
+        f"{bt.rows_fetched}")
 
     # The bucket's extraction split, on its final tables: the device part
     # (stable sort of the 8 full-set columns + the walk kernel), then the
@@ -2736,10 +3094,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/14] flash_attention == plain version at small shapes and the "
+    log("[6/15] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/14] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/15] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -2753,7 +3111,7 @@ def main() -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/14] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/15] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -2763,14 +3121,14 @@ def main() -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/14] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/15] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     # ---------------- 9. serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/14] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/15] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
@@ -2780,7 +3138,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
-    log(f"[10/14] {cfg_sec.name} through the graph store on backend=cuda: "
+    log(f"[10/15] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
     # ---------------- 11. MoE and the int8 KV cache ----------------
@@ -2788,7 +3146,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
-    log(f"[11/14] {MOE_ARCH} served through the flash kernel: "
+    log(f"[11/15] {MOE_ARCH} served through the flash kernel: "
         f"{moe['launches']} launches, logits and tokens agree with naive "
         f"attention; int8 cache decode within {QUANT_TOL} of the bf16 cache; "
         f"at cut depth {moe['cut_launches']} launches")
@@ -2799,20 +3157,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, graph, index, bucket, singles, phase5,
                             per_step)
-    log(f"[12/14] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
+    log(f"[12/15] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
         f" backend=torch) == phase 5; {sharded['summary']}")
 
     # ---------------- 13. training ----------------
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(dev, card)
-    log(f"[13/14] {TRAIN_ARCH} trained at full width and depth "
+    log(f"[13/15] {TRAIN_ARCH} trained at full width and depth "
         f"({trained['split']['step_s']:.1f} ms a step); flash_jax == "
         f"chunked; a checkpoint restored bit-equal; {RECSYS_ARCH} trained on "
         f"the grouped lookup ({trained['launches']} launches); the smoke "
         f"steps card == CPU")
 
-    # ---------------- 14. kernels line ----------------
+    # ---------------- 14. bluk-bnb ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bluk = bluk_phase(dev)
+    for name, err in bluk["errs"].items():
+        errs[name] = max(errs[name], err)
+    log(f"[14/15] bluk-bnb at full size on backend=cuda: launches "
+        f"{bluk['launches']}; the three DKS kernels == plain versions at its "
+        f"shapes; the torch twin's lanes == cuda's")
+    log(f"  card: {card}")
+
+    # ---------------- 15. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
@@ -2845,6 +3214,13 @@ def main() -> int:
             kernels[-1]["sharded_launches"] = sharded["launches"][name]
         if name == "embedding_bag":
             kernels[-1]["train_launches"] = trained["launches"]
+        if name in bluk["launches"]:
+            ms, plain, library, bound, by = bluk["timing"][name]
+            kernels[-1].update({
+                "bluk_launches": bluk["launches"][name],
+                "bluk_shape": {"ms": ms, "plain_ms": plain,
+                               "library_ms": library, "bound_ms": bound,
+                               "bound_by": by}})
         if name == "flash_attention":
             ms, plain, library, bound, by = moe["timing"]
             kernels[-1].update({

@@ -29,8 +29,9 @@ host into the host's exact edge order, then pruned / cycle-repaired /
 deduped / ranked by the shared
 :func:`repro_torch.core.reconstruct.collect_answers` collector, which
 walks the device's sorted order (fetched in chunks) instead of sorting
-the table again.  A lane's table reaches the host only when one of its
-candidates needs the host search.
+the table again.  The host search of a straggler reads its lane's table
+through :class:`LaneRows`, which copies only the rows the search visits
+(a lane's table is 1.55 GB at bluk-bnb scale, m = 3, K = 3).
 """
 
 from __future__ import annotations
@@ -162,6 +163,44 @@ class _DeviceScan:
         return int(self.idx[pos]) // self._k, float(self.vals[pos])
 
 
+class LaneRows:
+    """Row-wise host view of one lane's table ``S[lane]`` (``[V, 2^m, K]``,
+    on any device), for :func:`~repro_torch.core.reconstruct.backtrace`:
+    ``view.shape``, ``view[v, s, i]`` and ``view[us, ks, :]``.  The rows
+    not yet held are gathered on the device and copied to the host in one
+    piece, then kept; ``fetched`` counts them."""
+
+    def __init__(self, S: torch.Tensor, lane: int) -> None:
+        self._table = S[lane]
+        self.shape = tuple(self._table.shape)
+        self._nodes = np.zeros(0, np.int64)          # sorted
+        self._rows = np.zeros((0, *self.shape[1:]), np.float32)
+        self.fetched = 0
+
+    def rows(self, nodes: np.ndarray) -> np.ndarray:
+        """Host rows ``[len(nodes), 2^m, K]`` of ``nodes``."""
+        nodes = np.asarray(nodes, np.int64)
+        pos = np.searchsorted(self._nodes, nodes)
+        held = pos < len(self._nodes)
+        held[held] = self._nodes[pos[held]] == nodes[held]
+        if not held.all():
+            new = np.unique(nodes[~held])
+            got = self._table.index_select(
+                0, torch.from_numpy(new).to(self._table.device)).cpu().numpy()
+            order = np.argsort(np.concatenate([self._nodes, new]))
+            self._nodes = np.concatenate([self._nodes, new])[order]
+            self._rows = np.concatenate([self._rows, got])[order]
+            self.fetched += len(new)
+            pos = np.searchsorted(self._nodes, nodes)
+        return self._rows[pos]
+
+    def __getitem__(self, key: tuple):
+        v, *rest = key
+        if np.ndim(v) == 0:
+            return self.rows(np.array([v]))[(0, *rest)]
+        return self.rows(v)[(slice(None), *rest)]
+
+
 class BatchedBacktracer:
     """Per-graph device backtracer: candidate selection (a stable sort)
     and the obligation walk (one launch) per bucket.
@@ -201,10 +240,13 @@ class BatchedBacktracer:
         self._ew = host_tensor(ews, self.device)
         self._pairs: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         # Introspection: how much the device pass actually resolved, and
-        # how many lane tables went to the host for the stragglers.
+        # what reached the host for the stragglers: rows of lane tables
+        # (``rows_fetched``), never a whole table (``table_copies`` stays
+        # 0 since the host search reads rows).
         self.device_resolved = 0
         self.host_fallbacks = 0
         self.table_copies = 0
+        self.rows_fetched = 0
 
     def stats(self) -> dict[str, int]:
         """``{device_resolved, host_fallbacks}`` — obligation backtraces
@@ -251,16 +293,6 @@ class BatchedBacktracer:
         kw = torch.as_tensor(kw_lanes, dtype=torch.bool, device=self.device)
         return S, kw.contiguous()
 
-    def _host_table(self, S: torch.Tensor, lane: int) -> np.ndarray:
-        """A host copy of one lane's whole table, for its stragglers (into
-        pinned memory from a card: a pageable copy runs at a fraction of
-        the link's rate)."""
-        self.table_copies += 1
-        if S.device.type == "cpu":
-            return S[lane].numpy()
-        host = torch.empty(S.shape[1:], dtype=S.dtype, pin_memory=True)
-        return host.copy_(S[lane]).numpy()
-
     def backtrace_lanes(self, S_lanes, kw_lanes, k: int,
                         candidate_factor: int = 4) -> BatchedBacktrace:
         """One device pass: top-``k * candidate_factor`` candidates per
@@ -300,7 +332,7 @@ class BatchedBacktracer:
         out: list[tuple[list[AnswerTree], bool]] = []
         for lane in (range(L) if lanes is None else lanes):
             kw_lane = kw_host[lane]
-            host_S: list[np.ndarray] = []
+            host_S: list[LaneRows] = []
 
             def from_device(pos: int, root: int, val: float, _lane=lane,
                             _kw=kw_lane, _host_S=host_S):
@@ -318,7 +350,7 @@ class BatchedBacktracer:
                             return edges
                 self.host_fallbacks += 1
                 if not _host_S:
-                    _host_S.append(self._host_table(S, _lane))
+                    _host_S.append(LaneRows(S, _lane))
                 return backtrace(_host_S[0], self.graph, _kw, root, full,
                                  val)
 
@@ -327,4 +359,5 @@ class BatchedBacktracer:
             out.append(collect_answers(
                 None, self.graph, kw_lane, k, candidate_factor,
                 backtrace_fn=from_device, scan=scan))
+            self.rows_fetched += sum(view.fetched for view in host_S)
         return out

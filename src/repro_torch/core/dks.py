@@ -33,6 +33,13 @@ from repro_torch.obs.telemetry import HostTelemetryCollector
 
 BACKENDS = ("torch", "cuda")
 
+# The "torch" backend at bluk-bnb scale (16.1 M nodes, 92.4 M symmetric
+# edges): its relax would build [L, E, 2^m, K] candidates at once (71 GB at
+# 8 lanes, m = 3, K = 3), and its node-local merge and combine sort about
+# 20x their input (K x K sums, int64 indices).  Both go in chunks instead.
+RELAX_CHUNK_BYTES = 1 << 30   # candidates of one chunk of edges
+NODE_CHUNK_BYTES = 128 << 20  # table rows of one chunk of nodes
+
 
 @dataclasses.dataclass(frozen=True)
 class DKSConfig:
@@ -156,10 +163,35 @@ def relax(graph: DeviceGraph, S: torch.Tensor, changed: torch.Tensor,
 
 def relax_edges(S: torch.Tensor, changed: torch.Tensor, src: torch.Tensor,
                 dst: torch.Tensor, w: torch.Tensor,
-                valid: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`relax` over an explicit edge list (``valid=None``: all real)."""
-    cand = edge_candidates(S, changed, src, w, valid)
-    return receive_candidates(cand, dst, S.shape[1])
+                valid: torch.Tensor | None = None, *,
+                n_dst: int | None = None,
+                chunk_edges: int | None = None) -> torch.Tensor:
+    """:func:`relax` over an explicit edge list (``valid=None``: all real)
+    into ``n_dst`` destinations (default ``S.shape[1]``), over chunks of
+    ``chunk_edges`` edges (default: :data:`RELAX_CHUNK_BYTES` of
+    candidates).  Each chunk's candidates are reduced per destination and
+    merged into the running result with ``topk_merge``, over the range of
+    destinations the chunk reaches: the K smallest distinct values of a
+    union are those of the union of each part's K smallest distinct
+    values, so every chunk size gives the same result."""
+    lanes, v, n, k = S.shape
+    n_dst = v if n_dst is None else n_dst
+    n_e = src.shape[0]
+    if chunk_edges is None:
+        chunk_edges = max(1, RELAX_CHUNK_BYTES // (lanes * n * k * 4))
+    if n_e <= chunk_edges:
+        return receive_candidates(edge_candidates(S, changed, src, w, valid),
+                                  dst, n_dst)
+    R = torch.full((lanes, n_dst, n, k), INF, dtype=S.dtype, device=S.device)
+    for e0 in range(0, n_e, chunk_edges):
+        part = slice(e0, min(n_e, e0 + chunk_edges))
+        d = dst[part].long()
+        lo, hi = int(d.min()), int(d.max()) + 1
+        red = receive_candidates(edge_candidates(
+            S, changed, src[part], w[part],
+            None if valid is None else valid[part]), d - lo, hi - lo)
+        R[:, lo:hi] = semiring.topk_merge(R[:, lo:hi], red)
+    return R
 
 
 def edge_candidates(S: torch.Tensor, changed: torch.Tensor,
@@ -203,6 +235,11 @@ def combine(S: torch.Tensor, cfg: DKSConfig) -> torch.Tensor:
     if cfg.backend == "cuda":
         from repro_torch.kernels.subset_combine import subset_combine
         return subset_combine(S, cfg.m)
+    return map_node_chunks(lambda s: _combine_torch(s, cfg), S)
+
+
+def _combine_torch(S: torch.Tensor, cfg: DKSConfig) -> torch.Tensor:
+    """:func:`combine`'s "torch" branch on one chunk of nodes."""
     pairs = spa.split_pairs(cfg.m)
     dev = S.device
     t_ids = torch.tensor([p[0] for p in pairs], device=dev)
@@ -224,6 +261,30 @@ def combine(S: torch.Tensor, cfg: DKSConfig) -> torch.Tensor:
         red = red.permute(1, 0, 2).reshape(*lead, cfg.n_sets, k)
         S = semiring.topk_merge(S, red)
     return S
+
+
+def node_chunks(v: int, node_bytes: int) -> list[slice]:
+    """Slices of a node axis of ``v`` nodes, each at most
+    :data:`NODE_CHUNK_BYTES` of rows at ``node_bytes`` a node."""
+    step = max(1, NODE_CHUNK_BYTES // max(node_bytes, 1))
+    return [slice(lo, min(v, lo + step)) for lo in range(0, v, step)]
+
+
+def map_node_chunks(fn: Callable[..., torch.Tensor], *tables: torch.Tensor
+                    ) -> torch.Tensor:
+    """``fn`` of node-local tables ``[..., V, 2^m, K]`` (its result shaped
+    like the first), over :func:`node_chunks` of the node axis.  Exact for
+    any chunking: ``fn`` reads nothing across nodes."""
+    v = tables[0].shape[-3]
+    chunks = node_chunks(v, sum(t.numel() * t.element_size()
+                                for t in tables) // max(v, 1))
+    if len(chunks) <= 1:
+        return fn(*tables)
+    out = torch.empty_like(tables[0])
+    for rows in chunks:
+        out[..., rows, :, :] = fn(*(t[..., rows, :, :].contiguous()
+                                    for t in tables))
+    return out
 
 
 def aggregate(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
@@ -325,15 +386,18 @@ def finish_superstep(graph: Any, S0: torch.Tensor, state: DKSState,
 def message_counts(graph: DeviceGraph, state: DKSState
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """This superstep's (BFS, deep) message counts per lane: the out-degree
-    summed over first-time fires and over re-fires (paper Fig. 11).  f32
-    sums of integer degrees — exact below 2^24 in any summation order, so
-    every backend and device agrees."""
-    deg = graph.out_degree.to(torch.float32)
-    zero = torch.zeros((), dtype=torch.float32, device=deg.device)
+    summed over first-time fires and over re-fires (paper Fig. 11), in
+    f32.  The integer degrees are summed in int64 and rounded to f32 once,
+    so the count is the correctly rounded one on every device and backend.
+    Below 2^24 that is ``repro``'s f32 sum in any order; past it,
+    ``repro``'s sum depends on XLA's reduction order
+    (``tests/test_torch_scale.py``)."""
+    deg = graph.out_degree.to(torch.int64)
+    zero = torch.zeros((), dtype=torch.int64, device=deg.device)
     n_bfs = torch.where(state.first_fire, deg, zero).sum(dim=1)
     n_deep = torch.where(state.changed & ~state.first_fire, deg,
                          zero).sum(dim=1)
-    return n_bfs, n_deep
+    return n_bfs.to(torch.float32), n_deep.to(torch.float32)
 
 
 def superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
@@ -343,8 +407,8 @@ def superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
     S0 = state.S
     n_bfs, n_deep = message_counts(graph, state)
     R = relax(graph, S0, state.changed, cfg)
-    S1 = semiring.topk_merge(S0, R)
-    S1 = combine(S1, cfg)
+    S1 = map_node_chunks(
+        lambda s, r: combine(semiring.topk_merge(s, r), cfg), S0, R)
     nxt = dataclasses.replace(
         state,
         S=S1,

@@ -10,12 +10,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.dks import map_node_chunks
 from repro_torch.core.semiring import outer_combine, topk_merge
 from repro_torch.core.spa import split_pairs
 
 
 def subset_combine_ref(S: torch.Tensor, m: int) -> torch.Tensor:
-    """S: [..., 2^m, K] -> closed table of the same shape (exact)."""
+    """S: [..., 2^m, K] -> closed table of the same shape (exact), over
+    chunks of the row axis (``map_node_chunks``) where there is one."""
+    if S.dim() < 3:
+        return _sweep(S, m)
+    return map_node_chunks(lambda s: _sweep(s, m), S)
+
+
+def _sweep(S: torch.Tensor, m: int) -> torch.Tensor:
     S = S.clone()
     for t, a, b in split_pairs(m):
         cand = outer_combine(S[..., a, :], S[..., b, :])

@@ -28,6 +28,7 @@ import torch
 from repro_torch import INF
 from repro_torch.configs import DCN_V2, get_arch
 from repro_torch.core import dks, driver
+from repro_torch.core.reconstruct import collect_answers
 from repro_torch.core.semiring import sorted_unique_k
 from repro_torch.checkpoint import Stacked, restore_tree, save_tree
 from repro_torch.data import lm_synthetic_stream, recsys_synthetic_stream
@@ -550,6 +551,63 @@ def test_batched_backtrace_kernel_matches_plain(cuda_device, graph, m, k,
     for name, t in want.items():
         assert torch.equal(got[name], t), name
     assert bool(got["fail"][0].all())  # the INF lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 7, "all"])
+def test_chunked_relax_on_the_card_equals_unchunked(cuda_device, chunk,
+                                                    monkeypatch):
+    """The ``"torch"`` relax over chunks of edges, on a real mid-run state
+    on the card, equals the unchunked relax and the CPU's; the lane
+    kernel equals its plain version taken over chunks of a few nodes."""
+    g, _ = lod_like_graph(200, 2000, seed=5, vocab=40)
+    dg = g.to_device(cuda_device)
+    cfg = dks.DKSConfig(m=3, k=3)
+    masks = torch.from_numpy(
+        np.random.default_rng(3).random((3, 3, dg.v_pad)) < 0.03)
+    st = driver.lane_init(dg, masks.to(cuda_device), cfg)
+    for _ in range(2):
+        st = dks.superstep(dg, st, cfg)
+    args = (st.S, st.changed, dg.src, dg.dst, dg.w, dg.valid)
+    whole = dks.receive_candidates(
+        dks.edge_candidates(st.S, st.changed, dg.src, dg.w, dg.valid),
+        dg.dst, dg.v_pad)
+    got = dks.relax_edges(*args, chunk_edges=dg.src.shape[0]
+                          if chunk == "all" else chunk)
+    assert torch.equal(got, whole)
+    cpu = dks.relax_edges(*(t.cpu() for t in args), chunk_edges=7)
+    assert torch.equal(got.cpu(), cpu)
+    done = torch.tensor([False, True, False], device=cuda_device)
+    lane_args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
+    kernel = ls_ops.fused_lane_step(*lane_args, 3, dg.hub_nodes)
+    monkeypatch.setattr(dks, "NODE_CHUNK_BYTES", 5000)
+    monkeypatch.setattr(dks, "RELAX_CHUNK_BYTES", 20000)
+    assert torch.equal(kernel, fused_lane_step_ref(*lane_args, 3))
+
+
+@pytest.mark.cuda
+def test_row_view_on_the_card_equals_host_collector(cuda_device):
+    """Stragglers (hubs past a degree cap of 4) read their rows off the
+    card: trees and ``exhausted`` equal the host collector on each lane's
+    whole table, the counters equal the CPU tracer's, and no whole table
+    is copied."""
+    g = lod_like_graph(300, 1500, seed=6, vocab=40)[0]
+    S, kw = final_tables(g, 3, 3, 4, seed=33, device=cuda_device)
+    bt = BatchedBacktracer(g, device=cuda_device, degree_cap=4)
+    got = bt.extract_lanes(S, kw, k=3, n_nodes=g.n_nodes)
+    cpu = BatchedBacktracer(g, device="cpu", degree_cap=4)
+    want = cpu.extract_lanes(S.cpu(), kw.cpu(), k=3, n_nodes=g.n_nodes)
+    kw_host = kw.cpu().numpy()[:, :, :g.n_nodes]
+    for lane, (a, b) in enumerate(zip(got, want)):
+        host = collect_answers(S[lane, :g.n_nodes].cpu().numpy(), g,
+                               kw_host[lane], k=3)
+        trees = [[(t.root, t.edges, t.weight) for t in x[0]]
+                 for x in (a, b, host)]
+        assert trees[0] == trees[1] == trees[2]
+        assert a[1] == b[1] == host[1]
+    assert bt.stats() == cpu.stats() and bt.host_fallbacks > 0
+    assert bt.table_copies == 0
+    assert bt.rows_fetched == cpu.rows_fetched > 0
 
 
 @pytest.mark.cuda
