@@ -200,15 +200,39 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``backend="torch"`` twin of the bucket's first ``BLUK_TWIN_LANES``
    lanes and the first m=4 query equal to the ``"cuda"`` lanes exactly,
    ``extraction_stats`` and rows fetched included.
-15. The kernels line: one JSON object with each kernel's launches on the
+15. GNN — the four families of ``repro_torch.models.gnn`` (GAT, GIN, PNA,
+   SchNet at their published widths, random weights from a seeded CUDA
+   generator, synthetic data from seeded numpy at each shape's published
+   size, features correlated with the labels), TF32 off.  Leg 1: each on
+   its home shape (gat-cora on ``full_graph_sm``, the others on
+   ``molecule``), f32, one ``gnn_train_step`` on the card and on the CPU
+   from the same weights and batch: loss within 1e-4 relative, every
+   gradient leaf within 1e-4 of its largest magnitude.  Leg 2: the same at
+   ``mp_dtype="bfloat16"``, 16 AdamW steps each at
+   ``examples/gnn_train.py``'s schedule, the loss falling; ms a step and
+   peak memory.  Leg 3: ``ogb_products`` (2,449,029 nodes, 61,859,140
+   edges, 100 features, nothing cut) x gin-tu, bf16, 4 steps, ms a step,
+   peak memory, the batch's device bytes, one step under torch.profiler;
+   the first step's loss within ``GNN_LOSS_BOUND`` of an f32 forward's,
+   the bf16 forward's logits within ``GNN_LOGIT_BOUND`` (relative L2) of
+   the f32 one's.  Leg 4: ``ogb_products`` x pna, the loss under
+   ``no_grad`` in bf16 and f32 through the chunked aggregate (4 chunks),
+   the logits' gap held as gin-tu's, then one train step.  Leg
+   5: ``minibatch_lg`` x gat-cora, bf16: a reddit-size host graph built by
+   ``build_graph``, 1,024 seeds sampled at fanout (15, 10), the sample's
+   features to the card, 8 steps; host ms of the build and the sampling.
+   The kernels' launch counters are set to 0 before the phase and read
+   after it: the GNN path reaches no ``pallas_call`` in ``repro`` and
+   launches none of the port's kernels.
+16. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
    in phase 9 for the three kernels it runs; ``store_launches`` and
    ``live_launches`` phase 10's artifact engine, live service and warm;
    ``sharded_launches`` phase 12's; the flash row's ``moe_launches`` and
    ``cut_depth_launches`` phase 11's, and ``moe_shape`` its times at
    granite's shape; the bag row's ``train_launches`` phase 13's DCN-v2
-   steps; the DKS rows' ``bluk_launches`` and ``bluk_shape`` phase 14's),
-   error, times and bound.
+   steps; the DKS rows' ``bluk_launches`` and ``bluk_shape`` phase 14's;
+   ``gnn_launches`` phase 15's, all 0), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -287,6 +311,22 @@ SMOKE_TRAIN_TOL = 1e-4      # f32 smoke step, card against CPU
 EXTRACTION_HOST_MS = 981.2
 TIGHT = {"degree_cap": 1, "buffer": 3}   # backtrace caps that make stragglers
 BLUK_TWIN_LANES = 2         # phase 14's "torch" twin: the bucket's first lanes
+GNN_ARCHS = ("gat-cora", "gin-tu", "pna", "schnet")
+GNN_HOME = {"gat-cora": "full_graph_sm", "gin-tu": "molecule",
+            "pna": "molecule", "schnet": "molecule"}   # each arch's shape
+GNN_SEED = 0
+GNN_TOL = 1e-4              # f32 step, card against CPU (atomics reorder sums)
+GNN_OPT = {"lr": 3e-3, "total_steps": 60, "warmup_steps": 5}  # gnn_train.py's
+GNN_BF16_STEPS, GNN_OGB_STEPS, GNN_SAMPLE_STEPS = 16, 4, 8
+# ogb_products, bf16 against f32 from the same weights and batch.  The
+# gin-tu loss, relative: 0.0007 on the card (PERF.md §6); a mean over 2.45 M
+# nodes, it averages per-node rounding away, so a wide margin still fails a
+# fault that shifts every logit one way.
+GNN_LOSS_BOUND = 0.01
+# The logits' relative L2 gap, which does not average: 0.0084 (gin-tu) and
+# 0.0050 (pna) on the card (PERF.md §6); over 115 M logits a reordering of
+# the atomic sums moves it by a small part of itself.
+GNN_LOGIT_BOUND = 0.02
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
     (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
@@ -2447,7 +2487,7 @@ def train_phase(dev, card: str) -> dict:
 
 
 def device_bytes(dg) -> int:
-    """Bytes of the tensors a device graph holds."""
+    """Bytes of the tensors a device graph (or a GNN batch) holds."""
     return sum(t.numel() * t.element_size()
                for t in vars(dg).values() if isinstance(t, torch.Tensor))
 
@@ -2699,7 +2739,7 @@ def bluk_phase(dev) -> dict:
     # The final tables leave the results: the holds below need the room.
     S_b = torch.cat([res.state.S for res in batch])
     batch = [dataclasses.replace(res, state=None) for res in batch]
-    log(f"[14/15] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
+    log(f"[14/16] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
         f"(m={BUCKET_M}, k={BUCKET_K}) and {N_SINGLE} queries (m="
         f"{SINGLE_M}, k={SINGLE_K}); launches {launches}; peak device "
         f"memory {gib(peak)}")
@@ -2770,6 +2810,371 @@ def bluk_phase(dev) -> dict:
     return {"launches": launches, "errs": errs, "timing": timing}
 
 
+def gnn_full_graph(shape, n_classes: int, seed: int) -> dict:
+    """A random graph of ``shape``'s published size, its features
+    correlated with its labels (as ``examples/gnn_train.py``'s cora-like
+    graph), made in bulk with numpy: ``GraphBatch`` fields."""
+    rng = np.random.default_rng(seed)
+    n, e, d = shape.n_nodes, shape.n_edges, shape.d_feat
+    labels = rng.integers(0, n_classes, n)
+    centers = rng.standard_normal((n_classes, d), dtype=np.float32)
+    x = centers[labels]
+    x += 0.5 * rng.standard_normal((n, d), dtype=np.float32)
+    return {"x": x, "edge_src": rng.integers(0, n, e),
+            "edge_dst": rng.integers(0, n, e), "node_mask": np.ones(n, bool),
+            "edge_mask": np.ones(e, bool), "labels": labels.astype(np.int32),
+            "graph_ids": np.zeros(n, np.int64),
+            "positions": np.zeros((n, 3), np.float32), "n_graphs": 1}
+
+
+def gnn_molecules(shape, family: str, n_classes: int, seed: int) -> dict:
+    """``shape.batch_graphs`` molecules of ``n_nodes`` atoms and
+    ``n_edges`` random in-molecule edges, atom types 1..9 in column 0 of x
+    (SchNet's input) and positions (as ``examples/gnn_train.py``'s
+    molecules); SchNet's label is 0.1 x the sum of the atom types, the
+    others' a class their features are correlated with."""
+    rng = np.random.default_rng(seed)
+    g, atoms, per = shape.batch_graphs, shape.n_nodes, shape.n_edges
+    n = g * atoms
+    base = np.repeat(np.arange(g) * atoms, per)
+    z = rng.integers(1, 10, n)
+    y = rng.integers(0, n_classes, g)
+    centers = rng.standard_normal((n_classes, shape.d_feat), dtype=np.float32)
+    x = centers[np.repeat(y, atoms)]
+    x += 0.5 * rng.standard_normal(x.shape, dtype=np.float32)
+    x[:, 0] = z
+    labels = (np.bincount(np.repeat(np.arange(g), atoms), weights=z) * 0.1
+              if family == "schnet" else y)
+    return {"x": x, "edge_src": base + rng.integers(0, atoms, g * per),
+            "edge_dst": base + rng.integers(0, atoms, g * per),
+            "node_mask": np.ones(n, bool), "edge_mask": np.ones(g * per, bool),
+            "labels": labels.astype(np.float32 if family == "schnet"
+                                    else np.int32),
+            "graph_ids": np.repeat(np.arange(g), atoms),
+            "positions": rng.normal(size=(n, 3)) * 2, "n_graphs": g}
+
+
+def gnn_home_fields(arch: str, seed: int) -> dict:
+    """``arch``'s home shape (``GNN_HOME``) at its published size."""
+    from repro_torch.configs import GNN_SHAPES, get_arch
+
+    cfg = get_arch(arch)
+    shape = {s.name: s for s in GNN_SHAPES}[GNN_HOME[arch]]
+    if shape.kind == "molecule":
+        return gnn_molecules(shape, cfg.family, cfg.n_classes, seed)
+    return gnn_full_graph(shape, cfg.n_classes, seed)
+
+
+def gnn_card_vs_cpu(dev, card: str) -> None:
+    """Leg 1: each arch on its home shape, f32, one train step on the card
+    and on the CPU from the same weights (a seeded CUDA generator) and
+    batch: the step's loss and grad_norm within ``GNN_TOL`` relative, every
+    gradient leaf within ``GNN_TOL`` of its largest magnitude."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.optim import AdamWConfig, adamw_init, tree_map
+
+    for arch in GNN_ARCHS:
+        cfg = get_arch(arch)
+        fields = gnn_home_fields(arch, GNN_SEED)
+        params = gnn_lib.init_gnn(torch.Generator(dev).manual_seed(GNN_SEED),
+                                  cfg, d_in=fields["x"].shape[1])
+        out = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda t: t.to(d, copy=True), params)
+            batch = interop.graph_batch_from_numpy(fields, d)
+            _, _, m = gnn_lib.gnn_train_step(p, adamw_init(p), batch, cfg,
+                                             AdamWConfig(**GNN_OPT))
+            out[str(d)] = {k: ([g.cpu() for g in v] if k == "grads"
+                               else v.cpu()) for k, v in m.items()}
+        m_c, m_d = out["cpu"], out[str(dev)]
+        for what in ("loss", "grad_norm"):
+            a, b = m_d[what], m_c[what]
+            rel = abs(float(a) - float(b)) / abs(float(b))
+            check(rel <= GNN_TOL, f"{arch} f32 {what}: card {float(a)} cpu "
+                  f"{float(b)} ({rel:.3g} relative > {GNN_TOL})")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(m_d["grads"], m_c["grads"],
+                                       strict=True)):
+            err = max_abs_err(a, b) / max(float(b.abs().max()), 1e-30)
+            worst = max(worst, err)
+            check(err <= GNN_TOL, f"{arch} f32 gradient leaf {i}: {err:.3g} "
+                  f"of its largest magnitude > {GNN_TOL}")
+        log(f"  {arch} on {GNN_HOME[arch]} (f32): card == CPU within "
+            f"{GNN_TOL}: loss {float(m_d['loss']):.6f} / "
+            f"{float(m_c['loss']):.6f}, grad_norm "
+            f"{float(m_d['grad_norm']):.6f} / {float(m_c['grad_norm']):.6f}, "
+            f"worst gradient leaf {worst:.3g} of its largest [{card}]")
+
+
+def gnn_timed_steps(params, opt, batch, cfg, steps: int) -> tuple:
+    """``steps`` train steps; each one's loss and host ms (ended by a
+    synchronize)."""
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.optim import AdamWConfig
+
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = gnn_lib.gnn_train_step(params, opt, batch, cfg,
+                                                AdamWConfig(**GNN_OPT))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses}")
+    return params, opt, losses, ms
+
+
+def gnn_bf16_train(dev, card: str) -> None:
+    """Leg 2: the four archs on their home shapes at ``mp_dtype="bfloat16"``
+    (``repro``'s production cells), ``GNN_BF16_STEPS`` AdamW steps each at
+    ``examples/gnn_train.py``'s schedule: the last loss below the first;
+    ms a step (median of the last 8) and peak memory."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.optim import adamw_init
+
+    for arch in GNN_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch), mp_dtype="bfloat16")
+        fields = gnn_home_fields(arch, GNN_SEED + 1)
+        batch = interop.graph_batch_from_numpy(fields, dev)
+        params = gnn_lib.init_gnn(torch.Generator(dev).manual_seed(GNN_SEED),
+                                  cfg, d_in=fields["x"].shape[1])
+        torch.cuda.reset_peak_memory_stats()
+        _, _, losses, ms = gnn_timed_steps(params, adamw_init(params), batch,
+                                           cfg, GNN_BF16_STEPS)
+        check(losses[-1] < losses[0], f"{arch} bf16: loss {losses[0]} -> "
+              f"{losses[-1]} did not fall")
+        log(f"  {arch} on {GNN_HOME[arch]} (bf16), {GNN_BF16_STEPS} steps: "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"{float(np.median(ms[-8:])):.3f} ms a step (median of the last "
+            f"8; first {ms[0]:.1f} ms); peak "
+            f"{gib(torch.cuda.max_memory_allocated())} [{card}]")
+
+
+def gnn_step_split(step, what: str, card: str) -> None:
+    """One call of ``step`` under torch.profiler: the top device ops and
+    kernel-busy time against the profiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        log(f"  {what}: device time not measured (the profiler saw no "
+            f"kernel)")
+        return
+    top = "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in kernels[:8])
+    log(f"  {what} under torch.profiler: kernels busy {busy:.3f} ms of "
+        f"{wall:.3f} ms wall ({100 * busy / wall:.1f} %), "
+        f"{sum(e.count for e in kernels)} kernel launches [{card}]; top: "
+        f"{top}")
+
+
+def gnn_logit_gap(params, batch, cfg) -> float:
+    """The relative (L2) gap between the logits of a bf16 and an f32
+    forward from the same weights and batch, under ``no_grad``."""
+    from repro_torch.models import gnn as gnn_lib
+
+    with torch.no_grad():
+        a, b = (gnn_lib.gnn_forward(params, batch, dataclasses.replace(
+            cfg, mp_dtype=mp)) for mp in ("bfloat16", "float32"))
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+
+def gnn_ogb(dev, card: str) -> None:
+    """Legs 3 and 4: ogb_products at full size (2,449,029 nodes,
+    61,859,140 edges, 100 features, nothing cut), bf16.  gin-tu:
+    ``GNN_OGB_STEPS`` train steps, the first step's loss within
+    ``GNN_LOSS_BOUND`` (relative) of an f32 forward's from the same
+    weights and batch, one step under the profiler.  pna: the loss under
+    ``no_grad`` in bf16 and f32 through the chunked aggregate (4 chunks),
+    then one train step.  Each holds its bf16 logits within
+    ``GNN_LOGIT_BOUND`` of the f32 ones (:func:`gnn_logit_gap`)."""
+    from repro_torch import interop
+    from repro_torch.configs import GIN_TU, GNN_SHAPES, PNA
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    shape = {s.name: s for s in GNN_SHAPES}["ogb_products"]
+    t0 = time.perf_counter()
+    fields = gnn_full_graph(shape, PNA.n_classes, GNN_SEED + 2)
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = interop.graph_batch_from_numpy(fields, dev)
+    torch.cuda.synchronize()
+    put_ms = (time.perf_counter() - t0) * 1e3
+    del fields
+    n, e = batch.x.shape[0], batch.edge_src.shape[0]
+    check((n, e) == (shape.n_nodes, shape.n_edges), f"ogb_products {n}, {e}")
+    log(f"  ogb_products: {n} nodes, {e} edges, {batch.x.shape[1]} features; "
+        f"made on the host in {gen_ms:.1f} ms, to the card in {put_ms:.1f} "
+        f"ms; the batch holds {device_bytes(batch)} device bytes")
+
+    cfg = dataclasses.replace(GIN_TU, mp_dtype="bfloat16")
+    params = gnn_lib.init_gnn(torch.Generator(dev).manual_seed(GNN_SEED),
+                              cfg, d_in=shape.d_feat)
+    with torch.no_grad():
+        f32_loss = float(gnn_lib.gnn_loss(
+            params, batch, dataclasses.replace(cfg, mp_dtype="float32")))
+    gap = gnn_logit_gap(params, batch, cfg)
+    check(gap <= GNN_LOGIT_BOUND, f"gin-tu ogb_products: bf16 "
+          f"logits {gap:.4f} from f32's > {GNN_LOGIT_BOUND}")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, ms = gnn_timed_steps(params, adamw_init(params),
+                                              batch, cfg, GNN_OGB_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(losses[0] - f32_loss) / abs(f32_loss)
+    check(rel <= GNN_LOSS_BOUND, f"gin-tu ogb_products: bf16 loss "
+          f"{losses[0]} against f32 {f32_loss}: {rel:.4f} > {GNN_LOSS_BOUND}")
+    log(f"  gin-tu on ogb_products (bf16), {GNN_OGB_STEPS} steps: loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; ms a step "
+        f"{' '.join(f'{x:.1f}' for x in ms)} "
+        f"({(n + e) / (float(np.median(ms[1:])) / 1e3):.4g} nodes+edges/s at "
+        f"the median of steps 2-{GNN_OGB_STEPS}); peak {gib(peak)}; the "
+        f"first loss against an f32 forward's {f32_loss:.4f}: {rel:.4f} "
+        f"relative (bound {GNN_LOSS_BOUND}); the bf16 logits {gap:.4f} "
+        f"from f32's (bound {GNN_LOGIT_BOUND}) [{card}]")
+    gnn_step_split(lambda: gnn_lib.gnn_train_step(
+        params, opt, batch, cfg, AdamWConfig(**GNN_OPT)),
+        "a gin-tu ogb_products step", card)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(PNA, mp_dtype="bfloat16")
+    nc = gnn_lib.pna_chunks(e)
+    check(nc == 4 and e % nc == 0, f"pna at {e} edges takes {nc} chunks")
+    params = gnn_lib.init_gnn(torch.Generator(dev).manual_seed(GNN_SEED),
+                              cfg, d_in=shape.d_feat)
+    got = {}
+    for mp in ("bfloat16", "float32"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss = float(gnn_lib.gnn_loss(
+                params, batch, dataclasses.replace(cfg, mp_dtype=mp)))
+        torch.cuda.synchronize()
+        got[mp] = (loss, (time.perf_counter() - t0) * 1e3,
+                   torch.cuda.max_memory_allocated())
+        check(np.isfinite(loss), f"pna ogb_products {mp} loss {loss}")
+    gap = gnn_logit_gap(params, batch, cfg)
+    check(gap <= GNN_LOGIT_BOUND, f"pna ogb_products: bf16 logits "
+          f"{gap:.4f} from f32's > {GNN_LOGIT_BOUND}")
+    log(f"  pna on ogb_products, no_grad, {nc} edge chunks of {e // nc}: "
+        + "; ".join(f"{mp} loss {v[0]:.4f} in {v[1]:.1f} ms, peak "
+                    f"{gib(v[2])}" for mp, v in got.items())
+        + f"; the bf16 logits {gap:.4f} from f32's (bound "
+        f"{GNN_LOGIT_BOUND}) [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    _, _, losses, ms = gnn_timed_steps(params, adamw_init(params), batch,
+                                       cfg, 1)
+    log(f"  pna on ogb_products (bf16), one train step: loss {losses[0]:.4f} "
+        f"in {ms[0]:.1f} ms; peak "
+        f"{gib(torch.cuda.max_memory_allocated())} [{card}]")
+
+
+def gnn_minibatch(dev, card: str) -> None:
+    """Leg 5: ``minibatch_lg`` x gat-cora, bf16: a reddit-size host graph
+    (232,965 nodes; 57,307,946 random directed edges, weights given, so
+    ``build_graph``'s CSR holds about 114.6 M entries), 1,024 seeds
+    sampled at fanout (15, 10), their features gathered to the card,
+    ``GNN_SAMPLE_STEPS`` train steps on the seeds' labels."""
+    from repro_torch import interop
+    from repro_torch.configs import GAT_CORA, GNN_SHAPES
+    from repro_torch.graph.sampler import plan_sizes, sample_subgraph
+    from repro_torch.graph.structure import build_graph
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.optim import adamw_init
+
+    shape = {s.name: s for s in GNN_SHAPES}["minibatch_lg"]
+    rng = np.random.default_rng(GNN_SEED + 3)
+    n, m = shape.n_nodes, shape.n_edges // 2
+    src = rng.integers(0, n, m, dtype=np.int32)
+    dst = rng.integers(0, n, m, dtype=np.int32)
+    t0 = time.perf_counter()
+    g = build_graph(src, dst, n, w=np.ones(m, np.float32))
+    build_ms = (time.perf_counter() - t0) * 1e3
+    del src, dst
+    labels = rng.integers(0, GAT_CORA.n_classes, n)
+    centers = rng.standard_normal((GAT_CORA.n_classes, shape.d_feat),
+                                  dtype=np.float32)
+    feats = centers[labels]
+    feats += 0.5 * rng.standard_normal(feats.shape, dtype=np.float32)
+    seeds = rng.choice(n, shape.batch_nodes, replace=False).astype(np.int32)
+    t0 = time.perf_counter()
+    sub = sample_subgraph(g, seeds, list(shape.fanout), seed=GNN_SEED)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    want = plan_sizes(shape.batch_nodes, list(shape.fanout))
+    check((sub.n_sub, len(sub.edge_src)) == want,
+          f"sample of {sub.n_sub} nodes, {len(sub.edge_src)} edges, not {want}")
+    node_mask = np.zeros(sub.n_sub, bool)
+    node_mask[:sub.seed_count] = True
+    t0 = time.perf_counter()
+    batch = interop.graph_batch_from_numpy({
+        "x": feats[sub.node_ids], "edge_src": sub.edge_src,
+        "edge_dst": sub.edge_dst, "node_mask": node_mask,
+        "edge_mask": sub.edge_valid,
+        "labels": labels[sub.node_ids].astype(np.int32),
+        "graph_ids": np.zeros(sub.n_sub, np.int64),
+        "positions": np.zeros((sub.n_sub, 3), np.float32), "n_graphs": 1},
+        dev)
+    torch.cuda.synchronize()
+    put_ms = (time.perf_counter() - t0) * 1e3
+    cfg = dataclasses.replace(GAT_CORA, mp_dtype="bfloat16")
+    params = gnn_lib.init_gnn(torch.Generator(dev).manual_seed(GNN_SEED),
+                              cfg, d_in=shape.d_feat)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, losses, ms = gnn_timed_steps(params, adamw_init(params), batch,
+                                       cfg, GNN_SAMPLE_STEPS)
+    check(losses[-1] < losses[0], f"gat-cora minibatch: loss {losses[0]} -> "
+          f"{losses[-1]} did not fall")
+    log(f"  minibatch_lg: host graph of {g.n_nodes} nodes, {len(g.indices)} "
+        f"CSR entries built in {build_ms:.1f} ms; {shape.batch_nodes} seeds "
+        f"at fanout {shape.fanout} sampled in {sample_ms:.1f} ms "
+        f"({sub.n_sub} node slots, {int(sub.node_valid.sum())} valid; "
+        f"{len(sub.edge_src)} edge slots, {int(sub.edge_valid.sum())} "
+        f"valid); features gathered and put on the card in {put_ms:.1f} ms "
+        f"({device_bytes(batch)} device bytes)")
+    log(f"  gat-cora on the sample (bf16), {GNN_SAMPLE_STEPS} steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"{float(np.median(ms[-4:])):.3f} ms a step (median of the last 4; "
+        f"first {ms[0]:.1f}); peak "
+        f"{gib(torch.cuda.max_memory_allocated())} [{card}]")
+
+
+def gnn_phase(dev, card: str) -> None:
+    """Phase 15: the GNN family trained on the card (legs 1-5).  Each leg
+    runs in a function of its own, so its tensors die with it."""
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for leg in (gnn_card_vs_cpu, gnn_bf16_train, gnn_ogb, gnn_minibatch):
+            leg(dev, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -2803,14 +3208,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/15] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/16] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/15] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/16] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -2884,7 +3289,7 @@ def main() -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/15] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/16] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -2947,7 +3352,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/15] kernels == plain versions at the main path's shapes")
+    log("[3/16] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -2966,7 +3371,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/15] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/16] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -3016,7 +3421,7 @@ def main() -> int:
     # Phase 10 holds an artifact-built engine to these, state dropped.
     phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
         r for r, _ in single]
-    log(f"[5/15] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/16] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -3094,10 +3499,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/15] flash_attention == plain version at small shapes and the "
+    log("[6/16] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/15] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/16] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -3111,7 +3516,7 @@ def main() -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/15] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/16] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -3121,14 +3526,14 @@ def main() -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/15] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/16] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     # ---------------- 9. serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/15] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/16] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
@@ -3138,7 +3543,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
-    log(f"[10/15] {cfg_sec.name} through the graph store on backend=cuda: "
+    log(f"[10/16] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
     # ---------------- 11. MoE and the int8 KV cache ----------------
@@ -3146,7 +3551,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
-    log(f"[11/15] {MOE_ARCH} served through the flash kernel: "
+    log(f"[11/16] {MOE_ARCH} served through the flash kernel: "
         f"{moe['launches']} launches, logits and tokens agree with naive "
         f"attention; int8 cache decode within {QUANT_TOL} of the bf16 cache; "
         f"at cut depth {moe['cut_launches']} launches")
@@ -3157,14 +3562,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, graph, index, bucket, singles, phase5,
                             per_step)
-    log(f"[12/15] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
+    log(f"[12/16] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
         f" backend=torch) == phase 5; {sharded['summary']}")
 
     # ---------------- 13. training ----------------
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(dev, card)
-    log(f"[13/15] {TRAIN_ARCH} trained at full width and depth "
+    log(f"[13/16] {TRAIN_ARCH} trained at full width and depth "
         f"({trained['split']['step_s']:.1f} ms a step); flash_jax == "
         f"chunked; a checkpoint restored bit-equal; {RECSYS_ARCH} trained on "
         f"the grouped lookup ({trained['launches']} launches); the smoke "
@@ -3176,12 +3581,32 @@ def main() -> int:
     bluk = bluk_phase(dev)
     for name, err in bluk["errs"].items():
         errs[name] = max(errs[name], err)
-    log(f"[14/15] bluk-bnb at full size on backend=cuda: launches "
+    log(f"[14/16] bluk-bnb at full size on backend=cuda: launches "
         f"{bluk['launches']}; the three DKS kernels == plain versions at its "
         f"shapes; the torch twin's lanes == cuda's")
     log(f"  card: {card}")
 
-    # ---------------- 15. kernels line ----------------
+    # ---------------- 15. GNN ----------------
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel_ops = {"subset_combine": sc_ops, "lane_superstep": ls_ops,
+                  "flash_attention": fa_ops, "embedding_bag": eb_ops,
+                  "padded_topk": sm_ops, "batched_backtrace": bt_ops}
+    for ops in kernel_ops.values():
+        ops.counter.reset()
+    gnn_phase(dev, card)
+    gnn_launches = {name: ops.launches for name, ops in kernel_ops.items()}
+    log(f"[15/16] GNN: {', '.join(GNN_ARCHS)} card == CPU (f32) and trained "
+        f"in bf16; gin-tu trained and pna's chunked aggregate run on "
+        f"ogb_products at full size; gat-cora trained on a minibatch_lg "
+        f"sample of a reddit-size host graph; hand-written kernel launches "
+        f"{gnn_launches} (no pallas_call on this path)")
+    log(f"  card: {card}")
+
+    # ---------------- 16. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
                                   "src/repro/kernels/subset_combine/kernel.py:63"),
                "lane_superstep": ("src/repro_torch/csrc/lane_superstep.cu",
@@ -3204,7 +3629,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library,
-            **shapes.get(name, {})})
+            "gnn_launches": gnn_launches[name], **shapes.get(name, {})})
         if name in serving["launches"]:
             kernels[-1]["serving_launches"] = serving["launches"][name]
         if name in store["live_launches"]:

@@ -12,6 +12,9 @@
 - The DCN-v2 recommender it serves and trains (``get_arch("dcn-v2")``)
   and the recsys shapes, with the values of ``repro.configs.dcn_v2`` and
   ``repro.configs.base``.
+- The GNNs it trains (``gat-cora``, ``gin-tu``, ``pna``, ``schnet``) and
+  the GNN shapes, with the values of ``repro.configs.{gat_cora, gin_tu,
+  pna, schnet}`` and ``repro.configs.base``.
 """
 
 from __future__ import annotations
@@ -190,16 +193,82 @@ DCN_V2 = RecsysConfig(
         10_000, 5_000, 5_000, 1_000, 1_000, 1_000, 500, 100, 100, 50,
     ))
 
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    """A graph neural network (``repro.configs.base.GNNConfig``)."""
+
+    name: str
+    family: str               # "gat" | "schnet" | "gin" | "pna"
+    n_layers: int
+    d_hidden: int
+    n_heads: int = 1
+    aggregators: tuple[str, ...] = ("sum",)
+    scalers: tuple[str, ...] = ("identity",)
+    rbf: int = 0              # schnet radial basis size
+    cutoff: float = 0.0
+    learnable_eps: bool = False
+    n_classes: int = 16
+    param_dtype: str = "float32"
+    mp_dtype: str = "float32"   # message passing: "bfloat16" halves the
+    # edge gathers' bytes (repro's production cells)
+
+    def smoke(self) -> "GNNConfig":
+        return dataclasses.replace(self, d_hidden=min(self.d_hidden, 16),
+                                   rbf=min(self.rbf, 16) if self.rbf else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNShape:
+    name: str
+    kind: str                # "full_graph" | "minibatch" | "molecule"
+    n_nodes: int
+    n_edges: int
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: tuple[int, ...] = ()
+    batch_graphs: int = 0
+
+
+GNN_SHAPES = (
+    GNNShape("full_graph_sm", "full_graph", 2_708, 10_556, d_feat=1_433),
+    GNNShape("minibatch_lg", "minibatch", 232_965, 114_615_892,
+             d_feat=602, batch_nodes=1_024, fanout=(15, 10)),
+    GNNShape("ogb_products", "full_graph", 2_449_029, 61_859_140, d_feat=100),
+    GNNShape("molecule", "molecule", 30, 64, d_feat=16, batch_graphs=128),
+)
+
+# GAT [arXiv:1710.10903]: 2 layers, d_hidden 8, 8 heads.
+GAT_CORA = GNNConfig(
+    name="gat-cora", family="gat", n_layers=2, d_hidden=8, n_heads=8,
+    aggregators=("attn",), n_classes=7)
+# GIN [arXiv:1810.00826]: 5 layers, d_hidden 64, sum aggregator, learnable
+# eps.
+GIN_TU = GNNConfig(
+    name="gin-tu", family="gin", n_layers=5, d_hidden=64,
+    aggregators=("sum",), learnable_eps=True, n_classes=2)
+# PNA [arXiv:2004.05718]: 4 layers, d_hidden 75, aggregators
+# mean-max-min-std, scalers identity-amplification-attenuation.
+PNA = GNNConfig(
+    name="pna", family="pna", n_layers=4, d_hidden=75,
+    aggregators=("mean", "max", "min", "std"),
+    scalers=("identity", "amplification", "attenuation"), n_classes=16)
+# SchNet [arXiv:1706.08566]: 3 interactions, d_hidden 64, rbf 300, cutoff
+# 10.
+SCHNET = GNNConfig(
+    name="schnet", family="schnet", n_layers=3, d_hidden=64, rbf=300,
+    cutoff=10.0)
+
 ARCHS = {c.name: c for c in (CHATGLM3_6B, QWEN15_4B, COMMAND_R_PLUS_104B,
-                              DBRX_132B, GRANITE_MOE_3B_A800M, DCN_V2)}
+                              DBRX_132B, GRANITE_MOE_3B_A800M, DCN_V2,
+                              GAT_CORA, GIN_TU, PNA, SCHNET)}
 
 
-def get_arch(arch_id: str) -> LMConfig | RecsysConfig:
-    """The configuration named ``arch_id`` in :data:`ARCHS` (the LMs and
-    DCN-v2); any other name raises ``KeyError``."""
+def get_arch(arch_id: str) -> LMConfig | RecsysConfig | GNNConfig:
+    """The configuration named ``arch_id`` in :data:`ARCHS` (the LMs,
+    DCN-v2 and the GNNs); any other name raises ``KeyError``."""
     if arch_id not in ARCHS:
-        raise KeyError(
-            f"arch {arch_id!r} is not in the port; it serves "
-            f"{sorted(ARCHS)}. The GNN archs wait for a later slice "
-            f"(ROADMAP.md, queue 1)")
+        raise KeyError(f"arch {arch_id!r} is not in the port; it has "
+                       f"{sorted(ARCHS)}")
     return ARCHS[arch_id]

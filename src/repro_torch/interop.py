@@ -39,6 +39,15 @@ And the training states, so that both packages can take the same step:
 - :func:`dcn_state_from_numpy` / :func:`dcn_state_to_numpy` — DCN-v2's
   ``(params, OptState)`` pair, ``repro``'s train carry.
 
+A GNN's too:
+
+- :func:`gnn_params_from_numpy` / :func:`gnn_params_to_numpy` — ``repro``'s
+  ``init_gnn`` tree <-> the port's (:mod:`repro_torch.models.gnn`);
+- :func:`gnn_state_from_numpy` / :func:`gnn_state_to_numpy` — its
+  ``(params, OptState)`` pair;
+- :func:`graph_batch_from_numpy` — a dict of ``GraphBatch`` fields -> the
+  port's :class:`~repro_torch.models.gnn.GraphBatch`.
+
 bf16 arrays, which numpy holds as ml_dtypes' ``bfloat16``, come across
 exactly (through f32, which holds every bf16 value).
 """
@@ -55,7 +64,8 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.index import InvertedIndex
 from repro_torch.graph.structure import Graph
 from repro_torch.checkpoint.checkpointer import Stacked, leaf_like
-from repro_torch.configs import LMConfig, RecsysConfig
+from repro_torch.configs import GNNConfig, LMConfig, RecsysConfig
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys
 from repro_torch.models.transformer import LM
@@ -275,3 +285,82 @@ def dcn_state_to_numpy(params: dict, opt: OptState) -> tuple[dict, dict]:
     return tree_map(to_np, params), {
         "mu": tree_map(to_np, opt.mu), "nu": tree_map(to_np, opt.nu),
         "count": np.int32(opt.count.item())}
+
+
+def _gnn_d_in(params_np: dict, cfg: GNNConfig) -> int:
+    if cfg.family == "schnet":
+        return 1
+    first = params_np["layers"][0]
+    key = {"gat": "w", "gin": "w1", "pna": "pre"}[cfg.family]
+    return int(np.shape(first[key])[0])
+
+
+def gnn_params_from_numpy(params_np: dict, cfg: GNNConfig,
+                          device: str | torch.device | None = None) -> dict:
+    """``repro``'s ``init_gnn`` tree with numpy leaves -> the port's tree
+    on ``device``, f32.  Its keys, nesting and shapes must equal those
+    :func:`repro_torch.models.gnn.init_gnn` gives for ``cfg``."""
+    dev = resolve_device(device)
+    template = gnn_lib.init_gnn(torch.Generator("cpu").manual_seed(0), cfg,
+                                _gnn_d_in(params_np, cfg))
+    if tree_map(lambda _: 0, params_np) != tree_map(lambda _: 0, template):
+        raise ValueError(f"not a {cfg.name} parameter tree: its keys or "
+                         f"nesting differ")
+    out = []
+    for i, (arr, leaf) in enumerate(zip(tree_leaves(params_np),
+                                        tree_leaves(template))):
+        if tuple(np.shape(arr)) != tuple(leaf.shape):
+            raise ValueError(f"leaf {i} has shape {list(np.shape(arr))}, the "
+                             f"config {list(leaf.shape)}")
+        out.append(torch.from_numpy(np.array(arr, np.float32)).to(dev))
+    return tree_unflatten(template, out)
+
+
+def gnn_params_to_numpy(params: dict) -> dict:
+    """The port's GNN tree -> the same tree of numpy f32 arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def gnn_state_from_numpy(params_np: dict, opt_np: dict, cfg: GNNConfig,
+                         device: str | torch.device | None = None
+                         ) -> tuple[dict, OptState]:
+    """``repro``'s GNN ``(params, OptState)`` with numpy leaves (``opt_np``:
+    ``{"mu", "nu"}`` trees shaped like the params, and ``"count"``) -> the
+    port's tree and :class:`OptState` on ``device``."""
+    dev = resolve_device(device)
+    params = gnn_params_from_numpy(params_np, cfg, dev)
+    mu, nu = (gnn_params_from_numpy(opt_np[k], cfg, dev) for k in ("mu", "nu"))
+    count = torch.tensor(int(opt_np["count"]), dtype=torch.int32, device=dev)
+    return params, OptState(mu=mu, nu=nu, count=count)
+
+
+def gnn_state_to_numpy(params: dict, opt: OptState) -> tuple[dict, dict]:
+    """The inverse of :func:`gnn_state_from_numpy`."""
+    return gnn_params_to_numpy(params), {
+        "mu": gnn_params_to_numpy(opt.mu), "nu": gnn_params_to_numpy(opt.nu),
+        "count": np.int32(opt.count.item())}
+
+
+GRAPH_BATCH_DTYPES = {
+    "x": np.float32, "edge_src": np.int64, "edge_dst": np.int64,
+    "node_mask": np.bool_, "edge_mask": np.bool_, "graph_ids": np.int64,
+    "positions": np.float32,
+}
+
+
+def graph_batch_from_numpy(fields: dict,
+                           device: str | torch.device | None = None
+                           ) -> gnn_lib.GraphBatch:
+    """A dict of ``GraphBatch`` fields (numpy arrays, ``n_graphs`` an int)
+    -> the port's batch on ``device``: features and positions f32, edge
+    and graph ids int64 (what ``scatter_reduce`` indexes with), labels in
+    their own dtype."""
+    names = {f.name for f in dataclasses.fields(gnn_lib.GraphBatch)}
+    if set(fields) != names:
+        raise ValueError(f"GraphBatch fields {sorted(names)}, got "
+                         f"{sorted(fields)}")
+    dev = resolve_device(device)
+    out = {name: torch.from_numpy(np.array(fields[name], dtype)).to(dev)
+           for name, dtype in GRAPH_BATCH_DTYPES.items()}
+    out["labels"] = torch.from_numpy(np.array(fields["labels"])).to(dev)
+    return gnn_lib.GraphBatch(**out, n_graphs=int(fields["n_graphs"]))

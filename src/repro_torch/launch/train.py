@@ -17,8 +17,9 @@ layout).  Weights are random, drawn from ``--seed``.  The model is built at
 ``repro``'s choice: ``"naive"`` under ``--smoke``, else ``"chunked"``.
 Without ``--device`` it runs on ``cuda:0`` and raises when there is no
 GPU.  Prints ``TRAINING IMPROVED`` and exits 0 when the last loss is below
-the first, else exits 1.  GNN archs are not trained here (the port has
-none yet).
+the first, else exits 1.  GNN archs are refused, as ``repro``'s driver
+refuses them: ``examples/gnn_train_torch.py`` trains them
+(:func:`repro_torch.models.gnn.gnn_train_step`).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs import LMConfig, RecsysConfig, get_arch
+from repro_torch.configs import GNNConfig, LMConfig, RecsysConfig, get_arch
 from repro_torch.data import (PrefetchIterator, lm_synthetic_stream,
                               recsys_synthetic_stream)
 from repro_torch.device import resolve_device
@@ -189,8 +190,9 @@ def main(argv: list[str] | None = None) -> int:
     try:
         cfg = get_arch(args.arch)
     except KeyError as e:
-        raise SystemExit(f"{e.args[0]}; use examples/gnn_train.py for GNN "
-                         f"archs") from None
+        raise SystemExit(e.args[0]) from None
+    if isinstance(cfg, GNNConfig):
+        raise SystemExit("use examples/gnn_train_torch.py for GNN archs")
     out = train_lm(args) if isinstance(cfg, LMConfig) else train_recsys(args)
     print({k: v for k, v in out.items() if k != "steps"})
     ok = out["last_loss"] < out["first_loss"]

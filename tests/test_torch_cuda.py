@@ -18,14 +18,17 @@ for single-hot bags, the grouped lookup and the DCN-v2 logits built on
 them, and none for the batched backtrace's records (integers).  The DKS
 kernels run at m = 1..6 and K = 1..8.  The stepwise surfaces (streams,
 deadline buckets, telemetry) and the service on ``"cuda"`` equal
-``"torch"`` exactly, times excluded.
+``"torch"`` exactly, times excluded.  The GNN families (no kernel of
+their own) on the card against the CPU: f32 loss within 1e-5 and
+gradients within 1e-4 of each leaf's largest magnitude (atomics reorder
+the scatter sums); PNA's chunked aggregate's maxima and minima exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import INF
+from repro_torch import INF, interop
 from repro_torch.configs import DCN_V2, get_arch
 from repro_torch.core import dks, driver
 from repro_torch.core.reconstruct import collect_answers
@@ -49,11 +52,12 @@ from repro_torch.kernels.segment_minplus import ops as sm_ops
 from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
 from repro_torch.kernels.subset_combine import ops as sc_ops
 from repro_torch.kernels.subset_combine.ref import subset_combine_ref
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import kvcache
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import tree_leaves
+from repro_torch.optim import tree_leaves, tree_map
 from repro_torch.serve import DKSService, ServeConfig
 from repro_torch.serve.loadgen import make_trace, replay
 
@@ -970,3 +974,82 @@ def test_checkpoint_round_trip_from_the_card(cuda_device, tmp_path):
                 assert a == b
     losses = [float(step(s, batches[1])[1]["loss"]) for s in (back, state)]
     assert losses[0] == losses[1]
+
+
+def gnn_fields(family: str, n_graphs: int = 1, seed: int = 0, n: int = 48,
+               e: int = 168) -> dict:
+    """A small batch's fields: nodes 40.. receive no edge, the last 3
+    nodes and a tenth of the edges masked, 8 edges duplicated."""
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, e - 8), rng.integers(0, 40, e - 8)
+    src, dst = np.concatenate([src, src[:8]]), np.concatenate([dst, dst[:8]])
+    node_mask = np.ones(n, bool)
+    node_mask[-3:] = False
+    if family == "schnet":
+        x = rng.integers(1, 10, (n, 1)).astype(np.float32)
+        labels = rng.normal(size=n_graphs).astype(np.float32)
+    else:
+        x = rng.normal(size=(n, 12)).astype(np.float32)
+        labels = rng.integers(0, 7, n_graphs if n_graphs > 1 else n)
+    return {"x": x, "edge_src": src, "edge_dst": dst, "node_mask": node_mask,
+            "edge_mask": rng.random(e) > 0.1, "labels": labels.astype(
+                np.float32 if family == "schnet" else np.int32),
+            "graph_ids": np.arange(n) * n_graphs // n,
+            "positions": rng.normal(size=(n, 3)) * 2, "n_graphs": n_graphs}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_graphs", [1, 4], ids=["node", "graph"])
+@pytest.mark.parametrize("arch", ["gat-cora", "gin-tu", "pna", "schnet"])
+def test_gnn_loss_and_grads_card_equal_cpu(cuda_device, arch, n_graphs):
+    """Each GNN family's f32 loss on the card within 1e-5 of the CPU's,
+    every gradient leaf within 1e-4 of its largest magnitude (the scatter
+    sums' atomics add in another order)."""
+    cfg = get_arch(arch)
+    fields = gnn_fields(cfg.family, n_graphs, seed=1)
+    params = gnn_lib.init_gnn(torch.Generator("cpu").manual_seed(0), cfg,
+                              d_in=fields["x"].shape[1])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        out[str(dev)] = gnn_lib.gnn_loss_and_grads(
+            tree_map(lambda t: t.to(dev), params),
+            interop.graph_batch_from_numpy(fields, dev), cfg)
+    (l_c, g_c), (l_d, g_d) = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(l_d.cpu(), l_c, atol=1e-5, rtol=1e-5)
+    for a, b in zip(g_d, g_c):
+        tol = 1e-4 * float(b.abs().max()) + 1e-30
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_edges,nc", [(168, 4), (166, 1)],
+                         ids=["chunked", "unchunked"])
+def test_pna_aggregate_card_equal_cpu(cuda_device, n_edges, nc):
+    """PNA's aggregate at chunk 42, chunked (4 x 42 edges) and not (166 %
+    4 != 0): maxima and minima exactly, sums within 1e-6, and the
+    gradients through the checkpointed chunks on an ``h`` of many exact
+    zeros (ties split 1/k) within 1e-6."""
+    fields = gnn_fields("pna", seed=5, e=n_edges)
+    assert gnn_lib.pna_chunks(n_edges, 42) == nc
+    rng = np.random.default_rng(6)
+    h = np.maximum(rng.integers(-2, 3, (48, 5)), 0).astype(np.float32)
+    w = torch.from_numpy(rng.normal(size=(4, 48, 5)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        b = interop.graph_batch_from_numpy(fields, dev)
+        has = gnn_lib._degree(b, 48)[:, None] > 0
+        ht = torch.from_numpy(h).to(dev).requires_grad_(True)
+        aggs = gnn_lib._pna_aggregate(ht, b, 48, 42)
+        wd = w.to(dev)
+        obj = (torch.sum(wd[0] * aggs[0]) + torch.sum(wd[1] * aggs[1])
+               + torch.sum(torch.where(has, wd[2] * aggs[2], 0.0))
+               + torch.sum(torch.where(has, wd[3] * aggs[3], 0.0)))
+        res[str(dev)] = ([a.detach().cpu() for a in aggs],
+                         torch.autograd.grad(obj, ht)[0].cpu())
+    (a_c, g_c), (a_d, g_d) = res["cpu"], res[str(cuda_device)]
+    for i, (x, y) in enumerate(zip(a_d, a_c)):
+        if i < 2:
+            torch.testing.assert_close(x, y, atol=1e-6, rtol=1e-6)
+        else:
+            assert torch.equal(x, y)
+    torch.testing.assert_close(g_d, g_c, atol=1e-6, rtol=1e-6)

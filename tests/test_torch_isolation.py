@@ -1,8 +1,9 @@
-"""Import guard: ``repro_torch`` and ``chip_smoke.py`` never import JAX,
-the JAX package or ``ml_dtypes`` (the card's machine has none).  A fresh
-interpreter imports every ``repro_torch`` module and every module
-``chip_smoke.py`` names (without running it), then no ``jax*``, no
-``repro`` / ``repro.*`` and no ``ml_dtypes`` module may be loaded."""
+"""Import guard: ``repro_torch``, ``chip_smoke.py`` and the port's
+examples never import JAX, the JAX package or ``ml_dtypes`` (the card's
+machine has none).  A fresh interpreter imports every ``repro_torch``
+module and every module each script names, then each script itself
+(without running it), then no ``jax*``, no ``repro`` / ``repro.*`` and no
+``ml_dtypes`` module may be loaded."""
 
 import json
 import os
@@ -19,15 +20,17 @@ names = ["repro_torch"] + [
     m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-tree = ast.parse(open(sys.argv[1]).read())
-for node in ast.walk(tree):
-    if isinstance(node, ast.Import):
-        for alias in node.names:
-            importlib.import_module(alias.name)
-    elif isinstance(node, ast.ImportFrom) and node.level == 0:
-        importlib.import_module(node.module)
-sys.path.insert(0, sys.argv[2])
-importlib.import_module("chip_smoke")
+for script in sys.argv[1:]:
+    tree = ast.parse(open(script).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                importlib.import_module(alias.name)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            importlib.import_module(node.module)
+    folder, name = script.rsplit("/", 1)
+    sys.path.insert(0, folder)
+    importlib.import_module(name[:-3])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
              or m.startswith("jax"))
@@ -39,8 +42,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", PROBE, str(ROOT / "chip_smoke.py"),
-         str(ROOT)], capture_output=True, text=True, env=env, check=True,
-        cwd=ROOT)
+         str(ROOT / "examples" / "gnn_train_torch.py")],
+        capture_output=True, text=True, env=env, check=True, cwd=ROOT)
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.engine.engine" in seen["modules"]
     assert "repro_torch.kernels.lane_superstep.ops" in seen["modules"]
@@ -70,6 +73,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.checkpoint",
                  "repro_torch.checkpoint.checkpointer",
                  "repro_torch.distributed", "repro_torch.distributed.fault",
-                 "repro_torch.launch.train", "repro_torch.models.lm"):
+                 "repro_torch.launch.train", "repro_torch.models.lm",
+                 "repro_torch.models.gnn", "repro_torch.graph.sampler",
+                 "repro_torch.graph.partition"):
         assert name in seen["modules"], name
     assert seen["bad"] == []

@@ -28,7 +28,7 @@ from repro.models import lm as lm_j
 from repro.models import transformer as tfm_j
 
 from repro_torch import interop
-from repro_torch.configs import get_arch
+from repro_torch.configs import GNNConfig, get_arch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch import serve
 from repro_torch.models import attention as attn_t
@@ -218,8 +218,15 @@ def test_lm_params_from_numpy_checks_the_tree():
 
 @pytest.mark.parametrize("arch", ["gat-cora", "nope"])
 def test_get_arch_raises_outside_the_ported_lms(arch):
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch(arch)
+    """A name outside the port raises ``KeyError`` naming what it has; a
+    GNN arch is a ``GNNConfig`` now, and LM serving refuses it."""
+    if arch == "nope":
+        with pytest.raises(KeyError, match="gat-cora"):
+            get_arch(arch)
+        return
+    assert isinstance(get_arch(arch), GNNConfig)
+    with pytest.raises(SystemExit, match="LM archs"):
+        serve.main(["--arch", arch, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen1.5-4b",
