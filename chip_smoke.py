@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. Device — fail unless ``torch.cuda.is_available()``; print the card's
-   ``nvidia-smi --query-gpu=name,power.limit`` line.
+   ``nvidia-smi --query-gpu=name,power.limit`` line; start phase 17's
+   meta dry run in its own process (stopped on the way out).
 2. Build — compile every CUDA source under ``src/repro_torch/csrc`` with
    nvcc (all at once), timed; each kernel's ptxas register and spill
    lines; the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
@@ -224,6 +225,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    The kernels' launch counters are set to 0 before the phase and read
    after it: the GNN path reaches no ``pallas_call`` in ``repro`` and
    launches none of the port's kernels.
+17. Accounting (run before the kernels line) — ``launch/dryrun.py`` on
+   ``meta`` for every cell of ``launch/cells.py`` (40 (arch, shape) cells
+   and 3 DKS cells; started after phase 11 in its own process, at the
+   lowest priority on one core, so that its host time overlaps phases
+   12-16 and leaves the host-clocked phases before them alone), then on
+   the card for every cell whose predicted peak fits it, with content
+   from a seeded generator: a count there, a warm call and the median of
+   3 windows of calls, each at least 0.4 s (``dryrun.cuda_record``; 1
+   call where a call takes over 2 s; a folded train step runs one
+   micro-batch, its time that micro-batch's times the trips plus the
+   update).  Asserted per measured cell: the measured peak within 10 % or
+   0.5 GiB of the meta prediction, the FLOPs counted on the card equal to
+   meta's, ``mfu`` and ``hbm_share`` at most 1.05; the DCN-v2 cells
+   launch the grouped lookup (the kernels' counters set to 0 just before
+   the card's cells and read just after: ``accounting_launches``).
 16. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
    in phase 9 for the three kernels it runs; ``store_launches`` and
@@ -232,7 +248,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``cut_depth_launches`` phase 11's, and ``moe_shape`` its times at
    granite's shape; the bag row's ``train_launches`` phase 13's DCN-v2
    steps; the DKS rows' ``bluk_launches`` and ``bluk_shape`` phase 14's;
-   ``gnn_launches`` phase 15's, all 0), error, times and bound.
+   ``gnn_launches`` phase 15's, all 0; ``accounting_launches`` phase
+   17's), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -243,6 +260,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -251,9 +270,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# The bound formulas and the card's peaks (fails outside a checkout).
+from repro_torch.analysis import roofline as rl  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S, backtrace_bound, bag_bound, combine_bound,
+    flash_bound, flash_flops, grouped_bound, lane_bound)
+from repro_torch.launch.analyze import profile_window, window_line  # noqa: E402
 BUCKET_M, BUCKET_K, BUCKET_LANES = 3, 3, 8
 SINGLE_M, SINGLE_K, N_SINGLE = 4, 2, 2
 QUERY_SEED = 2024
@@ -327,6 +351,10 @@ GNN_LOSS_BOUND = 0.01
 # 0.0050 (pna) on the card (PERF.md §6); over 115 M logits a reordering of
 # the atomic sums moves it by a small part of itself.
 GNN_LOGIT_BOUND = 0.02
+ACCOUNTING_SEED = 0         # phase 17: the cells' content
+PEAK_TOL, PEAK_SLACK = 0.10, 0.5 * 2 ** 30  # measured peak against meta's
+SHARE_LIMIT = 1.05          # mfu and hbm_share: at most the peak, and noise
+META_TIMEOUT_S = 900        # the meta dry run, started after phase 11
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
     (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
@@ -478,23 +506,6 @@ def draw_queries(graph, index, n: int, m: int, rng) -> list[list[int]]:
     return [[int(pool[j]) for j in row] for row in picks]
 
 
-def lane_bound(S0, changed, done, offsets, src, w) -> tuple[float, str]:
-    """Least time for one fused superstep on these inputs: the bytes it
-    must move (every lane's own table read once and written once — the rows
-    senders pass on are bytes of that same table —, ``w`` of every real
-    in-edge, ``src`` of the finite-weight ones, the flags and the offsets)
-    over HBM bandwidth, against its adds and compares (one of each per
-    candidate of a live lane's finite in-edge from an active sender) over
-    the f32 rate."""
-    lanes, v, f, k = S0.shape
-    n_e = int(offsets[-1])
-    finite = w[:n_e] < 5e8
-    n_rows = int(changed[~done][:, src[:n_e].long()[finite]].sum())
-    nbytes = (2 * S0.numel() * 4 + 4 * n_e + 4 * int(finite.sum())
-              + lanes * v + (v + 1) * 8 + lanes)
-    return _bound(nbytes, 2 * n_rows * f * k)
-
-
 def edge_subset(dg, keep):
     """(offsets, src, w) of the real edges where ``keep`` holds, still
     sorted by destination."""
@@ -629,83 +640,6 @@ def held_records(got: dict, want: dict, what: str) -> float:
               f"batched_backtrace {name} != plain at {what} (max abs err "
               f"{err})")
     return err
-
-
-def backtrace_bound(recs: dict, m: int) -> tuple[float, str]:
-    """A floor on the walk's bytes for these records: every record array
-    written once and the candidates read once, plus, per obligation it
-    resolved, what its match reads at the least — m mask bytes for a leaf,
-    two table cells for a split, the node's two offsets, one CSR entry
-    and one cell for an edge.  The scan items tested before each first
-    match are left out, so the true least time is higher."""
-    kind = recs["kind"]
-    lanes, c, b = kind.shape
-    nbytes = (5 * kind.numel() * 4 + lanes * c + lanes * c * 8
-              + int((kind == 1).sum()) * m + int((kind == 2).sum()) * 8
-              + int((kind == 3).sum()) * (16 + 8 + 4))
-    return _bound(nbytes, 0)
-
-
-def combine_bound(S, m) -> tuple[float, str]:
-    from repro_torch.core.spa import split_pairs
-
-    k = S.shape[-1]
-    rows = S.numel() // ((1 << m) * k)
-    return _bound(2 * S.numel() * 4, rows * len(split_pairs(m)) * k * k * 2)
-
-
-def flash_flops(q, k, q_offset: int = 0) -> int:
-    """4·Dh FLOPs per visible (query, key) pair and query head: the two
-    matrix products of causal attention forward."""
-    b, sq, hq, dh = q.shape
-    pos = q_offset + np.arange(sq)
-    return 4 * b * hq * dh * int(np.minimum(k.shape[1], pos + 1).sum())
-
-
-def flash_bound(q, k, q_offset: int = 0) -> tuple[float, str]:
-    """Least time for causal attention forward on these inputs: its FLOPs
-    over the dense bf16 rate, against q, k, v read once and o written
-    once."""
-    nbytes = q.element_size() * 2 * (q.numel() + k.numel())
-    return _bound(nbytes, flash_flops(q, k, q_offset), BF16_OPS_PER_S)
-
-
-def bag_work(table, ids, weighted: bool) -> tuple[int, int]:
-    """Bytes and operations of one EmbeddingBag call on these inputs: each
-    distinct table row that a valid id names read once (a row named again
-    can come from the cache), the ids, the weights and the output, against
-    a multiply and an add per gathered element."""
-    v, d = table.shape
-    valid = (ids >= 0) & (ids < v)
-    n_rows = int(torch.unique(ids[valid]).numel())
-    nbytes = (n_rows * d + ids.numel() * (2 if weighted else 1)
-              + ids.shape[0] * d) * 4
-    return nbytes, 2 * int(valid.sum()) * d
-
-
-def bag_bound(table, ids, weighted: bool) -> tuple[float, str]:
-    """Least time for one EmbeddingBag call on these inputs (``bag_work``
-    over HBM bandwidth and the f32 rate)."""
-    return _bound(*bag_work(table, ids, weighted))
-
-
-def grouped_bound(tables, ids, prefix=None) -> tuple[float, str]:
-    """Least time for one grouped lookup with clipped ids: ``bag_work`` of
-    each field's bags of one id, summed over the fields, and the prefix
-    columns read once and written once."""
-    work = [bag_work(t, ids[:, f:f + 1].clamp(0, t.shape[0] - 1), False)
-            for f, t in enumerate(tables)]
-    nbytes = sum(w[0] for w in work)
-    if prefix is not None:
-        nbytes += 2 * prefix.numel() * 4
-    return _bound(nbytes, sum(w[1] for w in work))
-
-
-def _bound(nbytes: float, ops: float,
-           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def same_results(rc, rt, what: str) -> None:
@@ -901,46 +835,27 @@ def no_drop_twin(model):
 
 def device_split(model, prompts, prefill, decode) -> None:
     """Where a prefill's and a decode step's time goes on the card:
-    torch.profiler's kernel times against the host clock (profiled, so the
-    host side runs slower than unprofiled)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler's kernel times against the host clock
+    (``launch/analyze.py``'s window; profiled, so the host side runs
+    slower than unprofiled)."""
     from repro_torch.models import lm as lm_lib
 
     steps = 4
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_p:
-        t0 = time.perf_counter()
-        logits, cache = prefill(model, prompts)
-        torch.cuda.synchronize()
-        wall_p = (time.perf_counter() - t0) * 1e3
-    cache = lm_lib.grow_cache(model.cfg, cache, prompts.shape[1] + steps)
-    tok = logits.argmax(-1)[:, None]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_d:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            tok, cache = decode(model, cache, tok)
-        torch.cuda.synchronize()
-        wall_d = (time.perf_counter() - t0) * 1e3 / steps
-    for what, prof, wall, per in (("prefill", prof_p, wall_p, 1),
-                                  ("decode step", prof_d, wall_d, steps)):
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA),
-                         key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
-        if busy == 0:
-            log(f"  {what}: device time not measured (the profiler saw no "
-                f"kernel)")
-            continue
-        top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / per:.3f} "
-                        f"ms x{e.count // per}" for e in kernels[:6])
-        log(f"  {what} under torch.profiler: kernels busy {busy:.3f} ms of "
-            f"{wall:.3f} ms wall ({100 * busy / wall:.1f} %), "
-            f"{sum(e.count for e in kernels) // per} kernel launches; top: "
-            f"{top}")
+    out = {}
+    w_p = profile_window(lambda: out.update(
+        zip(("logits", "cache"), prefill(model, prompts))), top=6)
+    cache = lm_lib.grow_cache(model.cfg, out["cache"],
+                              prompts.shape[1] + steps)
+    tok = out["logits"].argmax(-1)[:, None]
+    feed = {"tok": tok, "cache": cache}
+
+    def step():
+        feed["tok"], feed["cache"] = decode(model, feed["cache"],
+                                            feed["tok"])
+
+    w_d = profile_window(step, steps=steps, top=6)
+    log(window_line("prefill", w_p))
+    log(window_line("decode step", w_d))
 
 
 def router_stats(model, p, what: str) -> float:
@@ -1520,7 +1435,7 @@ def padded_phase(dev, graph, index, bucket) -> tuple[float, tuple, int]:
     del red_plain
     times = (cuda_ms(lambda: sm_ops.padded_topk(cand, BUCKET_K), 20),
              cuda_ms(lambda: padded_topk_ref(cand, BUCKET_K), 3), None,
-             *_bound((cand.numel() + red.numel()) * 4, cand.numel()))
+             *rl.bound(*rl.topk_work(cand, BUCKET_K)[:2]))
     deg = np.bincount(dst, minlength=dg.n_nodes)
     log(f"  lane {lane} after {PADDED_STEPS} supersteps "
         f"({int(changed.sum())} senders): padded CSR at dmax={PADDED_DMAX} "
@@ -2183,33 +2098,11 @@ def attention_times(dev, cfg, card: str) -> None:
 
 
 def step_split(state, batch, step, card: str) -> None:
-    """One train step under torch.profiler: kernel time against the host
-    clock (profiled, so the host runs slower than unprofiled), launches,
-    and the kernels that lead."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy == 0:
-        log("  train step: device time not measured (the profiler saw no "
-            "kernel)")
-        return
-    top = "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.1f} ms "
-                    f"x{e.count}" for e in kernels[:10])
-    log(f"  a train step under torch.profiler: kernels busy {busy:.1f} ms of "
-        f"{wall:.1f} ms wall ({100 * busy / wall:.1f} %), "
-        f"{sum(e.count for e in kernels)} kernel launches; top: {top} "
-        f"[{card}]")
+    """One train step under torch.profiler (``launch/analyze.py``'s
+    window): kernel time against the host clock, launches, and the
+    kernels that lead."""
+    w = profile_window(lambda: step(state, batch), top=10)
+    log(window_line("a train step", w, 70) + f" [{card}]")
 
 
 def granite_train(dev, card: str) -> dict:
@@ -2739,7 +2632,7 @@ def bluk_phase(dev) -> dict:
     # The final tables leave the results: the holds below need the room.
     S_b = torch.cat([res.state.S for res in batch])
     batch = [dataclasses.replace(res, state=None) for res in batch]
-    log(f"[14/16] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
+    log(f"[14/17] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
         f"(m={BUCKET_M}, k={BUCKET_K}) and {N_SINGLE} queries (m="
         f"{SINGLE_M}, k={SINGLE_K}); launches {launches}; peak device "
         f"memory {gib(peak)}")
@@ -2955,32 +2848,10 @@ def gnn_bf16_train(dev, card: str) -> None:
 
 
 def gnn_step_split(step, what: str, card: str) -> None:
-    """One call of ``step`` under torch.profiler: the top device ops and
-    kernel-busy time against the profiled wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy == 0:
-        log(f"  {what}: device time not measured (the profiler saw no "
-            f"kernel)")
-        return
-    top = "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
-                    f"x{e.count}" for e in kernels[:8])
-    log(f"  {what} under torch.profiler: kernels busy {busy:.3f} ms of "
-        f"{wall:.3f} ms wall ({100 * busy / wall:.1f} %), "
-        f"{sum(e.count for e in kernels)} kernel launches [{card}]; top: "
-        f"{top}")
+    """One call of ``step`` under torch.profiler (``launch/analyze.py``'s
+    window): the top device ops and kernel-busy time against the profiled
+    wall."""
+    log(window_line(what, profile_window(step), 70) + f" [{card}]")
 
 
 def gnn_logit_gap(params, batch, cfg) -> float:
@@ -3175,14 +3046,106 @@ def gnn_phase(dev, card: str) -> None:
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def start_meta_dry_run() -> tuple[subprocess.Popen, Path]:
+    """Phase 17's meta dry run (``launch/dryrun.py --device meta``, no
+    card), started after phase 11 in its own process, at the lowest
+    priority on one core, so that its host time overlaps phases 12-16 and
+    takes none from the host-clocked phases before them; its JSON goes
+    under ``build/``."""
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    core = max(os.sched_getaffinity(0))
+    boot = (f"import os, runpy, sys; os.nice(19); "
+            f"os.sched_setaffinity(0, {{{core}}}); "
+            f"sys.argv = ['dryrun', '--device', 'meta', '--out', {str(out)!r}]; "
+            f"runpy.run_module('repro_torch.launch.dryrun', "
+            f"run_name='__main__')")
+    with open(out / "meta.log", "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", boot], stdout=logf,
+            stderr=subprocess.STDOUT, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    return proc, out
+
+
+def accounting_phase(dev, card: str, meta: tuple, kernel_ops: dict
+                     ) -> dict:
+    """Phase 17: every catalog cell's meta count (from the dry run
+    started after phase 11), then every cell the count says fits, run on the
+    card by ``dryrun.cuda_record``; the kernels' launch counters set to 0
+    just before the card's cells and read just after."""
+    from repro_torch.launch import cells as cells_mod
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    proc, out = meta
+    rc = proc.wait(timeout=META_TIMEOUT_S)
+    tail = (out / "meta.log").read_text()[-2000:]
+    check(rc == 0, f"the meta dry run exited {rc}: {tail}")
+    metas = {}
+    for f in (out / "meta").glob("*.json"):
+        rec = json.loads(f.read_text())
+        metas[rec["cell"]] = rec
+    cells = cells_mod.all_cells()
+    check(sorted(metas) == sorted(c.name for c in cells),
+          f"the meta dry run covered {len(metas)} of {len(cells)} cells")
+    log(f"  meta dry run: {len(metas)} cells counted in "
+        f"{sum(r['count_s'] for r in metas.values()):.1f} s of host time "
+        f"(alongside phases 12-16)")
+    for c in cells:
+        log(f"    {dryrun.summary_line(metas[c.name])}")
+    fitting = [c for c in cells if metas[c.name]["fits_one_card"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ops in kernel_ops.values():
+        ops.counter.reset()
+    records = []
+    for cell in fitting:
+        rec = dryrun.cuda_record(cell, metas[cell.name], ACCOUNTING_SEED,
+                                 card, dev)
+        records.append(rec)
+        log(f"    {dryrun.summary_line(rec)}")
+        got, want = rec["measured_peak_bytes"], rec["predicted_peak_bytes"]
+        check(abs(got - want) <= max(PEAK_TOL * want, PEAK_SLACK),
+              f"{cell.name}: measured peak {got} B against the meta "
+              f"prediction {want} B")
+        check(rec["card_flops"] == rec["flops"],
+              f"{cell.name}: {rec['card_flops']} FLOPs counted on the card, "
+              f"{rec['flops']} on meta")
+        check(rec["mfu"] <= SHARE_LIMIT and rec["hbm_share"] <= SHARE_LIMIT,
+              f"{cell.name}: mfu {rec['mfu']}, hbm_share "
+              f"{rec['hbm_share']} above {SHARE_LIMIT}")
+    launches = {name: ops.launches for name, ops in kernel_ops.items()}
+    n_dcn = sum(1 for c in fitting if c.arch_id == "dcn-v2")
+    check(launches["embedding_bag"] >= n_dcn > 0,
+          f"the DCN-v2 cells launched the grouped lookup "
+          f"{launches['embedding_bag']} times")
+    (out / "cuda_records.json").write_text(json.dumps(records, indent=1))
+    log(f"  {len(records)} of {len(cells)} cells fit one card and ran on "
+        f"it; launches {launches}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"launches": launches, "measured": len(records),
+            "cells": len(cells)}
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "src"))
-    from repro_torch import INF  # fails outside a checkout of the repo
+    meta: list = []             # the meta dry run, once phase 11 is done
+    try:
+        return phases(meta)
+    finally:
+        for proc, _ in meta:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def phases(meta: list) -> int:
+    from repro_torch import INF
     from repro_torch.configs import SEC_RDFABOUT
     from repro_torch.core import dks, driver
     from repro_torch.core.steiner_ref import dreyfus_wagner
@@ -3208,14 +3171,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/16] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/17] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/16] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/17] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -3289,7 +3252,7 @@ def main() -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/16] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/17] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -3352,7 +3315,7 @@ def main() -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/16] kernels == plain versions at the main path's shapes")
+    log("[3/17] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -3371,7 +3334,7 @@ def main() -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/16] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/17] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -3421,7 +3384,7 @@ def main() -> int:
     # Phase 10 holds an artifact-built engine to these, state dropped.
     phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
         r for r, _ in single]
-    log(f"[5/16] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/17] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -3499,10 +3462,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/16] flash_attention == plain version at small shapes and the "
+    log("[6/17] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/16] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/17] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -3516,7 +3479,7 @@ def main() -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/16] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/17] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -3526,14 +3489,14 @@ def main() -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/16] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/17] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     # ---------------- 9. serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/16] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/17] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
@@ -3543,7 +3506,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
-    log(f"[10/16] {cfg_sec.name} through the graph store on backend=cuda: "
+    log(f"[10/17] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
     # ---------------- 11. MoE and the int8 KV cache ----------------
@@ -3551,25 +3514,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
-    log(f"[11/16] {MOE_ARCH} served through the flash kernel: "
+    log(f"[11/17] {MOE_ARCH} served through the flash kernel: "
         f"{moe['launches']} launches, logits and tokens agree with naive "
         f"attention; int8 cache decode within {QUANT_TOL} of the bf16 cache; "
         f"at cut depth {moe['cut_launches']} launches")
     log(f"  card: {card}")
+    meta.append(start_meta_dry_run())
 
     # ---------------- 12. sharded partition ----------------
     gc.collect()
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, graph, index, bucket, singles, phase5,
                             per_step)
-    log(f"[12/16] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
+    log(f"[12/17] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
         f" backend=torch) == phase 5; {sharded['summary']}")
 
     # ---------------- 13. training ----------------
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(dev, card)
-    log(f"[13/16] {TRAIN_ARCH} trained at full width and depth "
+    log(f"[13/17] {TRAIN_ARCH} trained at full width and depth "
         f"({trained['split']['step_s']:.1f} ms a step); flash_jax == "
         f"chunked; a checkpoint restored bit-equal; {RECSYS_ARCH} trained on "
         f"the grouped lookup ({trained['launches']} launches); the smoke "
@@ -3581,7 +3545,7 @@ def main() -> int:
     bluk = bluk_phase(dev)
     for name, err in bluk["errs"].items():
         errs[name] = max(errs[name], err)
-    log(f"[14/16] bluk-bnb at full size on backend=cuda: launches "
+    log(f"[14/17] bluk-bnb at full size on backend=cuda: launches "
         f"{bluk['launches']}; the three DKS kernels == plain versions at its "
         f"shapes; the torch twin's lanes == cuda's")
     log(f"  card: {card}")
@@ -3599,12 +3563,21 @@ def main() -> int:
         ops.counter.reset()
     gnn_phase(dev, card)
     gnn_launches = {name: ops.launches for name, ops in kernel_ops.items()}
-    log(f"[15/16] GNN: {', '.join(GNN_ARCHS)} card == CPU (f32) and trained "
+    log(f"[15/17] GNN: {', '.join(GNN_ARCHS)} card == CPU (f32) and trained "
         f"in bf16; gin-tu trained and pna's chunked aggregate run on "
         f"ogb_products at full size; gat-cora trained on a minibatch_lg "
         f"sample of a reddit-size host graph; hand-written kernel launches "
         f"{gnn_launches} (no pallas_call on this path)")
     log(f"  card: {card}")
+
+    # ---------------- 17. accounting ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    accounting = accounting_phase(dev, card, meta[0], kernel_ops)
+    log(f"[17/17] accounting: {accounting['cells']} cells counted on meta, "
+        f"{accounting['measured']} that fit one card run on it; peaks "
+        f"within {PEAK_TOL:.0%} or {PEAK_SLACK / 2 ** 30} GiB of meta's, "
+        f"FLOPs == meta's, mfu and hbm_share <= {SHARE_LIMIT}")
 
     # ---------------- 16. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
@@ -3629,7 +3602,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library,
-            "gnn_launches": gnn_launches[name], **shapes.get(name, {})})
+            "gnn_launches": gnn_launches[name],
+            "accounting_launches": accounting["launches"][name],
+            **shapes.get(name, {})})
         if name in serving["launches"]:
             kernels[-1]["serving_launches"] = serving["launches"][name]
         if name in store["live_launches"]:

@@ -116,6 +116,38 @@ class LMConfig:
         embed = self.vocab * d * (1 if self.tie_embeddings else 2)
         return l * (attn + ffn + 2 * d) + embed + d
 
+    def active_param_count(self) -> int:
+        """Parameters one token passes through: a MoE layer counts its
+        ``top_k`` experts and the router (6·N_active·D in
+        :func:`repro_torch.analysis.roofline.model_flops_lm`)."""
+        if self.moe is None:
+            return self.param_count_analytic()
+        d, l = self.d_model, self.n_layers
+        attn = d * self.n_heads * self.head_dim * 2
+        attn += d * self.n_kv_heads * self.head_dim * 2
+        ffn = (3 * d * self.moe.d_ff_expert * self.moe.top_k
+               + d * self.moe.n_experts)
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + ffn + 2 * d) + embed + d
+
+
+@dataclasses.dataclass(frozen=True)
+class LMShape:
+    """An LM input shape (``repro.configs.base.LMShape``)."""
+
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES = (
+    LMShape("train_4k", "train", 4096, 256),
+    LMShape("prefill_32k", "prefill", 32768, 32),
+    LMShape("decode_32k", "decode", 32768, 128),
+    LMShape("long_500k", "decode", 524288, 1),
+)
+
 
 # ChatGLM3-6B [arXiv:2406.12793]: GQA with 2 KV heads, 2d-RoPE (half of
 # each head's dims rotate).

@@ -158,14 +158,29 @@ def relax(graph: DeviceGraph, S: torch.Tensor, changed: torch.Tensor,
     shape (INF where nothing arrived).
     """
     return relax_edges(S, changed, graph.src, graph.dst, graph.w,
-                       graph.valid)
+                       graph.valid, dst_offsets=graph.in_offsets_host)
+
+
+def _chunk_range(dst_offsets: np.ndarray, e0: int, e1: int
+                 ) -> tuple[int, int]:
+    """A range of destinations that holds every edge of ``[e0, e1)``:
+    real edges (the first ``dst_offsets[-1]``, sorted by destination) from
+    their CSR offsets; padding points at node 0."""
+    n_real = int(dst_offsets[-1])
+    if e0 >= n_real:
+        return 0, 1
+    lo = int(np.searchsorted(dst_offsets, e0, side="right")) - 1
+    hi = int(np.searchsorted(dst_offsets, min(e1, n_real) - 1,
+                             side="right"))
+    return (0 if e1 > n_real else lo), hi
 
 
 def relax_edges(S: torch.Tensor, changed: torch.Tensor, src: torch.Tensor,
                 dst: torch.Tensor, w: torch.Tensor,
                 valid: torch.Tensor | None = None, *,
                 n_dst: int | None = None,
-                chunk_edges: int | None = None) -> torch.Tensor:
+                chunk_edges: int | None = None,
+                dst_offsets: np.ndarray | None = None) -> torch.Tensor:
     """:func:`relax` over an explicit edge list (``valid=None``: all real)
     into ``n_dst`` destinations (default ``S.shape[1]``), over chunks of
     ``chunk_edges`` edges (default: :data:`RELAX_CHUNK_BYTES` of
@@ -173,7 +188,10 @@ def relax_edges(S: torch.Tensor, changed: torch.Tensor, src: torch.Tensor,
     merged into the running result with ``topk_merge``, over the range of
     destinations the chunk reaches: the K smallest distinct values of a
     union are those of the union of each part's K smallest distinct
-    values, so every chunk size gives the same result."""
+    values, so every chunk size gives the same result.  The range is read
+    from the device, or, given ``dst_offsets`` (the host CSR offsets of a
+    destination-sorted list), computed on the host; a wider range merges
+    nothing into the rows it adds."""
     lanes, v, n, k = S.shape
     n_dst = v if n_dst is None else n_dst
     n_e = src.shape[0]
@@ -186,7 +204,10 @@ def relax_edges(S: torch.Tensor, changed: torch.Tensor, src: torch.Tensor,
     for e0 in range(0, n_e, chunk_edges):
         part = slice(e0, min(n_e, e0 + chunk_edges))
         d = dst[part].long()
-        lo, hi = int(d.min()), int(d.max()) + 1
+        if dst_offsets is None:
+            lo, hi = int(d.min()), int(d.max()) + 1
+        else:
+            lo, hi = _chunk_range(dst_offsets, part.start, part.stop)
         red = receive_candidates(edge_candidates(
             S, changed, src[part], w[part],
             None if valid is None else valid[part]), d - lo, hi - lo)

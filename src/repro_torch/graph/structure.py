@@ -67,6 +67,9 @@ class DeviceGraph:
       n_nodes / n_edges: true counts (pre-padding).  Real edges are the
         first ``n_edges`` entries, sorted by ``dst``.
       pred / conf: optional typed channel (int32 / float32[E_pad]).
+      in_offsets_host: the host copy of ``in_offsets`` (numpy), or None:
+        where it is there, the chunked relax takes each chunk's range of
+        destinations from it instead of reading the device.
     """
 
     src: torch.Tensor
@@ -81,6 +84,7 @@ class DeviceGraph:
     n_edges: int
     pred: torch.Tensor | None = None
     conf: torch.Tensor | None = None
+    in_offsets_host: np.ndarray | None = None
 
     @property
     def device(self) -> torch.device:
@@ -241,7 +245,7 @@ class Graph:
             src=put(src), dst=put(dst), w=put(w), valid=put(valid),
             out_degree=put(out_degree), node_valid=put(node_valid),
             in_offsets=offsets, hub_nodes=hub_nodes(offsets), n_nodes=v,
-            n_edges=e, pred=pred, conf=conf,
+            n_edges=e, pred=pred, conf=conf, in_offsets_host=in_offsets,
         )
 
 

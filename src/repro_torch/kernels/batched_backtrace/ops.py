@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import count, roofline
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.batched_backtrace.ref import batched_backtrace_ref
@@ -22,6 +23,7 @@ counter = LaunchCounter()
 RECORDS = ("node", "kind", "child0", "child1", "edge_u")
 
 
+@count.reports("batched_backtrace", roofline.backtrace_work)
 def batched_backtrace(S: torch.Tensor, kw: torch.Tensor,
                       cand_idx: torch.Tensor, cand_val: torch.Tensor,
                       indptr: torch.Tensor, esrc: torch.Tensor,
@@ -70,12 +72,12 @@ def batched_backtrace(S: torch.Tensor, kw: torch.Tensor,
             f"batched_backtrace: the CUDA kernel supports 1 <= m <= {MAX_M} "
             f"keywords, 1 <= k <= {MAX_K} slots and buffer <= {MAX_BUFFER}, "
             f"got m={m}, k={k}, buffer={buffer}")
-    if S.device.type != "cuda":
+    if S.device.type not in ("cuda", "meta"):
         raise ValueError(f"batched_backtrace: unsupported device {S.device}")
     out = {name: torch.empty(lanes, c, buffer, dtype=torch.int32,
                              device=S.device) for name in RECORDS}
     out["fail"] = torch.empty(lanes, c, dtype=torch.bool, device=S.device)
-    if lanes * c == 0:
+    if lanes * c == 0 or S.device.type == "meta":
         return out
     fn = cuda_build.library("batched_backtrace").bt_batched_backtrace
     err = fn(*(t.data_ptr() for t in tensors),

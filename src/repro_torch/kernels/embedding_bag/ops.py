@@ -13,6 +13,7 @@ import array
 
 import torch
 
+from repro_torch.analysis import count, roofline
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grouped_ref,
@@ -24,6 +25,7 @@ MAX_FIELDS = 64     # table pointers that fit the grouped kernel's parameter
 counter = LaunchCounter()
 
 
+@count.reports("embedding_bag", roofline.embedding_bag_work)
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: torch.Tensor | None = None,
                   mode: str = "sum") -> torch.Tensor:
@@ -57,6 +59,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError("embedding_bag wants contiguous table, ids, weights")
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, weights, mode)
+    if table.device.type == "meta":
+        return table.new_empty(ids.shape[0], table.shape[1])
     if table.device.type != "cuda":
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
     (b, nnz), (v, d) = ids.shape, table.shape
@@ -75,6 +79,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+@count.reports("embedding_bag_grouped", roofline.grouped_work)
 def embedding_bag_grouped(tables, ids: torch.Tensor, out: torch.Tensor,
                           col0: int = 0, clip: bool = False,
                           prefix: torch.Tensor | None = None) -> torch.Tensor:
@@ -139,6 +144,8 @@ def embedding_bag_grouped(tables, ids: torch.Tensor, out: torch.Tensor,
                          "and out")
     if out.device.type == "cpu":
         return embedding_bag_grouped_ref(tables, ids, out, col0, clip, prefix)
+    if out.device.type == "meta":
+        return out
     if out.device.type != "cuda":
         raise ValueError(f"embedding_bag_grouped: unsupported device "
                          f"{out.device}")

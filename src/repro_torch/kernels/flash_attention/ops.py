@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch.analysis import count, roofline
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -33,6 +34,7 @@ def route(dtype: torch.dtype, dh: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "wmma"
 
 
+@count.reports("flash_attention", roofline.flash_work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """Causal GQA attention forward with an online softmax.
@@ -68,6 +70,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention wants contiguous q, k, v")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_offset=int(q_offset))
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):

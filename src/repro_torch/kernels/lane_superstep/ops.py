@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.analysis import count, roofline
 from repro_torch.core.dks import (DKSConfig, DKSState, finish_superstep,
                                   message_counts)
 from repro_torch.graph.structure import (
@@ -35,6 +36,7 @@ from repro_torch.kernels.subset_combine.ops import check_range
 counter = LaunchCounter()
 
 
+@count.reports("lane_superstep", roofline.lane_work)
 def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
                     done: torch.Tensor, offsets: torch.Tensor,
                     src: torch.Tensor, w: torch.Tensor, m: int,
@@ -71,6 +73,8 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
     if S0.device.type == "cpu":
         return fused_lane_step_ref(*tensors, m)
     check_range(m, k, "fused_lane_step")
+    if S0.device.type == "meta":
+        return torch.empty_like(S0)
     if S0.device.type != "cuda":
         raise ValueError(f"fused_lane_step: unsupported device {S0.device}")
     fn = cuda_build.library("lane_superstep").dks_lane_superstep

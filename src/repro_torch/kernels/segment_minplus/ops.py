@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import INF
+from repro_torch.analysis import count, roofline
 from repro_torch.core import semiring
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_build
@@ -84,6 +85,7 @@ def padded_csr_from_graph(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
         n_virtual=n_virt_pad)
 
 
+@count.reports("padded_topk", roofline.topk_work)
 def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
     """cand f32[Vv, C, F] (candidates <= INF, as ``bump_to_inf`` leaves
     them; C >= k) -> f32[Vv, F, K]: per row and keyword set the K smallest
@@ -102,9 +104,11 @@ def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
     if k > MAX_K:
         raise ValueError(f"padded_topk: the CUDA kernel supports 1 <= k <= "
                          f"{MAX_K}, got k={k}")
-    if cand.device.type != "cuda":
+    if cand.device.type not in ("cuda", "meta"):
         raise ValueError(f"padded_topk: unsupported device {cand.device}")
     out = torch.empty(vv, f, k, dtype=torch.float32, device=cand.device)
+    if cand.device.type == "meta":
+        return out
     if vv == 0 or f == 0:
         return out
     fn = cuda_build.library("padded_topk").dks_padded_topk

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import count, roofline
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.subset_combine.ref import subset_combine_ref
@@ -30,6 +31,7 @@ def check_range(m: int, k: int, what: str) -> None:
             f"and 1 <= k <= {MAX_K} answers, got m={m}, k={k}")
 
 
+@count.reports("subset_combine", roofline.combine_work)
 def subset_combine(S: torch.Tensor, m: int) -> torch.Tensor:
     """Closed table of ``S`` (f32[..., 2^m, K]): one popcount-ordered
     sweep over ``split_pairs(m)``, top-K distinct, saturated at INF."""
@@ -42,6 +44,8 @@ def subset_combine(S: torch.Tensor, m: int) -> torch.Tensor:
     if S.device.type == "cpu":
         return subset_combine_ref(S, m)
     check_range(m, k, "subset_combine")
+    if S.device.type == "meta":
+        return torch.empty_like(S)
     if S.device.type != "cuda":
         raise ValueError(f"subset_combine: unsupported device {S.device}")
     fn = cuda_build.library("subset_combine").dks_subset_combine

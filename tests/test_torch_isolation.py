@@ -2,7 +2,8 @@
 examples never import JAX, the JAX package or ``ml_dtypes`` (the card's
 machine has none).  A fresh interpreter imports every ``repro_torch``
 module and every module each script names, then each script itself
-(without running it), then no ``jax*``, no ``repro`` / ``repro.*`` and no
+(without running it: each runs under its ``__main__`` check), then no
+``jax*``, no ``repro`` / ``repro.*`` and no
 ``ml_dtypes`` module may be loaded."""
 
 import json
@@ -42,7 +43,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", PROBE, str(ROOT / "chip_smoke.py"),
-         str(ROOT / "examples" / "gnn_train_torch.py")],
+         *(str(ROOT / "examples" / f"{name}_torch.py")
+           for name in ("gnn_train", "quickstart", "relationship_queries",
+                        "serving", "train_lm"))],
         capture_output=True, text=True, env=env, check=True, cwd=ROOT)
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.engine.engine" in seen["modules"]
@@ -75,6 +78,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.distributed", "repro_torch.distributed.fault",
                  "repro_torch.launch.train", "repro_torch.models.lm",
                  "repro_torch.models.gnn", "repro_torch.graph.sampler",
-                 "repro_torch.graph.partition"):
+                 "repro_torch.graph.partition",
+                 "repro_torch.analysis", "repro_torch.analysis.count",
+                 "repro_torch.analysis.roofline", "repro_torch.launch.cells",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.analyze"):
         assert name in seen["modules"], name
     assert seen["bad"] == []
