@@ -163,7 +163,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    prefill through the kernel against naive attention and 8 decode steps.
 13. Training — granite-moe-3b-a800m at full width and depth (phase 11's
    3,374,295,552 bf16 parameters, random from a seeded CUDA generator)
-   through ``repro_torch.launch.train.train_lm``: 16 steps of 4 x 2,048
+   through ``repro_torch.launch.train.train_lm``: 8 steps of 4 x 2,048
    tokens from ``lm_synthetic_stream`` (``repro``'s defaults: lr 3e-4,
    warm-up max(1, steps // 20), remat, ``"chunked"`` attention, AdamW
    with f32 moments); each step's loss, grad_norm and lr, its ms split
@@ -240,6 +240,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    meta's, ``mfu`` and ``hbm_share`` at most 1.05; the DCN-v2 cells
    launch the grouped lookup (the kernels' counters set to 0 just before
    the card's cells and read just after: ``accounting_launches``).
+18. Several ranks (run before the kernels line) — each multi-rank path
+   in ranks the phase spawns (``repro_torch.distributed.ranks.run_ranks``,
+   ``RANKS_TIMEOUT_S`` a spawn, past which the ranks are killed and the
+   phase fails), held against its single-process twin on the card: 1
+   rank over NCCL and 2 and 4 ranks sharing the card over gloo first run
+   every collective of ``comm`` and its backward against its one-process
+   definition, then phase 5's bucket on the sharded engine uncapped, one
+   shard a rank (results, answer trees and a sha256 of every state field
+   equal to the twin at the same shard count, phase 12's at 4; top-K
+   weights equal to phase 5's; no kernel launched), both inside
+   ``comm.through_group``, so that at 1 rank every collective goes
+   through NCCL (the ops issued are counted and printed); the 2 ranks
+   then run one dbrx-132b MoE
+   layer at full width expert-parallel on a (data 1, model 2) mesh, x [4,
+   2,048, 6,144] bf16 (ids, slots and kept assignments equal to the twin,
+   y within 5e-2 x max |y|), ChatGLM3-6B at full width over 2 GPipe
+   stages of 14 layers, 4 x 2,048 tokens, 4 micro-batches, attention
+   through the flash kernel (its launches counted in each rank, zeroed
+   just before the forward and read just after), the logits at every
+   position within 5e-2 x max |logit| of the plain forward, one f32 GPipe step
+   at the smoke size against the plain step on the CPU within 1e-4, and
+   the int8 ring all-reduce over DCN-v2's gradient tree (474,538,191
+   f32), reduced values and error state bit-equal to the twin.  Each
+   path prints world size, backend, the ops staged through host memory
+   (``comm.staged_ops``: none under NCCL), ms and peak
+   memory a rank beside the card's name and power limit; one card shared
+   by the ranks gives no multi-card time.
 16. The kernels line: one JSON object with each kernel's launches on the
    DKS query path (phase 5; ``serving_launches`` adds ``DKSService``'s
    in phase 9 for the three kernels it runs; ``store_launches`` and
@@ -249,7 +276,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    granite's shape; the bag row's ``train_launches`` phase 13's DCN-v2
    steps; the DKS rows' ``bluk_launches`` and ``bluk_shape`` phase 14's;
    ``gnn_launches`` phase 15's, all 0; ``accounting_launches`` phase
-   17's), error, times and bound.
+   17's; the flash row's ``ranks_launches`` phase 18's pipeline ranks),
+   error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -323,8 +351,16 @@ LIVE_PROBE_HOPS = 3         # the live probe pair's hop distance
 SHARDS = 4                  # phase 12's shards, all on the one card
 SHARDED_CAP = 0.25          # phase 12's capped run: the default cap
 SMALL_SHARDED = (3001, 12000, 0.05)  # phase 12's small graph and its cap
+RANKS_DKS_WORLDS = (1, 2, 4)   # phase 18: 1 rank over NCCL, 2 and 4 over gloo
+RANKS_TIMEOUT_S = 240       # each spawn of ranks: killed past it
+RANKS_SEED = 0              # phase 18's weights and gradients
+RANKS_REPS = 2              # calls of the MoE layer and the pipeline
+RANKS_MOE_ARCH, RANKS_MOE_X = "dbrx-132b", (4, 2048)   # one MoE layer
+PP_STAGES, PP_MICRO, PP_ATTN = 2, 4, "cuda"   # GPipe over LM_ARCH
+RING_ARCH = "dcn-v2"        # the int8 ring's gradient tree
+SMOKE_OPT = {"warmup_steps": 1}  # the smoke train steps' optimizer
 TRAIN_ARCH, TRAIN_SEED = "granite-moe-3b-a800m", 0   # phase 13
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 16, 4, 2048   # phases 6 and 11's shape
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048   # phases 6 and 11's shape
 FLASH_JAX_TOL = 2e-2        # flash_jax against chunked, relative: bf16 scores
 CKPT_LAYERS = 2             # the checkpoint leg's depth, at full width
 DCN_TRAIN_STEPS, DCN_TRAIN_BATCH = 20, 8192
@@ -1942,10 +1978,10 @@ def sharded_phase(dev, graph, index, bucket, singles, phase5,
     check(fg.n_shards == SHARDS and fg.device == dev,
           f"sharded graph: {fg.n_shards} shards on {fg.device}")
 
-    # Uncapped: exactly phase 5.
-    t0 = time.perf_counter()
-    batch = eng.query_batch(bucket, k=BUCKET_K)
-    t_batch = time.perf_counter() - t0
+    # Uncapped: exactly phase 5 (states kept: phase 18's 4-rank twin).
+    batch, t_batch = sharded_bucket(eng, bucket)
+    t_batch /= 1e3
+    twin4 = ([result_record(r) for r in batch], state_digest(batch))
     single = []
     for q in singles:
         t0 = time.perf_counter()
@@ -2054,7 +2090,7 @@ def sharded_phase(dev, graph, index, bucket, singles, phase5,
     log(f"  peak device memory {peak / 2**30:.2f} GiB ({mem0 / 2**30:.2f} "
         f"GiB held before the phase); hand-written kernel launches "
         f"{launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches,
+    return {"launches": launches, "twin4": twin4,
             "summary": f"{steps} supersteps at {drv:.2f} ms each, "
                        f"{len(bounds)} capped lanes sound, {n_exact} exact "
                        f"served answers"}
@@ -2632,7 +2668,7 @@ def bluk_phase(dev) -> dict:
     # The final tables leave the results: the holds below need the room.
     S_b = torch.cat([res.state.S for res in batch])
     batch = [dataclasses.replace(res, state=None) for res in batch]
-    log(f"[14/17] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
+    log(f"[14/18] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
         f"(m={BUCKET_M}, k={BUCKET_K}) and {N_SINGLE} queries (m="
         f"{SINGLE_M}, k={SINGLE_K}); launches {launches}; peak device "
         f"memory {gib(peak)}")
@@ -3129,6 +3165,562 @@ def accounting_phase(dev, card: str, meta: tuple, kernel_ops: dict
             "cells": len(cells)}
 
 
+# --------------------------------------------------------------------------
+# Phase 18: several ranks
+# --------------------------------------------------------------------------
+#
+# Each multi-rank path runs in ranks spawned by the phase
+# (``repro_torch.distributed.ranks.run_ranks``: a rendezvous file, a time
+# limit that kills the ranks) and is held against its single-process twin
+# on the card.  The rank functions are module-level: the ranks start from
+# a fresh interpreter and import them by name.
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_bytes(device) -> int:
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+
+
+def reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def rank_header(device) -> dict:
+    """The group a rank ran in: world size, backend, the ops it stages
+    through host memory."""
+    from repro_torch.distributed import comm
+
+    return {"world": comm.world_size(), "backend": comm.backend(),
+            "staged": list(comm.staged_ops(device))}
+
+
+def result_record(r) -> dict:
+    """What a sharded result must share with its twin, exactly."""
+    return {"weights": r.weights.tolist(), "roots": r.roots.tolist(),
+            "supersteps": r.supersteps, "msgs": [r.msgs_bfs, r.msgs_deep],
+            "flags": [r.done, r.budget_hit, r.capped],
+            "explored_frac": r.explored_frac,
+            "answers": [(a.root, list(a.edges), a.weight)
+                        for a in r.answers]}
+
+
+def state_digest(results) -> dict:
+    """sha256 of every state field over a bucket's lanes."""
+    import hashlib
+
+    from repro_torch.core.dks import STATE_FIELDS
+
+    return {f: hashlib.sha256(torch.cat([getattr(r.state, f)
+                                         for r in results])
+                              .cpu().numpy().tobytes()).hexdigest()
+            for f in STATE_FIELDS}
+
+
+def sharded_bucket(eng, bucket) -> tuple[list, float]:
+    """The bucket uncapped on a sharded engine, states kept: (results,
+    host ms)."""
+    t0 = time.perf_counter()
+    res = eng.query_batch(bucket, k=BUCKET_K, keep_state=True)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def rank_comm(device) -> None:
+    """Every collective of ``comm`` and its backward, through the group
+    even at one rank, against its one-process definition on every rank's
+    seeded inputs.  Sums over ranks within 1e-5 (the group may add in
+    another order); everything else exactly."""
+    from repro_torch.distributed import comm
+
+    n, r = comm.world_size(), comm.rank()
+    mesh = comm.Mesh((n,), ("data",), device.type)
+
+    def inputs(seed, shape):
+        return [torch.randn(shape, device=device, generator=torch.Generator(
+            device).manual_seed(1000 * seed + q)) for q in range(n)]
+
+    def held(what, got, want, atol=0.0):
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=atol,
+            msg=lambda m: f"rank {r} of {n}, {what}: {m}")
+
+    xs = inputs(1, (2 * n, 6))
+    shift = [(q, (q + 1) % n) for q in range(n)]
+    cases = (   # name, fn, cotangent shape, forward, backward, atol
+        ("all_gather", lambda t: comm.all_gather(t, dim=1, tiled=True,
+                                                 mesh=mesh),
+         (2 * n, 6 * n), lambda w: torch.cat(xs, 1),
+         lambda w: sum(w)[:, 6 * r:6 * (r + 1)], 1e-5),
+        ("all_to_all", lambda t: comm.all_to_all(t, split_dim=0,
+                                                 concat_dim=1, mesh=mesh),
+         (2, 6 * n), lambda w: torch.cat([x[2 * r:2 * (r + 1)]
+                                          for x in xs], 1),
+         lambda w: torch.cat([c[:, 6 * r:6 * (r + 1)] for c in w], 0), 0.0),
+        ("psum", lambda t: comm.psum(t, mesh=mesh), (2 * n, 6),
+         lambda w: sum(xs), lambda w: sum(w), 1e-5),
+        ("ppermute", lambda t: comm.ppermute(t, "data", shift, mesh=mesh),
+         (2 * n, 6), lambda w: xs[(r - 1) % n], lambda w: w[(r + 1) % n],
+         0.0))
+    with comm.through_group():
+        for seed, (name, fn, shape, fwd, bwd, atol) in enumerate(cases, 2):
+            w = inputs(seed, shape)
+            x = xs[r].clone().requires_grad_(True)
+            y = fn(x)
+            (g,) = torch.autograd.grad((y * w[r]).sum(), x)
+            held(name, y.detach(), fwd(w), atol)
+            held(f"{name}'s transpose", g, bwd(w), atol)
+        held("pmax", comm.pmax(xs[r], mesh=mesh), torch.stack(xs).amax(0))
+        held("pmin", comm.pmin(xs[r], mesh=mesh), torch.stack(xs).amin(0))
+        flags = [x[:, 0] > 0 for x in xs]
+        held("pmax of bool", comm.pmax(flags[r], mesh=mesh),
+             torch.stack(flags).any(0))
+        big = [torch.tensor([2 ** 40 + q], device=device) for q in range(n)]
+        held("psum of int64", comm.psum(big[r], mesh=mesh), sum(big))
+
+
+def rank_dks(device, graph, index, bucket) -> dict:
+    """One shard a rank: ``comm``'s collectives held, then the bucket
+    through the sharded engine, every collective through the group (at
+    one rank too)."""
+    from repro_torch.core.dks_sharded import frontier_cap
+    from repro_torch.distributed import comm
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+
+    policy = ExecutionPolicy(partition="sharded", frontier_frac=1.0)
+    eng = QueryEngine.build(graph, index=index, device=device,
+                            policy=policy)
+    fg = eng.device_graph
+    check(fg.n_shards == comm.world_size() and fg.n_held == 1,
+          f"rank {comm.rank()}: {fg.n_held} of {fg.n_shards} shards")
+    comm.issued.clear()
+    rank_comm(device)
+    checked = dict(comm.issued)
+    kernels = (ls_ops, sc_ops, bt_ops)
+    for ops in kernels:
+        ops.counter.reset()
+    reset_peak(device)
+    comm.issued.clear()
+    with comm.through_group():
+        res, ms = sharded_bucket(eng, bucket)
+    out = {**rank_header(device), "ms": ms, "peak": peak_bytes(device),
+           "driver_ms": res[0].wall_time_s * 1e3,
+           "issued": dict(comm.issued), "checked": checked,
+           "launches": sum(ops.launches for ops in kernels),
+           "results": [result_record(r) for r in res],
+           "f_cap": frontier_cap(fg, policy.dks_config(BUCKET_M, BUCKET_K)),
+           "n_loc": fg.n_loc}
+    if comm.rank() == 0:
+        out["digest"] = state_digest(res)
+    return out
+
+
+def moe_layer_inputs(cfg, x_shape, device):
+    """One MoE layer of ``cfg`` (bf16 experts, f32 router) and x
+    [*x_shape, d_model] in bf16, from a seeded generator on ``device``."""
+    from repro_torch.models import moe as moe_lib
+
+    gen = torch.Generator(device).manual_seed(RANKS_SEED)
+    params = moe_lib.init_moe(gen, cfg.d_model, cfg.moe, cfg.moe.n_experts,
+                              torch.bfloat16)
+    x = torch.randn((*x_shape, cfg.d_model), generator=gen,
+                    device=device, dtype=torch.bfloat16)
+    return params, x
+
+
+def rank_moe(device, cfg, x_shape) -> dict:
+    """The expert-parallel MoE layer on a (data 1, model 2) mesh."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models import moe as moe_lib
+
+    mesh = comm.Mesh((1, 2), ("data", "model"), device.type)
+    full, x = moe_layer_inputs(cfg, x_shape, device)
+    local = {k: v.clone() for k, v in shard_tree(
+        full, moe_lib.PARAM_SPECS, mesh).items()}
+    del full
+    j, s = mesh.axis_index("model"), x.shape[1] // 2
+    x_loc = x[:, j * s:(j + 1) * s].contiguous()
+    del x
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_peak(device)
+    times = []
+    with torch.no_grad():
+        for _ in range(RANKS_REPS):
+            sync(device)
+            t0 = time.perf_counter()
+            y, aux, route = moe_lib._moe_sharded(local, x_loc, cfg.moe,
+                                                 cfg.moe.n_experts, mesh)
+            sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {**rank_header(device), "ms": times, "peak": peak_bytes(device),
+            "weights_bytes": sum(v.numel() * v.element_size()
+                                 for v in local.values()),
+            "y": y.cpu(), "route": [t.cpu() for t in route],
+            "aux": {k: float(v) for k, v in aux.items()}}
+
+
+def pp_smoke_inputs(cfg):
+    """The smoke GPipe step's weights (on the CPU) and batch: phase 13's
+    smoke step's."""
+    from repro_torch.data import lm_synthetic_stream
+    from repro_torch.models.transformer import init_lm
+
+    model = init_lm(cfg, torch.Generator("cpu").manual_seed(TRAIN_SEED))
+    batch = {k: torch.from_numpy(v) for k, v in next(lm_synthetic_stream(
+        cfg.vocab, 4, 64, seed=TRAIN_SEED)).items()}
+    return model, batch
+
+
+def pp_tokens(cfg, shape, device):
+    return torch.randint(0, cfg.vocab, shape, device=device,
+                         generator=torch.Generator(device).manual_seed(1))
+
+
+def rank_pp(device, cfg, tok_shape, smoke_cfg) -> dict:
+    """An LM at full width over 2 stages (the flash kernel in each stage),
+    then one f32 GPipe train step at the smoke size."""
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import pipeline as pp
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import AdamWConfig
+
+    mesh = comm.Mesh((PP_STAGES,), ("pod",), device.type)
+    stage = mesh.axis_index("pod")
+    model = init_lm(cfg, torch.Generator(device).manual_seed(LM_SEED))
+    pp.keep_stage_layers(model, stage, PP_STAGES)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    toks = pp_tokens(cfg, tok_shape, device)
+    reset_peak(device)
+    times = []
+    with torch.no_grad():
+        for i in range(RANKS_REPS):
+            fa_ops.counter.reset()
+            sync(device)
+            t0 = time.perf_counter()
+            hidden = pp.pp_hidden_forward(
+                model, toks, n_stages=PP_STAGES, n_micro=PP_MICRO,
+                attn_impl=PP_ATTN, mesh=mesh)
+            sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+    out = {**rank_header(device), "ms": times, "peak": peak_bytes(device),
+           "weights_bytes": weights, "launches": fa_ops.launches,
+           "hidden": hidden.cpu()}
+    del model, hidden
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # One f32 GPipe step at the smoke size.
+    small, batch = pp_smoke_inputs(smoke_cfg)
+    small = small.to(device)
+    pp.keep_stage_layers(small, stage, PP_STAGES)
+    state = lm_lib.init_train_state(small)
+    step = pp.make_pp_train_step(AdamWConfig(**SMOKE_OPT),
+                                 n_stages=PP_STAGES, n_micro=PP_MICRO,
+                                 attn_impl="naive", mesh=mesh)
+    state, m = step(state, {k: v.to(device) for k, v in batch.items()})
+    out["smoke"] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "params": {k: p.detach().cpu() for k, p in
+                               state.model.named_parameters()}}
+    return out
+
+
+def ring_leaf(shape, rank: int, i: int, device) -> torch.Tensor:
+    """Rank ``rank``'s gradient of leaf ``i``: seeded normals."""
+    gen = torch.Generator(device).manual_seed(RANKS_SEED + 1000 * rank + i)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def ring_shapes(cfg) -> list:
+    """The leaf shapes of a DCN-v2 parameter tree, in flatten order."""
+    from repro_torch.models import recsys
+    from repro_torch.optim.optimizers import tree_leaves
+
+    return tree_leaves(recsys.param_shapes(cfg),
+                       is_leaf=lambda x: isinstance(x, tuple))
+
+
+def rank_ring(device, shapes) -> dict:
+    """The int8 ring all-reduce over DCN-v2's gradient tree (one step of
+    error feedback from zero), then every leaf held bit for bit against
+    the twin run on both ranks' gradients."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import compression as comp
+
+    mesh = comm.Mesh((comm.world_size(),), ("data",), device.type)
+    r, n = comm.rank(), comm.world_size()
+    grads = [ring_leaf(s, r, i, device) for i, s in enumerate(shapes)]
+    state = comp.init_compression(grads)
+    reset_peak(device)
+    sync(device)
+    t0 = time.perf_counter()
+    red, state = comp.compressed_allreduce(grads, state, mesh)
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = peak_bytes(device)
+    equal = True
+    for i, s in enumerate(shapes):
+        both = torch.stack([grads[i] if q == r else ring_leaf(s, q, i, device)
+                            for q in range(n)])
+        t_red, t_state = comp.compressed_allreduce_twin(
+            [both], comp.init_compression([both]), n)
+        equal &= bool(torch.equal(t_red[0][r], red[i])
+                      and torch.equal(t_state.error[0][r], state.error[i]))
+        del both, t_red, t_state
+    return {**rank_header(device), "ms": ms, "peak": peak, "equal": equal,
+            "numel": sum(int(np.prod(s)) for s in shapes),
+            "leaves": len(shapes)}
+
+
+def rank_pair(device, graph, index, bucket, moe_args, pp_args,
+              ring_args) -> dict:
+    """The paths of two ranks, one after the other in one spawn: DKS,
+    then the MoE layer, the pipeline and the ring."""
+    out = {"dks": rank_dks(device, graph, index, bucket)}
+    for name, fn, args in (("moe", rank_moe, moe_args),
+                           ("pp", rank_pp, pp_args),
+                           ("ring", rank_ring, ring_args)):
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = fn(device, *args)
+        out[name]["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+def ranks_line(what: str, outs: list, card: str, extra: str = "") -> None:
+    """One printed line per path: world, backend, staged ops, ms and peak
+    memory a rank, beside the card."""
+    head = outs[0]
+    ms = [o["ms"] if np.isscalar(o["ms"]) else min(o["ms"]) for o in outs]
+    log(f"  {what}: world {head['world']}, backend {head['backend']}, "
+        f"staged {head['staged']}, {max(ms):.1f} ms (slowest rank), peak "
+        f"{max(o['peak'] for o in outs) / 2**30:.2f} GiB a rank{extra} "
+        f"[{card}; one card shared by the ranks: not a multi-card time]")
+
+
+def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
+                twin4) -> dict:
+    """Phase 18: DKS's frontier exchange, expert-parallel MoE, GPipe and
+    the int8 ring across ranks, each against its twin on the card.
+    ``twin4``: phase 12's 4-shard records and state digest.  Returns the
+    flash launches of the pipeline's ranks and a summary."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    workdir = ROOT / "build" / "chip_smoke_ranks"
+    workdir.mkdir(parents=True, exist_ok=True)
+
+    def spawn(fn, world, *args):
+        return run_ranks(fn, world, *args, device_type=device_type,
+                         timeout_s=RANKS_TIMEOUT_S, workdir=workdir)
+
+    # The spawns: 1 rank over NCCL and 4 over gloo run DKS; 2 over gloo
+    # run DKS and then the MoE layer, the pipeline and the ring.
+    moe_cfg = get_arch(RANKS_MOE_ARCH)
+    cfg = get_arch(LM_ARCH)
+    scfg = get_arch(LM_ARCH).smoke().scaled(param_dtype="float32")
+    ring_cfg = get_arch(RING_ARCH)
+    spawned, pair = {}, None
+    for world in RANKS_DKS_WORLDS:
+        t0 = time.perf_counter()
+        if world == 2:
+            pair = spawn(rank_pair, 2, graph, index, bucket,
+                         (moe_cfg, RANKS_MOE_X),
+                         (cfg, (LM_BATCH, LM_PROMPT), scfg),
+                         (ring_shapes(ring_cfg),))
+            spawned[world] = [out["dks"] for out in pair]
+        else:
+            spawned[world] = spawn(rank_dks, world, graph, index, bucket)
+        log(f"  {world} rank(s) spawned, ran and joined in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # DKS: one shard a rank, against the twin at the same shard count.
+    cell = (1 << BUCKET_M) * BUCKET_K * 4
+    want5 = [r.weights.tolist() for r in phase5[:BUCKET_LANES]]
+    for world, outs in spawned.items():
+        if world == 4:
+            twin, digest = twin4
+        else:
+            eng = QueryEngine.build(graph, index=index, device=dev,
+                                    policy=ExecutionPolicy(
+                                        partition="sharded",
+                                        n_shards=world, frontier_frac=1.0))
+            res, _ = sharded_bucket(eng, bucket)
+            twin, digest = [result_record(r) for r in res], \
+                state_digest(res)
+            del eng, res
+        for r, out in enumerate(outs):
+            check(out["results"] == twin,
+                  f"DKS rank {r} of {world}: results differ from the twin")
+            check(out["launches"] == 0,
+                  f"DKS rank {r}: {out['launches']} kernel launches")
+            check(out["issued"].get("all_gather", 0) > 0
+                  and out["issued"].get("all_reduce", 0) > 0,
+                  f"DKS rank {r} of {world}: collectives issued "
+                  f"{out['issued']}")
+        check(outs[0]["digest"] == digest,
+              f"DKS at {world} ranks: state fields differ from the twin")
+        check([t["weights"] for t in twin] == want5,
+              f"DKS at {world} shards: top-K differs from phase 5")
+        steps = max(t["supersteps"] for t in twin)
+        gathered = BUCKET_LANES * world * outs[0]["f_cap"] * (cell + 4)
+        moved = (f"each exchange gathers {gathered / 2**20:.1f} MiB "
+                 f"({BUCKET_LANES} lanes x {world} x f_cap "
+                 f"{outs[0]['f_cap']} x {cell + 4} B), "
+                 f"{gathered * (world - 1) / world / 2**20:.1f} MiB from "
+                 f"other ranks" if world > 1 else
+                 "each exchange's all_gather runs over 1 rank (nothing "
+                 "from other ranks)")
+        ranks_line(f"DKS {world} rank(s)", outs, card,
+                   f"; comm's collectives and transposes == their "
+                   f"definitions ({outs[0]['checked']} issued); {steps} "
+                   f"supersteps, driver "
+                   f"{max(o['driver_ms'] for o in outs) / steps:.2f} ms a "
+                   f"superstep, collectives issued through the group "
+                   f"{outs[0]['issued']}; {moved}; results, state fields "
+                   f"== twin, top-K == phase 5")
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # MoE: dbrx-132b's layer, expert-parallel over 2 ranks.
+    outs = [out["moe"] for out in pair]
+    full, x = moe_layer_inputs(moe_cfg, RANKS_MOE_X, dev)
+    with torch.no_grad():
+        y, aux, routes = moe_lib.moe_sharded_twin(
+            full, x, moe_cfg.moe, moe_cfg.moe.n_experts, 1, 2)
+    s = x.shape[1] // 2
+    scale = float(y.float().abs().max())
+    err = 0.0
+    drops = 0
+    for j, out in enumerate(outs):
+        for a, b, what in zip(out["route"], routes[j],
+                              ("ids", "slots", "kept")):
+            check(torch.equal(a, b.cpu()), f"MoE rank {j}: {what} differ")
+        drops += int((~out["route"][2]).sum())
+        check(out["aux"]["dropped_frac"] == float(aux["dropped_frac"]),
+              f"MoE rank {j}: dropped_frac differs")
+        err = max(err, max_abs_err(out["y"].float(),
+                                   y[:, j * s:(j + 1) * s].float().cpu()))
+    check(err <= LM_TOL * scale,
+          f"MoE y differs from the twin by {err} > {LM_TOL} x {scale}")
+    ranks_line(f"MoE {RANKS_MOE_ARCH} layer", outs, card,
+               f"; {moe_cfg.moe.n_experts} experts top-"
+               f"{moe_cfg.moe.top_k}, d_model {moe_cfg.d_model}, d_ff "
+               f"{moe_cfg.moe.d_ff_expert}, x "
+               f"{list(x.shape)} bf16; {outs[0]['weights_bytes'] / 2**30:.2f}"
+               f" GiB of experts a rank; ids, slots, kept == twin, "
+               f"{drops} dropped; max |y - twin| {err:.3g} (max |y| "
+               f"{scale:.3g}); ms per call {[round(t, 1) for t in outs[0]['ms']]}")
+    del full, x, y, routes
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # GPipe: ChatGLM3-6B over 2 stages, against the plain forward: the
+    # final hidden states and the logits at every position (a row at a
+    # time).
+    outs = [out["pp"] for out in pair]
+    model = init_lm(cfg, torch.Generator(dev).manual_seed(LM_SEED))
+    toks = pp_tokens(cfg, (LM_BATCH, LM_PROMPT), dev)
+    errs_h, errs_pp, scale = [], [], 0.0
+    with torch.no_grad():
+        hidden, _, _ = model(toks, attn_impl=PP_ATTN)
+        for out in outs:
+            got = out["hidden"].to(dev)
+            check(got.shape == hidden.shape and got.dtype == hidden.dtype,
+                  f"GPipe hidden {tuple(got.shape)} {got.dtype}, want "
+                  f"{tuple(hidden.shape)} {hidden.dtype}")
+            errs_h.append(max_abs_err(got.float(), hidden.float()))
+            err = 0.0
+            for b in range(hidden.shape[0]):
+                want = model.unembed(hidden[b]).float()
+                scale = max(scale, float(want.abs().max()))
+                err = max(err, max_abs_err(model.unembed(got[b]).float(),
+                                           want))
+            errs_pp.append(err)
+            del got
+    del model, hidden
+    check(max(errs_pp) <= LM_TOL * scale,
+          f"GPipe logits differ by {max(errs_pp)} > {LM_TOL} x {scale}")
+    launches = [out["launches"] for out in outs]
+    check(all(n > 0 for n in launches),
+          f"the pipeline's ranks launched the flash kernel {launches}")
+    # The smoke step against the plain step on the CPU.
+    small, batch = pp_smoke_inputs(scfg)
+    st = lm_lib.init_train_state(small)
+    st, m = lm_lib.make_train_step(AdamWConfig(**SMOKE_OPT),
+                                   attn_impl="naive")(st, batch)
+    plain = dict(st.model.named_parameters())
+    lps = scfg.n_layers // PP_STAGES
+    for stage, out in enumerate(outs):
+        for name, p in out["smoke"]["params"].items():
+            if name.startswith("layers."):
+                i, rest = name.split(".", 2)[1:]
+                name = f"layers.{stage * lps + int(i)}.{rest}"
+            torch.testing.assert_close(
+                p, plain[name].detach(), atol=SMOKE_TRAIN_TOL,
+                rtol=SMOKE_TRAIN_TOL,
+                msg=lambda msg: f"GPipe smoke step, {name}: {msg}")
+    for name in ("loss", "grad_norm"):
+        torch.testing.assert_close(
+            torch.tensor(outs[0]["smoke"][name]), m[name].detach(),
+            atol=SMOKE_TRAIN_TOL, rtol=SMOKE_TRAIN_TOL)
+    ranks_line(f"GPipe {LM_ARCH}", outs, card,
+               f"; {PP_STAGES} stages of {cfg.n_layers // PP_STAGES} "
+               f"layers ({outs[0]['weights_bytes'] / 2**30:.2f} GiB a "
+               f"rank), tokens {list(toks.shape)}, n_micro {PP_MICRO}, "
+               f"attn {PP_ATTN} ({launches} flash launches a rank); the "
+               f"final hidden states within {max(errs_h):.3g} and the "
+               f"logits at all {toks.numel()} positions within "
+               f"{max(errs_pp):.3g} of the plain forward (limit "
+               f"{LM_TOL} x {scale:.3g}); smoke f32 step == CPU within "
+               f"{SMOKE_TRAIN_TOL} (loss {float(m['loss']):.6f}); ms per "
+               f"forward {[round(t, 1) for t in outs[0]['ms']]}")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # The int8 ring over DCN-v2's gradient tree.
+    outs = [out["ring"] for out in pair]
+    for r, out in enumerate(outs):
+        check(out["equal"], f"ring rank {r}: reduced values or error "
+                            f"state differ from the twin")
+    ranks_line(f"int8 ring, {RING_ARCH}'s gradient tree", outs, card,
+               f"; {outs[0]['numel']:,} f32 in {outs[0]['leaves']} "
+               f"leaves; reduced values and error state bit-equal to the "
+               f"twin")
+    return {"pp_launches": launches,
+            "summary": f"DKS at {list(RANKS_DKS_WORLDS)} ranks == twin; "
+                       f"MoE, GPipe, int8 ring held; phase "
+                       f"{time.perf_counter() - t_phase:.1f} s"}
+
+
 def main() -> int:
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -3171,14 +3763,14 @@ def phases(meta: list) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/17] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/18] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/17] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/18] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -3252,7 +3844,7 @@ def phases(meta: list) -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/17] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/18] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
 
     t0 = time.perf_counter()
@@ -3315,7 +3907,7 @@ def phases(meta: list) -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/17] kernels == plain versions at the main path's shapes")
+    log("[3/18] kernels == plain versions at the main path's shapes")
 
     # ---------------- 4. oracle ----------------
     for seed in range(6):
@@ -3334,7 +3926,7 @@ def phases(meta: list) -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/17] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/18] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -3384,7 +3976,7 @@ def phases(meta: list) -> int:
     # Phase 10 holds an artifact-built engine to these, state dropped.
     phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
         r for r, _ in single]
-    log(f"[5/17] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/18] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -3462,10 +4054,10 @@ def phases(meta: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/17] flash_attention == plain version at small shapes and the "
+    log("[6/18] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/17] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/18] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -3479,7 +4071,7 @@ def phases(meta: list) -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/17] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/18] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -3489,14 +4081,14 @@ def phases(meta: list) -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/17] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/18] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     # ---------------- 9. serving ----------------
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/17] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/18] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
@@ -3506,7 +4098,7 @@ def phases(meta: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
-    log(f"[10/17] {cfg_sec.name} through the graph store on backend=cuda: "
+    log(f"[10/18] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
     # ---------------- 11. MoE and the int8 KV cache ----------------
@@ -3514,7 +4106,7 @@ def phases(meta: list) -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
-    log(f"[11/17] {MOE_ARCH} served through the flash kernel: "
+    log(f"[11/18] {MOE_ARCH} served through the flash kernel: "
         f"{moe['launches']} launches, logits and tokens agree with naive "
         f"attention; int8 cache decode within {QUANT_TOL} of the bf16 cache; "
         f"at cut depth {moe['cut_launches']} launches")
@@ -3526,14 +4118,14 @@ def phases(meta: list) -> int:
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, graph, index, bucket, singles, phase5,
                             per_step)
-    log(f"[12/17] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
+    log(f"[12/18] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
         f" backend=torch) == phase 5; {sharded['summary']}")
 
     # ---------------- 13. training ----------------
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(dev, card)
-    log(f"[13/17] {TRAIN_ARCH} trained at full width and depth "
+    log(f"[13/18] {TRAIN_ARCH} trained at full width and depth "
         f"({trained['split']['step_s']:.1f} ms a step); flash_jax == "
         f"chunked; a checkpoint restored bit-equal; {RECSYS_ARCH} trained on "
         f"the grouped lookup ({trained['launches']} launches); the smoke "
@@ -3545,7 +4137,7 @@ def phases(meta: list) -> int:
     bluk = bluk_phase(dev)
     for name, err in bluk["errs"].items():
         errs[name] = max(errs[name], err)
-    log(f"[14/17] bluk-bnb at full size on backend=cuda: launches "
+    log(f"[14/18] bluk-bnb at full size on backend=cuda: launches "
         f"{bluk['launches']}; the three DKS kernels == plain versions at its "
         f"shapes; the torch twin's lanes == cuda's")
     log(f"  card: {card}")
@@ -3563,7 +4155,7 @@ def phases(meta: list) -> int:
         ops.counter.reset()
     gnn_phase(dev, card)
     gnn_launches = {name: ops.launches for name, ops in kernel_ops.items()}
-    log(f"[15/17] GNN: {', '.join(GNN_ARCHS)} card == CPU (f32) and trained "
+    log(f"[15/18] GNN: {', '.join(GNN_ARCHS)} card == CPU (f32) and trained "
         f"in bf16; gin-tu trained and pna's chunked aggregate run on "
         f"ogb_products at full size; gat-cora trained on a minibatch_lg "
         f"sample of a reddit-size host graph; hand-written kernel launches "
@@ -3574,10 +4166,18 @@ def phases(meta: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     accounting = accounting_phase(dev, card, meta[0], kernel_ops)
-    log(f"[17/17] accounting: {accounting['cells']} cells counted on meta, "
+    log(f"[17/18] accounting: {accounting['cells']} cells counted on meta, "
         f"{accounting['measured']} that fit one card run on it; peaks "
         f"within {PEAK_TOL:.0%} or {PEAK_SLACK / 2 ** 30} GiB of meta's, "
         f"FLOPs == meta's, mfu and hbm_share <= {SHARE_LIMIT}")
+
+    # ---------------- 18. several ranks ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = ranks_phase("cuda", card, graph, index, bucket, phase5,
+                        sharded["twin4"])
+    log(f"[18/18] several ranks: {ranks['summary']}")
+    log(f"  card: {card}")
 
     # ---------------- 16. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",
@@ -3624,6 +4224,7 @@ def phases(meta: list) -> int:
         if name == "flash_attention":
             ms, plain, library, bound, by = moe["timing"]
             kernels[-1].update({
+                "ranks_launches": ranks["pp_launches"],
                 "moe_launches": moe["launches"],
                 "cut_depth_launches": moe["cut_launches"],
                 "moe_shape": {"q": moe["shapes"][0], "kv": moe["shapes"][1],

@@ -111,15 +111,33 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(DKSState))
 # --------------------------------------------------------------------------
 
 
+def across_nodes(graph: Any, x: torch.Tensor, op: str) -> torch.Tensor:
+    """``x``, reduced over the node rows the graph holds, reduced over
+    every rank that holds rows of the node axis (``op``: "sum", "max" or
+    "min").  The identity unless the graph is a
+    :class:`~repro_torch.core.dks_sharded.FrontierGraph` split across the
+    ranks of a mesh."""
+    mesh = getattr(graph, "mesh", None)
+    if mesh is None:
+        return x
+    from repro_torch.distributed import comm
+
+    return {"sum": comm.psum, "max": comm.pmax, "min": comm.pmin}[op](
+        x, mesh=mesh)
+
+
 def init_state(graph: DeviceGraph, kw_masks: torch.Tensor,
                cfg: DKSConfig) -> DKSState:
     """Superstep 0 for ``L`` lanes (``kw_masks``: bool[L, m, V]):
     keyword-nodes hold weight-0 singletons and are active.  Reads only
-    ``v_pad`` and ``node_valid`` of the graph, which a sharded
-    :class:`~repro_torch.core.dks_sharded.FrontierGraph` also has."""
+    ``node_valid`` of the graph (and ``node_lo``, where a sharded
+    :class:`~repro_torch.core.dks_sharded.FrontierGraph` on one rank holds
+    only some of the node rows: the masks are cut to them)."""
     dev = graph.node_valid.device
     lanes = kw_masks.shape[0]
-    v_pad = graph.v_pad
+    v_pad = graph.node_valid.shape[0]
+    lo = getattr(graph, "node_lo", 0)
+    kw_masks = kw_masks[..., lo: lo + v_pad]
     n, k = cfg.n_sets, cfg.k
     S = torch.full((lanes, v_pad, n, k), INF, dtype=torch.float32, device=dev)
     for i in range(cfg.m):
@@ -316,22 +334,44 @@ def aggregate(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
     The top-K takes a *stable* ascending sort, so equal weights keep the
     lower (node, slot) index first — the tie order of ``lax.top_k`` in
     ``repro``, which decides ``topk_root`` (``torch.topk`` promises none).
+    On a graph split across ranks every rank sorts its own rows and the
+    ranks merge their K candidates on (weight, global cell index): the
+    same order, without a gathered table.
     """
     S, changed = state.S, state.changed
     S0 = S[..., 0]                                          # [L, V, 2^m]
     masked = torch.where(changed[..., None], S0, torch.full_like(S0, INF))
-    s_front = masked.min(dim=1).values
-    g = torch.minimum(state.g, S0.min(dim=1).values)
+    mins = across_nodes(graph, torch.stack(
+        [masked.min(dim=1).values, S0.min(dim=1).values]), "min")
+    s_front = mins[0]
+    g = torch.minimum(state.g, mins[1])
     lanes = S.shape[0]
     full_vals = S[:, :, cfg.full, :].reshape(lanes, -1)     # [L, V*K]
     srt = torch.sort(full_vals, dim=1, stable=True)
     topk_w = srt.values[:, :cfg.k]
-    topk_root = torch.div(srt.indices[:, :cfg.k], cfg.k,
-                          rounding_mode="floor").to(torch.int32)
+    cell = srt.indices[:, :cfg.k] + getattr(graph, "node_lo", 0) * cfg.k
+    if getattr(graph, "mesh", None) is not None:
+        topk_w, cell = _merge_topk(graph.mesh, topk_w, cell, cfg.k)
+    topk_root = torch.div(cell, cfg.k, rounding_mode="floor").to(torch.int32)
     topk_root = torch.where(topk_w >= INF, torch.full_like(topk_root, -1),
                             topk_root)
     return dataclasses.replace(
         state, s_front=s_front, g=g, topk_w=topk_w, topk_root=topk_root)
+
+
+def _merge_topk(mesh: Any, w: torch.Tensor, cell: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K smallest of every rank's K candidates per lane, ordered by
+    (weight, global cell index): the head of the stable sort of the whole
+    table, since each rank's candidates are the head of its own rows."""
+    from repro_torch.distributed import comm
+
+    w = comm.all_gather(w, dim=1, tiled=True, mesh=mesh)
+    cell = comm.all_gather(cell, dim=1, tiled=True, mesh=mesh)
+    by_cell = torch.argsort(cell, dim=1, stable=True)
+    w, cell = w.gather(1, by_cell), cell.gather(1, by_cell)
+    by_w = torch.argsort(w, dim=1, stable=True)[:, :k]
+    return w.gather(1, by_w), cell.gather(1, by_w)
 
 
 def exit_check(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
@@ -341,7 +381,7 @@ def exit_check(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
     when the frontier is empty, or when the message budget is exhausted.
     A lane stopped for none of these but at ``max_supersteps`` is
     ``capped`` (truncated, its answer unproven)."""
-    frontier_empty = ~state.changed.any(dim=1)
+    frontier_empty = ~across_nodes(graph, state.changed.any(dim=1), "max")
     done = frontier_empty
     budget_hit = torch.zeros_like(done)
     if cfg.exit_mode == "sound":
@@ -412,13 +452,15 @@ def message_counts(graph: DeviceGraph, state: DKSState
     so the count is the correctly rounded one on every device and backend.
     Below 2^24 that is ``repro``'s f32 sum in any order; past it,
     ``repro``'s sum depends on XLA's reduction order
-    (``tests/test_torch_scale.py``)."""
+    (``tests/test_torch_scale.py``).  Across ranks the int64 sums are
+    summed before the one rounding."""
     deg = graph.out_degree.to(torch.int64)
     zero = torch.zeros((), dtype=torch.int64, device=deg.device)
     n_bfs = torch.where(state.first_fire, deg, zero).sum(dim=1)
     n_deep = torch.where(state.changed & ~state.first_fire, deg,
                          zero).sum(dim=1)
-    return n_bfs.to(torch.float32), n_deep.to(torch.float32)
+    n = across_nodes(graph, torch.stack([n_bfs, n_deep]), "sum")
+    return n[0].to(torch.float32), n[1].to(torch.float32)
 
 
 def superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig

@@ -18,14 +18,26 @@ Frontier overflow (more than ``f_cap`` active nodes on some shard) raises
 with the SPA bound instead of silently dropping messages.
 
 ``repro`` runs the shard body under ``shard_map`` with one controller
-driving a device mesh.  Here every shard lives on the graph's one device,
-and the shard bodies run batched over a leading shard axis: each reads
-only its own rows of the edge arrays and the gathered frontier.  The
-collective is the one function :func:`all_gather_frontier` (a
-concatenation along the frontier axis, as ``all_gather(tiled=True,
-axis=1)`` gives every shard), so an exchange across cards or processes
-replaces that function alone.  The lane axis stays inside the shard
-body, so a bucket of queries shares one exchange per superstep.
+driving a device mesh.  Here a :class:`FrontierGraph` holds some of the
+shards, and the shard bodies run batched over its leading shard axis:
+
+- packed with ``mesh=`` (under a ``torch.distributed`` group,
+  :mod:`repro_torch.distributed.comm`), each rank holds one shard: its
+  rows of the edge arrays and its ``V_pad / n_shards`` rows of every node
+  table.  :func:`all_gather_frontier` is ``comm.all_gather`` over the
+  mesh, the overflow flag a ``pmax``, and every reduction over all nodes
+  (message counts, frontier minima, the exit checks, the top-K answers)
+  a collective (:func:`repro_torch.core.dks.across_nodes`), so ``done``
+  reads the same on every rank and the ranks step together;
+- packed without one, the graph holds every shard on one device: the
+  single-process twin, whose exchange is a concatenation along the
+  frontier axis (what ``all_gather(tiled=True, axis=1)`` gives every
+  shard) and whose reductions need no collective.
+
+The lane axis stays inside the shard body, so a bucket of queries shares
+one exchange per superstep.  The driver gathers a rank's node tables at
+the end of a run (:func:`gather_state`), as ``repro``'s host collector
+reads the whole sharded array, so extraction is the twin's.
 """
 
 from __future__ import annotations
@@ -58,14 +70,18 @@ INVALID_GID = 1 << 30
 
 @dataclasses.dataclass(frozen=True)
 class FrontierGraph:
-    """Edges partitioned by destination owner; node arrays over ``V_pad``.
+    """Edges partitioned by destination owner; node arrays by shard.
 
-    edge_src:   i32[n_shards, e_cap]  global source ids (-1 pad)
-    edge_dst_l: i32[n_shards, e_cap]  destination LOCAL index on its shard
-    edge_w:     f32[n_shards, e_cap]  (INF pad)
-    out_degree: i32[V_pad]; node_valid: bool[V_pad], with
-    ``V_pad = ceil(V / n_shards) * n_shards`` (padded nodes are invalid:
-    they never fire and never receive).
+    The graph holds ``n_held`` consecutive shards of ``n_shards``, from
+    ``shard0``: all of them in the single-process twin (``mesh`` None),
+    one on each rank of ``mesh``.
+
+    edge_src:   i32[n_held, e_cap]  global source ids (-1 pad)
+    edge_dst_l: i32[n_held, e_cap]  destination LOCAL index on its shard
+    edge_w:     f32[n_held, e_cap]  (INF pad)
+    out_degree: i32[n_held * n_loc]; node_valid: bool[n_held * n_loc],
+    the held shards' rows of ``V_pad = ceil(V / n_shards) * n_shards``
+    nodes (padded nodes are invalid: they never fire and never receive).
     """
 
     edge_src: torch.Tensor
@@ -76,35 +92,63 @@ class FrontierGraph:
     n_nodes: int
     n_edges: int
     n_shards: int
+    shard0: int = 0
+    mesh: Any = None
 
     @property
     def device(self) -> torch.device:
         return self.edge_src.device
 
     @property
-    def v_pad(self) -> int:
-        return self.node_valid.shape[0]
+    def n_held(self) -> int:
+        return self.edge_src.shape[0]
 
     @property
     def n_loc(self) -> int:
-        return self.v_pad // self.n_shards
+        return self.node_valid.shape[0] // self.n_held
+
+    @property
+    def v_pad(self) -> int:
+        """The whole graph's padded node count."""
+        return self.n_loc * self.n_shards
+
+    @property
+    def node_lo(self) -> int:
+        """The first node row this graph holds."""
+        return self.shard0 * self.n_loc
 
     @property
     def e_cap(self) -> int:
         return self.edge_src.shape[1]
 
     def e_min(self) -> torch.Tensor:
-        """Smallest real edge length (the paper's ``e_min``), f32[]."""
-        return torch.where(self.edge_w < INF, self.edge_w,
-                           torch.full_like(self.edge_w, INF)).min()
+        """Smallest real edge length of the whole graph (the paper's
+        ``e_min``), f32[]."""
+        from repro_torch.core.dks import across_nodes
+
+        local = torch.where(self.edge_w < INF, self.edge_w,
+                            torch.full_like(self.edge_w, INF)).min()
+        return across_nodes(self, local, "min")
 
 
-def pack_frontier_graph(g: Graph, n_shards: int,
+def pack_frontier_graph(g: Graph, n_shards: int | None = None,
                         device: str | torch.device | None = None,
-                        ) -> FrontierGraph:
+                        mesh: Any = None) -> FrontierGraph:
     """Host-side: the symmetrized edges grouped by destination owner into
     padded rows, exactly as ``repro``'s packer lays them out, then put on
-    ``device`` (``None``: the card)."""
+    ``device`` (``None``: the card).
+
+    ``mesh`` (a :class:`repro_torch.distributed.comm.Mesh`): one shard per
+    rank, over every axis of the mesh in row-major order; this rank keeps
+    only its own shard's rows.  ``n_shards`` then defaults to the mesh's
+    size and must equal it."""
+    if mesh is not None:
+        if n_shards is not None and n_shards != mesh.size:
+            raise ValueError(f"n_shards={n_shards} on a mesh of "
+                             f"{mesh.size} ranks: one shard per rank")
+        n_shards = mesh.size
+    if n_shards is None:
+        raise ValueError("pack_frontier_graph needs n_shards= or mesh=")
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     dev = resolve_device(device)
@@ -132,13 +176,17 @@ def pack_frontier_graph(g: Graph, n_shards: int,
     out_degree[: g.n_nodes] = deg
     node_valid = np.zeros(v_pad, bool)
     node_valid[: g.n_nodes] = True
+    shard0 = 0 if mesh is None else mesh.axis_index()
+    held = slice(shard0, n_shards if mesh is None else shard0 + 1)
+    rows = slice(held.start * n_loc, held.stop * n_loc)
     return FrontierGraph(
-        edge_src=host_tensor(edge_src, dev),
-        edge_dst_l=host_tensor(edge_dst_l, dev),
-        edge_w=host_tensor(edge_w, dev),
-        out_degree=host_tensor(out_degree, dev),
-        node_valid=host_tensor(node_valid, dev),
-        n_nodes=g.n_nodes, n_edges=len(src), n_shards=n_shards)
+        edge_src=host_tensor(edge_src[held], dev),
+        edge_dst_l=host_tensor(edge_dst_l[held], dev),
+        edge_w=host_tensor(edge_w[held], dev),
+        out_degree=host_tensor(out_degree[rows], dev),
+        node_valid=host_tensor(node_valid[rows], dev),
+        n_nodes=g.n_nodes, n_edges=len(src), n_shards=n_shards,
+        shard0=shard0, mesh=mesh)
 
 
 def frontier_cap(graph: FrontierGraph, cfg: DKSConfig) -> int:
@@ -151,14 +199,14 @@ def frontier_cap(graph: FrontierGraph, cfg: DKSConfig) -> int:
 def pack_frontiers(graph: FrontierGraph, S: torch.Tensor,
                    changed: torch.Tensor, f_cap: int,
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Every shard's send half: per lane, the ascending local ids of up to
-    ``f_cap`` changed nodes with their tables.  ``S``: [L, V_pad, 2^m, K];
-    ``changed``: bool[L, V_pad].  Returns ``gids`` i32[L, n_shards,
-    f_cap] (global ids; empty slots :data:`INVALID_GID` + slot),
-    ``tab`` [L, n_shards, f_cap, 2^m, K] (INF in empty slots) and
-    ``overflow`` bool[L, n_shards]."""
+    """Every held shard's send half: per lane, the ascending local ids of
+    up to ``f_cap`` changed nodes with their tables.  ``S``: [L, n_held *
+    n_loc, 2^m, K]; ``changed``: bool[L, n_held * n_loc].  Returns ``gids``
+    i32[L, n_held, f_cap] (global ids; empty slots :data:`INVALID_GID` +
+    slot), ``tab`` [L, n_held, f_cap, 2^m, K] (INF in empty slots) and
+    ``overflow`` bool[L, n_held]."""
     lanes, _, n_sets, k = S.shape
-    ns, n_loc = graph.n_shards, graph.n_loc
+    ns, n_loc = graph.n_held, graph.n_loc
     S_sh = S.reshape(lanes, ns, n_loc, n_sets, k)
     ch = changed.reshape(lanes, ns, n_loc)
     # Sorting a keyed arange == nonzero(size=f_cap, fill_value=n_loc),
@@ -172,7 +220,8 @@ def pack_frontiers(graph: FrontierGraph, S: torch.Tensor,
         lanes, ns, f_cap, n_sets, k))
     tab = torch.where(fvalid[..., None, None], tab,
                       torch.full_like(tab, INF))
-    offset = (torch.arange(ns, dtype=torch.int32, device=S.device)
+    offset = ((graph.shard0 + torch.arange(ns, dtype=torch.int32,
+                                           device=S.device))
               * n_loc)[None, :, None]
     gids = torch.where(fvalid, idx + offset, idx + INVALID_GID)
     overflow = ch.sum(dim=2) > f_cap
@@ -180,26 +229,35 @@ def pack_frontiers(graph: FrontierGraph, S: torch.Tensor,
 
 
 def all_gather_frontier(gids: torch.Tensor, tab: torch.Tensor,
-                        overflow: torch.Tensor,
+                        overflow: torch.Tensor, mesh: Any = None,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """THE exchange: every shard's packed frontier, concatenated in shard
     order along the frontier axis (``repro``'s ``all_gather(tiled=True,
     axis=1)``), and the overflow flag reduced over shards (its ``pmax``).
-    All shards share one device, so one gathered copy serves them all.
-    Returns ``(gids i32[L, F_tot], tab [L, F_tot, 2^m, K], overflow
-    bool[L])`` with ``F_tot = n_shards * f_cap``."""
+    With ``mesh``, each rank holds one shard and the gather and the max
+    are collectives over every axis of the mesh; without, all shards share
+    one device and one gathered copy serves them all.  Returns ``(gids
+    i32[L, F_tot], tab [L, F_tot, 2^m, K], overflow bool[L])`` with
+    ``F_tot = n_shards * f_cap``."""
+    overflow = overflow.any(dim=1)
+    if mesh is not None:
+        from repro_torch.distributed import comm
+
+        gids = comm.all_gather(gids, dim=1, tiled=True, mesh=mesh)
+        tab = comm.all_gather(tab, dim=1, tiled=True, mesh=mesh)
+        overflow = comm.pmax(overflow, mesh=mesh)
     lanes, ns, f_cap = gids.shape
     return (gids.reshape(lanes, ns * f_cap),
-            tab.reshape(lanes, ns * f_cap, *tab.shape[3:]),
-            overflow.any(dim=1))
+            tab.reshape(lanes, ns * f_cap, *tab.shape[3:]), overflow)
 
 
 def relax_shard_edges(graph: FrontierGraph, all_gids: torch.Tensor,
                       all_tab: torch.Tensor) -> torch.Tensor:
-    """Every shard's receive half: relax the shard's own edges against the
-    gathered frontier and keep each local destination's top-K.  A source
-    is found by binary search in the sorted gathered ids (left side, as
-    ``jnp.searchsorted``).  Returns R [L, V_pad, 2^m, K]."""
+    """Every held shard's receive half: relax the shard's own edges
+    against the gathered frontier and keep each local destination's top-K.
+    A source is found by binary search in the sorted gathered ids (left
+    side, as ``jnp.searchsorted``).  Returns R [L, n_held * n_loc, 2^m,
+    K]."""
     lanes, f_tot = all_gids.shape
     order = torch.argsort(all_gids, dim=1, stable=True)
     sg = torch.gather(all_gids, 1, order)
@@ -213,23 +271,23 @@ def relax_shard_edges(graph: FrontierGraph, all_gids: torch.Tensor,
     cand = torch.where(hit[:, :, None, None], cand,
                        torch.full_like(cand, INF))
     cand = semiring.bump_to_inf(cand)
-    # Shard s's local destination d is global node s * n_loc + d: the
+    # Held shard s's local destination d is held row s * n_loc + d: the
     # shards' segments are disjoint, so one reduce serves them all.
-    base = torch.arange(graph.n_shards, dtype=torch.int32,
+    base = torch.arange(graph.n_held, dtype=torch.int32,
                         device=all_tab.device)[:, None] * graph.n_loc
     dst = (graph.edge_dst_l + base).reshape(-1)
-    return receive_candidates(cand, dst, graph.v_pad)
+    return receive_candidates(cand, dst, graph.node_valid.shape[0])
 
 
 def relax_frontier_lanes(graph: FrontierGraph, S: torch.Tensor,
                          changed: torch.Tensor, cfg: DKSConfig,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Lane-batched frontier-compressed relax: pack, one exchange, relax.
-    ``S``: [L, V_pad, 2^m, K]; ``changed``: bool[L, V_pad].  Returns
-    ``(R [L, V_pad, 2^m, K], overflow bool[L])``."""
+    ``S``: [L, rows, 2^m, K]; ``changed``: bool[L, rows] over the held
+    rows.  Returns ``(R [L, rows, 2^m, K], overflow bool[L])``."""
     f_cap = frontier_cap(graph, cfg)
     all_gids, all_tab, overflow = all_gather_frontier(
-        *pack_frontiers(graph, S, changed, f_cap))
+        *pack_frontiers(graph, S, changed, f_cap), mesh=graph.mesh)
     return relax_shard_edges(graph, all_gids, all_tab), overflow
 
 
@@ -247,7 +305,8 @@ def frontier_tail(graph: FrontierGraph, state: DKSState, R: torch.Tensor,
                   overflow: torch.Tensor, cfg: DKSConfig) -> DKSState:
     """Everything after the frontier relax, for every lane: message
     accounting, top-K merge, subset combine and the shared superstep
-    finish (node-local: no exchange)."""
+    finish (node-local but for the reductions over all nodes, which are
+    collectives on a graph split across ranks)."""
     S0 = state.S
     n_bfs, n_deep = message_counts(graph, state)
     S1 = combine(semiring.topk_merge(S0, R), cfg)
@@ -265,6 +324,19 @@ def superstep_frontier(graph: FrontierGraph, state: DKSState,
     lane, without the freeze select (the driver applies it)."""
     R, overflow = relax_frontier_lanes(graph, state.S, state.changed, cfg)
     return frontier_tail(graph, state, R, overflow, cfg)
+
+
+def gather_state(graph: FrontierGraph, state: DKSState) -> DKSState:
+    """A rank's final state with every node table whole: ``S``,
+    ``changed``, ``first_fire`` and ``visited`` gathered over the graph's
+    mesh along the node axis (the per-lane fields already agree on every
+    rank)."""
+    from repro_torch.distributed import comm
+
+    return dataclasses.replace(state, **{
+        f: comm.all_gather(getattr(state, f), dim=1, tiled=True,
+                           mesh=graph.mesh)
+        for f in ("S", "changed", "first_fire", "visited")})
 
 
 def run_dks_frontier(graph: FrontierGraph, kw_masks: torch.Tensor,
@@ -292,7 +364,11 @@ def run_dks_frontier_instrumented(
     "send_bfs", as in ``repro``, whose ``shard_map`` fuses them; "receive"
     is the top-K merge of what arrived; "evaluate" (subset combine) and
     "send_agg" (aggregators, exit check, overflow) match the dense
-    buckets."""
+    buckets.  Single-process only: its history reads node tables each
+    superstep."""
+    if graph.mesh is not None:
+        raise NotImplementedError(
+            "the instrumented loop runs on the single-process twin only")
     return host_instrumented_loop(
         graph, kw_masks, cfg, exit_hook,
         phase_relax=lambda S, changed: relax_frontier_lanes(

@@ -5,7 +5,9 @@ carries a leading lane axis (``L`` concurrent queries) and one
 ``lane_superstep(graph, state, cfg)`` that advances all lanes, on both
 partitionings — a dense :class:`DeviceGraph` or a sharded
 :class:`~repro_torch.core.dks_sharded.FrontierGraph`, whose lanes share
-one frontier exchange per superstep.
+one frontier exchange per superstep (across ranks when the graph is split
+over a mesh: every rank runs the same loop on its shard, ``done`` reads
+the same on all of them, and the final state is gathered whole).
 ``repro`` runs the loop as one ``lax.while_loop``; torch has none, so
 :func:`run_lanes` is a host loop that reads ``done`` after every superstep
 and freezes finished lanes every time, one lane or many (a finished lane's
@@ -23,6 +25,7 @@ from repro_torch.core.dks import (
     STATE_FIELDS,
     DKSConfig,
     DKSState,
+    across_nodes,
     freeze_finished,
     init_state,
     superstep,
@@ -79,14 +82,26 @@ def lane_superstep(graph: Any, state: DKSState, cfg: DKSConfig
     return freeze_lanes(state, nxt)
 
 
+def whole_state(graph: Any, state: DKSState) -> DKSState:
+    """The final state with every node table whole: gathered over the
+    ranks of a split graph's mesh, else as it is."""
+    if getattr(graph, "mesh", None) is None:
+        return state
+    from repro_torch.core.dks_sharded import gather_state
+
+    return gather_state(graph, state)
+
+
 def run_lanes(graph: Any, kw_masks: torch.Tensor, cfg: DKSConfig
               ) -> DKSState:
     """Full lane-batched DKS run: steps until every lane's exit criterion
-    fires, checking ``done`` on the host after every superstep."""
+    fires, checking ``done`` on the host after every superstep.
+    ``kw_masks``: bool[L, m, V_pad] over the whole graph, on every rank
+    of a split graph."""
     state = lane_init(graph, kw_masks, cfg)
     while not bool(state.done.all()):
         state = lane_superstep(graph, state, cfg)
-    return state
+    return whole_state(graph, state)
 
 
 # --------------------------------------------------------------------------
@@ -102,13 +117,15 @@ def telemetry_capacity(cfg: DKSConfig) -> int:
     return max(1, min(int(cfg.max_supersteps), TELEMETRY_MAX_SUPERSTEPS))
 
 
-def telemetry_row(state: DKSState) -> torch.Tensor:
+def telemetry_row(state: DKSState, graph: Any = None) -> torch.Tensor:
     """One lane-summed counter row for the post-step state: ``[frontier,
     msgs_bfs (cumulative), msgs_deep (cumulative), frozen lanes]`` — the
     column order repro_torch.obs.telemetry decodes.  Pure reads, so
-    telemetry-on is bit-identical to telemetry-off."""
+    telemetry-on is bit-identical to telemetry-off.  ``graph``: the graph
+    the state runs on, whose split across ranks the frontier is summed
+    over."""
     return torch.stack([
-        state.changed.sum().to(torch.float32),
+        across_nodes(graph, state.changed.sum(), "sum").to(torch.float32),
         state.msgs_bfs.sum(),
         state.msgs_deep.sum(),
         state.done.sum().to(torch.float32),
@@ -130,6 +147,6 @@ def run_lanes_telemetry(graph: Any, kw_masks: torch.Tensor,
     i = 0
     while not bool(state.done.all()):
         state = lane_superstep(graph, state, cfg)
-        buf[min(i, T - 1)] = telemetry_row(state)
+        buf[min(i, T - 1)] = telemetry_row(state, graph)
         i += 1
-    return state, buf, i
+    return whole_state(graph, state), buf, i

@@ -1,0 +1,551 @@
+"""The port's device mesh and its collectives, over ``torch.distributed``.
+
+``repro`` spreads this over ``repro.shardmap`` (meshes, the ambient mesh)
+and the ``jax.lax`` collectives its ``shard_map`` bodies call.  Here one
+process runs per device (a rank), a :class:`Mesh` names the ranks' axes
+(``"pod"``, ``"data"``, ``"model"``) over a
+``torch.distributed.device_mesh.DeviceMesh``, and the collectives keep
+JAX's semantics:
+
+=====================================  =====================================
+here                                   ``jax.lax``
+=====================================  =====================================
+``all_gather(x, axes, dim, tiled)``    ``all_gather(x, axes, axis=dim,
+                                       tiled=tiled)``
+``all_to_all(x, axes, split_dim,       ``all_to_all(..., tiled=True)``
+concat_dim)``
+``psum`` / ``pmean`` / ``pmax`` /      the same names (``pmin`` of ``jnp``
+``pmin``                               reductions)
+``ppermute(x, axis, perm)``            ``ppermute``: a rank nobody sends to
+                                       gets zeros
+``Mesh.axis_index`` / ``axis_size``    ``axis_index`` / ``psum(1, axes)``
+=====================================  =====================================
+
+``all_gather``, ``all_to_all``, ``ppermute`` and ``psum`` / ``pmean`` are
+differentiable; their backward is JAX's transpose: the sum over ranks of
+the cotangent cut back to this rank's chunk (a reduce-scatter, done as an
+all-reduce and a slice), the reverse ``all_to_all``, the inverse
+permutation, and ``psum`` again.  Collectives over several axes order the
+ranks row-major over the axes in mesh order, as JAX's do.
+
+This is the only module of the port that calls ``torch.distributed``.
+The backend is chosen in one place, :func:`backend_for`, from the ranks
+that share this rank's host: ``"nccl"`` when each of them has a card of
+its own, ``"gloo"`` on the CPU or when several ranks share a card.  A
+failed init raises: there is no fallback to another backend or to the
+CPU.  Gloo refuses CUDA tensors in point-to-point sends and receives, so
+under gloo the ops in :data:`STAGED_OPS` copy their payload through host
+memory and back; the compute stays on the card (:func:`staged_ops` says
+what a group stages).
+
+A collective over an axis of one rank is the identity and is elided, as
+XLA elides it; inside :func:`through_group` it runs through the group all
+the same, which checks a group's transport at world size 1.  :data:`issued`
+counts the ops this process hands to ``torch.distributed``.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import itertools
+import math
+import os
+from typing import Iterator, Sequence
+
+import torch
+import torch.distributed as dist
+
+# Ops whose payload crosses a gloo group through host memory when it lies
+# on a card: gloo's send / recv take host tensors only (every other op it
+# takes on the card, checked on an H100 with torch 2.11).
+STAGED_OPS = ("ppermute",)
+
+# The ops handed to ``torch.distributed`` in this process, by kind
+# ("all_reduce", "all_gather", "all_to_all", "send", "recv"); the caller
+# clears it.
+issued: collections.Counter = collections.Counter()
+
+
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: one entry per leading dimension of
+    a leaf, ``None`` (whole), an axis name or a tuple of axis names (split
+    over their ranks, row-major in mesh order)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+INIT_TIMEOUT_S = 300       # a collective that waits longer raises
+
+_MESH: contextvars.ContextVar["Mesh | None"] = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+_THROUGH: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_through_group", default=False)
+
+
+# --------------------------------------------------------------------------
+# Process group
+# --------------------------------------------------------------------------
+
+
+def backend_for(device_type: str, local_world_size: int,
+                cards: int | None = None) -> str:
+    """The backend of a group whose ranks run ``local_world_size`` to a
+    host on ``device_type``: ``"nccl"`` when each of them has a card of
+    its own (``cards``: the host's, by default
+    ``torch.cuda.device_count()``), else ``"gloo"`` (NCCL refuses two
+    ranks on one device).  The ranks on other hosts do not count: each
+    host has its own cards."""
+    if cards is None:
+        cards = torch.cuda.device_count()
+    if device_type == "cuda" and local_world_size <= cards:
+        return "nccl"
+    return "gloo"
+
+
+def init(rank: int, world_size: int, init_method: str, *,
+         device_type: str = "cuda", local_rank: int | None = None,
+         local_world_size: int | None = None) -> torch.device:
+    """Join the process group as ``rank`` of ``world_size`` and return this
+    rank's device: ``cuda:<local_rank % cards>`` or the CPU.
+    ``local_rank`` / ``local_world_size``: this rank's index among the
+    ranks of its host and their number (default: every rank on this
+    host).  Raises on any failure (no backend or device fallback)."""
+    import datetime
+
+    if local_rank is None:
+        local_rank = rank
+    if local_world_size is None:
+        local_world_size = world_size
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("comm.init(device_type='cuda') needs a card")
+    backend = backend_for(device_type, local_world_size)
+    if device_type == "cuda":
+        device = torch.device("cuda",
+                              local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+    kwargs = {}
+    if backend == "nccl":
+        kwargs["device_id"] = device
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=world_size, rank=rank,
+        timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S), **kwargs)
+    return device
+
+
+_TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                  "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_from_env(device_type: str = "cuda") -> torch.device:
+    """:func:`init` from torchrun's variables (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``)."""
+    for name in _TORCHRUN_VARS:
+        if name not in os.environ:
+            raise RuntimeError(
+                f"{name} is not set: launch with torchrun --nproc-per-node N")
+    return init(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                "env://", device_type=device_type,
+                local_rank=int(os.environ["LOCAL_RANK"]),
+                local_world_size=int(os.environ["LOCAL_WORLD_SIZE"]))
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def backend() -> str | None:
+    """The group's backend name, or None without a group."""
+    return dist.get_backend() if is_initialized() else None
+
+
+def staged_ops(device: torch.device) -> tuple[str, ...]:
+    """The ops that stage their payload through host memory in this
+    group, for tensors on ``device``: :data:`STAGED_OPS` under gloo on a
+    card, none under NCCL or on the CPU (or without a group)."""
+    if backend() == "gloo" and torch.device(device).type == "cuda":
+        return STAGED_OPS
+    return ()
+
+
+def shutdown() -> None:
+    """Leave the process group (a no-op without one)."""
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def through_group() -> Iterator[None]:
+    """Inside the block, a collective over an axis of one rank runs
+    through the process group instead of being elided (a ``ppermute``
+    there still copies locally: a rank sends nothing to itself).  The
+    forward decides: a backward goes through the group wherever its
+    forward did (autograd runs it on threads of its own)."""
+    token = _THROUGH.set(True)
+    try:
+        yield
+    finally:
+        _THROUGH.reset(token)
+
+
+def _elided(mesh: "Mesh", axes) -> bool:
+    """Whether a collective over ``axes`` is the identity and skipped."""
+    return mesh.axis_size(axes) == 1 and not _THROUGH.get()
+
+
+# --------------------------------------------------------------------------
+# Mesh
+# --------------------------------------------------------------------------
+
+
+class Mesh:
+    """Named axes over every rank of the group, row-major (rank ``r`` sits
+    at ``unravel(r, shape)``), as ``jax.make_mesh`` lays devices out.
+
+    ``device_mesh`` is the ``torch.distributed`` ``DeviceMesh`` of the same
+    layout; a group for every non-empty set of axes is made up front (all
+    ranks must create groups together)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device_type: str = "cuda") -> None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not is_initialized():
+            raise RuntimeError("Mesh needs an initialised process group "
+                               "(comm.init / comm.init_from_env)")
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} and axes {axis_names} differ "
+                             "in length")
+        if math.prod(shape) != world_size():
+            raise ValueError(f"a mesh of shape {shape} needs "
+                             f"{math.prod(shape)} ranks; the group has "
+                             f"{world_size()}")
+        self.shape = dict(zip(axis_names, shape))
+        self.axis_names = axis_names
+        self.device_mesh = DeviceMesh(
+            device_type, torch.arange(world_size()).reshape(shape),
+            mesh_dim_names=axis_names)
+        self.coords = dict(zip(axis_names, torch.unravel_index(
+            torch.tensor(rank()), shape)))
+        self.coords = {a: int(c) for a, c in self.coords.items()}
+        self._groups: dict[tuple[str, ...], object] = {}
+        for n_axes in range(1, len(axis_names) + 1):
+            for axes in itertools.combinations(axis_names, n_axes):
+                self._groups[axes] = self._make_group(axes)
+
+    def _make_group(self, axes: tuple[str, ...]):
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        if len(axes) == len(self.axis_names):
+            return dist.group.WORLD
+        grid = torch.arange(world_size()).reshape(tuple(self.shape.values()))
+        keep = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in keep]
+        # One group per point of the other axes, ranks row-major in ``axes``.
+        rows = grid.permute(*rest, *keep).reshape(-1, math.prod(
+            self.shape[a] for a in axes))
+        mine = None
+        for ranks in rows.tolist():
+            group = dist.new_group(ranks)
+            if rank() in ranks:
+                mine = group
+        return mine
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axes(self, axes: str | Sequence[str] | None) -> tuple[str, ...]:
+        """``axes`` as a tuple in mesh order (None: every axis)."""
+        if axes is None:
+            return self.axis_names
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} is not in mesh "
+                                 f"{self.axis_names}")
+        order = [self.axis_names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"axes {axes} must follow the mesh order "
+                             f"{self.axis_names}")
+        return axes
+
+    def axis_size(self, axes: str | Sequence[str] | None = None) -> int:
+        return math.prod(self.shape[a] for a in self.axes(axes))
+
+    def axis_index(self, axes: str | Sequence[str] | None = None) -> int:
+        """This rank's row-major index over ``axes``."""
+        idx = 0
+        for a in self.axes(axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group(self, axes: str | Sequence[str] | None = None):
+        return self._groups[self.axes(axes)]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh: Mesh) -> Iterator[Mesh]:
+    """Make ``mesh`` the ambient mesh inside the block."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def get_mesh() -> Mesh | None:
+    """The ambient mesh, or None outside :func:`mesh_scope` or without a
+    process group (``repro``'s ``get_abstract_mesh``)."""
+    mesh = _MESH.get()
+    return mesh if mesh is not None and is_initialized() else None
+
+
+def _mesh(mesh: Mesh | None) -> Mesh:
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None:
+        raise RuntimeError("no mesh: pass mesh= or run under mesh_scope")
+    return mesh
+
+
+# --------------------------------------------------------------------------
+# Reductions
+# --------------------------------------------------------------------------
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def _all_reduce(x: torch.Tensor, mesh: Mesh, axes, op: str) -> torch.Tensor:
+    is_bool = x.dtype == torch.bool
+    out = (x.to(torch.int32) if is_bool else x).contiguous().clone()
+    issued["all_reduce"] += 1
+    dist.all_reduce(out, op=_OPS[op], group=mesh.group(axes))
+    return out.bool() if is_bool else out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_reduce(x, mesh, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axes, "sum"), None, None
+
+
+def psum(x: torch.Tensor, axes=None, mesh: Mesh | None = None
+         ) -> torch.Tensor:
+    """Sum over the ranks of ``axes`` (differentiable; its transpose is
+    ``psum``)."""
+    mesh = _mesh(mesh)
+    axes = mesh.axes(axes)
+    if _elided(mesh, axes):
+        return x.clone()
+    return _PSum.apply(x, mesh, axes)
+
+
+def pmean(x: torch.Tensor, axes=None, mesh: Mesh | None = None
+          ) -> torch.Tensor:
+    mesh = _mesh(mesh)
+    return psum(x, axes, mesh) / mesh.axis_size(axes)
+
+
+def _reduce(x: torch.Tensor, axes, mesh: Mesh | None, op: str
+            ) -> torch.Tensor:
+    """``op`` over the ranks of ``axes``, not differentiated."""
+    mesh = _mesh(mesh)
+    axes = mesh.axes(axes)
+    if _elided(mesh, axes):
+        return x.detach().clone()
+    return _all_reduce(x.detach(), mesh, axes, op)
+
+
+def pmax(x: torch.Tensor, axes=None, mesh: Mesh | None = None
+         ) -> torch.Tensor:
+    return _reduce(x, axes, mesh, "max")
+
+
+def pmin(x: torch.Tensor, axes=None, mesh: Mesh | None = None
+         ) -> torch.Tensor:
+    return _reduce(x, axes, mesh, "min")
+
+
+# --------------------------------------------------------------------------
+# all_gather
+# --------------------------------------------------------------------------
+
+
+def _gather_parts(x: torch.Tensor, mesh: Mesh, axes) -> list[torch.Tensor]:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.axis_size(axes))]
+    issued["all_gather"] += 1
+    dist.all_gather(parts, x, group=mesh.group(axes))
+    return parts
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, tiled):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.tiled = mesh, axes, dim, tiled
+        ctx.width = x.shape[dim] if tiled else 1
+        parts = _gather_parts(x, mesh, axes)
+        return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _all_reduce(g, ctx.mesh, ctx.axes, "sum")
+        i = ctx.mesh.axis_index(ctx.axes)
+        if ctx.tiled:
+            out = total.narrow(ctx.dim, i * ctx.width, ctx.width)
+        else:
+            out = total.select(ctx.dim, i)
+        return out.contiguous(), None, None, None, None
+
+
+def all_gather(x: torch.Tensor, axes=None, dim: int = 0, tiled: bool = False,
+               mesh: Mesh | None = None) -> torch.Tensor:
+    """Every rank's ``x`` over ``axes``, in rank order: stacked on a new
+    axis ``dim``, or with ``tiled`` concatenated along ``dim``."""
+    mesh = _mesh(mesh)
+    axes = mesh.axes(axes)
+    dim = dim % (x.dim() + (0 if tiled else 1))
+    if _elided(mesh, axes):
+        return x if tiled else x.unsqueeze(dim)
+    return _AllGather.apply(x, mesh, axes, dim, tiled)
+
+
+# --------------------------------------------------------------------------
+# all_to_all
+# --------------------------------------------------------------------------
+
+
+def _all_to_all(x: torch.Tensor, mesh: Mesh, axes, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n = mesh.axis_size(axes)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    # Chunk j of the split axis goes to rank j: lay the chunks out along
+    # dim 0, exchange, and concatenate what arrives in source order.
+    chunks = x.unflatten(split_dim, (n, x.shape[split_dim] // n))
+    chunks = chunks.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(chunks)
+    issued["all_to_all"] += 1
+    dist.all_to_all_single(out, chunks, group=mesh.group(axes))
+    return torch.cat(list(out.unbind(0)), concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_dim, concat_dim):
+        ctx.args = (mesh, axes, split_dim, concat_dim)
+        return _all_to_all(x, mesh, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_dim, concat_dim = ctx.args
+        return (_all_to_all(g, mesh, axes, concat_dim, split_dim),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axes=None, split_dim: int = 0,
+               concat_dim: int = 0, mesh: Mesh | None = None
+               ) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: split ``split_dim`` into
+    one chunk per rank, send chunk ``j`` to rank ``j``, and concatenate
+    the chunks received along ``concat_dim`` in source order."""
+    mesh = _mesh(mesh)
+    axes = mesh.axes(axes)
+    split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+    if _elided(mesh, axes):
+        return x
+    return _AllToAll.apply(x, mesh, axes, split_dim, concat_dim)
+
+
+# --------------------------------------------------------------------------
+# ppermute
+# --------------------------------------------------------------------------
+
+
+def _ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
+              perm: tuple[tuple[int, int], ...]) -> torch.Tensor:
+    me = mesh.axis_index(axis)
+    group = mesh.group(axis)
+    # Group ranks are global ranks; an axis index maps to the group's
+    # rank of that index (groups order their ranks as the axis does).
+    to_global = dist.get_process_group_ranks(group)
+    staged = dist.get_backend(group) == "gloo" and x.is_cuda
+    payload = x.detach().contiguous()
+    if staged:
+        payload = payload.cpu()
+    out = torch.zeros_like(payload)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(payload)
+        elif src == me:
+            issued["send"] += 1
+            ops.append(dist.P2POp(dist.isend, payload, to_global[dst],
+                                  group=group))
+        elif dst == me:
+            issued["recv"] += 1
+            ops.append(dist.P2POp(dist.irecv, out, to_global[src],
+                                  group=group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out.to(x.device) if staged else out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.args = (mesh, axis, perm)
+        return _ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, perm = ctx.args
+        inverse = tuple((dst, src) for src, dst in perm)
+        return _ppermute(g, mesh, axis, inverse), None, None, None
+
+
+def ppermute(x: torch.Tensor, axis: str,
+             perm: Sequence[tuple[int, int]], mesh: Mesh | None = None
+             ) -> torch.Tensor:
+    """``jax.lax.ppermute``: for each ``(src, dst)`` the rank at index
+    ``src`` of ``axis`` sends ``x`` to the rank at ``dst``; a rank that
+    nobody sends to gets zeros.  Under gloo a card's payload is staged
+    through host memory (:data:`STAGED_OPS`)."""
+    mesh = _mesh(mesh)
+    (axis,) = mesh.axes(axis)
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    n = mesh.axis_size(axis)
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or any(
+            not 0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute: {perm} is not a partial permutation "
+                         f"of {n} ranks")
+    return _PPermute.apply(x, mesh, axis, perm)

@@ -34,9 +34,18 @@ pass ``device="cpu"``.
 
 ``ExecutionPolicy(partition="sharded")`` packs a
 :class:`~repro_torch.core.dks_sharded.FrontierGraph` instead of the dense
-:class:`DeviceGraph`; every surface runs on it unchanged (the driver
-takes the frontier-compressed superstep), with the node axis padded to
-``n_shards`` and the tables cut back to ``n_nodes`` rows for extraction.
+:class:`DeviceGraph`, with the node axis padded to ``n_shards`` and the
+tables cut back to ``n_nodes`` rows for extraction.  Under an initialised
+``torch.distributed`` group (:mod:`repro_torch.distributed.comm`) it
+packs one shard per rank over the ambient mesh (or, without one, a
+``("data",)`` mesh of the whole group), as ``repro`` shards over its
+mesh: every rank builds the engine and calls ``query`` / ``query_batch``
+with the same arguments, the ranks exchange their frontiers each
+superstep, and every rank gets the same result.  The stepwise surfaces
+(streams, deadlines, the instrumented loop) read node tables between
+supersteps and run on one process only.  Without a group, every shard
+lives on the engine's device (the single-process twin) and every surface
+runs on it unchanged.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from repro_torch.core.driver import (lane_init, lane_superstep, lane_view,
 from repro_torch.core.reconstruct import collect_answers
 from repro_torch.core.spa import nu_lower_bound, spa_cover_dp, spa_ratio
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
 from repro_torch.engine.policy import ExecutionPolicy
 from repro_torch.engine.result import QueryResult, StreamUpdate
 from repro_torch.graph.index import InvertedIndex
@@ -176,12 +186,15 @@ class QueryEngine:
         # rendering all read the same effective weights.
         graph = apply_weight_policy(graph, policy.weights)
         if policy.partition == "sharded":
+            mesh = comm.get_mesh()
+            if mesh is None and comm.is_initialized():
+                mesh = comm.Mesh((comm.world_size(),), ("data",),
+                                 device.type)
             n_shards = policy.n_shards
-            if n_shards is None:
-                n_shards = (torch.cuda.device_count()
-                            if device.type == "cuda" else 1)
+            if n_shards is None and mesh is None:
+                n_shards = 1
             device_graph = pack_frontier_graph(graph, n_shards,
-                                               device=device)
+                                               device=device, mesh=mesh)
         else:
             device_graph = graph.to_device(device)
         engine = cls(graph, index, policy, device_graph,
@@ -759,7 +772,13 @@ class QueryEngine:
     def _prepare(self, cfg: DKSConfig, kind: str) -> None:
         """Count an executor's first use, as ``repro`` counts its jit
         traces: 1 for "fused", 2 for the "stepwise" pair, once per
-        config."""
+        config.  The stepwise surfaces need the whole node tables between
+        supersteps, so a graph split across ranks refuses them."""
+        if kind == "stepwise" and getattr(self.device_graph, "mesh",
+                                          None) is not None:
+            raise NotImplementedError(
+                "streams and deadlines run on one process: a graph split "
+                "across ranks serves query and query_batch")
         self._trace_counts.setdefault((cfg, kind), self._KINDS[kind])
 
     def _config(self, m: int, k: int, **overrides) -> DKSConfig:

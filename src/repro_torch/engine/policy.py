@@ -26,10 +26,12 @@ class ExecutionPolicy:
       partition: "single" (dense residency) or "sharded" (the
                  frontier-compressed partition,
                  :mod:`repro_torch.core.dks_sharded`: ``n_shards`` shards
-                 of the node axis, all on the engine's device, exchanging
-                 only their frontiers).  "sharded" runs on "torch" only.
-      n_shards:  shard count for "sharded"; ``None`` is the number of
-                 CUDA devices on a CUDA engine and 1 on the CPU.
+                 of the node axis exchanging only their frontiers; one
+                 per rank under a ``torch.distributed`` group, else all
+                 on the engine's device).  "sharded" runs on "torch" only.
+      n_shards:  shard count for "sharded"; ``None`` is the mesh's size
+                 under a group (any other value must equal it) and 1
+                 without one.
       weights:   :class:`~repro_torch.graph.weights.WeightPolicy`, applied
                  once at build; it cannot be overridden per query.
       telemetry: carry per-superstep counters (frontier size, message

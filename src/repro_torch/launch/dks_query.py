@@ -14,8 +14,17 @@ driver's loop in a device buffer and prints the frontier/message table.
 ``--extract`` prints label-rendered answer trees.  ``--parity`` (with
 ``--backend cuda``) builds a ``"torch"`` twin and asserts bit-identical
 top-K weights and superstep counts.  ``--partition sharded`` runs the
-frontier-compressed sharded partition (one shard per CUDA device, one on
-the CPU; its backend is ``"torch"``).  ``--artifact PATH`` mmap-loads a
+frontier-compressed sharded partition (its backend is ``"torch"``): in one
+process its one shard lives on the engine's device; under ``torchrun``
+each rank holds one shard and the ranks exchange their frontiers every
+superstep::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.dks_query \
+        --partition sharded --dataset sec-rdfabout
+
+(one card a rank over NCCL; ``--device cpu`` runs the ranks on the CPU
+over gloo).  Every rank answers the same query; only rank 0 prints.
+``--artifact PATH`` mmap-loads a
 graph-store artifact (``python -m repro_torch.launch.ingest`` writes one;
 so does ``repro.launch.ingest``: the format is shared) instead of
 generating ``--dataset``.
@@ -24,10 +33,12 @@ generating ``--dataset``.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 from repro_torch import INF
 from repro_torch.configs import DKS_CONFIGS
+from repro_torch.distributed import comm
 from repro_torch.engine import ExecutionPolicy, QueryEngine, WeightPolicy
 from repro_torch.graph.generators import lod_like_graph
 from repro_torch.graph.index import InvertedIndex, mid_df_tokens
@@ -88,8 +99,8 @@ def add_partition_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--partition", default="single",
                     choices=["single", "sharded"],
                     help="sharded = the frontier-compressed partition "
-                         "(one shard per CUDA device, one on the CPU; all "
-                         "on the engine's device)")
+                         "(under torchrun one shard per rank; else all "
+                         "shards on the engine's device)")
 
 
 def resolve_backend(ap: argparse.ArgumentParser,
@@ -106,8 +117,11 @@ def resolve_backend(ap: argparse.ArgumentParser,
 def describe_partition(engine: QueryEngine) -> str:
     """One line on a sharded engine's layout."""
     fg = engine.device_graph
+    where = ("one per rank over " + comm.backend() if fg.mesh is not None
+             else "all on " + str(engine.device))
     return (f"partition: sharded, {fg.n_shards} shard(s) of {fg.n_loc:,} "
-            f"nodes, e_cap {fg.e_cap:,}, backend {engine.policy.backend}")
+            f"nodes ({where}), e_cap {fg.e_cap:,}, backend "
+            f"{engine.policy.backend}")
 
 
 def build_engine(name: str, policy: ExecutionPolicy | None = None,
@@ -138,7 +152,8 @@ def main(argv: list[str] | None = None) -> int:
                     choices=["sound", "none"])
     add_partition_args(ap)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card, cuda:0)")
+                    help="torch device (default: the card, cuda:0; under "
+                         "torchrun this rank's card)")
     add_weight_policy_args(ap)
     ap.add_argument("--stream", action="store_true",
                     help="print per-superstep answers with SPA bounds")
@@ -167,7 +182,25 @@ def main(argv: list[str] | None = None) -> int:
     if args.parity and args.backend != "cuda":
         ap.error("--parity needs --backend cuda (it builds the torch twin "
                  "to compare against)")
+    ranked = "WORLD_SIZE" in os.environ
+    if ranked:
+        if args.partition != "sharded":
+            ap.error("under torchrun the query runs --partition sharded, "
+                     "one shard per rank")
+        if args.stream or args.explain:
+            ap.error("--stream and --explain run in one process")
+        args.device = comm.init_from_env(
+            "cpu" if args.device == "cpu" else "cuda")
+    try:
+        return _run(args)
+    finally:
+        comm.shutdown()
 
+
+def _run(args: argparse.Namespace) -> int:
+    """The query of ``main``'s arguments; on a rank other than 0 it prints
+    nothing."""
+    say = print if comm.rank() == 0 else (lambda *a, **kw: None)
     t0 = time.time()
     policy = ExecutionPolicy(
         backend=args.backend,
@@ -180,12 +213,12 @@ def main(argv: list[str] | None = None) -> int:
     )
     ds, source = engine_source(args.dataset, args.artifact)
     engine = QueryEngine.build(**source, policy=policy, device=args.device)
-    print(f"loaded {args.artifact or ds.name}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
+    say(f"loaded {args.artifact or ds.name}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
           f"on {engine.device} ({time.time()-t0:.1f}s)")
     if policy.partition == "sharded":
-        print(describe_partition(engine))
+        say(describe_partition(engine))
     if not policy.weights.is_default:
-        print(f"weight policy: {policy.weights}")
+        say(f"weight policy: {policy.weights}")
 
     index = engine.index
     if args.query:
@@ -204,14 +237,14 @@ def main(argv: list[str] | None = None) -> int:
     else:
         mid = mid_df_tokens(index)
         query = mid[:: max(1, len(mid) // args.m)][: args.m]
-    print("query tokens:", query, "df:", [index.df(t) for t in query])
+    say("query tokens:", query, "df:", [index.df(t) for t in query])
 
     if args.stream:
         def show(upd):
             best = "-" if upd.best_weight >= INF else f"{upd.best_weight:g}"
             ratio = ("inf" if upd.spa_ratio == float("inf")
                      else f"{upd.spa_ratio:.3f}")
-            print(f"  step {upd.step:2d} frontier={upd.frontier:6d} "
+            say(f"  step {upd.step:2d} frontier={upd.frontier:6d} "
                   f"best={best:>6} spa-ratio={ratio}"
                   f"{'  [exit]' if upd.done else ''}")
 
@@ -226,28 +259,28 @@ def main(argv: list[str] | None = None) -> int:
             served = svc.query(query, k=args.k)
             trace = svc.trace(served.trace_id)
         res = served.result
-        print("\n--- request trace ---")
-        print(render_span_tree(trace))
+        say("\n--- request trace ---")
+        say(render_span_tree(trace))
     else:
         res = engine.query(query, k=args.k)
     if res.telemetry is not None:
         tel = res.telemetry
-        print(f"\n--- superstep telemetry ({tel.n_steps} steps"
+        say(f"\n--- superstep telemetry ({tel.n_steps} steps"
               f"{', truncated' if tel.truncated else ''}) ---")
-        print("  step  frontier  msgs_bfs     msgs_deep    frozen")
+        say("  step  frontier  msgs_bfs     msgs_deep    frozen")
         for row in tel.rows():
-            print(f"  {row['step']:4d}  {row['frontier']:8d}  "
+            say(f"  {row['step']:4d}  {row['frontier']:8d}  "
                   f"{row['msgs_bfs']:11,.0f}  {row['msgs_deep']:11,.0f}  "
                   f"{int(tel.frozen[row['step'] - 1]):6d}")
-    print(f"\nDKS finished in {res.supersteps} supersteps, "
+    say(f"\nDKS finished in {res.supersteps} supersteps, "
           f"{res.wall_time_s:.2f}s")
-    print(f"messages: bfs={res.msgs_bfs:,.0f} deep={res.msgs_deep:,.0f} "
+    say(f"messages: bfs={res.msgs_bfs:,.0f} deep={res.msgs_deep:,.0f} "
           f"({100*res.msgs_total/max(engine.n_edges,1):.1f}% of |E|)")
-    print(f"explored {100*res.explored_frac:.1f}% of nodes")
+    say(f"explored {100*res.explored_frac:.1f}% of nodes")
     if res.budget_hit:
-        print(f"budget hit: SPA-ratio={res.spa_ratio:.3f}")
+        say(f"budget hit: SPA-ratio={res.spa_ratio:.3f}")
     elif res.capped:
-        print(f"superstep cap hit: SPA-ratio={res.spa_ratio:.3f}")
+        say(f"superstep cap hit: SPA-ratio={res.spa_ratio:.3f}")
 
     if args.parity:
         import dataclasses
@@ -265,21 +298,21 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(
                 f"cuda/torch superstep counts diverged: "
                 f"{res.supersteps} vs {ref.supersteps}")
-        print(f"\nparity: cuda == torch bit-identical "
+        say(f"\nparity: cuda == torch bit-identical "
               f"(top-{args.k} weights, {res.supersteps} supersteps)")
 
-    print("\ntop answers (weights):", [w for w in res.weights if w < 1e8])
+    say("\ntop answers (weights):", [w for w in res.weights if w < 1e8])
     if args.extract:
         from repro_torch.answers import render_tree
         if res.answers and res.answers_exhausted:
-            print(f"(table holds fewer than k={args.k} distinct trees)")
+            say(f"(table holds fewer than k={args.k} distinct trees)")
         for i, a in enumerate(res.answers):
             rt = render_tree(a, label_fn=engine.node_label,
                              graph=engine.graph)
-            print(f"  #{i+1} {rt.describe()}")
+            say(f"  #{i+1} {rt.describe()}")
     else:
         for i, a in enumerate(res.answers):
-            print(f"  #{i+1} weight={a.weight} root={a.root} "
+            say(f"  #{i+1} weight={a.weight} root={a.root} "
                   f"edges={list(a.edges)[:8]}"
                   f"{'...' if len(a.edges) > 8 else ''}")
     return 0

@@ -1,27 +1,54 @@
-"""Mixture-of-Experts FFN (dbrx 16e top-4, granite 40e top-8) on one device
-(``repro.models.moe``'s ``_moe_local``, the path ``moe_ffn`` takes without
-a mesh).
+"""Mixture-of-Experts FFN (dbrx 16e top-4, granite 40e top-8): the twin of
+``repro.models.moe``.
 
 Each token's router picks its top-k experts; a cumsum over the flattened
 (token, slot) assignments, token-major, ranks each expert's tokens, and an
 assignment past the expert's capacity is dropped.  The kept tokens are
 scattered into per-expert buffers ``[E, C, D]``, run through each expert's
-SwiGLU MLP, gathered back and summed with their gates.  ``repro``'s two mesh
-paths (``_moe_sharded``: all_to_all over the expert axis;
-``_moe_dense_all``: every expert for every token) need a mesh and are not
-ported; one card has none.
+SwiGLU MLP, gathered back and summed with their gates.
+
+Three regimes, chosen by :func:`dispatch_kind` as ``repro``'s ``moe_ffn``
+chooses them:
+
+1. ``_moe_sharded`` (a mesh and many tokens): sequence-parallel x (batch
+   over ``pod``/``data``, sequence over ``model``), local routing and
+   capacity, the FSDP all-gather of the expert weights, a tiled
+   all_to_all of the dispatch buffers to the experts' owners over
+   ``model`` and back, a local combine, the aux pmean'd over every axis;
+2. ``_moe_dense_all`` (a mesh, few tokens): every rank runs its own
+   experts on every token, masked by the routing weights, and the partial
+   outputs are summed over ``model``;
+3. :func:`moe_local` (no mesh): one device.
+
+Under a mesh a rank holds its slice of the weights (:data:`PARAM_SPECS`,
+``repro``'s ``param_specs`` of a MoE layer); :func:`moe_ffn` takes the
+whole batch, the same on every rank, and returns it whole.  Each mesh path
+has a single-process twin (:func:`moe_sharded_twin`,
+:func:`moe_dense_all_twin`): every rank's block in a loop over the whole
+weights, the collectives done as tensor ops.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import MoESpec
+from repro_torch.distributed import comm
+from repro_torch.distributed.comm import PartitionSpec as P
 from repro_torch.models.common import dense_init, split_keys
 
 NEG_INF = -1e30
 PARAMS = ("router", "w_gate", "w_up", "w_down")
+FSDP_AXES, TP_AXES = ("pod", "data"), ("model",)
+# A rank's slice of one MoE layer: experts over "model", d_model over the
+# FSDP axes (axes a mesh lacks are dropped).
+PARAM_SPECS = {"router": P(None, None),
+               "w_gate": P("model", FSDP_AXES, None),
+               "w_up": P("model", FSDP_AXES, None),
+               "w_down": P("model", None, FSDP_AXES)}
 
 
 def pad_to(x: int, multiple: int) -> int:
@@ -133,9 +160,187 @@ def moe_local(params: dict, x: torch.Tensor, spec: MoESpec, n_real: int):
     return y.to(x.dtype), _aux(probs, ids, logits, e_pad, keep)
 
 
+def _mesh_axes(mesh: comm.Mesh) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(the FSDP axes, the expert axes) the mesh has."""
+    return (tuple(a for a in FSDP_AXES if a in mesh.axis_names),
+            tuple(a for a in TP_AXES if a in mesh.axis_names))
+
+
+def _gather_experts(params: dict, fsdp: tuple, mesh: comm.Mesh):
+    """This rank's experts with d_model whole (the FSDP all-gather)."""
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if fsdp:
+        wg = comm.all_gather(wg, fsdp, dim=1, tiled=True, mesh=mesh)
+        wu = comm.all_gather(wu, fsdp, dim=1, tiled=True, mesh=mesh)
+        wd = comm.all_gather(wd, fsdp, dim=2, tiled=True, mesh=mesh)
+    return wg, wu, wd
+
+
+def _moe_sharded(params: dict, x_loc3: torch.Tensor, spec: MoESpec,
+                 n_real: int, mesh: comm.Mesh):
+    """``repro``'s ``_moe_sharded`` block on this rank: ``params`` this
+    rank's slices (:data:`PARAM_SPECS`), ``x_loc3`` its block [B / fsdp,
+    S / tp, D] of x.  Returns (y block, aux, (ids, slot, keep)), the aux
+    pmean'd over every axis."""
+    fsdp, tp = _mesh_axes(mesh)
+    e_pad = params["router"].shape[1]
+    b_loc, s_loc, d = x_loc3.shape
+    x_loc = x_loc3.reshape(b_loc * s_loc, d)
+    t_loc = x_loc.shape[0]
+    c_loc = capacity(t_loc, spec, e_pad)
+    wg, wu, wd = _gather_experts(params, fsdp, mesh)
+    gate, ids, probs, logits = _route(params["router"], x_loc, spec, n_real,
+                                      e_pad)
+    buf, slot, keep, tok_of = _dispatch_local(x_loc, gate, ids, spec, e_pad,
+                                              c_loc)
+    if tp:
+        # Experts to their owners: [E, C, D] -> [E / tp, C * tp, D].
+        buf = comm.all_to_all(buf, tp, split_dim=0, concat_dim=1, mesh=mesh)
+    y_buf = _expert_mlp(buf, wg, wu, wd)
+    if tp:
+        y_buf = comm.all_to_all(y_buf, tp, split_dim=1, concat_dim=0,
+                                mesh=mesh)
+    y = _combine_local(y_buf, slot, keep, tok_of, gate, t_loc)
+    aux = {k: comm.pmean(v, fsdp + tp, mesh=mesh)
+           for k, v in _aux(probs, ids, logits, e_pad, keep).items()}
+    return (y.reshape(b_loc, s_loc, d).to(x_loc3.dtype), aux,
+            (ids, slot, keep))
+
+
+def moe_sharded_twin(params: dict, x3d: torch.Tensor, spec: MoESpec,
+                     n_real: int, fsdp: int, tp: int):
+    """:func:`_moe_sharded` on a (fsdp, tp) mesh in one process: the whole
+    weights and x [B, S, D]; every rank's block in a loop, the all_to_alls
+    as tensor ops.  Returns (y [B, S, D], aux, [(ids, slot, keep)] per rank
+    in rank order)."""
+    b, s, d = x3d.shape
+    e_pad = params["router"].shape[1]
+    bl, sl, e_loc = b // fsdp, s // tp, e_pad // tp
+    ranks = [(f, j) for f in range(fsdp) for j in range(tp)]
+    routed = {}
+    for f, j in ranks:
+        x_loc = x3d[f * bl:(f + 1) * bl, j * sl:(j + 1) * sl].reshape(-1, d)
+        c_loc = capacity(x_loc.shape[0], spec, e_pad)
+        gate, ids, probs, logits = _route(params["router"], x_loc, spec,
+                                          n_real, e_pad)
+        buf, slot, keep, tok_of = _dispatch_local(x_loc, gate, ids, spec,
+                                                  e_pad, c_loc)
+        routed[f, j] = (gate, ids, probs, logits, buf, slot, keep, tok_of)
+    y_bufs = {}
+    for f, j in ranks:
+        experts = slice(j * e_loc, (j + 1) * e_loc)
+        buf = torch.cat([routed[f, src][4][experts] for src in range(tp)],
+                        dim=1)
+        y_bufs[f, j] = _expert_mlp(buf, params["w_gate"][experts],
+                                   params["w_up"][experts],
+                                   params["w_down"][experts])
+    y = torch.empty_like(x3d)
+    auxes = []
+    for f, j in ranks:
+        gate, ids, probs, logits, buf, slot, keep, tok_of = routed[f, j]
+        c_loc = buf.shape[1]
+        y_buf = torch.cat([y_bufs[f, owner][:, j * c_loc:(j + 1) * c_loc]
+                           for owner in range(tp)], dim=0)
+        y_loc = _combine_local(y_buf, slot, keep, tok_of, gate, len(ids))
+        y[f * bl:(f + 1) * bl, j * sl:(j + 1) * sl] = y_loc.reshape(
+            bl, sl, d).to(x3d.dtype)
+        auxes.append(_aux(probs, ids, logits, e_pad, keep))
+    aux = {k: torch.stack([a[k] for a in auxes]).sum(0) / len(ranks)
+           for k in auxes[0]}
+    return y, aux, [routed[r][1:2] + routed[r][5:7] for r in ranks]
+
+
+def _dense_all_partial(x, w_te, wg, wu, wd):
+    """Every token through the given experts, weighted by their columns of
+    the routing weights ``w_te`` [T, E_held]: [T, D]."""
+    h = (F.silu(torch.einsum("td,edf->tef", x, wg))
+         * torch.einsum("td,edf->tef", x, wu))
+    y_e = torch.einsum("tef,efd->ted", h, wd)
+    return torch.einsum("ted,te->td", y_e, w_te.to(y_e.dtype))
+
+
+def _routing_weights(router, x, spec: MoESpec, n_real: int, e_pad: int):
+    gate, ids, probs, logits = _route(router, x, spec, n_real, e_pad)
+    w_te = (F.one_hot(ids, e_pad).float() * gate[..., None]).sum(dim=1)
+    return w_te, _aux(probs, ids, logits, e_pad)
+
+
+def _moe_dense_all(params: dict, x: torch.Tensor, spec: MoESpec,
+                   n_real: int, mesh: comm.Mesh):
+    """``repro``'s ``_moe_dense_all`` on this rank: x [T, D] whole on every
+    rank, ``params`` this rank's slices; this rank's experts on every
+    token, summed over ``model``.  Returns (y [T, D], aux)."""
+    fsdp, tp = _mesh_axes(mesh)
+    e_pad = params["router"].shape[1]
+    wg, wu, wd = _gather_experts(params, fsdp, mesh)
+    w_te, aux = _routing_weights(params["router"], x, spec, n_real, e_pad)
+    e_loc = wg.shape[0]
+    lo = (mesh.axis_index(tp) if tp else 0) * e_loc
+    y = _dense_all_partial(x, w_te[:, lo:lo + e_loc], wg, wu, wd)
+    if tp:
+        y = comm.psum(y, tp, mesh=mesh)
+    return y.to(x.dtype), aux
+
+
+def moe_dense_all_twin(params: dict, x: torch.Tensor, spec: MoESpec,
+                       n_real: int, tp: int):
+    """:func:`_moe_dense_all` over ``tp`` expert ranks in one process: each
+    rank's partial output, summed in rank order."""
+    e_pad = params["router"].shape[1]
+    w_te, aux = _routing_weights(params["router"], x, spec, n_real, e_pad)
+    e_loc = e_pad // tp
+    parts = [_dense_all_partial(
+        x, w_te[:, j * e_loc:(j + 1) * e_loc],
+        *(params[n][j * e_loc:(j + 1) * e_loc]
+          for n in ("w_gate", "w_up", "w_down"))) for j in range(tp)]
+    return torch.stack(parts).sum(0).to(x.dtype), aux
+
+
+def dispatch_kind(b: int, s: int, mesh: comm.Mesh | None) -> str:
+    """``repro``'s ``moe_ffn`` rule: "local" without a mesh; "sharded" when
+    ``b * s >= 4096``, the FSDP size divides ``b`` and the expert-axis
+    size divides ``s``; else "dense_all"."""
+    if mesh is None:
+        return "local"
+    fsdp, tp = _mesh_axes(mesh)
+    n_fsdp = math.prod(mesh.shape[a] for a in fsdp)
+    n_tp = math.prod(mesh.shape[a] for a in tp)
+    if b * s >= 4096 and b % n_fsdp == 0 and s % n_tp == 0:
+        return "sharded"
+    return "dense_all"
+
+
 def moe_ffn(params: dict, x: torch.Tensor, spec: MoESpec,
             n_experts_real: int) -> tuple[torch.Tensor, dict]:
-    """x [B, S, D] -> ([B, S, D], aux metrics), on the one device."""
+    """x [B, S, D] -> ([B, S, D], aux metrics).  Under the ambient mesh
+    (:func:`repro_torch.distributed.comm.mesh_scope`) ``params`` are this
+    rank's slices (:data:`PARAM_SPECS`) and x the whole batch on every
+    rank; the sharded path cuts this rank's block of x and gathers y
+    back."""
     b, s, d = x.shape
-    y, aux = moe_local(params, x.reshape(b * s, d), spec, n_experts_real)
-    return y.reshape(b, s, d), aux
+    mesh = comm.get_mesh()
+    kind = dispatch_kind(b, s, mesh)
+    if kind == "local":
+        y, aux = moe_local(params, x.reshape(b * s, d), spec, n_experts_real)
+        return y.reshape(b, s, d), aux
+    fsdp, tp = _mesh_axes(mesh)
+    e_pad = params["router"].shape[1]
+    if params["w_gate"].shape[0] * mesh.axis_size(tp) != e_pad:
+        raise ValueError(
+            f"under a mesh moe_ffn takes this rank's expert slice "
+            f"(PARAM_SPECS): {params['w_gate'].shape[0]} experts of "
+            f"{e_pad} on {mesh.axis_size(tp)} expert ranks")
+    if kind == "dense_all":
+        y, aux = _moe_dense_all(params, x.reshape(b * s, d), spec,
+                                n_experts_real, mesh)
+        return y.reshape(b, s, d), aux
+    bl, sl = b // mesh.axis_size(fsdp), s // mesh.axis_size(tp)
+    fi, tj = mesh.axis_index(fsdp), mesh.axis_index(tp)
+    y, aux, _ = _moe_sharded(
+        params, x[fi * bl:(fi + 1) * bl, tj * sl:(tj + 1) * sl], spec,
+        n_experts_real, mesh)
+    if tp:
+        y = comm.all_gather(y, tp, dim=1, tiled=True, mesh=mesh)
+    if fsdp:
+        y = comm.all_gather(y, fsdp, dim=0, tiled=True, mesh=mesh)
+    return y, aux

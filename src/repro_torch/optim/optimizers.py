@@ -53,13 +53,17 @@ class OptState:
     count: torch.Tensor
 
 
-def tree_leaves(tree: Any) -> list:
+def tree_leaves(tree: Any, is_leaf=None) -> list:
     """The leaves of a dict / list / tuple tree in JAX's flatten order:
-    dict keys sorted, sequences in order."""
+    dict keys sorted, sequences in order; a node for which ``is_leaf``
+    holds is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for key in sorted(tree) for x in tree_leaves(tree[key])]
+        return [x for key in sorted(tree)
+                for x in tree_leaves(tree[key], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for sub in tree for x in tree_leaves(sub)]
+        return [x for sub in tree for x in tree_leaves(sub, is_leaf)]
     return [tree]
 
 
@@ -82,13 +86,17 @@ def tree_unflatten(template: Any, leaves) -> Any:
     return out
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """``fn`` applied to every leaf; the tree's structure kept."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied to every leaf of ``tree`` and to the nodes at the
+    same place in each of ``rest`` (trees that have ``tree``'s structure
+    as a prefix, as in ``jax.tree.map``); the tree's structure kept."""
     if isinstance(tree, dict):
-        return {key: tree_map(fn, sub) for key, sub in tree.items()}
+        return {key: tree_map(fn, sub, *(r[key] for r in rest))
+                for key, sub in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, sub) for sub in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *subs)
+                          for subs in zip(tree, *rest, strict=True))
+    return fn(tree, *rest)
 
 
 def adamw_init(params: Any) -> OptState:
@@ -125,10 +133,12 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _clip_scale(grads: Any, max_norm: float
+def _clip_scale(grads: Any, max_norm: float,
+                norm: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(``min(1, max_norm / norm)``, the norm) of ``grads``."""
-    gn = global_norm(grads)
+    """(``min(1, max_norm / norm)``, the norm) of ``grads`` (or the
+    ``norm`` given)."""
+    gn = global_norm(grads) if norm is None else norm
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
 
 
@@ -141,13 +151,16 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads: Any, opt: OptState, params: Any
+def adamw_update(cfg: AdamWConfig, grads: Any, opt: OptState, params: Any,
+                 norm: torch.Tensor | None = None,
                  ) -> tuple[Any, OptState, dict]:
     """One AdamW step: clip ``grads`` by their global norm, then update
     every leaf of ``params`` and of ``opt``'s moments in place.  Returns
     (``params``, the new :class:`OptState`, ``{"grad_norm", "lr"}``, both
-    f32 0-d tensors).  A fault once the writes have begun raises
-    :class:`UnreplayableStepError`: the input state is partly updated."""
+    f32 0-d tensors).  ``norm``: the global norm, where ``grads`` are one
+    rank's part of a tree split across ranks (default: theirs).  A fault
+    once the writes have begun raises :class:`UnreplayableStepError`: the
+    input state is partly updated."""
     g_leaves, p_leaves = tree_leaves(grads), tree_leaves(params)
     m_leaves, v_leaves = tree_leaves(opt.mu), tree_leaves(opt.nu)
     if not len(g_leaves) == len(p_leaves) == len(m_leaves) == len(v_leaves):
@@ -160,7 +173,7 @@ def adamw_update(cfg: AdamWConfig, grads: Any, opt: OptState, params: Any
                              f"parameter {list(p.shape)}")
     # The clip's scale is applied leaf by leaf below, not to a copy of
     # every gradient at once.
-    scale, gn = _clip_scale(grads, cfg.max_grad_norm)
+    scale, gn = _clip_scale(grads, cfg.max_grad_norm, norm)
     count = opt.count + 1
     lr = cosine_schedule(cfg, count)
     b1c = 1.0 - cfg.b1 ** count.float()

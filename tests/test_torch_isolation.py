@@ -6,6 +6,7 @@ module and every module each script names, then each script itself
 ``jax*``, no ``repro`` / ``repro.*`` and no
 ``ml_dtypes`` module may be loaded."""
 
+import ast
 import json
 import os
 import subprocess
@@ -81,6 +82,39 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.graph.partition",
                  "repro_torch.analysis", "repro_torch.analysis.count",
                  "repro_torch.analysis.roofline", "repro_torch.launch.cells",
-                 "repro_torch.launch.dryrun", "repro_torch.launch.analyze"):
+                 "repro_torch.launch.dryrun", "repro_torch.launch.analyze",
+                 "repro_torch.distributed.comm",
+                 "repro_torch.distributed.compression",
+                 "repro_torch.distributed.ranks", "repro_torch.launch.mesh",
+                 "repro_torch.models.pipeline"):
         assert name in seen["modules"], name
     assert seen["bad"] == []
+
+
+def uses_torch_distributed(path: Path) -> bool:
+    """Does the module's code (not its docstrings) import or reach
+    ``torch.distributed``?"""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import) and any(
+                a.name.startswith("torch.distributed") for a in node.names):
+            return True
+        if isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.startswith("torch.distributed")
+                or (node.module == "torch"
+                    and any(a.name == "distributed" for a in node.names))):
+            return True
+        if (isinstance(node, ast.Attribute) and node.attr == "distributed"
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "torch"):
+            return True
+    return False
+
+
+def test_only_comm_calls_torch_distributed():
+    """``distributed/comm.py`` is the port's one door to
+    ``torch.distributed``: the backend choice, the staging through host
+    memory and the refusal to fall back live there alone."""
+    pkg = ROOT / "src" / "repro_torch"
+    users = sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*.py")
+                   if uses_torch_distributed(p))
+    assert users == ["distributed/comm.py"]
