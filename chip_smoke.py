@@ -6,8 +6,12 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. Device — fail unless ``torch.cuda.is_available()``; print the card's
-   ``nvidia-smi --query-gpu=name,power.limit`` line; start phase 17's
-   meta dry run in its own process (stopped on the way out).
+   ``nvidia-smi --query-gpu=name,power.limit`` line.  At the start and
+   end of every phase a line gives the card's SM and memory clocks,
+   temperature, power draw and active clock-limit reasons (``nvidia-smi``;
+   the reasons' field name probed once) and whether phase 17's meta dry
+   run (started after phase 11, stopped on the way out) is running; a
+   query that fails is logged and fails nothing.
 2. Build — compile every CUDA source under ``src/repro_torch/csrc`` with
    nvcc (all at once), timed; each kernel's ptxas register and spill
    lines; the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
@@ -135,8 +139,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    whose cap overflows answers on the card exactly as on the CPU
    (``query_batch`` and a stream); phase 9's ``make_trace`` served through
    ``DKSService`` on the sharded engine, every exact answer equal to
-   ``engine.query``.  Prints the driver's ms per superstep beside phase
-   5's ``"cuda"`` and ``"torch"``, the frontier bytes gathered per
+   ``engine.query``; then phase 18's stepwise twin (a stream, a deadline
+   bucket and an instrumented run, below).  Prints the driver's ms per
+   superstep beside phase 5's ``"cuda"`` and ``"torch"``, the frontier
+   bytes gathered per
    superstep against the dense table's, ``e_cap`` and the shard
    imbalance, peak device memory, and the hand-written kernels'
    launches on this path (zeroed just before, read just after: 0, since
@@ -251,7 +257,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    equal to the twin at the same shard count, phase 12's at 4; top-K
    weights equal to phase 5's; no kernel launched), both inside
    ``comm.through_group``, so that at 1 rank every collective goes
-   through NCCL (the ops issued are counted and printed); the 2 ranks
+   through NCCL (the ops issued are counted and printed); the 1 and 4
+   ranks then run the stepwise surfaces on the same engine: a stream of
+   the bucket's first query (m = 3), its first 2 lanes as a deadline
+   bucket at 0 s and at 600 s, and an instrumented run of the first query
+   with the paper's Eq. 2 exit hook, each equal to phase 12's one-process
+   twin exactly (every ``StreamUpdate`` field; results, trees and
+   ``info``; the result and history rows), then the 2 lanes under half
+   the time their loop took, which every rank stops at the same superstep
+   mid-run with one state digest and sound bounds at most the exact
+   answers; ms a superstep of the stream, the deadline bucket and the
+   instrumented loop's four phases; the 2 ranks
    then run one dbrx-132b MoE
    layer at full width expert-parallel on a (data 1, model 2) mesh, x [4,
    2,048, 6,144] bf16 (ids, slots and kept assignments equal to the twin,
@@ -286,6 +302,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -352,6 +369,8 @@ SHARDS = 4                  # phase 12's shards, all on the one card
 SHARDED_CAP = 0.25          # phase 12's capped run: the default cap
 SMALL_SHARDED = (3001, 12000, 0.05)  # phase 12's small graph and its cap
 RANKS_DKS_WORLDS = (1, 2, 4)   # phase 18: 1 rank over NCCL, 2 and 4 over gloo
+RANKS_STEPWISE_WORLDS = (1, 4)  # of these, the ones that run the stepwise legs
+STEPWISE_LANES = 2          # the deadline legs' lanes: the bucket's first
 RANKS_TIMEOUT_S = 240       # each spawn of ranks: killed past it
 RANKS_SEED = 0              # phase 18's weights and gradients
 RANKS_REPS = 2              # calls of the MoE layer and the pipeline
@@ -1982,6 +2001,8 @@ def sharded_phase(dev, graph, index, bucket, singles, phase5,
     batch, t_batch = sharded_bucket(eng, bucket)
     t_batch /= 1e3
     twin4 = ([result_record(r) for r in batch], state_digest(batch))
+    # Phase 18's stepwise twin.
+    stepwise4 = stepwise_record(eng, bucket)
     single = []
     for q in singles:
         t0 = time.perf_counter()
@@ -2090,7 +2111,12 @@ def sharded_phase(dev, graph, index, bucket, singles, phase5,
     log(f"  peak device memory {peak / 2**30:.2f} GiB ({mem0 / 2**30:.2f} "
         f"GiB held before the phase); hand-written kernel launches "
         f"{launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "twin4": twin4,
+    log(f"  stepwise twin (phase 18's): a stream of {bucket[0]} "
+        f"{stepwise4['stream_ms']:.2f} ms a superstep, the first "
+        f"{STEPWISE_LANES} lanes as a deadline bucket "
+        f"{stepwise4['deadline_ms']:.2f} ms, the instrumented loop "
+        f"{fmt_ms(stepwise4['phases_ms'])} a superstep (host clock)")
+    return {"launches": launches, "twin4": twin4, "stepwise4": stepwise4,
             "summary": f"{steps} supersteps at {drv:.2f} ms each, "
                        f"{len(bounds)} capped lanes sound, {n_exact} exact "
                        f"served answers"}
@@ -3082,6 +3108,52 @@ def gnn_phase(dev, card: str) -> None:
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+CARD_FIELDS = "clocks.sm,clocks.mem,temperature.gpu,power.draw"
+# The active clock-limit reasons: newer drivers' name, then older ones'.
+REASON_FIELDS = ("clocks_event_reasons.active",
+                 "clocks_throttle_reasons.active")
+
+
+def query_card(fields: str) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30)
+
+
+@functools.lru_cache(maxsize=1)
+def card_fields() -> str:
+    """:data:`CARD_FIELDS` and the first of :data:`REASON_FIELDS` this
+    driver knows (probed once)."""
+    for name in REASON_FIELDS:
+        try:
+            if query_card(name).returncode == 0:
+                return f"{CARD_FIELDS},{name}"
+        except (OSError, subprocess.SubprocessError):
+            break
+    return CARD_FIELDS
+
+
+def card_state(what: str, meta: list) -> None:
+    """Log the card's clocks, temperature, power draw and clock-limit
+    reasons at a phase boundary, and whether phase 17's meta dry run is
+    running.  Logging only: a query that fails is logged as such and the
+    run goes on."""
+    fields = card_fields()
+    try:
+        got = query_card(fields)
+        state = (got.stdout.strip().splitlines() or ["(empty)"])[0] \
+            if got.returncode == 0 else \
+            f"not read (exit {got.returncode}: {got.stderr.strip()[:200]})"
+    except (OSError, subprocess.SubprocessError) as e:
+        state = f"not read ({e})"
+    if not meta:
+        dry = "not started"
+    else:
+        rc = meta[0][0].poll()
+        dry = "running" if rc is None else f"exited with {rc}"
+    log(f"  card at {what}: {fields} = {state}; meta dry run {dry}")
+
+
 def start_meta_dry_run() -> tuple[subprocess.Popen, Path]:
     """Phase 17's meta dry run (``launch/dryrun.py --device meta``, no
     card), started after phase 11 in its own process, at the lowest
@@ -3230,6 +3302,65 @@ def sharded_bucket(eng, bucket) -> tuple[list, float]:
     return res, (time.perf_counter() - t0) * 1e3
 
 
+def update_record(u) -> dict:
+    """Every field of a ``StreamUpdate``, arrays as lists."""
+    return {k: v.tolist() if hasattr(v, "tolist") else v
+            for k, v in dataclasses.asdict(u).items()}
+
+
+def stepwise_record(eng, bucket) -> dict:
+    """The stepwise surfaces on one sharded engine (phase 12's twin, or one
+    shard a rank): a stream of ``bucket[0]`` (m=3), the bucket's first
+    ``STEPWISE_LANES`` lanes as a deadline bucket at 0 s and at one no run
+    reaches, and an instrumented run of ``bucket[0]`` with the paper's
+    Eq. 2 exit hook.  ``held`` must equal the twin's exactly; the rest are
+    host times, ms a superstep."""
+    from repro_torch.core.fagin import paper_exit_hook
+
+    query, lanes = bucket[0], bucket[:STEPWISE_LANES]
+    t0 = time.perf_counter()
+    ups = list(eng.query_stream(query, k=BUCKET_K))
+    stream_ms = (time.perf_counter() - t0) * 1e3 / len(ups)
+    held = {"stream": [update_record(u) for u in ups]}
+    for d in (0.0, 600.0):
+        out = eng.query_deadline_batch(lanes, k=BUCKET_K, deadline_s=d)
+        held[f"deadline/{d}"] = [(result_record(r), info) for r, info in out]
+    loop_s = out[0][0].wall_time_s    # 600 s: the loop, not the extraction
+    masks, _ = eng._masks(query)
+    hook = paper_exit_hook(eng.graph, masks,
+                           eng._config(BUCKET_M, BUCKET_K), eng._e_min,
+                           graph=eng.device_graph)
+    res, info = eng.query_instrumented(query, k=BUCKET_K, exit_hook=hook)
+    held["instrumented"] = (result_record(res), info["history"])
+    steps = held["deadline/600.0"][0][1]["driver_supersteps"]
+    return {"held": held, "stream_ms": stream_ms,
+            "deadline_ms": loop_s * 1e3 / (steps + 1), "loop_s": loop_s,
+            "phases_ms": {name: t * 1e3 / res.supersteps
+                          for name, t in info["timings"].items()}}
+
+
+def rank_stepwise(device, eng, bucket) -> dict:
+    """The stepwise surfaces on one shard a rank (:func:`stepwise_record`),
+    then the deadline bucket under half the time its loop took (the
+    slowest rank's): the ranks' shared stop interrupts it mid-run."""
+    from repro_torch.distributed import comm
+
+    rec = stepwise_record(eng, bucket)
+    half = float(comm.pmax(torch.tensor(rec["loop_s"], dtype=torch.float64,
+                                        device=device),
+                           mesh=eng.device_graph.mesh)) / 2
+    out = eng.query_deadline_batch(bucket[:STEPWISE_LANES], k=BUCKET_K,
+                                   deadline_s=half, extract=False,
+                                   keep_state=True)
+    rec["mid_run"] = {"deadline_s": half,
+                      "steps": [info["driver_supersteps"] for _, info in out],
+                      "interrupted": [info["interrupted"] for _, info in out],
+                      "sound": [info["sound_opt_lower_bound"]
+                                for _, info in out],
+                      "digest": state_digest([r for r, _ in out])}
+    return rec
+
+
 def rank_comm(device) -> None:
     """Every collective of ``comm`` and its backward, through the group
     even at one rank, against its one-process definition on every rank's
@@ -3283,10 +3414,12 @@ def rank_comm(device) -> None:
         held("psum of int64", comm.psum(big[r], mesh=mesh), sum(big))
 
 
-def rank_dks(device, graph, index, bucket) -> dict:
+def rank_dks(device, graph, index, bucket, stepwise: bool = False
+             ) -> dict:
     """One shard a rank: ``comm``'s collectives held, then the bucket
-    through the sharded engine, every collective through the group (at
-    one rank too)."""
+    through the sharded engine and, with ``stepwise``, the stepwise
+    surfaces (:func:`rank_stepwise`), every collective through the group
+    (at one rank too)."""
     from repro_torch.core.dks_sharded import frontier_cap
     from repro_torch.distributed import comm
     from repro_torch.engine import ExecutionPolicy, QueryEngine
@@ -3310,15 +3443,21 @@ def rank_dks(device, graph, index, bucket) -> dict:
     comm.issued.clear()
     with comm.through_group():
         res, ms = sharded_bucket(eng, bucket)
+    issued = dict(comm.issued)
+    if stepwise:
+        with comm.through_group():
+            steps = rank_stepwise(device, eng, bucket)
     out = {**rank_header(device), "ms": ms, "peak": peak_bytes(device),
            "driver_ms": res[0].wall_time_s * 1e3,
-           "issued": dict(comm.issued), "checked": checked,
+           "issued": issued, "checked": checked,
            "launches": sum(ops.launches for ops in kernels),
            "results": [result_record(r) for r in res],
            "f_cap": frontier_cap(fg, policy.dks_config(BUCKET_M, BUCKET_K)),
            "n_loc": fg.n_loc}
     if comm.rank() == 0:
         out["digest"] = state_digest(res)
+    if stepwise:
+        out["stepwise"] = steps
     return out
 
 
@@ -3515,12 +3654,64 @@ def ranks_line(what: str, outs: list, card: str, extra: str = "") -> None:
         f"[{card}; one card shared by the ranks: not a multi-card time]")
 
 
+def fmt_ms(phases: dict) -> str:
+    return ", ".join(f"{name} {ms:.2f}" for name, ms in phases.items()) \
+        + " ms"
+
+
+def stepwise_held(world: int, outs: list, twin: dict, card: str) -> None:
+    """Phase 18's stepwise legs at ``world`` ranks against phase 12's
+    one-process twin (``twin``): every stream update, the deadline
+    buckets' results and ``info`` and the instrumented run's result and
+    history exactly; the mid-run deadline stopped every rank at the same
+    superstep with the same state, its sound bounds below the exact
+    answers."""
+    for r, out in enumerate(outs):
+        for what, want in twin["held"].items():
+            check(out["stepwise"]["held"][what] == want,
+                  f"stepwise {what}, rank {r} of {world}: differs from the "
+                  f"twin")
+    mids = [out["stepwise"]["mid_run"] for out in outs]
+    head = mids[0]
+    full = twin["held"]["deadline/600.0"]
+    for r, mid in enumerate(mids):
+        check(mid["steps"] == head["steps"] and mid["digest"] ==
+              head["digest"], f"mid-run deadline, rank {r} of {world}: "
+              f"{mid['steps']} supersteps or its state differ from rank 0's")
+    steps = head["steps"][0]
+    check(0 < steps < full[0][1]["driver_supersteps"] and
+          any(head["interrupted"]),
+          f"the deadline at {head['deadline_s']:.4f} s stopped at "
+          f"superstep {steps} of {full[0][1]['driver_supersteps']}: not "
+          f"mid-run")
+    for lb, (rec, _) in zip(head["sound"], full):
+        check(lb <= rec["weights"][0], f"mid-run sound bound {lb} above "
+              f"the exact {rec['weights'][0]}")
+    n_up = len(twin["held"]["stream"])
+    hist = len(twin["held"]["instrumented"][1])
+    slowest = max(outs, key=lambda o: o["stepwise"]["stream_ms"])
+    log(f"  stepwise at {world} rank(s): a stream of {n_up - 1} supersteps,"
+        f" the deadline bucket of {STEPWISE_LANES} lanes at 0 s and 600 s "
+        f"and an instrumented run of {hist} supersteps with the paper's "
+        f"exit hook == the twin exactly; a deadline of "
+        f"{head['deadline_s']:.4f} s stopped every rank at superstep "
+        f"{steps} with one state digest. ms a superstep (slowest rank, "
+        f"host clock): stream {slowest['stepwise']['stream_ms']:.2f} "
+        f"(twin {twin['stream_ms']:.2f}), deadline bucket "
+        f"{max(o['stepwise']['deadline_ms'] for o in outs):.2f} (twin "
+        f"{twin['deadline_ms']:.2f}), instrumented "
+        f"{fmt_ms(slowest['stepwise']['phases_ms'])} (twin "
+        f"{fmt_ms(twin['phases_ms'])}) [{card}; one card shared by the "
+        f"ranks: not a multi-card time]")
+
+
 def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
-                twin4) -> dict:
-    """Phase 18: DKS's frontier exchange, expert-parallel MoE, GPipe and
-    the int8 ring across ranks, each against its twin on the card.
-    ``twin4``: phase 12's 4-shard records and state digest.  Returns the
-    flash launches of the pipeline's ranks and a summary."""
+                twin4, stepwise4) -> dict:
+    """Phase 18: DKS's frontier exchange and its stepwise surfaces,
+    expert-parallel MoE, GPipe and the int8 ring across ranks, each
+    against its twin on the card.  ``twin4``: phase 12's 4-shard records
+    and state digest; ``stepwise4``: its :func:`stepwise_record`.  Returns
+    the flash launches of the pipeline's ranks and a summary."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed.ranks import run_ranks
     from repro_torch.engine import ExecutionPolicy, QueryEngine
@@ -3555,7 +3746,8 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
                          (ring_shapes(ring_cfg),))
             spawned[world] = [out["dks"] for out in pair]
         else:
-            spawned[world] = spawn(rank_dks, world, graph, index, bucket)
+            spawned[world] = spawn(rank_dks, world, graph, index, bucket,
+                                   world in RANKS_STEPWISE_WORLDS)
         log(f"  {world} rank(s) spawned, ran and joined in "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -3604,6 +3796,8 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
                    f"superstep, collectives issued through the group "
                    f"{outs[0]['issued']}; {moved}; results, state fields "
                    f"== twin, top-K == phase 5")
+        if world in RANKS_STEPWISE_WORLDS:
+            stepwise_held(world, outs, stepwise4, card)
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -3716,7 +3910,9 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
                f"leaves; reduced values and error state bit-equal to the "
                f"twin")
     return {"pp_launches": launches,
-            "summary": f"DKS at {list(RANKS_DKS_WORLDS)} ranks == twin; "
+            "summary": f"DKS at {list(RANKS_DKS_WORLDS)} ranks == twin, "
+                       f"its stepwise surfaces at "
+                       f"{list(RANKS_STEPWISE_WORLDS)}; "
                        f"MoE, GPipe, int8 ring held; phase "
                        f"{time.perf_counter() - t_phase:.1f} s"}
 
@@ -3758,6 +3954,7 @@ def phases(meta: list) -> int:
     from repro_torch.kernels.segment_minplus import ops as sm_ops
     from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
 
+    card_state("phase 1 start", meta)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -3766,6 +3963,8 @@ def phases(meta: list) -> int:
     log(f"[1/18] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
+
+    card_state("phase 1 end, phase 2 start", meta)
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
@@ -3785,6 +3984,8 @@ def phases(meta: list) -> int:
     counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
     check(all(counts.values()), f"flash_attention's SASS lacks {counts}")
     log(f"  flash_attention SASS (cuobjdump): {counts}")
+
+    card_state("phase 2 end, phase 3 start", meta)
 
     # ---------------- 3. kernels vs plain ----------------
     errs = {"subset_combine": 0.0, "lane_superstep": 0.0,
@@ -3909,6 +4110,8 @@ def phases(meta: list) -> int:
     del st, ls_args, ls_out, S_pre
     log("[3/18] kernels == plain versions at the main path's shapes")
 
+    card_state("phase 3 end, phase 4 start", meta)
+
     # ---------------- 4. oracle ----------------
     for seed in range(6):
         r = np.random.default_rng(seed)
@@ -3927,6 +4130,8 @@ def phases(meta: list) -> int:
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
     log("[4/18] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+
+    card_state("phase 4 end, phase 5 start", meta)
 
     # ---------------- 5. main path ----------------
     del dg, masks
@@ -4048,6 +4253,8 @@ def phases(meta: list) -> int:
         f"records == plain walk")
     del S_b, kw_b, flat_b, bt_args, recs, plain
 
+    card_state("phase 5 end, phase 6 start", meta)
+
     # ---------------- 6. LM serving ----------------
     # The engines stay for phase 9 (serving); their states go.
     del runs, batch, single, g_small, dg_small
@@ -4060,6 +4267,8 @@ def phases(meta: list) -> int:
     log(f"[6/18] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
+
+    card_state("phase 6 end, phase 7 start", meta)
 
     # ---------------- 7. recsys serving ----------------
     gc.collect()
@@ -4075,6 +4284,8 @@ def phases(meta: list) -> int:
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
+    card_state("phase 7 end, phase 8 start", meta)
+
     # ---------------- 8. padded-CSR relax ----------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4083,6 +4294,8 @@ def phases(meta: list) -> int:
     errs["padded_topk"] = max(errs["padded_topk"], err)
     log(f"[8/18] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
+
+    card_state("phase 8 end, phase 9 start", meta)
 
     # ---------------- 9. serving ----------------
     gc.collect()
@@ -4094,12 +4307,16 @@ def phases(meta: list) -> int:
     log(f"  card: {card}")
     del engines
 
+    card_state("phase 9 end, phase 10 start", meta)
+
     # ---------------- 10. store and live graphs ----------------
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
     log(f"[10/18] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
+
+    card_state("phase 10 end, phase 11 start", meta)
 
     # ---------------- 11. MoE and the int8 KV cache ----------------
     gc.collect()
@@ -4113,6 +4330,8 @@ def phases(meta: list) -> int:
     log(f"  card: {card}")
     meta.append(start_meta_dry_run())
 
+    card_state("phase 11 end, phase 12 start", meta)
+
     # ---------------- 12. sharded partition ----------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4120,6 +4339,8 @@ def phases(meta: list) -> int:
                             per_step)
     log(f"[12/18] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
         f" backend=torch) == phase 5; {sharded['summary']}")
+
+    card_state("phase 12 end, phase 13 start", meta)
 
     # ---------------- 13. training ----------------
     gc.collect()
@@ -4131,6 +4352,8 @@ def phases(meta: list) -> int:
         f"the grouped lookup ({trained['launches']} launches); the smoke "
         f"steps card == CPU")
 
+    card_state("phase 13 end, phase 14 start", meta)
+
     # ---------------- 14. bluk-bnb ----------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4141,6 +4364,8 @@ def phases(meta: list) -> int:
         f"{bluk['launches']}; the three DKS kernels == plain versions at its "
         f"shapes; the torch twin's lanes == cuda's")
     log(f"  card: {card}")
+
+    card_state("phase 14 end, phase 15 start", meta)
 
     # ---------------- 15. GNN ----------------
     from repro_torch.kernels.embedding_bag import ops as eb_ops
@@ -4162,6 +4387,8 @@ def phases(meta: list) -> int:
         f"{gnn_launches} (no pallas_call on this path)")
     log(f"  card: {card}")
 
+    card_state("phase 15 end, phase 17 start", meta)
+
     # ---------------- 17. accounting ----------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4171,13 +4398,17 @@ def phases(meta: list) -> int:
         f"within {PEAK_TOL:.0%} or {PEAK_SLACK / 2 ** 30} GiB of meta's, "
         f"FLOPs == meta's, mfu and hbm_share <= {SHARE_LIMIT}")
 
+    card_state("phase 17 end, phase 18 start", meta)
+
     # ---------------- 18. several ranks ----------------
     gc.collect()
     torch.cuda.empty_cache()
     ranks = ranks_phase("cuda", card, graph, index, bucket, phase5,
-                        sharded["twin4"])
+                        sharded["twin4"], sharded["stepwise4"])
     log(f"[18/18] several ranks: {ranks['summary']}")
     log(f"  card: {card}")
+
+    card_state("phase 18 end, phase 16 start", meta)
 
     # ---------------- 16. kernels line ----------------
     sources = {"subset_combine": ("src/repro_torch/csrc/subset_combine.cu",

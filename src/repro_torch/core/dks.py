@@ -126,6 +126,22 @@ def across_nodes(graph: Any, x: torch.Tensor, op: str) -> torch.Tensor:
         x, mesh=mesh)
 
 
+def node_rows(graph: Any, S: torch.Tensor, nodes: list[int]
+              ) -> torch.Tensor:
+    """Rows ``S[nodes]`` of one lane's table ``[rows, 2^m, K]`` (``nodes``:
+    global ids), whole on every rank.  On a graph split across the ranks
+    of a mesh each rank fills the rows it holds and INF elsewhere, and a
+    min over the ranks gives every rank the owner's rows: a few rows cross
+    the wire, never the table."""
+    lo = getattr(graph, "node_lo", 0)
+    held = S.shape[0]
+    idx = torch.tensor(nodes, dtype=torch.long, device=S.device) - lo
+    mine = (idx >= 0) & (idx < held)
+    rows = S[idx.clamp(0, held - 1)]
+    rows = torch.where(mine[:, None, None], rows, torch.full_like(rows, INF))
+    return across_nodes(graph, rows, "min")
+
+
 def init_state(graph: DeviceGraph, kw_masks: torch.Tensor,
                cfg: DKSConfig) -> DKSState:
     """Superstep 0 for ``L`` lanes (``kw_masks``: bool[L, m, V]):
@@ -563,9 +579,12 @@ def host_instrumented_loop(
     ``aux`` is what the relax hands forward (the per-edge candidates on
     the dense path; ``(R, overflow)`` on the sharded one).
     ``exit_hook``: an optional host-side exit criterion evaluated between
-    supersteps on the 1-lane state.  Per-superstep rows accumulate on a
-    :class:`HostTelemetryCollector`; ``info`` carries ``timings``,
-    ``history`` (the collector's rows) and ``telemetry``.
+    supersteps on the 1-lane state (on a graph split across ranks, this
+    rank's rows of it: the hook must answer the same on every rank, as
+    :func:`repro_torch.core.fagin.paper_exit_hook` does).  Per-superstep
+    rows accumulate on a :class:`HostTelemetryCollector`; ``info``
+    carries ``timings``, ``history`` (the collector's rows) and
+    ``telemetry``.
     """
     timings = {"send_bfs": 0.0, "receive": 0.0, "evaluate": 0.0,
                "send_agg": 0.0}
@@ -603,7 +622,8 @@ def host_instrumented_loop(
         timings["evaluate"] += t3 - t2
         timings["send_agg"] += t4 - t3
         collector.record(
-            frontier=int(state.changed[0].sum()),
+            frontier=int(across_nodes(graph, state.changed[0].sum(),
+                                      "sum")),
             msgs_bfs=float(state.msgs_bfs[0]),
             msgs_deep=float(state.msgs_deep[0]),
             frozen=int(state.done.sum()),

@@ -37,7 +37,8 @@ shards, and the shard bodies run batched over its leading shard axis:
 The lane axis stays inside the shard body, so a bucket of queries shares
 one exchange per superstep.  The driver gathers a rank's node tables at
 the end of a run (:func:`gather_state`), as ``repro``'s host collector
-reads the whole sharded array, so extraction is the twin's.
+reads the whole sharded array, so extraction is the twin's; the stepwise
+surfaces gather one lane when it freezes or is interrupted.
 """
 
 from __future__ import annotations
@@ -364,12 +365,13 @@ def run_dks_frontier_instrumented(
     "send_bfs", as in ``repro``, whose ``shard_map`` fuses them; "receive"
     is the top-K merge of what arrived; "evaluate" (subset combine) and
     "send_agg" (aggregators, exit check, overflow) match the dense
-    buckets.  Single-process only: its history reads node tables each
-    superstep."""
-    if graph.mesh is not None:
-        raise NotImplementedError(
-            "the instrumented loop runs on the single-process twin only")
-    return host_instrumented_loop(
+    buckets.  On a graph split across ranks every rank runs the loop on
+    its shard: the history's frontier is a sum over the ranks, the hook
+    sees this rank's rows, and the final state is gathered whole, as
+    :func:`~repro_torch.core.driver.run_lanes` ends."""
+    from repro_torch.core.driver import whole_state
+
+    state, info = host_instrumented_loop(
         graph, kw_masks, cfg, exit_hook,
         phase_relax=lambda S, changed: relax_frontier_lanes(
             graph, S, changed, cfg),
@@ -377,3 +379,4 @@ def run_dks_frontier_instrumented(
         phase_combine=lambda S: combine(S, cfg),
         phase_agg=lambda S0, state, aux: finish_superstep(
             graph, S0, state, cfg, overflow=aux[1]))
+    return whole_state(graph, state), info

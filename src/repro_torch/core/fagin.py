@@ -6,7 +6,8 @@ The paper's literal Eq. 2 needs, per keyword-set, the largest
 requires decomposing each answer tree.  In Giraph this runs in the master
 between supersteps; here it is a host-side ``exit_hook`` for
 :func:`repro_torch.core.dks.run_dks_instrumented` and its sharded twin
-(``QueryEngine.query_instrumented`` on either partitioning).
+(``QueryEngine.query_instrumented`` on either partitioning, one process
+or one shard a rank).
 
 The driver's own exit is the sound on-device bound of
 ``spa.nu_lower_bound``; the tests check that neither criterion ever misses
@@ -15,10 +16,12 @@ an optimum.
 
 from __future__ import annotations
 
+from typing import Any
+
 import numpy as np
 
 from repro_torch import INF
-from repro_torch.core.dks import DKSConfig, DKSState
+from repro_torch.core.dks import DKSConfig, DKSState, node_rows
 from repro_torch.graph.structure import Graph
 
 
@@ -31,7 +34,8 @@ def constituent_lengths(
 ) -> dict[int, float]:
     """Top-level decomposition of an answer at ``root`` into constituent
     keyword-sets and their path-lengths (the ``L`` set of Step 3).
-    ``S``: one query's table [V, 2^m, K] on the host."""
+    ``S``: node tables [rows, 2^m, K] on the host, of which only row
+    ``root`` is read."""
     m = kw_masks.shape[0]
     full = (1 << m) - 1
     out: dict[int, float] = {}
@@ -62,22 +66,34 @@ def constituent_lengths(
 
 
 def paper_exit_hook(g: Graph, kw_masks: np.ndarray, cfg: DKSConfig,
-                    e_min: float):
+                    e_min: float, graph: Any = None):
     """Literal paper Eq. 2: exit when for every keyword-set with an entry in
     L_n, the estimated next-superstep frontier minimum exceeds it.  The
-    hook reads lane 0 of the 1-lane state the instrumented loop hands it."""
+    hook reads lane 0 of the 1-lane state the instrumented loop hands it,
+    and of its table only the rows of the top-K roots.  ``graph``: the
+    device graph the state runs on; on a
+    :class:`~repro_torch.core.dks_sharded.FrontierGraph` split across
+    ranks the roots' rows come over its mesh, so every rank answers the
+    same."""
 
     def hook(state: DKSState) -> bool:
         topk_w = state.topk_w[0].cpu().numpy()
         topk_root = state.topk_root[0].cpu().numpy()
         if np.sum(topk_w < INF) < cfg.k:
             return False
-        S = state.S[0].cpu().numpy()
+        if graph is None and state.S.shape[1] < g.n_nodes:
+            raise ValueError(
+                "the state holds some of the node rows: pass graph=, the "
+                "device graph split across ranks")
+        roots = sorted({int(r) for w, r in zip(topk_w, topk_root)
+                        if w < INF and r >= 0})
+        rows = node_rows(graph, state.S[0], roots).cpu().numpy()
         L: dict[int, float] = {}
         for w, r in zip(topk_w, topk_root):
             if w >= INF or r < 0:
                 continue
-            for ks, ln in constituent_lengths(S, g, kw_masks, int(r),
+            for ks, ln in constituent_lengths(rows, g, kw_masks,
+                                              roots.index(int(r)),
                                               float(w)).items():
                 L[ks] = max(L.get(ks, 0.0), ln)
         s_front = state.s_front[0].cpu().numpy()

@@ -41,11 +41,16 @@ packs one shard per rank over the ambient mesh (or, without one, a
 ``("data",)`` mesh of the whole group), as ``repro`` shards over its
 mesh: every rank builds the engine and calls ``query`` / ``query_batch``
 with the same arguments, the ranks exchange their frontiers each
-superstep, and every rank gets the same result.  The stepwise surfaces
-(streams, deadlines, the instrumented loop) read node tables between
-supersteps and run on one process only.  Without a group, every shard
-lives on the engine's device (the single-process twin) and every surface
-runs on it unchanged.
+superstep, and every rank gets the same result.  So do the stepwise
+surfaces (streams, deadlines, the instrumented loop): between supersteps
+they read only what every rank already holds alike (``done``, the top-K,
+the frontier minima) or sums over the ranks (the frontier), a deadline
+stops every rank at once (:meth:`_agreed`), and one lane's tables are
+gathered when it freezes or is interrupted.  A host-side choice the
+caller makes between supersteps (``until``, an ``exit_hook``, leaving a
+stream early) must be the same on every rank.  Without a group, every
+shard lives on the engine's device (the single-process twin) and every
+surface runs on it unchanged.
 """
 
 from __future__ import annotations
@@ -61,11 +66,13 @@ import torch
 
 from repro_torch import INF
 from repro_torch.answers.batched import BatchedBacktracer
-from repro_torch.core.dks import DKSConfig, DKSState, run_dks_instrumented
+from repro_torch.core.dks import (DKSConfig, DKSState, across_nodes,
+                                  run_dks_instrumented)
 from repro_torch.core.dks_sharded import (FrontierGraph, pack_frontier_graph,
                                           run_dks_frontier_instrumented)
 from repro_torch.core.driver import (lane_init, lane_superstep, lane_view,
-                                     run_lanes, run_lanes_telemetry)
+                                     run_lanes, run_lanes_telemetry,
+                                     whole_state)
 from repro_torch.core.reconstruct import collect_answers
 from repro_torch.core.spa import nu_lower_bound, spa_cover_dp, spa_ratio
 from repro_torch.device import resolve_device
@@ -490,6 +497,7 @@ class QueryEngine:
                 break
         dt = time.perf_counter() - t0
         assert state is not None
+        state = whole_state(self.device_graph, state)
         return self._make_result(keywords, masks, state, cfg, dt, extract,
                                  keep_state, unmatched=unmatched,
                                  own_time_s=dt, interrupted=interrupted)
@@ -544,7 +552,9 @@ class QueryEngine:
         ``n_real`` are padding lanes and come back as None.  A lane that
         freezes has a final table, so its host tree reconstruction starts
         on a worker thread at once (:class:`~repro_torch.answers.
-        ExtractionOverlap`) while the driver steps the rest.
+        ExtractionOverlap`) while the driver steps the rest.  On a graph
+        split across ranks the budget is every rank's: the first rank past
+        it stops them all at the same superstep (:meth:`_agreed`).
         """
         queries = [list(q) for q in queries]
         if not queries:
@@ -568,6 +578,9 @@ class QueryEngine:
         deadline_t = t0 + max(deadline_s, 0.0)
         state = self._execute(lane_init, self._device_masks(masks), cfg)
         own_t: list[float | None] = [None] * len(queries)
+        # Lanes with their node tables whole, taken when they freeze (a
+        # frozen lane's state no longer changes).
+        whole: dict[int, DKSState] = {}
         driver_steps = 0
         while True:
             done = state.done.cpu().numpy()
@@ -579,9 +592,10 @@ class QueryEngine:
                     # time, while the driver keeps stepping the others.
                     own_t[i] = now - t0
                     if overlap is not None and best[i] < INF:
-                        overlap.submit(i, state.S[i, : self.n_nodes],
+                        whole[i] = self._whole_lane(state, i)
+                        overlap.submit(i, whole[i].S[0, : self.n_nodes],
                                        masks[i][:, : self.n_nodes])
-            if done[:n_real].all() or now >= deadline_t:
+            if done[:n_real].all() or self._agreed(now >= deadline_t):
                 break
             state = self._execute(lane_superstep, state, cfg)
             driver_steps += 1
@@ -591,7 +605,8 @@ class QueryEngine:
             if i >= n_real:
                 out.append(None)
                 continue
-            lane = lane_view(state, i)
+            part = lane_view(state, i)
+            lane = whole[i] if i in whole else self._whole_lane(state, i)
             answers_pre = None
             if overlap is not None and float(lane.topk_w[0, 0]) < INF:
                 # Overlapped result for frozen lanes; inline best-so-far
@@ -602,7 +617,7 @@ class QueryEngine:
             interrupted = not bool(lane.done[0])
             forced = bool(lane.budget_hit[0]) or bool(lane.capped[0])
             if interrupted or forced:
-                bounds = self._state_bounds(lane, cfg)
+                bounds = self._state_bounds(part, cfg)
                 spa = bounds.spa
                 sound_lb = bounds.sound_lb
                 # The reported bound folds in the sound facts.
@@ -635,7 +650,8 @@ class QueryEngine:
 
     def _state_bounds(self, state: DKSState, cfg: DKSConfig) -> _StateBounds:
         """One 1-lane state's lower-bound facts, shared by the stream and
-        deadline paths.
+        deadline paths (on a graph split across ranks, this rank's rows of
+        the state: the frontier is summed over the ranks).
 
         ``opt_lb`` is the paper's reported bound — max of min(best, spa)
         and min(best, nu) — and ``sound_lb`` keeps the provable facts
@@ -651,7 +667,8 @@ class QueryEngine:
         nu_full = float(nu_lower_bound(g, e_min, cfg.m)[cfg.full])
         shat = torch.clamp(state.s_front[0].cpu() + self._e_min, max=INF)
         spa = float(spa_cover_dp(shat, cfg.m))
-        frontier = int(state.changed[0].sum())
+        frontier = int(across_nodes(self.device_graph,
+                                    state.changed[0].sum(), "sum"))
         opt_lb = max(min(best, spa), min(best, nu_full))
         sound_lb = min(best, nu_full)
         forced = bool(state.budget_hit[0]) or bool(state.capped[0])
@@ -718,7 +735,9 @@ class QueryEngine:
         ``timings``, ``history`` and ``telemetry``.  On a sharded engine
         the pack, the frontier exchange and the edge relax all land in
         "send_bfs" (:func:`~repro_torch.core.dks_sharded.
-        run_dks_frontier_instrumented`)."""
+        run_dks_frontier_instrumented`); split across ranks, the hook sees
+        this rank's rows (``paper_exit_hook(..., graph=engine.
+        device_graph)``)."""
         run_fn = (run_dks_frontier_instrumented
                   if isinstance(self.device_graph, FrontierGraph)
                   else run_dks_instrumented)
@@ -772,14 +791,23 @@ class QueryEngine:
     def _prepare(self, cfg: DKSConfig, kind: str) -> None:
         """Count an executor's first use, as ``repro`` counts its jit
         traces: 1 for "fused", 2 for the "stepwise" pair, once per
-        config.  The stepwise surfaces need the whole node tables between
-        supersteps, so a graph split across ranks refuses them."""
-        if kind == "stepwise" and getattr(self.device_graph, "mesh",
-                                          None) is not None:
-            raise NotImplementedError(
-                "streams and deadlines run on one process: a graph split "
-                "across ranks serves query and query_batch")
+        config."""
         self._trace_counts.setdefault((cfg, kind), self._KINDS[kind])
+
+    def _whole_lane(self, state: DKSState, i: int) -> DKSState:
+        """Lane ``i`` with its node tables whole: that one lane gathered
+        over the ranks of a split graph, else a view."""
+        return whole_state(self.device_graph, lane_view(state, i))
+
+    def _agreed(self, flag: bool) -> bool:
+        """A host decision every rank takes together: on a graph split
+        across ranks, true on all as soon as it is true on one (a max over
+        the mesh), so that no rank steps a superstep the others skip."""
+        mesh = getattr(self.device_graph, "mesh", None)
+        if mesh is None:
+            return flag
+        return bool(comm.pmax(torch.tensor(flag, device=self.device),
+                              mesh=mesh))
 
     def _config(self, m: int, k: int, **overrides) -> DKSConfig:
         if m < 1:

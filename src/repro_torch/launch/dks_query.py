@@ -23,7 +23,8 @@ superstep::
         --partition sharded --dataset sec-rdfabout
 
 (one card a rank over NCCL; ``--device cpu`` runs the ranks on the CPU
-over gloo).  Every rank answers the same query; only rank 0 prints.
+over gloo).  Every rank answers the same query, ``--stream`` included;
+only rank 0 prints.  ``--explain`` stays in one process.
 ``--artifact PATH`` mmap-loads a
 graph-store artifact (``python -m repro_torch.launch.ingest`` writes one;
 so does ``repro.launch.ingest``: the format is shared) instead of
@@ -187,8 +188,10 @@ def main(argv: list[str] | None = None) -> int:
         if args.partition != "sharded":
             ap.error("under torchrun the query runs --partition sharded, "
                      "one shard per rank")
-        if args.stream or args.explain:
-            ap.error("--stream and --explain run in one process")
+        if args.explain:
+            ap.error("--explain serves through DKSService, which runs in "
+                     "one process: across ranks, followers on the ranks "
+                     "above 0 would have to replay rank 0's batches")
         args.device = comm.init_from_env(
             "cpu" if args.device == "cpu" else "cuda")
     try:

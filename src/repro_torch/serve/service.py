@@ -255,6 +255,12 @@ class DKSService:
 
     def __init__(self, engine: QueryEngine,
                  config: ServeConfig | None = None) -> None:
+        if getattr(engine.device_graph, "mesh", None) is not None:
+            raise NotImplementedError(
+                "DKSService serves from one process: on a graph split "
+                "across ranks every rank must run the same batches, which "
+                "needs followers on the ranks above 0 that replay rank 0's "
+                "batches; query the engine on every rank instead")
         self.engine = engine
         self.config = config or ServeConfig()
         self._cache = ResultCache(self.config.cache_size)

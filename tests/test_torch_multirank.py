@@ -8,7 +8,9 @@ kills the ranks and fails the test).  ``repro``'s side runs through
 ``tests.test_distributed.run_in_subprocess`` with 8 forced host devices,
 started once per module and read by each test after its own ranks ran.
 Tolerance: none.  Every rank, the twin and ``repro`` agree exactly,
-overflow and ``budget_hit`` included, at 2 and 4 ranks.
+overflow and ``budget_hit`` included, at 2 and 4 ranks.  ``DKSService``
+refuses a graph split across ranks and says why.  The stepwise surfaces
+across ranks are ``tests/test_torch_multirank_stepwise.py``'s.
 """
 
 import concurrent.futures
@@ -26,6 +28,7 @@ from repro_torch.distributed.ranks import run_ranks
 from repro_torch.engine import ExecutionPolicy, QueryEngine
 from repro_torch.graph import generators as gen
 from repro_torch.graph.index import InvertedIndex
+from repro_torch.serve import DKSService
 
 RANKS_TIMEOUT_S = 120
 RESULT_FIELDS = ("m", "k", "kw_nodes", "supersteps", "msgs_bfs",
@@ -89,14 +92,9 @@ def _dks_ranks(device, n_shards):
     out, eng, toks = dks_cases(None, device)
     assert eng.device_graph.n_shards == n_shards
     assert eng.device_graph.n_held == 1
-    refused = 0
-    for surface in (lambda: list(eng.query_stream([3], k=1)),
-                    lambda: eng.query_instrumented([3], k=1)):
-        try:
-            surface()
-        except NotImplementedError:
-            refused += 1
-    out["refused"] = refused
+    with pytest.raises(NotImplementedError) as refused:
+        DKSService(eng)
+    out["refused"] = str(refused.value)
     return jsonable(out)
 
 
@@ -149,7 +147,7 @@ def test_sharded_engine_across_ranks_equals_repro_and_the_twin(
     assert eng.device_graph.n_held == world
     twin = jsonable(twin)
     for out in ranks:
-        assert out.pop("refused") == 2
+        assert "replay rank 0's batches" in out.pop("refused")
         assert out == ranks[0]
     assert ranks[0] == twin
     assert ranks[0] == repro_dks.result()[str(world)]
