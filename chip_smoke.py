@@ -278,7 +278,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    position within 5e-2 x max |logit| of the plain forward, one f32 GPipe step
    at the smoke size against the plain step on the CPU within 1e-4, and
    the int8 ring all-reduce over DCN-v2's gradient tree (474,538,191
-   f32), reduced values and error state bit-equal to the twin.  Each
+   f32), reduced values and error state bit-equal to the twin, then the
+   transformer's tensor parallelism on a (data 1, model 2) mesh
+   (``TP_MESH``): ChatGLM3-6B at full width and depth from phase 6's
+   seed, built at ``tp=2`` and cut to each rank (``shard_lm``), a bf16
+   prefill of 1 x 2,048 (``TP_BATCH``) through the flash kernel on each
+   rank's heads (one launch a layer a rank) with the residual split on
+   the sequence, run twice (the first call cold, the second timed warm),
+   ``TP_DECODE`` decode steps teacher-forced by phase 6's second request
+   against a cache split on the sequence and ``TP_QUANT_STEPS`` int8
+   steps (the first step of each timed apart, cold), the logits within
+   5e-2 x max |logit| of the whole model's on one process and the int8
+   logits within atol = rtol = 0.25 of its int8 decode; granite at full
+   width and 4 layers in f32, a prefill of 4 x 2,048 (the vocabulary
+   padded to 49,156, the prefill's MoE through ``_moe_sharded`` on each
+   rank's sequence block, the decode's through ``_moe_dense_all``),
+   within 1e-4 x max of the one-process twin padded to the same ``tp``
+   whose MoE runs the same dispatch (:func:`mesh_dispatch`), at 2 ranks
+   and again at the 1-rank NCCL spawn inside ``through_group`` (its
+   reduce-scatters, all-gathers and all_to_alls counted); two f32 smoke
+   train steps at ``tp=2`` within 1e-4 of each leaf's largest magnitude
+   of the same steps on the CPU.  Each
    path prints world size, backend, the ops staged through host memory
    (``comm.staged_ops``: none under NCCL), ms and peak
    memory a rank beside the card's name and power limit; one card shared
@@ -292,8 +312,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    granite's shape; the bag row's ``train_launches`` phase 13's DCN-v2
    steps; the DKS rows' ``bluk_launches`` and ``bluk_shape`` phase 14's;
    ``gnn_launches`` phase 15's, all 0; ``accounting_launches`` phase
-   17's; the flash row's ``ranks_launches`` phase 18's pipeline ranks),
-   error, times and bound.
+   17's; the flash row's ``ranks_launches`` phase 18's, by leg: the
+   pipeline's and the tensor-parallel legs' ranks), error, times and
+   bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -376,6 +397,24 @@ RANKS_SEED = 0              # phase 18's weights and gradients
 RANKS_REPS = 2              # calls of the MoE layer and the pipeline
 RANKS_MOE_ARCH, RANKS_MOE_X = "dbrx-132b", (4, 2048)   # one MoE layer
 PP_STAGES, PP_MICRO, PP_ATTN = 2, 4, "cuda"   # GPipe over LM_ARCH
+TP_MESH = (1, 2)            # phase 18's tensor-parallel legs: (data, model)
+# ChatGLM3's tp leg: its prompts' rows (of phase 6's first request) and
+# teacher-forced bf16 / int8 decode steps, cut from 4 rows and 8 steps to
+# keep the script inside its limit.
+TP_BATCH, TP_DECODE, TP_QUANT_STEPS = 1, 4, 4
+TP_QUANT_SEQ, TP_CHUNK = 4096, 2048   # the int8 cache: 2,048 positions a rank
+TP_MOE_LAYERS = 4           # granite's depth in the tp legs (of 32)
+# granite's tp legs run in f32, held x max |logit| against the one-process
+# twin with the same MoE dispatch: in bf16 each split matmul's partial
+# sums round on each rank and again in the sum, and granite's router
+# turns that into 5 % of a logit (40 experts, top 8); in f32 only the
+# order of f32 sums differs.
+TP_MOE_TOL = 1e-4
+TP_TRAIN_STEPS = 2          # f32 smoke train steps at tp=2, card against CPU
+# The default warm-up keeps Adam's first steps small: an element whose
+# gradient is rounding noise would take a whole step at full rate
+# (tests/test_torch_tensor_parallel.py).
+TP_TRAIN_OPT = {"lr": 3e-3}
 RING_ARCH = "dcn-v2"        # the int8 ring's gradient tree
 SMOKE_OPT = {"warmup_steps": 1}  # the smoke train steps' optimizer
 TRAIN_ARCH, TRAIN_SEED = "granite-moe-3b-a800m", 0   # phase 13
@@ -871,19 +910,23 @@ def serve_held(model, p, gen: int, prefill, naive, twin=None) -> int:
     return launched
 
 
-def no_drop_twin(model):
-    """``model``'s weights, shared, under its config with the experts'
-    capacity factor raised to E / k, the least at which no assignment can
-    drop (capacity >= the token count).  ``repro``'s own prefill/decode
-    consistency test raises it the same way
+def no_drop(cfg):
+    """``cfg`` with the experts' capacity factor raised to E / k, the
+    least at which no assignment can drop (capacity >= the token count).
+    ``repro``'s own prefill/decode consistency test raises it the same way
     (``tests/test_models_smoke.py``)."""
+    spec = cfg.moe
+    return cfg.scaled(moe=dataclasses.replace(
+        spec, capacity_factor=spec.n_experts / spec.top_k))
+
+
+def no_drop_twin(model):
+    """``model``'s weights, shared, under :func:`no_drop` of its
+    config."""
     from repro_torch.models import transformer as tfm
 
-    cfg = model.cfg
-    spec = cfg.moe
-    twin = tfm.LM(cfg.scaled(moe=dataclasses.replace(
-        spec, capacity_factor=spec.n_experts / spec.top_k)),
-        device="meta", dtype=model.embed.dtype)
+    twin = tfm.LM(no_drop(model.cfg), device="meta",
+                  dtype=model.embed.dtype)
     twin.load_state_dict(model.state_dict(), assign=True)
     return twin
 
@@ -1062,7 +1105,7 @@ def lm_init(cfg, gen, what: str = ""):
     from repro_torch.models import transformer as tfm
 
     t0 = time.perf_counter()
-    model = tfm.init_lm(cfg, gen)
+    model = tfm.init_lm(tfm.build(cfg, 1), gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     check(n_params == cfg.param_count_analytic(),
@@ -2124,13 +2167,14 @@ def sharded_phase(dev, graph, index, bucket, singles, phase5,
 
 def train_args(arch: str, steps: int, batch: int, seq: int = 128):
     """``repro_torch.launch.train``'s argument namespace for a run on the
-    card."""
+    card, at ``tp=1`` (no padding: the numbers stay those of earlier
+    runs)."""
     from repro_torch.launch import train
 
     return train.parser().parse_args([
         "--arch", arch, "--steps", str(steps), "--batch", str(batch),
         "--seq", str(seq), "--seed", str(TRAIN_SEED), "--device", "cuda",
-        "--log-every", str(steps)])
+        "--log-every", str(steps), "--tp", "1"])
 
 
 def attention_times(dev, cfg, card: str) -> None:
@@ -3626,14 +3670,235 @@ def rank_ring(device, shapes) -> dict:
             "leaves": len(shapes)}
 
 
+def tp_inputs(cfg, b, device, batch: int | None = None):
+    """Phase 6's weights and tokens at the build ``b`` (a whole model on
+    ``device``): the generator seeded ``LM_SEED`` draws the weights, then
+    phase 6's two requests; the prompts are the first ``batch`` rows of
+    its first (all of them by default), the decode is teacher-forced by the first ``TP_DECODE``
+    tokens of its second in every row."""
+    from repro_torch.models import transformer as tfm
+
+    gen = torch.Generator(device).manual_seed(LM_SEED)
+    model = tfm.init_lm(b, gen)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=device)
+    long = torch.randint(0, cfg.vocab, (1, LM_LONG), generator=gen,
+                         device=device)
+    prompts = prompts[:batch]
+    return model, prompts, long[:, :TP_DECODE].expand(len(prompts), -1)
+
+
+def timed_ms(dev, fn, *args):
+    """(host ms of ``fn(*args)`` ended by a synchronize, its result)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def tp_serve(model, b, prompts, feed, mesh, quant: bool) -> dict:
+    """A bf16 prefill through the flash kernel, twice: the first (cold)
+    call pays the groups' and cuBLAS's set-up and the allocator's growth,
+    the second (warm) is timed on its own; the flash launches are those of
+    the first.  Then the decode teacher-forced by ``feed`` against the
+    warm prefill's cache grown to S + ``TP_DECODE`` (split on the sequence
+    on a mesh) and, with ``quant``, ``TP_QUANT_STEPS`` steps against it
+    quantized into ``TP_QUANT_SEQ`` positions; of each, the first step is
+    timed apart (cold) from the mean of the others (warm).  Returns the
+    warm logits (whole vocabulary, on the CPU), the host ms of each call
+    ended by a synchronize, the flash launches and the peak."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm as lm_lib
+
+    dev = prompts.device
+    prefill = lm_lib.make_prefill_step("cuda")
+    fa_ops.counter.reset()
+    reset_peak(dev)
+    cold, _ = timed_ms(dev, prefill, model, prompts)
+    out = {"prefill_cold_ms": cold, "launches": fa_ops.launches}
+    out["prefill_ms"], (logits, cache) = timed_ms(dev, prefill, model,
+                                                  prompts)
+    out["prefill"] = logits.cpu()
+    s = prompts.shape[1]
+    qc = lm_lib.quantize_cache(b, cache, TP_QUANT_SEQ, mesh) if quant \
+        else None
+    c = lm_lib.grow_cache(b, cache, s + feed.shape[1], mesh)
+    del cache
+
+    def steps(step, cache, n, key):
+        logits, ms = [], []
+        for t in range(n):
+            t_ms, (lg, cache) = timed_ms(dev, step, cache, feed[:, t:t + 1])
+            logits.append(lm_lib.gather_vocab(model, lg[:, -1]))
+            ms.append(t_ms)
+        out[f"{key}_cold_ms"], out[f"{key}_ms"] = ms[0], float(np.mean(ms[1:]))
+        out[key] = torch.stack(logits).cpu()
+
+    with torch.no_grad():
+        steps(model.decode_step, c, feed.shape[1], "decode")
+        del c
+        if quant:
+            steps(functools.partial(model.decode_step_quant, chunk=TP_CHUNK),
+                  qc, TP_QUANT_STEPS, "quant")
+    out["peak"] = peak_bytes(dev)
+    return out
+
+
+def rank_tp_lm(device, cfg) -> dict:
+    """``cfg`` at full width on a ``TP_MESH`` mesh: phase 6's weights,
+    built at the mesh's ``model`` size and cut to this rank
+    (``shard_lm``), then :func:`tp_serve`."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import shard_lm
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    mesh = comm.Mesh(TP_MESH, ("data", "model"), device.type)
+    b = tfm.build(cfg, TP_MESH[1])
+    whole, prompts, feed = tp_inputs(cfg, b, device, TP_BATCH)
+    model = shard_lm(whole, mesh)
+    del whole
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    comm.issued.clear()
+    out = tp_serve(model, b, prompts, feed, mesh, True)
+    return {**rank_header(device), **out, "issued": dict(comm.issued),
+            "weights_bytes": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()),
+            "leg_s": time.perf_counter() - t0}
+
+
+def mesh_dispatch(model, tp: int):
+    """The one-process ``model`` with each MoE layer dispatched as a
+    (data 1, model ``tp``) mesh dispatches it (``moe.dispatch_kind``): a
+    prefill through ``moe_sharded_twin`` on each rank's sequence block, a
+    decode step through ``moe_dense_all_twin``, each the ranks' arithmetic
+    with the collectives done as tensor ops.  Patches the layers in place
+    (again on a second call) and returns ``model``."""
+    import types
+
+    from repro_torch.models import moe as moe_lib
+
+    grid = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": tp})
+
+    def forward(layer, x, sp=False):
+        params = {n: getattr(layer, n) for n in moe_lib.PARAMS}
+        b, s, d = x.shape
+        n_real = layer.spec.n_experts
+        if moe_lib.dispatch_kind(b, s, grid) == "sharded":
+            y, aux, _ = moe_lib.moe_sharded_twin(params, x, layer.spec,
+                                                 n_real, 1, tp)
+            return y, aux
+        y, aux = moe_lib.moe_dense_all_twin(params, x.reshape(b * s, d),
+                                            layer.spec, n_real, tp)
+        return y.reshape(b, s, d), aux
+
+    for layer in model.layers:
+        layer.moe.forward = functools.partial(forward, layer.moe)
+    return model
+
+
+def tp_moe_cfg(cfg):
+    """granite at ``TP_MOE_LAYERS`` layers in f32 (``TP_MOE_TOL``)."""
+    return cfg.scaled(n_layers=TP_MOE_LAYERS, param_dtype="float32")
+
+
+def rank_tp_moe(device, cfg) -> dict:
+    """``cfg`` (:func:`tp_moe_cfg`) padded to ``TP_MESH``'s ``model`` size,
+    on a (data 1, model = world) mesh: the residual split on the sequence
+    feeds ``_moe_sharded`` its block; on one rank every collective goes
+    through the group (``through_group``) and is counted."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import shard_lm
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    world = comm.world_size()
+    mesh = comm.Mesh((1, world), ("data", "model"), device.type)
+    b = tfm.build(cfg, TP_MESH[1])
+    whole, prompts, feed = tp_inputs(cfg, b, device)
+    model = shard_lm(whole, mesh)
+    del whole
+    comm.issued.clear()
+    with comm.through_group():
+        out = tp_serve(model, b, prompts, feed[:, :2], mesh, False)
+    return {**rank_header(device), **out, "issued": dict(comm.issued),
+            "leg_s": time.perf_counter() - t0}
+
+
+def tp_train_inputs(scfg):
+    """The f32 smoke model at ``tp=TP_MESH[1]`` on the CPU (its weights
+    from ``TRAIN_SEED``) and phase 13's smoke batch."""
+    from repro_torch.data import lm_synthetic_stream
+    from repro_torch.models import transformer as tfm
+
+    b = tfm.build(scfg, TP_MESH[1])
+    model = tfm.init_lm(b, torch.Generator("cpu").manual_seed(TRAIN_SEED))
+    batch = {k: torch.from_numpy(v) for k, v in next(lm_synthetic_stream(
+        scfg.vocab, 4, 64, seed=TRAIN_SEED)).items()}
+    return b, model, batch
+
+
+def tp_train_steps(model, batch) -> tuple[list, dict]:
+    """``TP_TRAIN_STEPS`` f32 train steps (naive attention): (losses, the
+    whole parameters on the CPU)."""
+    from repro_torch.launch.mesh import gather_lm
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.optim import AdamWConfig
+
+    state = lm_lib.init_train_state(model)
+    step = lm_lib.make_train_step(AdamWConfig(**TP_TRAIN_OPT),
+                                  attn_impl="naive")
+    losses = []
+    for _ in range(TP_TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    whole = gather_lm(model) if model.mesh is not None else {
+        k: p.detach() for k, p in model.named_parameters()}
+    return losses, {k: v.cpu() for k, v in whole.items()}
+
+
+def rank_tp_train(device, scfg) -> dict:
+    """The f32 smoke train steps on a ``TP_MESH`` mesh on the card."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import shard_lm
+
+    t0 = time.perf_counter()
+    mesh = comm.Mesh(TP_MESH, ("data", "model"), device.type)
+    _, whole, batch = tp_train_inputs(scfg)
+    model = shard_lm(whole.to(device), mesh)
+    losses, params = tp_train_steps(
+        model, {k: v.to(device) for k, v in batch.items()})
+    return {**rank_header(device), "losses": losses, "params": params,
+            "leg_s": time.perf_counter() - t0}
+
+
+def rank_single(device, graph, index, bucket, stepwise, moe_cfg) -> dict:
+    """The one-rank spawn: DKS, then the granite tp leg at (1, 1)."""
+    out = {"dks": rank_dks(device, graph, index, bucket, stepwise)}
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["tp_moe"] = rank_tp_moe(device, moe_cfg)
+    return out
+
+
 def rank_pair(device, graph, index, bucket, moe_args, pp_args,
-              ring_args) -> dict:
+              ring_args, tp_args) -> dict:
     """The paths of two ranks, one after the other in one spawn: DKS,
-    then the MoE layer, the pipeline and the ring."""
+    then the MoE layer, the pipeline, the ring and the tensor-parallel
+    legs (ChatGLM3-6B, granite, the smoke train steps)."""
     out = {"dks": rank_dks(device, graph, index, bucket)}
+    lm_cfg, moe_cfg, scfg = tp_args
     for name, fn, args in (("moe", rank_moe, moe_args),
                            ("pp", rank_pp, pp_args),
-                           ("ring", rank_ring, ring_args)):
+                           ("ring", rank_ring, ring_args),
+                           ("tp", rank_tp_lm, (lm_cfg,)),
+                           ("tp_moe", rank_tp_moe, (moe_cfg,)),
+                           ("tp_train", rank_tp_train, (scfg,))):
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -3705,13 +3970,154 @@ def stepwise_held(world: int, outs: list, twin: dict, card: str) -> None:
         f"ranks: not a multi-card time]")
 
 
+def tp_ms(outs: list, key: str) -> str:
+    """:func:`tp_serve`'s warm ms of ``key`` and its cold first call's,
+    the slowest rank's of each."""
+    return (f"{max(o[key + '_ms'] for o in outs):.2f} ms (cold "
+            f"{max(o[key + '_cold_ms'] for o in outs):.2f})")
+
+
+def tp_line(what: str, outs: list, card: str, extra: str) -> None:
+    """One printed line per tensor-parallel leg: the group, seconds, ms a
+    prefill and a decode step warm and cold, peak GiB and flash launches
+    a rank."""
+    head = outs[0]
+    quant = f", int8 step {tp_ms(outs, 'quant')}" if "quant_ms" in head \
+        else ""
+    log(f"  {what}: world {head['world']}, backend {head['backend']}; leg "
+        f"{max(o['leg_s'] for o in outs):.1f} s; prefill "
+        f"{tp_ms(outs, 'prefill')}, decode step {tp_ms(outs, 'decode')}"
+        f"{quant} (slowest rank, host clock); peak {max(o['peak'] for o in outs) / 2**30:.2f} GiB "
+        f"a rank; flash launches a rank (one prefill) "
+        f"{[o['launches'] for o in outs]}; collectives issued a rank (both "
+        f"prefills and the decode) {head['issued']}{extra} [{card}; one "
+        f"card shared by the ranks: not a multi-card time]")
+
+
+def tp_held(dev, card: str, cfg, moe_cfg, scfg, lm_outs, moe_outs,
+            nccl_out, train_outs) -> dict:
+    """Phase 18's tensor-parallel legs against one process on the card
+    (the train steps against the CPU): ChatGLM3-6B's prefill and decode
+    logits within ``LM_TOL`` x max |logit| of the whole model's at
+    ``tp=1``, its int8 decode within atol = rtol = ``QUANT_TOL`` of the
+    whole model's int8 decode; granite's at (1, 2) over gloo and (1, 1)
+    over NCCL, in f32, within ``TP_MOE_TOL`` x max of the one-process twin
+    padded to the same ``tp`` whose MoE runs the same dispatch; the smoke steps within ``SMOKE_TRAIN_TOL`` of each
+    leaf's largest magnitude.  Returns the flash launches a rank."""
+    from repro_torch.models import transformer as tfm
+
+    def held(what, got, want, tol=LM_TOL):
+        err = max_abs_err(got.float(), want.float())
+        top = float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= tol * top,
+              f"{what}: differs by {err} > {tol} x {top}")
+        return err, top
+
+    # ChatGLM3-6B at full width and depth on (data 1, model 2).
+    b1 = tfm.build(cfg, 1)
+    model, prompts, feed = tp_inputs(cfg, b1, dev, TP_BATCH)
+    ref = tp_serve(model, b1, prompts, feed, None, True)
+    del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    errs, qrooms = [], []
+    for r, out in enumerate(lm_outs):
+        check(out["launches"] == cfg.n_layers, f"tp rank {r}: flash "
+              f"launched {out['launches']} times, want {cfg.n_layers}")
+        for key in ("prefill", "decode"):
+            errs.append(held(f"tp {cfg.name} {key}, rank {r}", out[key],
+                             ref[key]))
+        qrooms.append(quant_held(list(out["quant"]), list(ref["quant"]),
+                                 f"tp {cfg.name} int8 decode, rank {r}"))
+    d, s = cfg.d_model, LM_PROMPT
+    n = TP_MESH[1]
+    slab = TP_BATCH * s * d * 2 / n * (n - 1) / 2 ** 20
+    tp_line(f"tensor parallel {cfg.name}, (data, model) {TP_MESH}", lm_outs,
+            card, f"; {lm_outs[0]['weights_bytes'] / 2**30:.2f} GiB of "
+            f"weights a rank; prefill {TP_BATCH} x {s} with the residual "
+            f"split on the sequence: each layer all-gathers its 2 normed "
+            f"inputs and reduce-scatters its 2 outputs, {slab:.1f} MiB in "
+            f"from the other rank each ({4 * cfg.n_layers * slab:.0f} MiB "
+            f"a prefill); {TP_DECODE} decode steps teacher-forced against a "
+            f"cache split on the sequence, {TP_QUANT_STEPS} int8 steps; "
+            f"logits within {max(e for e, _ in errs):.4g} of the whole "
+            f"model's (limit {LM_TOL} x {max(t for _, t in errs):.4g}), "
+            f"int8 within {max(q[1] for q in qrooms):.4g} (element-wise "
+            f"{max(q[0] for q in qrooms):.4f} of atol = rtol = {QUANT_TOL}); "
+            f"one process: prefill {tp_ms([ref], 'prefill')}, decode step "
+            f"{tp_ms([ref], 'decode')}, int8 step {tp_ms([ref], 'quant')}")
+    del ref
+
+    # granite at full width and cut depth: the one-process twin padded to
+    # the same tp, its MoE dispatched as each group's mesh dispatches it,
+    # against the 2 gloo ranks and the 1 NCCL rank.
+    b2 = tfm.build(moe_cfg, TP_MESH[1])
+    twin, prompts, feed = tp_inputs(moe_cfg, b2, dev)
+    for what, outs in (("gloo", moe_outs), ("nccl", [nccl_out])):
+        ref = tp_serve(mesh_dispatch(twin, len(outs)), b2, prompts,
+                       feed[:, :2], None, False)
+        errs = []
+        for r, out in enumerate(outs):
+            check(out["launches"] == moe_cfg.n_layers,
+                  f"tp granite ({what}) rank {r}: flash launched "
+                  f"{out['launches']} times, want {moe_cfg.n_layers}")
+            for key in ("prefill", "decode"):
+                errs.append(held(f"tp granite {key} ({what}), rank {r}",
+                                 out[key], ref[key], TP_MOE_TOL))
+        issued = outs[0]["issued"]
+        check(issued.get("reduce_scatter", 0) > 0
+              and issued.get("all_gather", 0) > 0
+              and issued.get("all_to_all", 0) > 0,
+              f"tp granite ({what}): collectives issued {issued}")
+        tp_line(f"tensor parallel {moe_cfg.name} at {moe_cfg.n_layers} "
+                f"layers ({what})", outs, card,
+                f"; f32; padded to tp={b2.tp}: vocab {b2.vocab_p}, "
+                f"{b2.e_pad} experts, capacity factor "
+                f"{moe_cfg.moe.capacity_factor}; the prefill's "
+                f"MoE through _moe_sharded on each rank's sequence block, "
+                f"the decode's through _moe_dense_all; logits within "
+                f"{max(e for e, _ in errs):.4g} of the one-process twin's "
+                f"with the same dispatch (limit {TP_MOE_TOL} x "
+                f"{max(t for _, t in errs):.4g}); twin: prefill "
+                f"{tp_ms([ref], 'prefill')}, decode step "
+                f"{tp_ms([ref], 'decode')}")
+    del twin, ref
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # The f32 smoke steps at tp=2, card against CPU.
+    _, whole, batch = tp_train_inputs(scfg)
+    losses, params = tp_train_steps(whole, batch)
+    for r, out in enumerate(train_outs):
+        torch.testing.assert_close(
+            torch.tensor(out["losses"]), torch.tensor(losses),
+            atol=0, rtol=SMOKE_TRAIN_TOL)
+        for name, want in params.items():
+            err = max_abs_err(out["params"][name], want)
+            top = float(want.abs().max())
+            check(err <= SMOKE_TRAIN_TOL * top, f"tp smoke step, rank {r}, "
+                  f"{name}: {err} > {SMOKE_TRAIN_TOL} x {top}")
+    log(f"  tensor parallel smoke train: {TP_TRAIN_STEPS} f32 steps of "
+        f"{scfg.name}'s smoke config at tp={TP_MESH[1]} on the card == the "
+        f"CPU's within {SMOKE_TRAIN_TOL} of each leaf's largest (losses "
+        f"{[round(x, 6) for x in train_outs[0]['losses']]}); leg "
+        f"{max(o['leg_s'] for o in train_outs):.1f} s [{card}]")
+    return {"tp_chatglm3": [o["launches"] for o in lm_outs],
+            "tp_granite": [o["launches"] for o in moe_outs],
+            "tp_granite_nccl": [nccl_out["launches"]]}
+
+
 def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
                 twin4, stepwise4) -> dict:
     """Phase 18: DKS's frontier exchange and its stepwise surfaces,
-    expert-parallel MoE, GPipe and the int8 ring across ranks, each
-    against its twin on the card.  ``twin4``: phase 12's 4-shard records
-    and state digest; ``stepwise4``: its :func:`stepwise_record`.  Returns
-    the flash launches of the pipeline's ranks and a summary."""
+    expert-parallel MoE, GPipe, the int8 ring and the transformer's
+    tensor parallelism across ranks, each against its twin on the card.
+    ``twin4``: phase 12's 4-shard records and state digest;
+    ``stepwise4``: its :func:`stepwise_record`.  Returns the flash
+    launches of the pipeline's and the tensor-parallel legs' ranks and a
+    summary."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed.ranks import run_ranks
     from repro_torch.engine import ExecutionPolicy, QueryEngine
@@ -3736,15 +4142,20 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
     cfg = get_arch(LM_ARCH)
     scfg = get_arch(LM_ARCH).smoke().scaled(param_dtype="float32")
     ring_cfg = get_arch(RING_ARCH)
-    spawned, pair = {}, None
+    tp_moe = tp_moe_cfg(get_arch(MOE_ARCH))
+    spawned, pair, single = {}, None, None
     for world in RANKS_DKS_WORLDS:
         t0 = time.perf_counter()
         if world == 2:
             pair = spawn(rank_pair, 2, graph, index, bucket,
                          (moe_cfg, RANKS_MOE_X),
                          (cfg, (LM_BATCH, LM_PROMPT), scfg),
-                         (ring_shapes(ring_cfg),))
+                         (ring_shapes(ring_cfg),), (cfg, tp_moe, scfg))
             spawned[world] = [out["dks"] for out in pair]
+        elif world == 1:
+            single = spawn(rank_single, 1, graph, index, bucket,
+                           world in RANKS_STEPWISE_WORLDS, tp_moe)
+            spawned[world] = [out["dks"] for out in single]
         else:
             spawned[world] = spawn(rank_dks, world, graph, index, bucket,
                                    world in RANKS_STEPWISE_WORLDS)
@@ -3909,12 +4320,24 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
                f"; {outs[0]['numel']:,} f32 in {outs[0]['leaves']} "
                f"leaves; reduced values and error state bit-equal to the "
                f"twin")
-    return {"pp_launches": launches,
+    # Tensor parallelism: ChatGLM3-6B, granite, the smoke train steps.
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_launches = tp_held(dev, card, cfg, tp_moe, scfg,
+                          [out["tp"] for out in pair],
+                          [out["tp_moe"] for out in pair],
+                          single[0]["tp_moe"],
+                          [out["tp_train"] for out in pair])
+    log(f"  tensor parallel references in this process: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"pp_launches": launches, "tp_launches": tp_launches,
             "summary": f"DKS at {list(RANKS_DKS_WORLDS)} ranks == twin, "
                        f"its stepwise surfaces at "
                        f"{list(RANKS_STEPWISE_WORLDS)}; "
-                       f"MoE, GPipe, int8 ring held; phase "
-                       f"{time.perf_counter() - t_phase:.1f} s"}
+                       f"MoE, GPipe, int8 ring, tensor parallelism held; "
+                       f"phase {time.perf_counter() - t_phase:.1f} s"}
 
 
 def main() -> int:
@@ -4455,7 +4878,8 @@ def phases(meta: list) -> int:
         if name == "flash_attention":
             ms, plain, library, bound, by = moe["timing"]
             kernels[-1].update({
-                "ranks_launches": ranks["pp_launches"],
+                "ranks_launches": {"gpipe": ranks["pp_launches"],
+                                   **ranks["tp_launches"]},
                 "moe_launches": moe["launches"],
                 "cut_depth_launches": moe["cut_launches"],
                 "moe_shape": {"q": moe["shapes"][0], "kv": moe["shapes"][1],

@@ -12,6 +12,8 @@ here                                   ``jax.lax``
 =====================================  =====================================
 ``all_gather(x, axes, dim, tiled)``    ``all_gather(x, axes, axis=dim,
                                        tiled=tiled)``
+``reduce_scatter(x, axes, dim)``       ``psum_scatter(x, axes,
+                                       scatter_dimension=dim, tiled=True)``
 ``all_to_all(x, axes, split_dim,       ``all_to_all(..., tiled=True)``
 concat_dim)``
 ``psum`` / ``pmean`` / ``pmax`` /      the same names (``pmin`` of ``jnp``
@@ -21,12 +23,14 @@ concat_dim)``
 ``Mesh.axis_index`` / ``axis_size``    ``axis_index`` / ``psum(1, axes)``
 =====================================  =====================================
 
-``all_gather``, ``all_to_all``, ``ppermute`` and ``psum`` / ``pmean`` are
-differentiable; their backward is JAX's transpose: the sum over ranks of
-the cotangent cut back to this rank's chunk (a reduce-scatter, done as an
-all-reduce and a slice), the reverse ``all_to_all``, the inverse
-permutation, and ``psum`` again.  Collectives over several axes order the
-ranks row-major over the axes in mesh order, as JAX's do.
+``all_gather``, ``reduce_scatter``, ``all_to_all``, ``ppermute`` and
+``psum`` / ``pmean`` are differentiable; their backward is JAX's
+transpose: a tiled ``all_gather``'s is the ``reduce_scatter`` of the
+cotangent (a stacked one's the same over the stacking axis), a
+``reduce_scatter``'s the tiled ``all_gather``, the reverse
+``all_to_all``, the inverse permutation, and ``psum`` again.
+Collectives over several axes order the ranks row-major over the axes
+in mesh order, as JAX's do.
 
 This is the only module of the port that calls ``torch.distributed``.
 The backend is chosen in one place, :func:`backend_for`, from the ranks
@@ -63,8 +67,8 @@ import torch.distributed as dist
 STAGED_OPS = ("ppermute",)
 
 # The ops handed to ``torch.distributed`` in this process, by kind
-# ("all_reduce", "all_gather", "all_to_all", "send", "recv"); the caller
-# clears it.
+# ("all_reduce", "all_gather", "reduce_scatter", "all_to_all", "send",
+# "recv"); the caller clears it.
 issued: collections.Counter = collections.Counter()
 
 
@@ -78,6 +82,54 @@ class PartitionSpec(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple(self)!r}"
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """A spec entry's axis names (``()`` for None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def filter_spec(spec: PartitionSpec, names: Sequence[str]) -> PartitionSpec:
+    """``spec`` with the axes that are not in ``names`` dropped (an entry
+    left with none is None)."""
+    def keep(entry):
+        if isinstance(entry, str):
+            return entry if entry in names else None
+        kept = tuple(a for a in entry_axes(entry) if a in names)
+        return kept if kept else None
+
+    return PartitionSpec(*(keep(e) for e in spec))
+
+
+def axis_sizes(mesh: "Mesh | None") -> dict[str, int]:
+    """``mesh``'s axis sizes by name (``{}``: no mesh)."""
+    return dict(mesh.shape) if mesh is not None else {}
+
+
+def local_shape(shape: Sequence[int], spec: PartitionSpec,
+                sizes: dict[str, int]) -> tuple[int, ...]:
+    """The shape of a rank's slice of a leaf of ``shape`` split by
+    ``spec`` over a mesh of axis ``sizes`` (``{}``: no mesh).  Raises
+    when a dimension does not split evenly."""
+    out = list(shape)
+    for d, entry in enumerate(filter_spec(spec, tuple(sizes))):
+        if entry is None:
+            continue
+        n = math.prod(sizes[a] for a in entry_axes(entry))
+        if out[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {entry} ({n} ranks)")
+        out[d] //= n
+    return tuple(out)
+
+
+def split_axes(spec: PartitionSpec, mesh: "Mesh") -> tuple[str, ...]:
+    """The axes of ``mesh`` that a leaf of ``spec`` is split over, in
+    mesh order."""
+    named = {a for e in spec for a in entry_axes(e)}
+    return tuple(a for a in mesh.axis_names if a in named)
 
 
 INIT_TIMEOUT_S = 300       # a collective that waits longer raises
@@ -409,19 +461,14 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim, tiled):
         ctx.mesh, ctx.axes, ctx.dim, ctx.tiled = mesh, axes, dim, tiled
-        ctx.width = x.shape[dim] if tiled else 1
         parts = _gather_parts(x, mesh, axes)
         return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
 
     @staticmethod
     def backward(ctx, g):
-        total = _all_reduce(g, ctx.mesh, ctx.axes, "sum")
-        i = ctx.mesh.axis_index(ctx.axes)
-        if ctx.tiled:
-            out = total.narrow(ctx.dim, i * ctx.width, ctx.width)
-        else:
-            out = total.select(ctx.dim, i)
-        return out.contiguous(), None, None, None, None
+        out = _reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim)
+        return (out if ctx.tiled else out.squeeze(ctx.dim)), None, None, \
+            None, None
 
 
 def all_gather(x: torch.Tensor, axes=None, dim: int = 0, tiled: bool = False,
@@ -434,6 +481,67 @@ def all_gather(x: torch.Tensor, axes=None, dim: int = 0, tiled: bool = False,
     if _elided(mesh, axes):
         return x if tiled else x.unsqueeze(dim)
     return _AllGather.apply(x, mesh, axes, dim, tiled)
+
+
+# --------------------------------------------------------------------------
+# reduce_scatter
+# --------------------------------------------------------------------------
+
+
+# ``reduce_scatter_tensor`` took the name ``reduce_scatter_single`` in
+# torch 2.13; the two take the same arguments.
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int
+                    ) -> torch.Tensor:
+    """The sum over the ranks of ``axes`` of ``x``, cut into one chunk a
+    rank along ``dim``: this rank's chunk.  One reduce-scatter over the
+    chunks laid out along dim 0."""
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    chunks = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    shape = chunks.shape[1:]
+    # The group takes the chunks concatenated along dim 0.
+    chunks = chunks.reshape(n * shape[0], *shape[1:]) if shape else \
+        chunks.contiguous()
+    staged = "reduce_scatter" in staged_ops(x.device)
+    if staged:
+        chunks = chunks.cpu()
+    out = torch.empty(shape, dtype=chunks.dtype, device=chunks.device)
+    issued["reduce_scatter"] += 1
+    _REDUCE_SCATTER(out, chunks, group=mesh.group(axes))
+    return out.to(x.device) if staged else out
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        parts = _gather_parts(g, mesh, axes)
+        return torch.cat(parts, dim), None, None, None
+
+
+def reduce_scatter(x: torch.Tensor, axes=None, dim: int = 0,
+                   mesh: Mesh | None = None) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axes, scatter_dimension=dim,
+    tiled=True)``: the sum over the ranks of ``axes``, of which this rank
+    keeps chunk ``axis_index(axes)`` of ``dim`` (``x.shape[dim]`` must
+    split evenly).  Its transpose is the tiled :func:`all_gather`."""
+    mesh = _mesh(mesh)
+    axes = mesh.axes(axes)
+    dim = dim % x.dim()
+    if _elided(mesh, axes):
+        return x.clone()
+    return _ReduceScatter.apply(x, mesh, axes, dim)
 
 
 # --------------------------------------------------------------------------

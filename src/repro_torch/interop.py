@@ -16,8 +16,9 @@ An LM's parameters and KV cache come across the same way:
 
 - :func:`lm_params_from_numpy` — ``repro``'s LM param tree (stacked
   ``[L, ...]`` layer arrays, ``x @ W`` orientation; a MoE model's experts
-  under ``layers/moe``) -> the port's
-  :class:`~repro_torch.models.transformer.LM` with the same weights;
+  under ``layers/moe``), built at any ``tp`` (padded shapes) -> the
+  port's :class:`~repro_torch.models.transformer.LM` with the same
+  weights;
 - :func:`cache_from_numpy` / :func:`cache_to_numpy` — a KV cache dict
   (``k``, ``v`` [L, B, S, Hkv, Dh], ``pos``) both ways;
 - :func:`cache_quant_from_numpy` / :func:`cache_quant_to_numpy` — an int8
@@ -68,7 +69,7 @@ from repro_torch.configs import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, BuiltLM, as_built
 from repro_torch.optim import OptState, tree_leaves, tree_map, tree_unflatten
 
 STATE_DTYPES = {
@@ -132,13 +133,18 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
+def lm_params_from_numpy(params_np: dict, cfg: LMConfig | BuiltLM,
                          device: str | torch.device | None = None) -> LM:
     """``repro``'s LM param tree with numpy leaves (``embed``,
     ``final_norm``, ``head``, and ``layers`` of stacked ``[L, ...]`` arrays)
-    -> an :class:`LM` on ``device`` holding the same values, in the tree's
-    dtype (a MoE router stays f32).  Names and shapes must match ``cfg``
-    exactly, as a tree that ``repro`` built at ``tp=1`` does."""
+    -> an :class:`LM` (whole, no mesh) on ``device`` holding the same
+    values, in the tree's dtype (a MoE router stays f32).  Names and
+    shapes must match the :class:`BuiltLM` (a config: ``tp=1``) exactly,
+    as a tree that ``repro`` built at its ``tp`` does: heads, vocabulary
+    and experts padded.  :func:`repro_torch.launch.mesh.shard_lm` cuts the
+    result for a rank."""
+    b = as_built(cfg)
+    cfg = b.cfg
     layers = dict(params_np["layers"])
     for name, arr in layers.pop("moe", {}).items():
         layers[f"moe.{name}"] = arr
@@ -151,14 +157,21 @@ def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
         stacked = _tensor(arr)
         for i in range(cfg.n_layers):
             state[f"layers.{i}.{key}"] = stacked[i]
-    model = LM(cfg, device=device, dtype=state["embed"].dtype)
+    model = LM(b, device=device, dtype=state["embed"].dtype)
+    want = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    for key, t in state.items():
+        if key in want and tuple(t.shape) != want[key]:
+            raise ValueError(f"{key} has shape {list(t.shape)}, the build at "
+                             f"tp={b.tp} {list(want[key])}")
     model.load_state_dict(state)
     return model
 
 
 def cache_from_numpy(cache_np: dict,
                      device: str | torch.device | None = None) -> dict:
-    """A KV cache dict of numpy arrays -> the port's (``pos`` an int)."""
+    """A KV cache dict of numpy arrays -> the port's (``pos`` an int),
+    at whatever KV heads it holds (``repro``'s ``init_cache`` pads them to
+    ``n_kv_heads_p``)."""
     dev = resolve_device(device)
     return {"k": _tensor(cache_np["k"]).to(dev),
             "v": _tensor(cache_np["v"]).to(dev),
@@ -175,7 +188,7 @@ def cache_to_numpy(cache: dict) -> dict:
 def cache_quant_from_numpy(cache_np: dict,
                            device: str | torch.device | None = None) -> dict:
     """An int8 KV cache dict of numpy arrays -> the port's (``pos`` an
-    int)."""
+    int), at whatever KV heads it holds (padded ones included)."""
     dev = resolve_device(device)
     out = {name: torch.from_numpy(np.array(cache_np[name], dtype)).to(dev)
            for name, dtype in (("k_q", np.int8), ("k_s", np.float32),

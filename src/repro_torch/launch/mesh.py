@@ -6,7 +6,12 @@ here each rank holds only its slice of a leaf, so ``named_sharding`` and
 ``sharding_tree`` become :func:`shard_tree` (this rank's slice of every
 leaf, from a whole tree every rank holds) and :func:`gather_tree` (the
 whole tree back, from every rank's slices).  A leaf's spec is a
-:class:`~repro_torch.distributed.comm.PartitionSpec`.
+:class:`~repro_torch.distributed.comm.PartitionSpec`.  For the LM:
+:func:`shard_lm` (a whole model -> this rank's, on a mesh),
+:func:`gather_lm` (every rank's slices -> the whole parameters),
+:func:`lm_state_specs` (``repro``'s ``_lm_state_specs``: AdamW's moments
+split as the parameters) and :func:`data_rows` (this rank's rows of a
+batch).
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import torch
 
 from repro_torch.distributed import comm
 from repro_torch.distributed.comm import PartitionSpec
+from repro_torch.models import common
+from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import tree_map
 
 P = PartitionSpec
@@ -31,24 +38,18 @@ def make_production_mesh(*, multi_pod: bool = False,
     return comm.Mesh(shape, axes, device_type)
 
 
+def default_tp(args) -> int:
+    """The tensor-parallel degree a CLI's model is padded to: ``--tp``,
+    else ``repro``'s CLIs' rule, 1 under ``--smoke`` and else the
+    production mesh's ``model`` size, 16."""
+    if args.tp is not None:
+        return args.tp
+    return 1 if args.smoke else 16
+
+
 def make_host_mesh(device_type: str = "cuda") -> comm.Mesh:
     """Every rank of the group as a 1-D ``("data",)`` mesh."""
     return comm.Mesh((comm.world_size(),), ("data",), device_type)
-
-
-def filter_spec(spec: PartitionSpec, mesh: comm.Mesh) -> PartitionSpec:
-    """Drop axis names that the mesh does not have."""
-    names = set(mesh.axis_names)
-
-    def f(entry):
-        if entry is None:
-            return None
-        if isinstance(entry, str):
-            return entry if entry in names else None
-        kept = tuple(a for a in entry if a in names)
-        return kept if kept else None
-
-    return PartitionSpec(*(f(e) for e in spec))
 
 
 def shard_tree(tree: Any, spec_tree: Any, mesh: comm.Mesh) -> Any:
@@ -56,7 +57,7 @@ def shard_tree(tree: Any, spec_tree: Any, mesh: comm.Mesh) -> Any:
     ranks of ``spec[d]``, the chunk at this rank's index kept."""
 
     def cut(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
-        for d, entry in enumerate(filter_spec(spec, mesh)):
+        for d, entry in enumerate(comm.filter_spec(spec, mesh.axis_names)):
             if entry is None:
                 continue
             n, i = mesh.axis_size(entry), mesh.axis_index(entry)
@@ -74,9 +75,55 @@ def gather_tree(tree: Any, spec_tree: Any, mesh: comm.Mesh) -> Any:
     """The inverse of :func:`shard_tree`: every leaf whole on every rank."""
 
     def join(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
-        for d, entry in enumerate(filter_spec(spec, mesh)):
+        for d, entry in enumerate(comm.filter_spec(spec, mesh.axis_names)):
             if entry is not None:
                 x = comm.all_gather(x, entry, dim=d, tiled=True, mesh=mesh)
         return x
 
     return tree_map(join, tree, spec_tree)
+
+
+def lm_state_specs(b: tfm.BuiltLM) -> list:
+    """The specs of ``repro``'s ``TrainState`` pytree as
+    :func:`repro_torch.models.lm.train_state_tree` gives it (``[params,
+    [mu, nu, count], step]``): the moments split as the parameters, the
+    counts whole."""
+    ps = tfm.param_specs(b)
+    return [ps, [ps, ps, P()], P()]
+
+
+def shard_lm(model: tfm.LM, mesh: comm.Mesh) -> tfm.LM:
+    """This rank's :class:`~repro_torch.models.transformer.LM` on ``mesh``
+    from a whole one (every rank holding the same): each parameter's
+    slice (``named_param_specs``), copied, so the whole model can be
+    freed."""
+    specs = tfm.named_param_specs(model.b)
+    whole = {k: p.detach() for k, p in model.named_parameters()}
+    local = {k: v.clone() for k, v in shard_tree(whole, specs, mesh).items()}
+    out = tfm.LM(model.b, device="meta", dtype=model.embed.dtype, mesh=mesh)
+    out.load_state_dict(local, assign=True)
+    for p in out.parameters():
+        p.requires_grad_(False)
+    return out
+
+
+def gather_lm(model: tfm.LM) -> dict:
+    """Every parameter of a rank's model whole, by name (every rank takes
+    part)."""
+    specs = tfm.named_param_specs(model.b)
+    local = {k: p.detach() for k, p in model.named_parameters()}
+    return gather_tree(local, specs, model.mesh)
+
+
+def data_rows(x: torch.Tensor, mesh: comm.Mesh) -> torch.Tensor:
+    """This rank's rows of a batch ``x`` (dim 0 split over the data
+    axes)."""
+    axes = common.mesh_axes(mesh, common.FSDP)
+    if not axes:
+        return x
+    n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                         f"over {axes} ({n} ranks)")
+    w = x.shape[0] // n
+    return x[i * w:(i + 1) * w]

@@ -7,16 +7,21 @@
     python -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu
 
 Weights are random, drawn from ``--seed`` (no checkpoint is in the
-repository).  The prefill's attention is ``--attn-impl`` (default "cuda":
+repository).  The model is built at ``--tp`` (default ``repro``'s: 1
+under ``--smoke``, else 16): heads, vocabulary and experts padded to it,
+all in this one process, as ``repro``'s CLI builds at ``tp=16`` on one
+device; the greedy pick reads the real vocabulary.  The prefill's
+attention is ``--attn-impl`` (default "cuda":
 the flash kernel on the card, its plain version on the CPU); decode uses
 "auto", which picks naive attention at one query row.  ``--gen N``
 returns N tokens per prompt, as ``repro``'s CLI does: the prefill's token,
 then N - 1 greedy decode steps.  Without ``--device`` it runs on
 ``cuda:0`` and raises when there is no GPU.  A model whose weights do not
 fit the card's free memory (dbrx-132b and command-r-plus-104b at full
-depth) is refused before anything is allocated: one card has no
-multi-card model path, and the CLI neither cuts the depth nor falls back
-to the CPU.
+depth) is refused before anything is allocated: the CLI runs one process
+(several ranks hold a model split over ``model`` through
+:func:`repro_torch.launch.mesh.shard_lm`), and it neither cuts the depth
+nor falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.configs import LMConfig, get_arch
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import default_tp
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import IMPLS
@@ -62,8 +68,9 @@ def generate(model: tfm.LM, prompts: torch.Tensor, gen: int,
     decode = lm_lib.make_decode_step()
     t0 = _now(prompts.device)
     logits_last, cache = prefill(model, prompts)
-    cache = lm_lib.grow_cache(model.cfg, cache, prompts.shape[1] + gen)
-    tok = logits_last.argmax(dim=-1)[:, None]
+    cache = lm_lib.grow_cache(model.b, cache, prompts.shape[1] + gen,
+                              mesh=model.mesh)
+    tok = logits_last[:, :model.cfg.vocab].argmax(dim=-1)[:, None]
     t1 = _now(prompts.device)
     out = [tok]
     for _ in range(gen):
@@ -76,12 +83,19 @@ def generate(model: tfm.LM, prompts: torch.Tensor, gen: int,
                       steps=gen)
 
 
-def check_fits(cfg: LMConfig, device: torch.device) -> None:
-    """Raise ``RuntimeError`` when ``cfg``'s weights alone exceed the free
-    memory of the CUDA ``device``."""
+def param_bytes(cfg: LMConfig | tfm.BuiltLM) -> int:
+    """The bytes of a whole model's weights at the build's padded
+    dimensions (a config: ``tp=1``)."""
+    meta = tfm.LM(cfg, device="meta")
+    return sum(p.numel() * p.element_size() for p in meta.parameters())
+
+
+def check_fits(cfg: LMConfig | tfm.BuiltLM, device: torch.device) -> None:
+    """Raise ``RuntimeError`` when the weights alone (padded, for a
+    ``BuiltLM``) exceed the free memory of the CUDA ``device``."""
     if device.type != "cuda":
         return
-    need = cfg.param_count_analytic() * tfm.DTYPES[cfg.param_dtype].itemsize
+    cfg, need = tfm.as_built(cfg).cfg, param_bytes(cfg)
     free, _ = torch.cuda.mem_get_info(device)
     if need > free:
         raise RuntimeError(
@@ -91,7 +105,7 @@ def check_fits(cfg: LMConfig, device: torch.device) -> None:
             f"path (ROADMAP.md)")
 
 
-def main(argv: list[str] | None = None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -105,6 +119,14 @@ def main(argv: list[str] | None = None) -> int:
                     help="default cuda:0; 'cpu' runs the plain versions")
     ap.add_argument("--attn-impl", default="cuda", choices=IMPLS,
                     help="the prefill's attention")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="the tensor-parallel degree the model is padded "
+                         "to (default: 1 with --smoke, else 16)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = parser()
     args = ap.parse_args(argv)
     if args.gen < 1:
         ap.error("--gen must be at least 1")
@@ -114,9 +136,10 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("serve only applies to LM archs")
     device = resolve_device(args.device)
     cfg = cfg.smoke() if args.smoke else cfg
-    check_fits(cfg, device)
+    b = tfm.build(cfg, default_tp(args))
+    check_fits(b, device)
     gen = torch.Generator(device).manual_seed(args.seed)
-    model = tfm.init_lm(cfg, gen)
+    model = tfm.init_lm(b, gen)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=device)
     if device.type == "cuda":
@@ -125,7 +148,9 @@ def main(argv: list[str] | None = None) -> int:
     n = args.batch * args.prompt_len
     print(f"{cfg.name} on {device}: {cfg.param_count_analytic() / 1e9:.2f} B "
           f"parameters, {cfg.param_dtype}, prefill attention "
-          f"{args.attn_impl}")
+          f"{args.attn_impl}; tp={b.tp} ({b.n_heads_p} q / {b.n_kv_heads_p} "
+          f"kv heads, vocab {b.vocab_p}"
+          + (f", {b.e_pad} experts" if b.e_pad else "") + ")")
     print(f"prefill: {res.prefill_ms:.1f} ms for {args.batch}x"
           f"{args.prompt_len} ({n / res.prefill_ms * 1e3:.0f} tokens/s)")
     print(f"decode:  {res.decode_ms_per_step:.2f} ms per step over "

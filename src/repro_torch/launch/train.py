@@ -12,8 +12,10 @@ EMA, :mod:`repro_torch.distributed.fault`), AdamW with f32 moments
 (:mod:`repro_torch.optim`), and async checkpoints with a crash-safe commit
 and auto-resume (:mod:`repro_torch.checkpoint`, ``repro``'s on-disk
 layout).  Weights are random, drawn from ``--seed``.  The model is built at
-``tp=1``: one card has no mesh, so ``repro``'s mesh and sharding (and its
-``--compress`` gradient compression) have no counterpart.  Attention is
+``--tp`` (default ``repro``'s: 1 under ``--smoke``, else 16), its heads,
+vocabulary and experts padded to it, all in this one process, as
+``repro``'s training CLI builds without a mesh; ``repro``'s ``--compress``
+gradient compression has no counterpart.  Attention is
 ``repro``'s choice: ``"naive"`` under ``--smoke``, else ``"chunked"``.
 Without ``--device`` it runs on ``cuda:0`` and raises when there is no
 GPU.  Prints ``TRAINING IMPROVED`` and exits 0 when the last loss is below
@@ -35,6 +37,7 @@ from repro_torch.data import (PrefetchIterator, lm_synthetic_stream,
                               recsys_synthetic_stream)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import StepGuard, block_until_ready
+from repro_torch.launch.mesh import default_tp
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
@@ -62,22 +65,26 @@ def train_lm(args) -> dict:
     ``update_s``, ``dropped_frac`` for a MoE model), the tokens per second
     over the steps after the first, and the peak device memory."""
     cfg = _config(args, LMConfig)
+    b = tfm.build(cfg, default_tp(args))
     dev = resolve_device(args.device)
     opt_cfg = opt_config(args)
+    print(f"{cfg.name}: tp={b.tp} ({b.n_heads_p} q / {b.n_kv_heads_p} kv "
+          f"heads, vocab {b.vocab_p}"
+          + (f", {b.e_pad} experts" if b.e_pad else "") + ")")
     step_fn = lm_lib.make_train_step(
         opt_cfg, attn_impl="naive" if args.smoke else "chunked",
         grad_accum=args.grad_accum)
     ckpt = Checkpointer(args.ckpt_dir, keep=3) if args.ckpt_dir else None
     start = 0
     if ckpt is not None and ckpt.latest() is not None:
-        tree, start = ckpt.restore(lm_lib.train_state_template(cfg),
+        tree, start = ckpt.restore(lm_lib.train_state_template(b),
                                    device=dev)
-        state = lm_lib.train_state_from_tree(cfg, tree)
+        state = lm_lib.train_state_from_tree(b, tree)
         del tree
         print(f"resumed from step {start}")
     else:
         gen = torch.Generator(dev).manual_seed(args.seed)
-        state = lm_lib.init_train_state(tfm.init_lm(cfg, gen))
+        state = lm_lib.init_train_state(tfm.init_lm(b, gen))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -182,6 +189,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default cuda:0; 'cpu' runs the plain versions")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="the tensor-parallel degree an LM is padded to "
+                         "(default: 1 with --smoke, else 16)")
     return ap
 
 

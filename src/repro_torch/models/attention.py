@@ -16,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import comm
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
@@ -193,6 +194,49 @@ def flash_jax(q, k, v, q_offset: int = 0, block: int = 512,
               score_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Causal GQA attention with :class:`_FlashJax`'s backward."""
     return _FlashJax.apply(q, k, v, int(q_offset), block, score_dtype)
+
+
+def decode_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 q_offset: int, k_offset: int, axes, mesh) -> torch.Tensor:
+    """:func:`_naive` over keys split on the sequence across ``axes``, this
+    rank's first at position ``k_offset``: each row's max and its sum of
+    exponentials are reduced over the ranks (``pmax``, ``psum``) before
+    the probabilities round to v's dtype, so every probability rounds as
+    it does in one softmax over the whole row; the P·V partials are summed
+    in f32 (``psum``) and rounded once.  Without ``axes`` it is
+    :func:`_naive`'s arithmetic.  Returns [B, Sq, Hq, Dh] in v's dtype."""
+    b, sq, hq, dh = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    qr = q.reshape(b, sq, hkv, g, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qr.float(), k.float()) \
+        * (1.0 / math.sqrt(dh))
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = k_offset + torch.arange(skv, device=q.device)
+    logits = torch.where(kpos[None, :] <= qpos[:, None], logits, NEG_INF)
+    over = (lambda op, t: op(t, axes, mesh=mesh)) if axes else \
+        (lambda op, t: t)
+    m = over(comm.pmax, logits.amax(dim=-1, keepdim=True))
+    p = torch.exp(logits - m)
+    probs = p / over(comm.psum, p.sum(dim=-1, keepdim=True))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return over(comm.psum, out).reshape(b, sq, hq, dh).to(v.dtype)
+
+
+def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                   axes, mesh, dtype: torch.dtype) -> torch.Tensor:
+    """The softmax-weighted output from each rank's partial (o, m, l) of
+    ``kvcache.decode_partial_quant``: the max over ``axes`` (``pmax``),
+    then one ``psum`` of the rescaled outputs and sums.  Without axes,
+    this rank's own ``o / l``.  Returns [B, Sq, Hq, Dh] in ``dtype``."""
+    if axes:
+        m_all = comm.pmax(m, axes, mesh=mesh)
+        w = torch.exp(m - m_all)
+        both = comm.psum(torch.cat([o * w[..., None], (l * w)[..., None]],
+                                   dim=-1), axes, mesh=mesh)
+        o, l = both[..., :-1], both[..., -1]
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,7 +1,13 @@
-"""Shared model utilities: parameter init.
+"""Shared model utilities: parameter init, the padding rule, the mesh's
+logical axes and a leaf's slice of them.
 
-One card has no mesh, so ``repro.models.common``'s sharding constraints
-have no counterpart here.
+``repro.models.common``'s ``constrain`` asks XLA to place an array; the
+port's ranks hold their slices instead, so its counterparts here are the
+axis names (:data:`DP`, :data:`TP`, :data:`FSDP`, ``repro``'s), the axes
+of them a mesh has (:func:`mesh_axes`) and their sizes
+(:func:`mesh_sizes`).  A spec's own helpers (``filter_spec``,
+``local_shape``, ``split_axes``) sit beside ``PartitionSpec`` in
+:mod:`repro_torch.distributed.comm`.
 """
 
 from __future__ import annotations
@@ -10,6 +16,32 @@ import math
 from typing import Sequence
 
 import torch
+
+# Data-parallel dims ("pod", "data") and the tensor dim ("model"), as
+# ``repro``'s: an axis a mesh lacks is dropped, so one model runs on one
+# device or any mesh.
+DP = ("pod", "data")
+TP = ("model",)
+FSDP = ("pod", "data")
+
+
+def pad_to(x: int, multiple: int) -> int:
+    return int(-(-x // multiple) * multiple)
+
+
+def mesh_sizes(mesh) -> tuple[int, int]:
+    """(the FSDP / data-parallel size, the tensor-parallel size) of
+    ``mesh``: the products of its ``pod`` / ``data`` and its ``model``
+    axes, an absent axis (or no mesh) read as 1."""
+    if mesh is None:
+        return 1, 1
+    return (math.prod(mesh.shape.get(a, 1) for a in FSDP),
+            math.prod(mesh.shape.get(a, 1) for a in TP))
+
+
+def mesh_axes(mesh, axes: Sequence[str]) -> tuple[str, ...]:
+    """Those of ``axes`` that ``mesh`` has, in mesh order."""
+    return tuple(a for a in mesh.axis_names if a in axes) if mesh else ()
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int],

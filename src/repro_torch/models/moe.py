@@ -21,8 +21,14 @@ chooses them:
 3. :func:`moe_local` (no mesh): one device.
 
 Under a mesh a rank holds its slice of the weights (:data:`PARAM_SPECS`,
-``repro``'s ``param_specs`` of a MoE layer); :func:`moe_ffn` takes the
-whole batch, the same on every rank, and returns it whole.  Each mesh path
+``repro``'s ``param_specs`` of a MoE layer; experts padded to a multiple
+of the ``model`` size and masked out of routing past ``n_real``).
+:func:`moe_block` takes the block of x that the transformer's residual
+gives this rank (its rows of the batch over the data axes and, under
+sequence parallelism, its positions over ``model``) and returns y in the
+same block: the sharded path runs on that block as it is, the dense one
+gathers the sequence first and reduce-scatters y back onto it.
+:func:`moe_ffn` is :func:`moe_block` on the ambient mesh.  Each mesh path
 has a single-process twin (:func:`moe_sharded_twin`,
 :func:`moe_dense_all_twin`): every rank's block in a loop over the whole
 weights, the collectives done as tensor ops.
@@ -38,21 +44,17 @@ import torch.nn.functional as F
 from repro_torch.configs import MoESpec
 from repro_torch.distributed import comm
 from repro_torch.distributed.comm import PartitionSpec as P
-from repro_torch.models.common import dense_init, split_keys
+from repro_torch.models.common import FSDP, TP, dense_init, mesh_axes, \
+    pad_to, split_keys
 
 NEG_INF = -1e30
 PARAMS = ("router", "w_gate", "w_up", "w_down")
-FSDP_AXES, TP_AXES = ("pod", "data"), ("model",)
 # A rank's slice of one MoE layer: experts over "model", d_model over the
 # FSDP axes (axes a mesh lacks are dropped).
 PARAM_SPECS = {"router": P(None, None),
-               "w_gate": P("model", FSDP_AXES, None),
-               "w_up": P("model", FSDP_AXES, None),
-               "w_down": P("model", None, FSDP_AXES)}
-
-
-def pad_to(x: int, multiple: int) -> int:
-    return int(-(-x // multiple) * multiple)
+               "w_gate": P("model", FSDP, None),
+               "w_up": P("model", FSDP, None),
+               "w_down": P("model", None, FSDP)}
 
 
 def param_shapes(d_model: int, spec: MoESpec, e_pad: int) -> dict:
@@ -92,13 +94,19 @@ def _route(router, x, spec: MoESpec, n_real: int, e_pad: int):
     return gate, ids, probs, logits
 
 
-def _aux(probs, ids, logits, e_pad: int, keep=None) -> dict:
+def _aux(probs, ids, logits, e_pad: int, keep=None, axes=(),
+         mesh=None) -> dict:
     """Load balance (E x sum of mean prob x mean assignment), router z-loss
-    and the share of assignments dropped past capacity."""
-    me = probs.mean(dim=0)
-    ce = F.one_hot(ids, e_pad).float().mean(dim=(0, 1))
+    and the share of assignments dropped past capacity.  ``axes``: mesh
+    axes the tokens are split over in equal shares; the means are taken
+    over every rank's tokens (``pmean``), as one ``jnp.mean`` over the
+    whole batch."""
+    mean = (lambda t: comm.pmean(t, axes, mesh=mesh)) if axes else \
+        (lambda t: t)
+    me = mean(probs.mean(dim=0))
+    ce = mean(F.one_hot(ids, e_pad).float().mean(dim=(0, 1)))
     out = {"load_balance": (me * ce).sum() * e_pad,
-           "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean()}
+           "router_z": mean((torch.logsumexp(logits, dim=-1) ** 2).mean())}
     if keep is None:
         out["dropped_frac"] = torch.zeros((), device=probs.device)
     else:
@@ -162,8 +170,7 @@ def moe_local(params: dict, x: torch.Tensor, spec: MoESpec, n_real: int):
 
 def _mesh_axes(mesh: comm.Mesh) -> tuple[tuple[str, ...], tuple[str, ...]]:
     """(the FSDP axes, the expert axes) the mesh has."""
-    return (tuple(a for a in FSDP_AXES if a in mesh.axis_names),
-            tuple(a for a in TP_AXES if a in mesh.axis_names))
+    return mesh_axes(mesh, FSDP), mesh_axes(mesh, TP)
 
 
 def _gather_experts(params: dict, fsdp: tuple, mesh: comm.Mesh):
@@ -259,25 +266,31 @@ def _dense_all_partial(x, w_te, wg, wu, wd):
     return torch.einsum("ted,te->td", y_e, w_te.to(y_e.dtype))
 
 
-def _routing_weights(router, x, spec: MoESpec, n_real: int, e_pad: int):
+def _routing_weights(router, x, spec: MoESpec, n_real: int, e_pad: int,
+                     axes=(), mesh=None):
     gate, ids, probs, logits = _route(router, x, spec, n_real, e_pad)
     w_te = (F.one_hot(ids, e_pad).float() * gate[..., None]).sum(dim=1)
-    return w_te, _aux(probs, ids, logits, e_pad)
+    return w_te, _aux(probs, ids, logits, e_pad, axes=axes, mesh=mesh)
 
 
 def _moe_dense_all(params: dict, x: torch.Tensor, spec: MoESpec,
-                   n_real: int, mesh: comm.Mesh):
-    """``repro``'s ``_moe_dense_all`` on this rank: x [T, D] whole on every
-    rank, ``params`` this rank's slices; this rank's experts on every
-    token, summed over ``model``.  Returns (y [T, D], aux)."""
+                   n_real: int, mesh: comm.Mesh, token_axes=(),
+                   reduce: bool = True):
+    """``repro``'s ``_moe_dense_all`` on this rank: x [T, D] the same on
+    every rank of ``model`` (by default on every rank; ``token_axes``:
+    the data axes its tokens are split over), ``params`` this rank's
+    slices; this rank's experts on every token, summed over ``model``
+    (with ``reduce=False`` left unsummed, in x's dtype, for the caller to
+    reduce).  Returns (y [T, D], aux)."""
     fsdp, tp = _mesh_axes(mesh)
     e_pad = params["router"].shape[1]
     wg, wu, wd = _gather_experts(params, fsdp, mesh)
-    w_te, aux = _routing_weights(params["router"], x, spec, n_real, e_pad)
+    w_te, aux = _routing_weights(params["router"], x, spec, n_real, e_pad,
+                                 token_axes, mesh)
     e_loc = wg.shape[0]
     lo = (mesh.axis_index(tp) if tp else 0) * e_loc
     y = _dense_all_partial(x, w_te[:, lo:lo + e_loc], wg, wu, wd)
-    if tp:
+    if tp and reduce:
         y = comm.psum(y, tp, mesh=mesh)
     return y.to(x.dtype), aux
 
@@ -310,37 +323,59 @@ def dispatch_kind(b: int, s: int, mesh: comm.Mesh | None) -> str:
     return "dense_all"
 
 
-def moe_ffn(params: dict, x: torch.Tensor, spec: MoESpec,
-            n_experts_real: int) -> tuple[torch.Tensor, dict]:
-    """x [B, S, D] -> ([B, S, D], aux metrics).  Under the ambient mesh
-    (:func:`repro_torch.distributed.comm.mesh_scope`) ``params`` are this
-    rank's slices (:data:`PARAM_SPECS`) and x the whole batch on every
-    rank; the sharded path cuts this rank's block of x and gathers y
-    back."""
+def moe_block(params: dict, x: torch.Tensor, spec: MoESpec,
+              n_experts_real: int, mesh: comm.Mesh | None,
+              seq_parallel: bool = False) -> tuple[torch.Tensor, dict]:
+    """The MoE FFN of this rank's block of x: [B / fsdp, S / tp (with
+    ``seq_parallel``) or S, D] -> (y in the same block, aux).  Without a
+    mesh, x is the whole batch.  On ``mesh`` the path is
+    :func:`dispatch_kind`'s for the whole batch: "sharded" runs
+    :func:`_moe_sharded` on the sequence block (cut here from x when the
+    residual is not split on it, and y gathered back); "dense_all" runs
+    :func:`_moe_dense_all` on every position (gathered here under
+    ``seq_parallel``) and sums y over ``model`` (reduce-scattered onto the
+    block under ``seq_parallel``)."""
     b, s, d = x.shape
-    mesh = comm.get_mesh()
-    kind = dispatch_kind(b, s, mesh)
-    if kind == "local":
+    if mesh is None:
         y, aux = moe_local(params, x.reshape(b * s, d), spec, n_experts_real)
         return y.reshape(b, s, d), aux
     fsdp, tp = _mesh_axes(mesh)
+    n_tp = mesh.axis_size(tp)
     e_pad = params["router"].shape[1]
-    if params["w_gate"].shape[0] * mesh.axis_size(tp) != e_pad:
+    if params["w_gate"].shape[0] * n_tp != e_pad:
         raise ValueError(
             f"under a mesh moe_ffn takes this rank's expert slice "
             f"(PARAM_SPECS): {params['w_gate'].shape[0]} experts of "
-            f"{e_pad} on {mesh.axis_size(tp)} expert ranks")
+            f"{e_pad} on {n_tp} expert ranks")
+    s_all = s * n_tp if seq_parallel else s
+    kind = dispatch_kind(b * mesh.axis_size(fsdp), s_all, mesh)
     if kind == "dense_all":
-        y, aux = _moe_dense_all(params, x.reshape(b * s, d), spec,
-                                n_experts_real, mesh)
-        return y.reshape(b, s, d), aux
-    bl, sl = b // mesh.axis_size(fsdp), s // mesh.axis_size(tp)
-    fi, tj = mesh.axis_index(fsdp), mesh.axis_index(tp)
-    y, aux, _ = _moe_sharded(
-        params, x[fi * bl:(fi + 1) * bl, tj * sl:(tj + 1) * sl], spec,
-        n_experts_real, mesh)
+        if seq_parallel and tp:
+            x = comm.all_gather(x, tp, dim=1, tiled=True, mesh=mesh)
+        y, aux = _moe_dense_all(params, x.reshape(b * s_all, d), spec,
+                                n_experts_real, mesh, token_axes=fsdp,
+                                reduce=False)
+        y = y.reshape(b, s_all, d)
+        if tp:
+            y = comm.reduce_scatter(y, tp, dim=1, mesh=mesh) if \
+                seq_parallel else comm.psum(y, tp, mesh=mesh)
+        return y, aux
+    if seq_parallel:
+        y, aux, _ = _moe_sharded(params, x, spec, n_experts_real, mesh)
+        return y, aux
+    sl, tj = s // n_tp, mesh.axis_index(tp)
+    y, aux, _ = _moe_sharded(params, x[:, tj * sl:(tj + 1) * sl], spec,
+                             n_experts_real, mesh)
     if tp:
         y = comm.all_gather(y, tp, dim=1, tiled=True, mesh=mesh)
-    if fsdp:
-        y = comm.all_gather(y, fsdp, dim=0, tiled=True, mesh=mesh)
     return y, aux
+
+
+def moe_ffn(params: dict, x: torch.Tensor, spec: MoESpec,
+            n_experts_real: int, seq_parallel: bool = False
+            ) -> tuple[torch.Tensor, dict]:
+    """:func:`moe_block` on the ambient mesh
+    (:func:`repro_torch.distributed.comm.mesh_scope`); without one, x
+    [B, S, D] whole on one device."""
+    return moe_block(params, x, spec, n_experts_real, comm.get_mesh(),
+                     seq_parallel)

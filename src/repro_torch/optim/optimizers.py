@@ -27,6 +27,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import comm
 from repro_torch.distributed.fault import UnreplayableStepError
 
 
@@ -124,11 +125,33 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    total = None
-    for leaf in tree_leaves(tree):
+def global_norm(tree: Any, specs: Any = None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.  With ``specs``
+    (a tree of ``PartitionSpec`` s like ``tree``) and ``mesh``, each leaf
+    is a rank's slice: its square-sum is summed over the axes its spec
+    splits (one ``psum`` per set of axes), a replicated leaf counted once,
+    and every rank gets the whole tree's norm."""
+    leaves = tree_leaves(tree)
+    if specs is None or mesh is None:
+        total = None
+        for leaf in leaves:
+            sq = torch.sum(torch.square(leaf.float()))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    spec_leaves = tree_leaves(specs, is_leaf=lambda x: isinstance(
+        x, comm.PartitionSpec))
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"global_norm: {len(leaves)} leaves, "
+                         f"{len(spec_leaves)} specs")
+    sums: dict = {}
+    for leaf, spec in zip(leaves, spec_leaves):
+        key = comm.split_axes(spec, mesh)
         sq = torch.sum(torch.square(leaf.float()))
+        sums[key] = sq if key not in sums else sums[key] + sq
+    total = None
+    for axes, sq in sums.items():
+        if axes:
+            sq = comm.psum(sq, axes, mesh=mesh)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

@@ -6,7 +6,9 @@ Ranks are processes over gloo, started by
 ``repro_torch.distributed.ranks.run_ranks`` (a rendezvous file under the
 test's own temporary directory, never a fixed port; a time limit that
 kills the ranks and fails the test).  Every collective and its backward
-is held against its one-process definition, at 2 and 4 ranks; the ring
+is held against its one-process definition, at 2 and 4 ranks, and
+``reduce_scatter`` and the tiled ``all_gather``'s transpose against
+``jax.lax.psum_scatter`` and JAX's VJP there too; the ring
 against ``repro``'s at 8 ranks on ``repro``'s own inputs, run through
 ``tests.test_distributed.run_in_subprocess`` with 8 forced host devices.
 Tolerance: none, but for sums over ranks (a psum, a transpose's
@@ -14,6 +16,7 @@ reduce-scatter), which gloo may add in another order than the definition
 (1e-6 absolute on inputs of order 1).
 """
 
+import inspect
 import textwrap
 import threading
 import types
@@ -200,6 +203,94 @@ def ring_runs(tmp_path_factory):
     return ref, got, steps
 
 
+# -- reduce_scatter and all_gather's transpose against JAX -----------------
+
+def scatter_inputs(world):
+    """Per-rank x [2, 4 * world, 3] and the cotangents of its
+    reduce-scatter and its tiled all-gather along dim 1, stacked over
+    ranks."""
+    rng = np.random.default_rng(world)
+    draw = lambda *shape: rng.normal(size=(world, *shape)).astype(np.float32)
+    return draw(2, 4 * world, 3), draw(2, 4, 3), draw(2, 4 * world * world, 3)
+
+
+def _scatter_ranks(device, world):
+    r = comm.rank()
+    mesh = comm.Mesh((world,), ("data",), "cpu")
+    x, ct_rs, ct_ag = (torch.from_numpy(a[r]) for a in scatter_inputs(world))
+    y, g_rs = _grad(lambda t: comm.reduce_scatter(t, "data", dim=1,
+                                                  mesh=mesh), x, ct_rs)
+    z, g_ag = _grad(lambda t: comm.all_gather(t, "data", dim=1, tiled=True,
+                                              mesh=mesh), x, ct_ag)
+    comm.issued.clear()
+    _grad(lambda t: comm.all_gather(t, "data", dim=1, tiled=True,
+                                    mesh=mesh), x, ct_ag)
+    return {"rs": (y, g_rs), "ag": (z, g_ag), "issued": dict(comm.issued)}
+
+
+REPRO_SCATTER = """
+    from jax.sharding import PartitionSpec as P
+    from repro import shardmap
+
+    def body(x, ct_rs, ct_ag):
+        x, ct_rs, ct_ag = x[0], ct_rs[0], ct_ag[0]
+        rs = lambda t: jax.lax.psum_scatter(t, "data", scatter_dimension=1,
+                                            tiled=True)
+        ag = lambda t: jax.lax.all_gather(t, "data", axis=1, tiled=True)
+        y, vjp_rs = jax.vjp(rs, x)
+        z, vjp_ag = jax.vjp(ag, x)
+        return (y[None], vjp_rs(ct_rs)[0][None], z[None],
+                vjp_ag(ct_ag)[0][None])
+
+    out = {}
+    for world in (2, 4):
+        mesh = shardmap.make_mesh((world,), ("data",))
+        f = jax.jit(shardmap.shard_map(
+            body, mesh=mesh, in_specs=(P("data"),) * 3,
+            out_specs=(P("data"),) * 4, check_vma=False))
+        out[str(world)] = [np.asarray(a).tolist()
+                           for a in f(*map(jnp.asarray,
+                                           scatter_inputs(world)))]
+"""
+
+
+@pytest.fixture(scope="module")
+def scatter_runs(tmp_path_factory):
+    ref = run_in_subprocess(
+        textwrap.dedent(inspect.getsource(scatter_inputs))
+        + textwrap.dedent(REPRO_SCATTER))
+    got = {world: run_ranks(_scatter_ranks, world, world,
+                            timeout_s=RANKS_TIMEOUT_S,
+                            workdir=tmp_path_factory.mktemp(f"s{world}"))
+           for world in WORLDS}
+    return ref, got
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_reduce_scatter_and_all_gather_transpose_match_jax(scatter_runs,
+                                                           world):
+    """``comm.reduce_scatter`` against ``jax.lax.psum_scatter(...,
+    tiled=True)`` and its VJP, and the tiled ``all_gather``'s VJP, now
+    that reduce-scatter: the gathers and the 2-rank sums exactly (a sum
+    of two f32 numbers is the same in either order), the 4-rank sums
+    within 1e-6 of the largest magnitude (gloo and XLA may add the four
+    in another order).  The all-gather's backward issues one
+    reduce-scatter and no all-reduce."""
+    ref, got = scatter_runs
+    y_j, g_rs_j, z_j, g_ag_j = (np.asarray(a, np.float32)
+                                for a in ref[str(world)])
+    sum_tol = 0.0 if world == 2 else 1e-6
+    for r, out in enumerate(got[world]):
+        (y, g_rs), (z, g_ag) = out["rs"], out["ag"]
+        np.testing.assert_allclose(
+            y, y_j[r], rtol=0, atol=sum_tol * np.abs(y_j).max())
+        np.testing.assert_array_equal(g_rs, g_rs_j[r])
+        np.testing.assert_array_equal(z, z_j[r])
+        np.testing.assert_allclose(
+            g_ag, g_ag_j[r], rtol=0, atol=sum_tol * np.abs(g_ag_j).max())
+        assert out["issued"] == {"all_gather": 1, "reduce_scatter": 1}
+
+
 # -- the one-process definitions -------------------------------------------
 
 def inputs(seed, world, shape=SHAPE):
@@ -288,6 +379,7 @@ def test_one_rank_collectives_through_the_group(tmp_path):
             count = comm.psum(torch.tensor(2 ** 40, dtype=torch.int64),
                               mesh=mesh)
             p = comm.ppermute(x, "data", [(0, 0)], mesh=mesh)
+            rs = comm.reduce_scatter(x.detach(), dim=1, mesh=mesh)
         # The backward, outside the block and on a thread of its own (as
         # autograd runs a card's), goes through the group as its forward
         # did.
@@ -298,10 +390,11 @@ def test_one_rank_collectives_through_the_group(tmp_path):
         worker.join()
         (g,) = grads
         # Backward: psum's psum, the reverse all_to_all, all_gather's
-        # reduce-scatter (an all_reduce).
+        # reduce-scatter.
         assert dict(comm.issued) == {"all_gather": 1, "all_to_all": 2,
-                                     "all_reduce": 5}
+                                     "all_reduce": 4, "reduce_scatter": 2}
         torch.testing.assert_close(s, x, rtol=0, atol=0)
+        torch.testing.assert_close(rs, x, rtol=0, atol=0)
         assert torch.equal(flag, x[0, 0] > 0)
         assert int(count) == 2 ** 40
         torch.testing.assert_close(g, torch.full_like(x, 3), rtol=0, atol=0)
@@ -315,8 +408,8 @@ def test_one_rank_collectives_through_the_group(tmp_path):
 
 def test_filter_spec_drops_missing_axes():
     mesh = types.SimpleNamespace(axis_names=("data", "model"))
-    assert mesh_lib.filter_spec(
-        P("model", ("pod", "data"), None, "pod"), mesh) == P(
+    assert comm.filter_spec(
+        P("model", ("pod", "data"), None, "pod"), mesh.axis_names) == P(
             "model", ("data",), None, None)
     assert repr(P("data", None)) == "P('data', None)"
 

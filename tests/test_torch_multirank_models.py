@@ -1,5 +1,5 @@
 """The port's expert-parallel MoE (``_moe_sharded``, ``_moe_dense_all``,
-``moe_ffn``'s dispatch rule) and GPipe pipeline across ranks against
+``moe_ffn``'s dispatch rule, on this rank's block of x) and GPipe pipeline across ranks against
 ``repro``'s, and against their single-process twins, on the CPU.
 
 Ranks are processes over gloo (``repro_torch.distributed.ranks.run_ranks``:
@@ -95,12 +95,16 @@ def _moe_ranks(device, params_np, x_np, ct_np, ctd_np, big_np):
     out["dense"] = {"y": yd.detach().numpy(), "aux": {
         k: float(v) for k, v in auxd.items()}, "grads": _local_grads(
         (yd * torch.from_numpy(ctd_np)).sum() / 4, [*local.values(), x])}
+    # moe_ffn takes this rank's block of x: its rows, and with
+    # ``seq_parallel`` its positions over "model".
     with torch.no_grad(), comm.mesh_scope(mesh):
         nograd = {k: v.detach() for k, v in local.items()}
-        out["ffn_small"] = moe_t.moe_ffn(nograd, torch.from_numpy(x_np),
-                                         spec, N_REAL)[0].numpy()
-        out["ffn_big"] = moe_t.moe_ffn(nograd, torch.from_numpy(big_np),
-                                       spec, N_REAL)[0].numpy()
+        out["ffn_small"] = moe_t.moe_ffn(
+            nograd, torch.from_numpy(x_np[2 * f:2 * f + 2]), spec,
+            N_REAL)[0].numpy()
+        out["ffn_big"] = moe_t.moe_ffn(
+            nograd, torch.from_numpy(big_np[f:f + 1, 1024 * j:1024 * (j + 1)]),
+            spec, N_REAL, seq_parallel=True)[0].numpy()
     return out
 
 
@@ -267,9 +271,11 @@ def test_moe_ffn_dispatch_rule(moe_runs, monkeypatch):
     assert moe_t.dispatch_kind(3, 2048, mesh) == "dense_all"
     assert moe_t.dispatch_kind(2, 2049, mesh) == "dense_all"
     assert moe_t.dispatch_kind(*big.shape[:2], None) == "local"
-    for out in ranks:
-        close(out["ffn_small"], ref["small"], 1e-5)
-        close(out["ffn_big"], ref["large"], 1e-5)
+    small, large = np.asarray(ref["small"]), np.asarray(ref["large"])
+    for r, out in enumerate(ranks):
+        f, j = divmod(r, 2)
+        close(out["ffn_small"], small[2 * f:2 * f + 2], 1e-5)
+        close(out["ffn_big"], large[f:f + 1, 1024 * j:1024 * (j + 1)], 1e-5)
     # Under a mesh the whole expert stack is refused: a rank takes its
     # slice.
     monkeypatch.setattr(comm, "get_mesh", lambda: mesh)
