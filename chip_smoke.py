@@ -104,7 +104,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    stream (bounds every superstep) against a deadline run (bounds once),
    and the service's own launches of ``lane_superstep``, ``subset_combine``
    and ``batched_backtrace`` (zeroed just before the service starts, read
-   just after it stops; each must be above zero).
+   just after it stops; each must be above zero).  Then phase 5's
+   requests through a fresh service (``serve_script``: the bucket's first
+   2 lanes as deadline buckets at 0 s and 600 s, the bucket of 8, the
+   two single queries with their answer trees, the bucket again from
+   the cache), kept for phase 18, with p50 / p99 and requests/s.
 10. Store and live graphs — phase 5's sec-rdfabout graph and index
    through ``repro_torch.store`` on ``"cuda"``: ``from_graph`` ->
    ``write_artifact`` (a temporary directory) -> ``open_artifact`` with
@@ -267,7 +271,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    the time their loop took, which every rank stops at the same superstep
    mid-run with one state digest and sound bounds at most the exact
    answers; ms a superstep of the stream, the deadline bucket and the
-   instrumented loop's four phases; the 2 ranks
+   instrumented loop's four phases; the 1 and 4 ranks then serve the
+   same engine through ``DKSService`` on rank 0 while the other ranks
+   replay its records (``repro_torch.serve.follow``): phase 9's
+   ``serve_script`` (served bucket equal to the twin and to phase 9's,
+   the single queries' results and trees to phase 9's, the deadline
+   buckets to phase 12's stepwise twin with ``approximate`` ==
+   ``interrupted`` and the same bounds, the repeats all cache hits,
+   every follower's replay log equal to rank 0's records; p50 / p99 and
+   requests/s printed), and at 4 ranks a live swap on phase 12's small
+   graph written as a ``LiveDir`` (2 client threads, a delta appended
+   and swapped in under their load, no failed request, every rank
+   installing the build at one record, the answers after it equal to a
+   ``compact_chain`` engine's on the card); the 2 ranks
    then run one dbrx-132b MoE
    layer at full width expert-parallel on a (data 1, model 2) mesh, x [4,
    2,048, 6,144] bf16 (ids, slots and kept assignments equal to the twin,
@@ -393,6 +409,9 @@ RANKS_DKS_WORLDS = (1, 2, 4)   # phase 18: 1 rank over NCCL, 2 and 4 over gloo
 RANKS_STEPWISE_WORLDS = (1, 4)  # of these, the ones that run the stepwise legs
 STEPWISE_LANES = 2          # the deadline legs' lanes: the bucket's first
 RANKS_TIMEOUT_S = 240       # each spawn of ranks: killed past it
+SERVE_CONFIG = {"max_batch": 8, "max_wait_ms": 50.0}  # phases 9 and 18's
+SWAP_CLIENTS = 2            # phase 18's client threads across the live swap
+SWAP_REQUESTS = 6           # requests served before the swap, and after it
 RANKS_SEED = 0              # phase 18's weights and gradients
 RANKS_REPS = 2              # calls of the MoE layer and the pipeline
 RANKS_MOE_ARCH, RANKS_MOE_X = "dbrx-132b", (4, 2048)   # one MoE layer
@@ -1570,7 +1589,7 @@ def serving_phase(graph, index, engines, bucket, singles) -> dict:
     from repro_torch.kernels.subset_combine import ops as sc_ops
     from repro_torch.launch.serve_dks import (check_smoke, serve_replay,
                                               verify_served)
-    from repro_torch.serve import ServeConfig
+    from repro_torch.serve import DKSService, ServeConfig
     from repro_torch.serve.loadgen import make_trace
 
     eng_c, eng_t = engines["cuda"], engines["torch"]
@@ -1616,6 +1635,13 @@ def serving_phase(graph, index, engines, bucket, singles) -> dict:
         f"{n_approx} approximate within their sound bounds")
     log(f"  {summary}")
     log(f"  launches by DKSService (replay, trees, scrape): {launches}")
+    # Phase 5's requests served (phase 18 holds its ranks' service to
+    # these).
+    with DKSService(eng_c, ServeConfig(**SERVE_CONFIG)) as svc:
+        served = serve_script(svc, bucket, singles)
+    check(served["repeat_hits"] == BUCKET_LANES,
+          f"the bucket again: {served['repeat_hits']} cache hits")
+    log(f"  phase 5's requests served: {served_line(served)}")
 
     # The bucket of phase 5 as one deadline bucket, at 0 and never.
     for deadline_s in (0.0, 600.0):
@@ -1691,7 +1717,7 @@ def serving_phase(graph, index, engines, bucket, singles) -> dict:
         f"{rows['cuda'].summary()['peak_frontier']})")
 
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches,
+    return {"launches": launches, "served": served,
             "summary": f"{len(trace)} requests, p99 "
                        f"{np.percentile(lat, 99):.1f} ms, "
                        f"{st.throughput_rps:.1f} requests/s, "
@@ -3458,12 +3484,187 @@ def rank_comm(device) -> None:
         held("psum of int64", comm.psum(big[r], mesh=mesh), sum(big))
 
 
-def rank_dks(device, graph, index, bucket, stepwise: bool = False
-             ) -> dict:
+def served_record(srv) -> dict:
+    """A served answer: its result record, its bounds and its tree page."""
+    rec = {"result": result_record(srv.result),
+           "approximate": srv.approximate,
+           "bounds": [srv.opt_lower_bound, srv.sound_opt_lower_bound]}
+    if srv.trees is not None:
+        rec["trees"] = [(t.root, t.weight, [(e.u, e.v) for e in t.edges])
+                        for t in srv.trees.items]
+    return rec
+
+
+def serve_script(svc, bucket, singles) -> dict:
+    """Phase 5's requests through a ``DKSService`` (phase 9 in one
+    process; phase 18 on rank 0 of a graph split across ranks): the
+    bucket's first ``STEPWISE_LANES`` lanes as deadline buckets at 0 s
+    and at 600 s (then the cache is emptied), the bucket of 8, the single
+    queries with their answer trees, and the bucket again (cache hits).
+    Returns the served records, latencies and the wall time."""
+    def burst(queries, k, **kw):
+        futs = [svc.submit(q, k=k, **kw) for q in queries]
+        return [f.result(SERVE_TIMEOUT_S) for f in futs]
+
+    out, served = {}, []
+    t0 = time.perf_counter()
+    for d in (0.0, 600.0):
+        got = burst(bucket[:STEPWISE_LANES], BUCKET_K, deadline_ms=d * 1e3)
+        out[f"deadline/{d}"] = [served_record(r) for r in got]
+        served += got
+    svc.invalidate_cache()
+    got = burst(bucket, BUCKET_K)
+    out["bucket"] = [served_record(r) for r in got]
+    served += got
+    got = burst(singles, SINGLE_K, return_trees=True,
+                tree_page_size=SINGLE_K)
+    out["singles"] = [served_record(r) for r in got]
+    served += got
+    got = burst(bucket, BUCKET_K)
+    out["repeat_hits"] = sum(r.cache_hit for r in got)
+    served += got
+    out["wall_s"] = time.perf_counter() - t0
+    out["latency_ms"] = [r.latency_ms for r in served]
+    return out
+
+
+def served_line(out: dict) -> str:
+    """:func:`serve_script`'s latencies and rate, host clock."""
+    lat = np.asarray(out["latency_ms"])
+    return (f"{len(lat)} requests in {out['wall_s']:.3f} s, "
+            f"{len(lat) / out['wall_s']:.2f} requests/s, p50 "
+            f"{np.percentile(lat, 50):.3f} ms, p99 "
+            f"{np.percentile(lat, 99):.3f} ms (host clock)")
+
+
+def small_live(root: Path) -> tuple:
+    """Phase 12's small graph (``SMALL_SHARDED``) as a ``LiveDir`` under
+    ``root``, one TSV line an edge (node ``v`` named ``n<v>`` and its
+    tokens ``t<token>``), and the fragment of one delta: a shortcut from
+    node 0 to the last node and a new entity ``zzz fresh`` beside node 0.
+    Returns (live path, fragment path, the clients' queries, the queries
+    asked after the swap)."""
+    from repro_torch.graph.generators import lod_like_graph
+    from repro_torch.graph.index import mid_df_tokens
+    from repro_torch.live import LiveDir
+    from repro_torch.store import ingest_tsv
+
+    n_s, e_s, _ = SMALL_SHARDED
+    gs, toks = lod_like_graph(n_s, e_s, seed=5, vocab=200)
+    name = [f"n{v} " + " ".join(f"t{t}" for t in row)
+            for v, row in enumerate(toks)]
+    src = np.repeat(np.arange(gs.n_nodes), np.diff(gs.indptr))
+    keep = src < gs.indices
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    (root / "small.tsv").write_text("".join(
+        f"{name[u]}\t{name[v]}\tlinks\n"
+        for u, v in zip(src[keep], gs.indices[keep])))
+    live = LiveDir.initialize(root / "live", ingest_tsv(root / "small.tsv"))
+    frag = root / "frag-0001.tsv"
+    frag.write_text(f"{name[0]}\t{name[n_s - 1]}\tshortcut\t1.0\n"
+                    f"zzz fresh\t{name[0]}\tmentions\t0.9\n")
+    mid = mid_df_tokens(live.chain().index())
+    pool = [list(mid[3 * i:3 * i + 3]) for i in range(4)]
+    return live.path, frag, pool, pool + [["fresh", "n0"]]
+
+
+def small_policy():
+    from repro_torch.engine import ExecutionPolicy
+
+    return ExecutionPolicy(partition="sharded",
+                           frontier_frac=SMALL_SHARDED[2])
+
+
+def rank_swap(device, live_path, frag, pool, post) -> dict:
+    """A live swap across ranks: rank 0 serves ``pool`` from client
+    threads, appends ``frag`` to the ``LiveDir`` and swaps onto the grown
+    chain under that load, then serves ``post``; the other ranks
+    follow."""
+    import threading
+
+    from repro_torch.distributed import comm
+    from repro_torch.engine import QueryEngine
+    from repro_torch.launch.serve_dks import wait_for
+    from repro_torch.live import EngineSwapper, LiveDir
+    from repro_torch.serve import DKSService, ServeConfig, follow
+
+    live = LiveDir(live_path)
+    eng = QueryEngine.build(artifact=live.chain(), device=device,
+                            policy=small_policy())
+    if comm.rank() > 0:
+        return {"logs": follow(eng)}
+    failures, stop = [], threading.Event()
+    with DKSService(eng, ServeConfig(max_batch=4, max_wait_ms=10.0)) as svc:
+        swapper = EngineSwapper(svc)
+
+        def client(i):
+            while not stop.is_set():
+                try:
+                    svc.query(pool[i % len(pool)], k=2,
+                              timeout=SERVE_TIMEOUT_S)
+                except Exception as exc:
+                    failures.append(repr(exc))
+                    return
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(SWAP_CLIENTS)]
+        try:
+            for t in threads:
+                t.start()
+            wait_for(lambda: svc.stats().requests >= SWAP_REQUESTS,
+                     SERVE_TIMEOUT_S, "the load before the swap")
+            live.append([frag])
+            t0 = time.perf_counter()
+            swapper.swap_to(live.chain())
+            swap_s = time.perf_counter() - t0
+            n = svc.stats().requests
+            wait_for(lambda: failures or
+                     svc.stats().requests >= n + SWAP_REQUESTS,
+                     SERVE_TIMEOUT_S, "the load after the swap")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(SERVE_TIMEOUT_S)
+        post_served = [result_record(svc.query(q, k=2,
+                                               timeout=SERVE_TIMEOUT_S)
+                                     .result) for q in post]
+        stats = svc.stats()
+    return {"logs": list(svc.records), "failures": failures,
+            "swaps": swapper.swaps, "version": svc.engine.version,
+            "post": post_served, "requests": stats.requests,
+            "swap_s": swap_s}
+
+
+def rank_serve(device, eng, bucket, singles, live) -> dict:
+    """The serving leg on one shard a rank: rank 0 serves
+    :func:`serve_script` through ``DKSService`` while the other ranks
+    follow; then, with ``live``, :func:`rank_swap`.  Every rank returns
+    its record logs."""
+    from repro_torch.distributed import comm
+    from repro_torch.serve import DKSService, ServeConfig, follow
+
+    t0 = time.perf_counter()
+    if comm.rank() > 0:
+        out = {"logs": follow(eng)}
+    else:
+        with DKSService(eng, ServeConfig(**SERVE_CONFIG)) as svc:
+            out = serve_script(svc, bucket, singles)
+        out["logs"] = list(svc.records)
+    out["serve_s"] = time.perf_counter() - t0
+    if live is not None:
+        out["swap"] = rank_swap(device, *live)
+    return out
+
+
+def rank_dks(device, graph, index, bucket, stepwise: bool = False,
+             serve: tuple | None = None) -> dict:
     """One shard a rank: ``comm``'s collectives held, then the bucket
     through the sharded engine and, with ``stepwise``, the stepwise
-    surfaces (:func:`rank_stepwise`), every collective through the group
-    (at one rank too)."""
+    surfaces (:func:`rank_stepwise`), and with ``serve`` (the single
+    queries and :func:`small_live`'s tuple or None) the serving leg
+    (:func:`rank_serve`), every collective through the group (at one rank
+    too)."""
     from repro_torch.core.dks_sharded import frontier_cap
     from repro_torch.distributed import comm
     from repro_torch.engine import ExecutionPolicy, QueryEngine
@@ -3491,6 +3692,9 @@ def rank_dks(device, graph, index, bucket, stepwise: bool = False
     if stepwise:
         with comm.through_group():
             steps = rank_stepwise(device, eng, bucket)
+    if serve is not None:
+        with comm.through_group():
+            served = rank_serve(device, eng, bucket, *serve)
     out = {**rank_header(device), "ms": ms, "peak": peak_bytes(device),
            "driver_ms": res[0].wall_time_s * 1e3,
            "issued": issued, "checked": checked,
@@ -3502,6 +3706,8 @@ def rank_dks(device, graph, index, bucket, stepwise: bool = False
         out["digest"] = state_digest(res)
     if stepwise:
         out["stepwise"] = steps
+    if serve is not None:
+        out["serve"] = served
     return out
 
 
@@ -3876,9 +4082,10 @@ def rank_tp_train(device, scfg) -> dict:
             "leg_s": time.perf_counter() - t0}
 
 
-def rank_single(device, graph, index, bucket, stepwise, moe_cfg) -> dict:
+def rank_single(device, graph, index, bucket, stepwise, serve,
+                moe_cfg) -> dict:
     """The one-rank spawn: DKS, then the granite tp leg at (1, 1)."""
-    out = {"dks": rank_dks(device, graph, index, bucket, stepwise)}
+    out = {"dks": rank_dks(device, graph, index, bucket, stepwise, serve)}
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3968,6 +4175,83 @@ def stepwise_held(world: int, outs: list, twin: dict, card: str) -> None:
         f"{fmt_ms(slowest['stepwise']['phases_ms'])} (twin "
         f"{fmt_ms(twin['phases_ms'])}) [{card}; one card shared by the "
         f"ranks: not a multi-card time]")
+
+
+def dks_serve_held(dev, world: int, outs: list, twin: list,
+                   stepwise4: dict, served9: dict, live: tuple,
+                   card: str) -> None:
+    """Phase 18's serving leg at ``world`` ranks: every follower's replay
+    log equals rank 0's records; rank 0's served bucket equals the twin
+    at the same shard count (``twin``) and phase 9's served bucket, its
+    single queries and their trees phase 9's, its deadline buckets phase
+    12's stepwise twin (results, ``approximate`` == ``interrupted``, the
+    bounds); the bucket again is all cache hits.  At 4 ranks the live
+    swap failed no request, every rank installed the new build at the
+    same record, and the answers after it equal an engine built from
+    ``compact_chain`` on the card."""
+    head = outs[0]["serve"]
+    for r, out in enumerate(outs[1:], 1):
+        check(out["serve"]["logs"] == head["logs"],
+              f"serving at {world} ranks: rank {r}'s replay log differs "
+              f"from rank 0's records")
+    kinds = [rec.kind for rec in head["logs"]]
+    check(kinds[0] == "open" and kinds[-1] == "stop"
+          and kinds.count("call") >= 4, f"records {kinds}")
+    check([rec["result"] for rec in head["bucket"]] == twin,
+          f"served bucket at {world} ranks differs from the twin")
+    for what in ("bucket", "singles"):
+        check(head[what] == served9[what],
+              f"served {what} at {world} ranks differ from phase 9's")
+    check(all(rec.get("trees") for rec in head["singles"]),
+          "single queries served without trees")
+    for d in (0.0, 600.0):
+        want = stepwise4["held"][f"deadline/{d}"]
+        for i, (rec, (res, info)) in enumerate(zip(head[f"deadline/{d}"],
+                                                   want)):
+            check(rec["result"] == res
+                  and rec["approximate"] == info["interrupted"]
+                  and rec["bounds"] == [info["opt_lower_bound"],
+                                        info["sound_opt_lower_bound"]],
+                  f"served deadline {d} s lane {i} at {world} ranks "
+                  f"differs from the stepwise twin")
+    check(head["repeat_hits"] == BUCKET_LANES,
+          f"the bucket again: {head['repeat_hits']} cache hits")
+    log(f"  DKSService at {world} rank(s), rank 0 leading and "
+        f"{world - 1} follower(s) replaying {len(kinds)} records == its "
+        f"log: {served_line(head)} (one process, phase 9: "
+        f"{served_line(served9)}); bucket and trees == twin and phase 9, "
+        f"deadline buckets at 0 s and 600 s == stepwise twin; leg "
+        f"{head['serve_s']:.1f} s [{card}; one card shared by the ranks: "
+        f"not a multi-card time]")
+    if "swap" not in head:
+        return
+    from repro_torch.engine import QueryEngine
+    from repro_torch.live import LiveDir
+    from repro_torch.store import compact_chain
+
+    sw = head["swap"]
+    for r, out in enumerate(outs[1:], 1):
+        check(out["serve"]["swap"]["logs"] == sw["logs"],
+              f"live swap: rank {r}'s replay log differs from rank 0's")
+    check(not sw["failures"] and sw["swaps"] == 1,
+          f"live swap: {sw['swaps']} swaps, failures {sw['failures']}")
+    check([rec.kind for rec in sw["logs"]].count("swap") == 1,
+          "live swap: not one swap record")
+    chain = LiveDir(live[0]).chain()
+    check(sw["version"] == f"artifact:{chain.content_hash}",
+          f"live swap: serving {sw['version']}")
+    art = compact_chain(chain, Path(live[0]).parent / "compact",
+                        overwrite=True)
+    eng = QueryEngine.build(artifact=art, device=dev, policy=dataclasses
+                            .replace(small_policy(), n_shards=world))
+    want = [result_record(r) for r in eng.query_batch(live[3], k=2)]
+    check(sw["post"] == want,
+          "live swap: answers after the swap differ from compact_chain's")
+    log(f"  live swap at {world} ranks on the small graph "
+        f"({SMALL_SHARDED[0]} nodes): {sw['requests']} requests from "
+        f"{SWAP_CLIENTS} clients, 0 failed; build, warm and install on "
+        f"every rank at one record in {sw['swap_s']:.3f} s; answers "
+        f"after it == compact_chain's engine [{card}]")
 
 
 def tp_ms(outs: list, key: str) -> str:
@@ -4109,13 +4393,14 @@ def tp_held(dev, card: str, cfg, moe_cfg, scfg, lm_outs, moe_outs,
             "tp_granite_nccl": [nccl_out["launches"]]}
 
 
-def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
-                twin4, stepwise4) -> dict:
+def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
+                phase5, twin4, stepwise4, served9) -> dict:
     """Phase 18: DKS's frontier exchange and its stepwise surfaces,
     expert-parallel MoE, GPipe, the int8 ring and the transformer's
     tensor parallelism across ranks, each against its twin on the card.
     ``twin4``: phase 12's 4-shard records and state digest;
-    ``stepwise4``: its :func:`stepwise_record`.  Returns the flash
+    ``stepwise4``: its :func:`stepwise_record`; ``served9``: phase 9's
+    :func:`serve_script` on one process.  Returns the flash
     launches of the pipeline's and the tensor-parallel legs' ranks and a
     summary."""
     from repro_torch.configs import get_arch
@@ -4144,6 +4429,10 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
     ring_cfg = get_arch(RING_ARCH)
     tp_moe = tp_moe_cfg(get_arch(MOE_ARCH))
     spawned, pair, single = {}, None, None
+    # The serving leg rides the 1-rank and the 4-rank spawns, the live
+    # swap the 4-rank one.
+    live = small_live(workdir / "live")
+    serve = {1: (singles, None), 4: (singles, live)}
     for world in RANKS_DKS_WORLDS:
         t0 = time.perf_counter()
         if world == 2:
@@ -4154,11 +4443,12 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
             spawned[world] = [out["dks"] for out in pair]
         elif world == 1:
             single = spawn(rank_single, 1, graph, index, bucket,
-                           world in RANKS_STEPWISE_WORLDS, tp_moe)
+                           world in RANKS_STEPWISE_WORLDS, serve[1], tp_moe)
             spawned[world] = [out["dks"] for out in single]
         else:
             spawned[world] = spawn(rank_dks, world, graph, index, bucket,
-                                   world in RANKS_STEPWISE_WORLDS)
+                                   world in RANKS_STEPWISE_WORLDS,
+                                   serve.get(world))
         log(f"  {world} rank(s) spawned, ran and joined in "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -4209,6 +4499,9 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
                    f"== twin, top-K == phase 5")
         if world in RANKS_STEPWISE_WORLDS:
             stepwise_held(world, outs, stepwise4, card)
+        if world in serve:
+            dks_serve_held(dev, world, outs, twin, stepwise4, served9,
+                           live, card)
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -4335,7 +4628,8 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, phase5,
     return {"pp_launches": launches, "tp_launches": tp_launches,
             "summary": f"DKS at {list(RANKS_DKS_WORLDS)} ranks == twin, "
                        f"its stepwise surfaces at "
-                       f"{list(RANKS_STEPWISE_WORLDS)}; "
+                       f"{list(RANKS_STEPWISE_WORLDS)}, DKSService at "
+                       f"{sorted(serve)} with followers; "
                        f"MoE, GPipe, int8 ring, tensor parallelism held; "
                        f"phase {time.perf_counter() - t_phase:.1f} s"}
 
@@ -4826,8 +5120,9 @@ def phases(meta: list) -> int:
     # ---------------- 18. several ranks ----------------
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = ranks_phase("cuda", card, graph, index, bucket, phase5,
-                        sharded["twin4"], sharded["stepwise4"])
+    ranks = ranks_phase("cuda", card, graph, index, bucket, singles, phase5,
+                        sharded["twin4"], sharded["stepwise4"],
+                        serving["served"])
     log(f"[18/18] several ranks: {ranks['summary']}")
     log(f"  card: {card}")
 

@@ -46,6 +46,11 @@ A collective over an axis of one rank is the identity and is elided, as
 XLA elides it; inside :func:`through_group` it runs through the group all
 the same, which checks a group's transport at world size 1.  :data:`issued`
 counts the ops this process hands to ``torch.distributed``.
+
+Beside the data group, :func:`init` makes one gloo group, the control
+channel: :func:`broadcast_object` sends a pickled host object from rank 0
+over it (a served engine call's record, for instance), so that it neither
+needs a CUDA tensor under NCCL nor waits behind a frontier exchange.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ STAGED_OPS = ("ppermute",)
 
 # The ops handed to ``torch.distributed`` in this process, by kind
 # ("all_reduce", "all_gather", "reduce_scatter", "all_to_all", "send",
-# "recv"); the caller clears it.
+# "recv", "broadcast_object"); the caller clears it.
 issued: collections.Counter = collections.Counter()
 
 
@@ -133,6 +138,12 @@ def split_axes(spec: PartitionSpec, mesh: "Mesh") -> tuple[str, ...]:
 
 
 INIT_TIMEOUT_S = 300       # a collective that waits longer raises
+# How long a rank waits on the control channel: a follower waits there
+# for the next record while its service is idle.  A rank that exits
+# closes its sockets, so a dead peer still raises at once.
+CHANNEL_TIMEOUT_S = 7 * 24 * 3600
+
+_CHANNEL = None            # the control channel's gloo group
 
 _MESH: contextvars.ContextVar["Mesh | None"] = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
@@ -189,6 +200,9 @@ def init(rank: int, world_size: int, init_method: str, *,
     dist.init_process_group(
         backend, init_method=init_method, world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S), **kwargs)
+    global _CHANNEL
+    _CHANNEL = dist.new_group(
+        backend="gloo", timeout=datetime.timedelta(seconds=CHANNEL_TIMEOUT_S))
     return device
 
 
@@ -238,8 +252,10 @@ def staged_ops(device: torch.device) -> tuple[str, ...]:
 
 def shutdown() -> None:
     """Leave the process group (a no-op without one)."""
+    global _CHANNEL
     if is_initialized():
         dist.destroy_process_group()
+    _CHANNEL = None
 
 
 @contextlib.contextmanager
@@ -259,6 +275,22 @@ def through_group() -> Iterator[None]:
 def _elided(mesh: "Mesh", axes) -> bool:
     """Whether a collective over ``axes`` is the identity and skipped."""
     return mesh.axis_size(axes) == 1 and not _THROUGH.get()
+
+
+def broadcast_object(obj=None, src: int = 0):
+    """Rank ``src``'s ``obj`` (any picklable host object; the other ranks
+    pass nothing) on every rank, over the control channel.  Without a
+    group, or over one rank outside :func:`through_group`, it returns
+    ``obj``."""
+    if not is_initialized() or (world_size() == 1 and not _THROUGH.get()):
+        return obj
+    if _CHANNEL is None:
+        raise RuntimeError("no control channel: join the group with "
+                           "comm.init / comm.init_from_env")
+    box = [obj if rank() == src else None]
+    issued["broadcast_object"] += 1
+    dist.broadcast_object_list(box, src=src, group=_CHANNEL)
+    return box[0]
 
 
 # --------------------------------------------------------------------------

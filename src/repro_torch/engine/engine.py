@@ -347,6 +347,29 @@ class QueryEngine:
     # Queries
     # ------------------------------------------------------------------
 
+    def validate(self, queries: Sequence[Sequence], k: int = 1, *,
+                 strict: bool = True, same_m: bool = False,
+                 **overrides) -> None:
+        """Raise what :meth:`query_batch` (``same_m``:
+        :meth:`query_deadline_batch`) would raise on these arguments
+        before its first superstep: a bad ``k``, keyword count or
+        override, or, with ``strict``, a keyword that matches no node.
+        On a graph split across ranks, a call that passes it issues the
+        same collectives on every rank."""
+        ms = sorted({len(q) for q in queries})
+        if same_m and len(ms) > 1:
+            raise ValueError(
+                f"a deadline bucket shares one driver: all queries must "
+                f"have the same keyword count (got m={ms})")
+        for m in ms:
+            self._config(m, k, **overrides)
+        if strict:
+            missing = sorted({repr(t) for q in queries
+                              for t in self.index.missing_tokens(list(q))})
+            if missing:
+                raise KeyError(f"keywords matched no node in the index: "
+                               f"{', '.join(missing)}")
+
     def query(
         self,
         keywords: Sequence,

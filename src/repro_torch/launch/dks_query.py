@@ -24,7 +24,9 @@ superstep::
 
 (one card a rank over NCCL; ``--device cpu`` runs the ranks on the CPU
 over gloo).  Every rank answers the same query, ``--stream`` included;
-only rank 0 prints.  ``--explain`` stays in one process.
+only rank 0 prints.  Under ``--explain`` rank 0 serves the query through
+its one-shot service and the other ranks follow it
+(:func:`repro_torch.serve.follow`).
 ``--artifact PATH`` mmap-loads a
 graph-store artifact (``python -m repro_torch.launch.ingest`` writes one;
 so does ``repro.launch.ingest``: the format is shared) instead of
@@ -115,6 +117,21 @@ def resolve_backend(ap: argparse.ArgumentParser,
                  "fused CUDA kernel is dense-only")
 
 
+def join_ranks(ap: argparse.ArgumentParser,
+               args: argparse.Namespace) -> None:
+    """Under ``torchrun`` (``WORLD_SIZE`` set): require ``--partition
+    sharded`` and join the group, one shard a rank (``--device cpu``:
+    the ranks run on the CPU over gloo; else on this rank's card).
+    ``args.device`` becomes this rank's device."""
+    if "WORLD_SIZE" not in os.environ:
+        return
+    if args.partition != "sharded":
+        ap.error("under torchrun the graph is split one shard a rank: "
+                 "pass --partition sharded")
+    args.device = comm.init_from_env(
+        "cpu" if args.device == "cpu" else "cuda")
+
+
 def describe_partition(engine: QueryEngine) -> str:
     """One line on a sharded engine's layout."""
     fg = engine.device_graph
@@ -183,17 +200,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.parity and args.backend != "cuda":
         ap.error("--parity needs --backend cuda (it builds the torch twin "
                  "to compare against)")
-    ranked = "WORLD_SIZE" in os.environ
-    if ranked:
-        if args.partition != "sharded":
-            ap.error("under torchrun the query runs --partition sharded, "
-                     "one shard per rank")
-        if args.explain:
-            ap.error("--explain serves through DKSService, which runs in "
-                     "one process: across ranks, followers on the ranks "
-                     "above 0 would have to replay rank 0's batches")
-        args.device = comm.init_from_env(
-            "cpu" if args.device == "cpu" else "cuda")
+    join_ranks(ap, args)
     try:
         return _run(args)
     finally:
@@ -256,7 +263,10 @@ def _run(args: argparse.Namespace) -> int:
         # One-shot service: the query takes the real serving path, so the
         # printed span tree has the anatomy production traces have.
         from repro_torch.obs import render_span_tree
-        from repro_torch.serve import DKSService, ServeConfig
+        from repro_torch.serve import DKSService, ServeConfig, follow
+        if comm.rank() > 0:
+            follow(engine)
+            return 0
         with DKSService(engine, ServeConfig(
                 max_batch=1, max_wait_ms=0.0)) as svc:
             served = svc.query(query, k=args.k)

@@ -12,7 +12,14 @@ the direct single-query engine — the port of ``repro.launch.serve_dks``:
         --dataset sec-rdfabout-cpu --backend torch --device cpu
 
 ``--partition sharded`` serves the frontier-compressed sharded partition
-(``--backend`` then defaults to ``torch``, its only backend).
+(``--backend`` then defaults to ``torch``, its only backend).  Under
+``torchrun`` it is required, and each rank holds one shard: rank 0 runs
+the service, its clients, the checks, the metrics server and the trace
+log, and the other ranks replay its engine calls
+(:func:`repro_torch.serve.follow`)::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve_dks \
+        --partition sharded --device cpu --smoke --swap-mid-run
 
 ``--smoke`` shrinks the run and *asserts* the serving invariants: mean
 batch-fill > 1 (the micro-batcher coalesced concurrent clients), warm
@@ -40,6 +47,7 @@ stay complete and the swap counters land on ``/metrics``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import tempfile
@@ -51,33 +59,38 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.configs import DKS_CONFIGS
+from repro_torch.distributed import comm
 from repro_torch.engine import ExecutionPolicy, QueryEngine
 from repro_torch.launch.dks_query import (add_partition_args,
                                           add_weight_policy_args,
                                           build_engine, describe_partition,
-                                          resolve_backend,
+                                          join_ranks, resolve_backend,
                                           weight_policy_from_args)
 from repro_torch.obs import MetricsServer, parse_prometheus
-from repro_torch.serve import DKSService, ServeConfig
+from repro_torch.serve import DKSService, ServeConfig, follow
 from repro_torch.serve.loadgen import latency_split, make_trace, replay
 
 
-def verify_served(engine, trace, served):
+def verify_served(engine, trace, served, *, via=None):
     """Check every served answer against the direct engine.
 
     Exact results must equal the single-query weights bit for bit (the
     lane driver and the 1-lane driver compute the same lattice values);
     approximate (deadline-terminated) results must bracket the optimum:
     ``sound_opt_lower_bound <= optimum <= best-so-far``.  Returns
-    (n_exact, n_approx); raises AssertionError on any mismatch.
+    (n_exact, n_approx); raises AssertionError on any mismatch.  ``via``:
+    a running :class:`DKSService` over ``engine`` whose
+    :meth:`~DKSService.on_engine` runs the reference queries (across
+    ranks the followers must run them too).
     """
+    query = engine.query if via is None else functools.partial(
+        via.on_engine, "query")
     refs: dict = {}
     n_exact = n_approx = 0
     for req, srv in zip(trace, served):
         key = (req.keywords, req.k)
         if key not in refs:
-            refs[key] = engine.query(list(req.keywords), k=req.k,
-                                     extract=False)
+            refs[key] = query(list(req.keywords), k=req.k, extract=False)
         ref = refs[key]
         if srv.approximate:
             n_approx += 1
@@ -191,19 +204,22 @@ def verify_metrics_scrape(svc, server):
 
 def serve_replay(engine, trace, cfg: ServeConfig, *, clients: int,
                  smoke: bool, k: int = 1, metrics_port: int | None = None,
-                 timeout: float | None = None, watch=None) -> dict:
+                 timeout: float | None = None, watch=None,
+                 verify: bool = False) -> dict:
     """Replay ``trace`` through a :class:`DKSService` over ``engine`` with
     ``clients`` closed-loop clients; under ``smoke`` also serve trees and
     scrape ``/metrics`` (ephemeral port unless one is given).  ``watch``:
     a ``(LiveDir, watch directory)`` pair whose fragments are hot-swapped
-    into the service while it runs.  Returns the served results, the
-    stats, the tree check, the scrape and the wall time; ``replay_s`` and
-    ``replay_stats`` are the replay's own time and a stats snapshot taken
-    as it returns (before the tree and scrape checks).  The service is
-    stopped on return."""
+    into the service while it runs.  ``verify``: hold the served answers
+    to the engine (:func:`verify_served`) before the service stops.
+    Returns the served results, the stats, the tree check, the scrape,
+    the verification's counts and the wall time (before the
+    verification); ``replay_s`` and ``replay_stats`` are the replay's own
+    time and a stats snapshot taken as it returns (before the tree and
+    scrape checks).  The service is stopped on return."""
     if smoke and metrics_port is None:
         metrics_port = 0
-    out: dict = {"tree_check": None, "scraped": None}
+    out: dict = {"tree_check": None, "scraped": None, "verified": None}
     t0 = time.perf_counter()
     with DKSService(engine, cfg) as svc:
         server = watcher = None
@@ -230,12 +246,15 @@ def serve_replay(engine, trace, cfg: ServeConfig, *, clients: int,
                     svc, engine, trace, k=max(2, k), timeout=timeout)
                 out["scraped"] = verify_metrics_scrape(svc, server)
             out["stats"] = svc.stats()
+            out["wall_s"] = time.perf_counter() - t0
+            if verify:
+                out["verified"] = verify_served(svc.engine, trace,
+                                                out["served"], via=svc)
         finally:
             if server is not None:
                 server.stop()
             if watcher is not None:
                 watcher.stop()
-    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -281,6 +300,17 @@ def wait_for(cond, timeout: float, what: str) -> None:
         time.sleep(0.02)
 
 
+def swap_smoke_engine(args, live):
+    """The swap leg's engine on ``live``'s chain (this rank's shard, across
+    ranks)."""
+    policy = ExecutionPolicy(
+        backend=args.backend, partition=args.partition,
+        max_supersteps=max(args.max_supersteps, 12),
+        weights=weight_policy_from_args(args))
+    return QueryEngine.build(artifact=live.chain(), policy=policy,
+                             device=args.device)
+
+
 def swap_smoke(args, timeout: float = 120.0) -> None:
     """The swap-under-load leg: a live ring graph served under open-ended
     client load, one fragment dropped mid-run, one hot swap.
@@ -306,13 +336,8 @@ def swap_smoke(args, timeout: float = 120.0) -> None:
         live = LiveDir.initialize(tmp / "live", ingest_tsv(base))
         watch_dir = tmp / "incoming"
         watch_dir.mkdir()
-
-        policy = ExecutionPolicy(
-            backend=args.backend, partition=args.partition,
-            max_supersteps=max(args.max_supersteps, 12),
-            weights=weight_policy_from_args(args))
-        engine = QueryEngine.build(artifact=live.chain(), policy=policy,
-                                   device=args.device)
+        comm.broadcast_object(str(live.path))   # to the followers
+        engine = swap_smoke_engine(args, live)
         old_version = engine.version
         cfg = ServeConfig(max_batch=4, max_wait_ms=10.0, cache_size=64,
                           trace_seed=args.seed)
@@ -467,7 +492,16 @@ def main(argv: list[str] | None = None) -> int:
     resolve_backend(ap, args)
     if args.watch is not None and args.live is None:
         ap.error("--watch needs --live DIR")
+    join_ranks(ap, args)
+    try:
+        return _run(args)
+    finally:
+        comm.shutdown()
 
+
+def _run(args: argparse.Namespace) -> int:
+    """The service of ``main``'s arguments on rank 0; on the other ranks,
+    the followers of each of its services, in order."""
     if args.smoke:
         args.requests = min(args.requests, 20)
         args.unique = min(args.unique, 5)
@@ -491,6 +525,12 @@ def main(argv: list[str] | None = None) -> int:
         ds, engine = build_engine(args.dataset, policy, device=args.device,
                                   artifact=args.artifact)
         source = args.artifact or ds.name
+    if comm.rank() > 0:
+        follow(engine)                      # the replay and its checks
+        if args.swap_mid_run:
+            from repro_torch.live import LiveDir
+            follow(swap_smoke_engine(args, LiveDir(comm.broadcast_object())))
+        return 0
     print(f"loaded {source}: V={engine.n_nodes:,} E_sym={engine.n_edges:,} "
           f"on {engine.device} ({time.time()-t0:.1f}s)")
     if policy.partition == "sharded":
@@ -514,7 +554,8 @@ def main(argv: list[str] | None = None) -> int:
     run = serve_replay(engine, trace, cfg, clients=args.clients,
                        smoke=args.smoke, k=args.k,
                        metrics_port=args.metrics_port,
-                       watch=(live, args.watch) if args.watch else None)
+                       watch=(live, args.watch) if args.watch else None,
+                       verify=not args.no_verify)
     if run["scraped"] is not None:
         print(f"metrics scrape verified: {len(run['scraped'])} samples "
               f"parsed, counters match ServeStats")
@@ -528,8 +569,8 @@ def main(argv: list[str] | None = None) -> int:
           f"{split['n_queue']} dispatched; device "
           f"p95={split['device_p95_ms']:.1f}ms")
 
-    if not args.no_verify:
-        n_exact, n_approx = verify_served(engine, trace, run["served"])
+    if run["verified"] is not None:
+        n_exact, n_approx = run["verified"]
         print(f"\nverified: {n_exact} exact answers equal the direct "
               f"engine, {n_approx} approximate answers carry valid sound "
               f"bounds")

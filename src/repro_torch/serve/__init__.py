@@ -33,6 +33,9 @@ Public API:
                   (re-exported from repro_torch.answers).
   loadgen       — synthetic traces + concurrent replay clients
                   (make_trace / replay / TraceRequest / latency_split).
+  follow        — the ranks above 0 of a service over a graph split one
+                  shard a rank: replay rank 0's records (its engine calls,
+                  in order) until it stops (:mod:`repro_torch.serve.follower`).
 
 Observability (:mod:`repro_torch.obs`): every admitted request carries a trace
 (``ServedResult.trace_id`` -> ``svc.trace(id)``), and ``svc.registry``
@@ -43,6 +46,7 @@ and latency histograms in Prometheus text format (``serve_dks
 
 from repro_torch.answers import RenderedEdge, RenderedTree, TreePage  # noqa: F401
 from repro_torch.serve.cache import ResultCache  # noqa: F401
+from repro_torch.serve.follower import Record, follow  # noqa: F401
 from repro_torch.serve.service import (  # noqa: F401
     DKSService,
     ServeConfig,

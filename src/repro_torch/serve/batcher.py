@@ -13,11 +13,16 @@ service needs no further locking around device work.  Deadline-bounded
 requests coalesce too — into buckets keyed by shape *and* budget
 (``deadline_ms``), so same-budget requests ride one lane driver and share
 supersteps; their admission window is capped at a fraction of the budget
-so queue wait cannot eat the budget it counts against.
+so queue wait cannot eat the budget it counts against.  :meth:`MicroBatcher.run`
+queues a task that the dispatcher runs inline, in arrival order with the
+other tasks, between bucket dispatches.  The dispatcher thread runs in a
+copy of the context of the thread that started it (the ambient mesh,
+``comm.through_group``).
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import queue
 import threading
@@ -80,6 +85,20 @@ class Request:
 _STOP = object()
 
 
+@dataclasses.dataclass
+class _Task:
+    """A callable for the dispatcher thread and the future of its result."""
+
+    fn: Callable[[], Any]
+    future: Future
+
+
+def _fail_queued(item: Any, exc: BaseException) -> None:
+    """Fail a request or task that never ran."""
+    if isinstance(item, (Request, _Task)) and not item.future.done():
+        item.future.set_exception(exc)
+
+
 class MicroBatcher:
     """Admission queue + dispatcher thread.
 
@@ -136,12 +155,12 @@ class MicroBatcher:
                     item = self._queue.get_nowait()
                 except queue.Empty:
                     break
-                if isinstance(item, Request) and not item.future.done():
-                    item.future.set_exception(
-                        RuntimeError("service restarted before dispatch"))
+                _fail_queued(item, RuntimeError(
+                    "service restarted before dispatch"))
             self._stopping = False
             self._thread = threading.Thread(
-                target=self._loop, name="dks-serve-dispatcher", daemon=True)
+                target=contextvars.copy_context().run, args=(self._loop,),
+                name="dks-serve-dispatcher", daemon=True)
             self._thread.start()
 
     def stop(self) -> None:
@@ -163,6 +182,10 @@ class MicroBatcher:
     def running(self) -> bool:
         return self._thread is not None
 
+    def on_thread(self) -> bool:
+        """Whether the caller is the dispatcher thread."""
+        return threading.current_thread() is self._thread
+
     # ------------------------------------------------------------------
     # Admission
     # ------------------------------------------------------------------
@@ -172,6 +195,16 @@ class MicroBatcher:
             if self._stopping or self._thread is None:
                 raise RuntimeError("service is not running")
             self._queue.put(request)
+
+    def run(self, fn: Callable[[], Any]) -> Future:
+        """Queue ``fn`` for the dispatcher thread; the future resolves to
+        its result or its exception."""
+        task = _Task(fn, Future())
+        with self._lock:
+            if self._stopping or self._thread is None:
+                raise RuntimeError("service is not running")
+            self._queue.put(task)
+        return task.future
 
     # ------------------------------------------------------------------
     # Dispatcher thread
@@ -196,8 +229,7 @@ class MicroBatcher:
                     item = self._queue.get_nowait()
                 except queue.Empty:
                     break
-                if isinstance(item, Request) and not item.future.done():
-                    item.future.set_exception(exc)
+                _fail_queued(item, exc)
 
     def _loop_body(self, pending: dict[tuple, list[Request]]) -> None:
         stopping = False
@@ -217,6 +249,8 @@ class MicroBatcher:
             for req in drained:
                 if req is _STOP:
                     stopping = True
+                elif isinstance(req, _Task):
+                    self._run_task(req)
                 else:
                     pending.setdefault(req.shape_key, []).append(req)
             now = time.perf_counter()
@@ -269,6 +303,15 @@ class MicroBatcher:
                       for group in pending.values())
         remaining = nearest - now
         return max(remaining, 0.0) if remaining > 1e-4 else 0
+
+    @staticmethod
+    def _run_task(task: _Task) -> None:
+        if not task.future.set_running_or_notify_cancel():
+            return
+        try:
+            task.future.set_result(task.fn())
+        except BaseException as exc:  # noqa: BLE001 — the caller's to raise
+            task.future.set_exception(exc)
 
     def _safe_dispatch(self, group: list[Request],
                        reason: str = "window") -> None:

@@ -54,10 +54,23 @@ counter (derived from the same snapshot at scrape time, so ``/metrics``
 can never drift from ``stats()``), engine executor counters, and
 latency/queue/device histograms in Prometheus text format —
 ``serve_dks --metrics-port`` serves it over HTTP.
+
+**Across ranks** (a graph split one shard a rank,
+``engine.device_graph.mesh`` set): the service runs on rank 0 and the
+other ranks run :func:`repro_torch.serve.follow`.  Before every engine
+call the dispatcher thread sends a :class:`~repro_torch.serve.follower.Record`
+over the control channel, so the followers run the same calls in the same
+order; :meth:`on_engine` routes a direct engine call (a check, say) the
+same way, and :class:`repro_torch.live.EngineSwapper` a swap.  A bucket
+is validated before its record leaves (:meth:`QueryEngine.validate`), so
+a request that fails on rank 0 never reaches a follower.  Host-only
+reads (``trace_count``, ``extraction_stats``, stats, metrics) send
+nothing.  In one process nothing of this runs.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -66,15 +79,20 @@ from concurrent.futures import CancelledError, Future
 from typing import Hashable, Sequence
 
 from repro_torch.answers import TreePage, diversified_order, paginate
+from repro_torch.distributed import comm
 from repro_torch.engine import AdaptiveLanePolicy, QueryEngine, QueryResult
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serve.batcher import MicroBatcher, Request
 from repro_torch.serve.cache import ResultCache
+from repro_torch.serve.follower import LOG_RECORDS, METHODS, Record, hold
 from repro_torch.serve.stats import ServeStats, StatsCollector
 
 # Stand-in context manager for unsampled/traceless span sites (entering
 # it any number of times is safe — nullcontext keeps no state).
 _NULL_SPAN = contextlib.nullcontext()
+# An engine call's keyword arguments that are not policy overrides.
+_CALL_ARGS = frozenset({"k", "extract", "extract_pool", "keep_state",
+                        "strict", "n_real", "deadline_s"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,18 +268,20 @@ class DKSService:
 
     Lifecycle: ``start()``/``stop()`` or use as a context manager.  Safe
     for any number of client threads; all device execution is serialized
-    on the internal dispatcher thread.
+    on the internal dispatcher thread.  ``followed``: the engine's graph
+    is split across ranks, and ``records`` is the log of the records sent
+    to the followers (the last ``LOG_RECORDS``).
     """
 
     def __init__(self, engine: QueryEngine,
                  config: ServeConfig | None = None) -> None:
-        if getattr(engine.device_graph, "mesh", None) is not None:
-            raise NotImplementedError(
-                "DKSService serves from one process: on a graph split "
-                "across ranks every rank must run the same batches, which "
-                "needs followers on the ranks above 0 that replay rank 0's "
-                "batches; query the engine on every rank instead")
         self.engine = engine
+        self.followed = getattr(engine.device_graph, "mesh", None) is not None
+        self.records: collections.deque = collections.deque(
+            maxlen=LOG_RECORDS)
+        # The builds the followers hold, rank 0's versions (follower.hold).
+        self._held: dict = {}
+        self._life = threading.Lock()
         self.config = config or ServeConfig()
         self._cache = ResultCache(self.config.cache_size)
         # Tree-pool LRU: cache_token -> (ranked AnswerTree pool,
@@ -505,11 +525,22 @@ class DKSService:
     # ------------------------------------------------------------------
 
     def start(self) -> "DKSService":
-        self._batcher.start()
+        with self._life:
+            if self.followed and not self._batcher.running:
+                self._held = {}
+                hold(self._held, self.engine.version, True)
+                self.send(Record("open", self.engine.version))
+            self._batcher.start()
         return self
 
     def stop(self) -> None:
-        self._batcher.stop()
+        """Flush pending buckets, join the dispatcher and, across ranks,
+        send the followers their ``stop`` record."""
+        with self._life:
+            running = self._batcher.running
+            self._batcher.stop()
+            if self.followed and running:
+                self.send(Record("stop"))
 
     def __enter__(self) -> "DKSService":
         return self.start()
@@ -858,6 +889,9 @@ class DKSService:
 
     def set_engine(self, engine: QueryEngine) -> None:
         """Swap in a rebuilt engine (graph update) — zero-downtime.
+        Across ranks only the dispatcher thread may call it, after the
+        ``swap`` record that has the followers build the same successor
+        (:meth:`repro_torch.live.EngineSwapper.swap_to` does both).
 
         In-flight requests snapshot their admitting engine, so they are
         answered by the previous build (its version rides on the batcher
@@ -875,12 +909,72 @@ class DKSService:
         - counts the swap in ``ServeStats.engine_swaps`` (exported as
           ``dks_engine_swaps_total``).
         """
+        if self.followed:
+            if not self._batcher.on_thread():
+                raise RuntimeError(
+                    "on a graph split across ranks an engine is swapped "
+                    "in on the dispatcher thread, after its swap record: "
+                    "use repro_torch.live.EngineSwapper.swap_to")
+            hold(self._held, engine.version, True)
         self.engine = engine
         self.invalidate_cache()
         with self._inflight_lock:
             self._inflight.clear()
             self._inflight_traces.clear()
         self._stats.record_engine_swap()
+
+    # ------------------------------------------------------------------
+    # Across ranks
+    # ------------------------------------------------------------------
+
+    def send(self, record: Record) -> None:
+        """Log ``record`` and broadcast it to the followers.  Only the
+        thread that issues rank 0's collectives calls it: the dispatcher,
+        or ``start`` / ``stop`` while no dispatcher runs."""
+        self.records.append(record)
+        comm.broadcast_object(record)
+
+    def on_dispatcher(self, fn):
+        """``fn()`` on the dispatcher thread, between bucket dispatches;
+        returns its result or raises its exception."""
+        return self._batcher.run(fn).result()
+
+    def on_engine(self, method: str, queries, **kwargs):
+        """``engine.<method>(queries, **kwargs)`` on the serving build,
+        ``method`` one of ``query``, ``query_batch``, ``query_deadline``
+        or ``query_deadline_batch``.  In one process the calling thread
+        runs it.  Across ranks the dispatcher thread does, after a
+        ``call`` record, so the followers run it too, in order with
+        every other collective."""
+        if not self.followed:
+            return getattr(self.engine, method)(queries, **kwargs)
+        if method not in METHODS:
+            raise ValueError(f"not an engine call: {method!r}")
+
+        def run():
+            return self._engine_call(self.engine, method, queries, kwargs)
+
+        return self.on_dispatcher(run)
+
+    def _engine_call(self, engine: QueryEngine, method: str, queries,
+                     kwargs: dict):
+        """``engine.<method>(queries, **kwargs)``, validated and announced
+        to the followers first across ranks (dispatcher thread only)."""
+        if self.followed:
+            batch = queries if method.endswith("_batch") else [queries]
+            overrides = {n: v for n, v in kwargs.items()
+                         if n not in _CALL_ARGS}
+            engine.validate(batch, kwargs.get("k", 1),
+                            strict=kwargs.get("strict", True),
+                            same_m=method == "query_deadline_batch",
+                            **overrides)
+            if engine.version not in self._held:
+                raise RuntimeError(
+                    f"build {engine.version!r} was retired by later swaps: "
+                    f"the followers no longer hold it")
+            self.send(Record("call", engine.version, method, queries,
+                             dict(kwargs)))
+        return getattr(engine, method)(queries, **kwargs)
 
     def stats(self) -> ServeStats:
         """Aggregate :class:`ServeStats` snapshot (p50/p95 latency,
@@ -993,10 +1087,9 @@ class DKSService:
         extract_before = engine.extraction_stats
         # n_real: padding lanes ride the device program for shape reuse
         # but skip host-side result construction in the engine.
-        results = engine.query_batch(
-            queries, k=k, extract=cfg.extract or want_trees,
-            extract_pool=pool_n, strict=cfg.strict,
-            n_real=n_real, **overrides)
+        results = self._engine_call(engine, "query_batch", queries, dict(
+            k=k, extract=cfg.extract or want_trees, extract_pool=pool_n,
+            strict=cfg.strict, n_real=n_real, **overrides))
         t_done = time.perf_counter()
         compiled = engine.trace_count(m, k, **overrides) > traces_before
         extract_after = engine.extraction_stats
@@ -1089,11 +1182,10 @@ class DKSService:
         m, k = len(group[0].keywords), group[0].k
         traces_before = engine.trace_count(m, k, kind="stepwise",
                                            **overrides)
-        out = engine.query_deadline_batch(
-            queries, k=k, extract=cfg.extract or want_trees,
-            extract_pool=pool_n, strict=cfg.strict,
-            deadline_s=deadline_t - time.perf_counter(), n_real=n_real,
-            **overrides)
+        out = self._engine_call(engine, "query_deadline_batch", queries, dict(
+            k=k, extract=cfg.extract or want_trees, extract_pool=pool_n,
+            strict=cfg.strict, deadline_s=deadline_t - time.perf_counter(),
+            n_real=n_real, **overrides))
         t_done = time.perf_counter()
         compiled = engine.trace_count(m, k, kind="stepwise",
                                       **overrides) > traces_before

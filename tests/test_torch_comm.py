@@ -340,10 +340,14 @@ def test_init_from_env_places_by_the_host(monkeypatch, env, cards, want):
     def join(backend, **kwargs):
         joined.update(kwargs, backend=backend)
 
+    def channel(backend, timeout):   # the control channel init makes
+        joined["channel"] = (backend, timeout.total_seconds())
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     monkeypatch.setattr(torch.cuda, "set_device", lambda device: None)
     monkeypatch.setattr(comm.dist, "init_process_group", join)
+    monkeypatch.setattr(comm.dist, "new_group", channel)
     for name, value in {**env, "MASTER_ADDR": "localhost",
                         "MASTER_PORT": "29500"}.items():
         monkeypatch.setenv(name, value)
@@ -354,6 +358,7 @@ def test_init_from_env_places_by_the_host(monkeypatch, env, cards, want):
     assert (joined["rank"], joined["world_size"]) == (
         int(env["RANK"]), int(env["WORLD_SIZE"]))
     assert joined.get("device_id") == (device if backend == "nccl" else None)
+    assert joined["channel"] == ("gloo", comm.CHANNEL_TIMEOUT_S)
     monkeypatch.delenv("LOCAL_WORLD_SIZE")
     with pytest.raises(RuntimeError, match="LOCAL_WORLD_SIZE"):
         comm.init_from_env("cuda")

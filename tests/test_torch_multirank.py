@@ -9,8 +9,10 @@ kills the ranks and fails the test).  ``repro``'s side runs through
 started once per module and read by each test after its own ranks ran.
 Tolerance: none.  Every rank, the twin and ``repro`` agree exactly,
 overflow and ``budget_hit`` included, at 2 and 4 ranks.  ``DKSService``
-refuses a graph split across ranks and says why.  The stepwise surfaces
-across ranks are ``tests/test_torch_multirank_stepwise.py``'s.
+serves the bucket on rank 0 while the other ranks follow, with the twin's
+answers.  The stepwise surfaces across ranks are
+``tests/test_torch_multirank_stepwise.py``'s, and the service's
+``tests/test_torch_multirank_serve.py``'s.
 """
 
 import concurrent.futures
@@ -24,11 +26,12 @@ import torch
 
 from tests.test_distributed import run_in_subprocess
 
+from repro_torch.distributed import comm
 from repro_torch.distributed.ranks import run_ranks
 from repro_torch.engine import ExecutionPolicy, QueryEngine
 from repro_torch.graph import generators as gen
 from repro_torch.graph.index import InvertedIndex
-from repro_torch.serve import DKSService
+from repro_torch.serve import DKSService, follow
 
 RANKS_TIMEOUT_S = 120
 RESULT_FIELDS = ("m", "k", "kw_nodes", "supersteps", "msgs_bfs",
@@ -92,9 +95,21 @@ def _dks_ranks(device, n_shards):
     out, eng, toks = dks_cases(None, device)
     assert eng.device_graph.n_shards == n_shards
     assert eng.device_graph.n_held == 1
-    with pytest.raises(NotImplementedError) as refused:
-        DKSService(eng)
-    out["refused"] = str(refused.value)
+    # The uncapped bucket again, served: rank 0 admits, the others follow.
+    g, tokens = gen.lod_like_graph(200, 600, seed=7, vocab=60)
+    index = InvertedIndex.from_token_matrix(tokens)
+    eng = QueryEngine.build(g, index=index, device=device,
+                            policy=ExecutionPolicy(partition="sharded",
+                                                   max_supersteps=32))
+    bucket = [toks[2:5], toks[5:8], toks[1:4]]
+    if comm.rank() > 0:
+        follow(eng)
+    else:
+        with DKSService(eng) as svc:
+            futs = [svc.submit(q, k=2) for q in bucket]
+            out["served"] = [[plain(f.result(RANKS_TIMEOUT_S).weights),
+                              plain(f.result().result.roots)]
+                             for f in futs]
     return jsonable(out)
 
 
@@ -146,8 +161,10 @@ def test_sharded_engine_across_ranks_equals_repro_and_the_twin(
     twin, eng, _ = dks_cases(world, "cpu")
     assert eng.device_graph.n_held == world
     twin = jsonable(twin)
+    served = ranks[0].pop("served")
+    assert served == [[b["weights"], b["roots"]]
+                      for b in twin["uncapped"]["batch"]]
     for out in ranks:
-        assert "replay rank 0's batches" in out.pop("refused")
         assert out == ranks[0]
     assert ranks[0] == twin
     assert ranks[0] == repro_dks.result()[str(world)]

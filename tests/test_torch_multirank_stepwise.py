@@ -332,20 +332,27 @@ def test_paper_exit_hook_needs_the_graph_of_a_split_state():
 
 
 def test_cli_under_torchrun_refuses_only_explain(monkeypatch, capsys):
-    """Under ``torchrun`` the query CLI takes ``--stream`` and refuses
-    ``--explain`` (``DKSService`` runs in one process), naming why."""
-    from repro_torch.launch import dks_query
+    """Under ``torchrun`` (``WORLD_SIZE`` set) the CLIs refuse only a graph
+    that is not split: the query CLI takes ``--explain`` (rank 0 serves,
+    the other ranks follow) and ``--stream`` past its checks, and
+    ``serve_dks`` refuses ``--partition single``, naming the fix, and
+    takes ``--partition sharded``."""
+    from repro_torch.launch import dks_query, serve_dks
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit):
-        dks_query.main(["--partition", "sharded", "--device", "cpu",
-                        "--explain"])
-    assert "replay rank 0's batches" in capsys.readouterr().err
 
     def init_from_env(device_type):   # past the checks: it would join
         raise RuntimeError(f"init {device_type}")
 
     monkeypatch.setattr(comm, "init_from_env", init_from_env)
+    for flag in ("--explain", "--stream"):
+        with pytest.raises(RuntimeError, match="init cpu"):
+            dks_query.main(["--partition", "sharded", "--device", "cpu",
+                            flag])
+    with pytest.raises(SystemExit):
+        serve_dks.main(["--partition", "single", "--device", "cpu",
+                        "--smoke"])
+    assert "pass --partition sharded" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="init cpu"):
-        dks_query.main(["--partition", "sharded", "--device", "cpu",
-                        "--stream"])
+        serve_dks.main(["--partition", "sharded", "--device", "cpu",
+                        "--smoke"])
