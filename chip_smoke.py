@@ -196,8 +196,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    TF32 is off throughout.
 14. bluk-bnb — the paper's large dataset at full size (16,100,000 nodes,
    46,600,000 generated edges, vocabulary 500,000, seed 7, tau 1001),
-   generated, indexed and built on ``QueryEngine(backend="cuda")`` (host
-   ms each, the device graph's bytes); phase 5's traffic (a bucket of 8,
+   generated and indexed in a worker process started after phase 11
+   (its host ms each, and how long phase 14 waited for them and took to
+   receive them), built on
+   ``QueryEngine(backend="cuda")`` (host ms, the device graph's bytes);
+   phase 5's traffic (a bucket of 8,
    m=3, k=3, and two m=4, k=2 queries) with the launch counters set to 0
    just before and read just after; per query supersteps, driver ms and
    ms per superstep, extraction ms, ``extraction_stats``, rows fetched
@@ -314,7 +317,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and again at the 1-rank NCCL spawn inside ``through_group`` (its
    reduce-scatters, all-gathers and all_to_alls counted); two f32 smoke
    train steps at ``tp=2`` within 1e-4 of each leaf's largest magnitude
-   of the same steps on the CPU.  Each
+   of the same steps on the CPU.  DCN-v2 at full width (weights from
+   ``RANKS_SEED``) on (data 1, model 2) over gloo and (1, 1) over NCCL:
+   each rank's tables split by ``recsys.param_specs``, x0 by one grouped
+   launch with ``clip=False`` on its shards and a ``psum``, serve_bulk's
+   forward and retrieval_cand's top 100 twice (cold, then warm), one
+   train_batch step; each rank then runs the one-process ``impl="cuda"``
+   twin on the whole model and holds itself to it: x0 ``torch.equal``,
+   logits and scores within 1e-5 x max, positions equal, the step's loss
+   and ``grad_norm`` within 1e-5, its slices of the step's gradients and
+   parameters within 1e-4 of each leaf's largest (the steps at AdamW's
+   full lr, ``warmup_steps=1``; 2 lr more only where the twin's gradient
+   is within its bound of 0: :func:`step_held`); 8 grouped launches a
+   rank.  gin-tu and gat-cora at their published widths on
+   ``minibatch_lg``'s padded sample (``gnn_cell``'s build, nodes and
+   edges split over the ranks), a bf16 step and an f32 step each against
+   the one-process step: the loss, ``grad_norm``, every gradient leaf and
+   every parameter at ``RANKS_GNN_TOL``'s bounds, a second step timed
+   warm; and the MB a rank's collectives move at ogb_products over 2 and
+   256 ranks (:func:`gnn_mesh_bytes`).  Each
    path prints world size, backend, the ops staged through host memory
    (``comm.staged_ops``: none under NCCL), ms and peak
    memory a rank beside the card's name and power limit; one card shared
@@ -329,8 +350,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    steps; the DKS rows' ``bluk_launches`` and ``bluk_shape`` phase 14's;
    ``gnn_launches`` phase 15's, all 0; ``accounting_launches`` phase
    17's; the flash row's ``ranks_launches`` phase 18's, by leg: the
-   pipeline's and the tensor-parallel legs' ranks), error, times and
-   bound.
+   pipeline's and the tensor-parallel legs' ranks, the bag row's its
+   DCN-v2 ranks', gloo's then NCCL's), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -342,7 +363,10 @@ import dataclasses
 import functools
 import gc
 import json
+import math
+import multiprocessing
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -441,6 +465,29 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048   # phases 6 and 11's shape
 FLASH_JAX_TOL = 2e-2        # flash_jax against chunked, relative: bf16 scores
 CKPT_LAYERS = 2             # the checkpoint leg's depth, at full width
 DCN_TRAIN_STEPS, DCN_TRAIN_BATCH = 20, 8192
+# Phase 18's DCN-v2 and GNN legs, on a (data 1, model = world) mesh: DCN-v2
+# at full width on serve_bulk, train_batch and retrieval_cand; gin-tu and
+# gat-cora at their published widths on minibatch_lg's padded sample.
+# The steps take AdamW's full lr from the first (``warmup_steps=1``, as the
+# CPU tests' steps), so that a step not taken, or taken the wrong way,
+# moves a parameter by lr = 3e-4: past its bound below.
+RANKS_DCN_SHAPES = ("serve_bulk", "train_batch", "retrieval_cand")
+RANKS_DCN_TOL = 1e-5        # logits, scores, loss and grad_norm, x max
+RANKS_DCN_GRAD_TOL = 1e-4   # the step's gradients, x each leaf's largest
+RANKS_DCN_STEP_TOL = 1e-4   # one step's parameters, x each leaf's largest
+RANKS_GNN_ARCHS = ("gin-tu", "gat-cora")
+RANKS_GNN_SHAPE = "minibatch_lg"
+# tests/test_torch_multirank_gnn.py's bounds, by message-passing dtype:
+# the loss and grad_norm (relative), each gradient leaf (f32: its error's
+# largest x the leaf's largest; bf16: its error's norm x the leaf's norm),
+# each parameter after the step (x the leaf's largest).  Where the twin's
+# gradient lies within its bound of 0 (bf16: everywhere), a rounding of
+# the other sign moves the element lr the other way, so the parameters
+# there get 2 lr more (:func:`step_held`).
+RANKS_GNN_TOL = {"bfloat16": {"loss": 5e-2, "grad_norm": 1e-1,
+                              "grads": 2e-1, "params": 5e-2},
+                 "float32": {"loss": 1e-5, "grad_norm": 1e-5,
+                             "grads": 1e-4, "params": 1e-4}}
 DCN_GRAD_TOL = 1e-5         # the scatter-add's atomics reorder sums
 SMOKE_TRAIN_TOL = 1e-4      # f32 smoke step, card against CPU
 # The bucket's extraction through the host collector, before the batched
@@ -468,6 +515,7 @@ ACCOUNTING_SEED = 0         # phase 17: the cells' content
 PEAK_TOL, PEAK_SLACK = 0.10, 0.5 * 2 ** 30  # measured peak against meta's
 SHARE_LIMIT = 1.05          # mfu and hbm_share: at most the peak, and noise
 META_TIMEOUT_S = 900        # the meta dry run, started after phase 11
+BLUK_INPUTS_TIMEOUT_S = 600  # phase 14's graph and index, made since phase 11
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
     (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
@@ -1323,7 +1371,8 @@ def lookup_routes(params, cfg, batch) -> dict:
         return rec.grouped_lookup(tables, sparse, prefix=dense)
 
     def autograd():
-        return rec.GroupedLookup.apply(sparse, dense, cfg.n_dense, *tables)
+        return rec.GroupedLookup.apply(sparse, dense, cfg.n_dense, True,
+                                       *tables)
 
     routes = {"alone": alone, "autograd": autograd}
     ms = {name: [] for name in routes}
@@ -2689,22 +2738,14 @@ def bluk_lane(dg, kw, cfg) -> tuple[float, tuple]:
         *lane_bound(*args))
 
 
-def bluk_phase(dev) -> dict:
-    """Phase 14: the DKS main path at bluk-bnb's full size on
-    ``backend="cuda"``, phase 5's traffic, the three DKS kernels held
-    against their plain versions at its shapes, a ``"torch"`` twin of the
-    bucket's first ``BLUK_TWIN_LANES`` lanes and the first m = 4 query.
-    Returns the launches, errors and times of the three kernels."""
+def bluk_inputs(conn) -> None:
+    """bluk-bnb's host graph and inverted index, and the seconds each
+    took, pickled to ``conn``: phase 14's inputs, made in a worker
+    process (:func:`start_bluk_worker`)."""
     from repro_torch.configs import BLUK_BNB
-    from repro_torch.core import dks
-    from repro_torch.engine import ExecutionPolicy, QueryEngine
     from repro_torch.graph.generators import lod_like_graph
     from repro_torch.graph.index import InvertedIndex
-    from repro_torch.kernels.batched_backtrace import ops as bt_ops
-    from repro_torch.kernels.lane_superstep import ops as ls_ops
-    from repro_torch.kernels.subset_combine import ops as sc_ops
 
-    t_phase = time.perf_counter()
     cb = BLUK_BNB
     t0 = time.perf_counter()
     graph, tokens = lod_like_graph(cb.n_nodes, cb.n_edges, seed=cb.seed,
@@ -2712,8 +2753,45 @@ def bluk_phase(dev) -> dict:
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     index = InvertedIndex.from_token_matrix(tokens)
-    index_s = time.perf_counter() - t0
-    del tokens
+    conn.send_bytes(pickle.dumps((graph, index, gen_s,
+                                  time.perf_counter() - t0), protocol=5))
+    conn.close()
+
+
+def start_bluk_worker() -> tuple:
+    """(the process running :func:`bluk_inputs`, the end its result
+    arrives on).  The result stays in the pipe, with the worker blocked
+    on it, until phase 14 reads it, so no thread of this process
+    unpickles it while a timed phase runs."""
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=bluk_inputs, args=(send,), daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def bluk_phase(dev, worker) -> dict:
+    """Phase 14: the DKS main path at bluk-bnb's full size on
+    ``backend="cuda"``, phase 5's traffic, the three DKS kernels held
+    against their plain versions at its shapes, a ``"torch"`` twin of the
+    bucket's first ``BLUK_TWIN_LANES`` lanes and the first m = 4 query.
+    ``worker``: :func:`start_bluk_worker`'s.  Returns the launches,
+    errors and times of the three kernels."""
+    from repro_torch.configs import BLUK_BNB
+    from repro_torch.core import dks
+    from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+
+    t_phase = time.perf_counter()
+    cb = BLUK_BNB
+    recv = worker[1]
+    check(recv.poll(BLUK_INPUTS_TIMEOUT_S), f"{cb.name}'s graph and index "
+          f"not made within {BLUK_INPUTS_TIMEOUT_S} s")
+    graph, index, gen_s, index_s = pickle.loads(recv.recv_bytes())
+    wait_s = time.perf_counter() - t_phase
     check(graph.n_nodes == cb.n_nodes, f"{cb.name}: {graph.n_nodes} nodes")
     qrng = np.random.default_rng(QUERY_SEED)
     bucket = draw_queries(graph, index, BUCKET_LANES, BUCKET_M, qrng)
@@ -2728,8 +2806,10 @@ def bluk_phase(dev) -> dict:
     log(f"  {cb.name}: {graph.n_nodes} nodes, {graph.n_edges_sym} symmetric "
         f"edges, largest degree {int(np.diff(graph.indptr).max())}, "
         f"{dg.hub_nodes.numel()} hubs; host: generated in "
-        f"{gen_s * 1e3:.1f} ms, indexed in {index_s * 1e3:.1f} ms, engine "
-        f"built in {build_s * 1e3:.1f} ms; device graph {device_bytes(dg)} "
+        f"{gen_s * 1e3:.1f} ms, indexed in {index_s * 1e3:.1f} ms (in a "
+        f"worker process since phase 11; waited for them and received "
+        f"them in {wait_s * 1e3:.1f} ms), "
+        f"engine built in {build_s * 1e3:.1f} ms; device graph {device_bytes(dg)} "
         f"bytes ({gib(torch.cuda.memory_allocated() - mem0)} allocated); "
         f"bucket {bucket}, single queries {singles}")
 
@@ -4082,22 +4162,271 @@ def rank_tp_train(device, scfg) -> dict:
             "leg_s": time.perf_counter() - t0}
 
 
+def dcn_ranks_inputs(cfg, device) -> tuple[dict, dict]:
+    """DCN-v2's whole parameters from ``RANKS_SEED`` (every rank draws the
+    same) and phase 7's inputs: a batch of each of ``RANKS_DCN_SHAPES``
+    (``recsys_synthetic_stream``, seed 0) and the candidates of
+    ``CAND_SEED``."""
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.data import recsys_synthetic_stream
+    from repro_torch.models import recsys as rec
+
+    params = rec.init_dcn(cfg, torch.Generator(device).manual_seed(
+        RANKS_SEED))
+    shapes = {s.name: s for s in RECSYS_SHAPES}
+    batches = {name: rec.batch_to_device(next(recsys_synthetic_stream(
+        cfg, shapes[name].batch, seed=0)), device)
+        for name in RANKS_DCN_SHAPES}
+    n_cand = -(-shapes["retrieval_cand"].n_candidates // 512) * 512
+    batches["cand"] = torch.from_numpy(np.random.default_rng(
+        CAND_SEED).integers(0, cfg.vocab_sizes[0], n_cand).astype(
+            np.int32)).to(device)
+    return params, batches
+
+
+def dcn_calls(params, batches, cfg, mesh, opt) -> dict:
+    """serve_bulk's logits (and x0), retrieval_cand's top 100 and one
+    train_batch step on ``params`` (this rank's slices on ``mesh``, or the
+    whole model), each timed; the step's AdamW state is ``opt``."""
+    from repro_torch.distributed.comm import PartitionSpec
+    from repro_torch.launch.mesh import data_rows, shard_tree
+    from repro_torch.launch.train import make_recsys_step
+    from repro_torch.models import recsys as rec
+    from repro_torch.optim import AdamWConfig, tree_leaves
+
+    dev = batches["cand"].device
+    rows = (lambda x: data_rows(x, mesh)) if mesh is not None else \
+        (lambda x: x)
+    serve = {k: rows(v) for k, v in batches["serve_bulk"].items()}
+    query = batches["retrieval_cand"]
+    cand = batches["cand"] if mesh is None else shard_tree(
+        batches["cand"], PartitionSpec(("pod", "data", "model")), mesh)
+    out = {}
+    with torch.no_grad():
+        out["x0"] = rec._features(params, serve["dense"], serve["sparse"],
+                                  cfg, "cuda", mesh)
+    # Each serving call twice: the first (cold) pays cuBLAS's and the
+    # allocator's set-up; the second (warm) is the reading.
+    for key, fn, args in (
+            ("serve", rec.dcn_forward, (serve["dense"], serve["sparse"])),
+            ("retrieval", rec.retrieval_scores,
+             (query["dense"], query["sparse"], cand))):
+        extra = (RETRIEVAL_TOP_K,) if key == "retrieval" else ()
+        out[f"{key}_cold_ms"], _ = timed_ms(dev, fn, params, *args, cfg,
+                                            *extra, "cuda", mesh)
+        out[f"{key}_ms"], out[key] = timed_ms(dev, fn, params, *args,
+                                              cfg, *extra, "cuda", mesh)
+    out["logits"], out["top"] = out.pop("serve"), out.pop("retrieval")
+    step = make_recsys_step(cfg, AdamWConfig(warmup_steps=1), mesh=mesh)
+    batch = {k: rows(v) for k, v in batches["train_batch"].items()}
+    out["train_ms"], (_, metrics) = timed_ms(dev, step, (params, opt), batch)
+    out["grads"] = tree_leaves(metrics.pop("grads"))
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    return out
+
+
+def grads_held(got: list, want: list, tol: float, by_norm: bool) -> float:
+    """The largest of the gradient leaves' errors over their bounds:
+    ``tol`` x the leaf's largest magnitude for the error's largest, or
+    (``by_norm``) ``tol`` x the leaf's norm for the error's norm."""
+    room = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if by_norm:
+            err = float(torch.linalg.vector_norm(g - w))
+            top = float(torch.linalg.vector_norm(w))
+        else:
+            err, top = max_abs_err(g, w), float(w.abs().max())
+        room = max(room, err / (tol * top) if top else
+                   (0.0 if err == 0 else math.inf))
+    return room
+
+
+def step_held(got: list, want: list, grads: list, lr: float, p_tol: float,
+              g_tol: float | None) -> tuple[float, int, float]:
+    """One AdamW step's parameters ``got`` against the twin's ``want``:
+    (the largest error over its bound, the leaf it is in, the share of
+    the elements with a gradient that are held to the strict bound).  The
+    bound is ``p_tol`` x the leaf's largest magnitude; where the twin's
+    gradient ``grads`` is not 0 but within ``g_tol`` x the leaf's largest
+    gradient of it (``g_tol`` None: everywhere), 2 lr more, since a
+    gradient rounded to the other sign moves its element lr the other
+    way.  Everywhere else the first step moves an element by lr (AdamW's
+    m / sqrt(v) is the gradient's sign) or, with no gradient, by its
+    decay alone, so a step not taken, or taken the wrong way, is 1 or 2
+    lr off."""
+    room, worst, strict, moved = 0.0, -1, 0, 0
+    for i, (p, w, g) in enumerate(zip(got, want, grads)):
+        g = g.float().abs()
+        free = g > 0
+        if g_tol is not None:
+            free &= g <= g_tol * float(g.max())
+        bound = p_tol * float(w.abs().max()) + 2 * lr * free
+        r = float(((p.float() - w.float()).abs() / bound).max())
+        if r >= room:
+            room, worst = r, i
+        strict += int(((g > 0) & ~free).sum())
+        moved += int((g > 0).sum())
+    return room, worst, strict / max(moved, 1)
+
+
+def rank_dcn(device) -> dict:
+    """DCN-v2 at full width on a (data 1, model = world) mesh: this rank's
+    slices by ``recsys.param_specs``, the grouped kernel on its table
+    shards (launches counted), then the one-process ``impl="cuda"`` twin
+    in this process on the whole model, each rank's results held against
+    it: x0 ``torch.equal``, logits and scores within ``RANKS_DCN_TOL`` x
+    max, positions equal, the step's gradients within
+    ``RANKS_DCN_GRAD_TOL`` and its parameters within
+    ``RANKS_DCN_STEP_TOL`` of each leaf's largest (:func:`step_held`),
+    each against this rank's slices of the twin's.  One rank goes
+    through the group (``through_group``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models import recsys as rec
+    from repro_torch.optim import (adamw_init, tree_leaves, tree_map,
+                                   tree_unflatten)
+
+    t0 = time.perf_counter()
+    cfg = get_arch(RECSYS_ARCH)
+    mesh = comm.Mesh((1, comm.world_size()), ("data", "model"), device.type)
+    whole, batches = dcn_ranks_inputs(cfg, device)
+    specs = rec.param_specs(cfg)
+    params = tree_map(torch.clone, shard_tree(whole, specs, mesh))
+    comm.issued.clear()
+    reset_peak(device)
+    eb_ops.counter.reset()
+    with comm.through_group():
+        got = dcn_calls(params, batches, cfg, mesh, adamw_init(params))
+    launches = eb_ops.launches
+    out = {**rank_header(device), "launches": launches,
+           "serve_cold_ms": got["serve_cold_ms"],
+           "retrieval_cold_ms": got["retrieval_cold_ms"],
+           "issued": dict(comm.issued), "peak": peak_bytes(device),
+           **{k: got[k] for k in ("serve_ms", "retrieval_ms", "train_ms",
+                                  "metrics")}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = dcn_calls(whole, batches, cfg, None, adamw_init(whole))
+    out.update({f"twin_{k}": twin[k] for k in ("serve_ms", "retrieval_ms",
+                                                "train_ms")})
+    out["x0_equal"] = bool(torch.equal(got.pop("x0"), twin.pop("x0")))
+    scale = float(twin["logits"].abs().max())
+    out["logits_err"] = (max_abs_err(got["logits"], twin["logits"]), scale)
+    (s, i), (ts, ti) = got["top"], twin["top"]
+    out["scores_err"] = (max_abs_err(s, ts), float(ts.abs().max()))
+    out["positions_equal"] = bool(torch.equal(i, ti))
+    out["twin_metrics"] = twin["metrics"]
+    mine = lambda tree: tree_leaves(shard_tree(tree, specs, mesh))  # noqa: E731
+    want_g = mine(tree_unflatten(whole, twin["grads"]))
+    out["grads_room"] = grads_held(got["grads"], want_g, RANKS_DCN_GRAD_TOL,
+                                   by_norm=False)
+    out["step_room"], out["worst"], out["strict"] = step_held(
+        tree_leaves(params), mine(whole), want_g, twin["metrics"]["lr"],
+        RANKS_DCN_STEP_TOL, RANKS_DCN_GRAD_TOL)
+    out["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+def gnn_step(cfg, state, batch, mesh):
+    """One ``gnn_train_step`` (``AdamWConfig(warmup_steps=1)``) with
+    ``cfg``'s message-passing dtype on a ``gnn_cell`` state and batch (the
+    indices made int64, as the cell's step makes them)."""
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.optim import AdamWConfig
+
+    b64 = dataclasses.replace(
+        batch, edge_src=batch.edge_src.long(),
+        edge_dst=batch.edge_dst.long(), graph_ids=batch.graph_ids.long())
+    return gnn_lib.gnn_train_step(state.params, state.opt, b64, cfg,
+                                  AdamWConfig(warmup_steps=1), mesh)
+
+
+def rank_gnn(device) -> dict:
+    """gin-tu and gat-cora at their published widths on
+    ``RANKS_GNN_SHAPE``'s padded sample (``gnn_cell``'s build, nodes and
+    edges split over every rank), one train step in bf16 and one in f32
+    each, then the one-process step on the whole batch in this process;
+    each rank's first step held against it (``RANKS_GNN_TOL``): the loss,
+    ``grad_norm``, every gradient and every parameter."""
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.distributed import comm
+    from repro_torch.launch import cells
+    from repro_torch.optim import tree_leaves
+
+    t0 = time.perf_counter()
+    mesh = comm.Mesh((1, comm.world_size()), ("data", "model"), device.type)
+    shape = {s.name: s for s in GNN_SHAPES}[RANKS_GNN_SHAPE]
+    out = {**rank_header(device), "legs": {}}
+    comm.issued.clear()
+    for arch in RANKS_GNN_ARCHS:
+        for dtype in RANKS_GNN_TOL:
+            cfg = dataclasses.replace(get_arch(arch), mp_dtype=dtype)
+            leg = {}
+            for where, m in (("ranks", mesh), ("twin", None)):
+                _, (state, batch) = cells.gnn_cell(arch, shape, mesh=m).build(
+                    device, torch.Generator(device).manual_seed(RANKS_SEED))
+                reset_peak(device)
+                with comm.through_group():
+                    # The first step (cold) is held; the second, warm, is
+                    # the reading.
+                    _, (params, opt, metrics) = timed_ms(
+                        device, gnn_step, cfg, state, batch, m)
+                    first = [p.detach().clone() for p in tree_leaves(params)]
+                    ms, _ = timed_ms(device, gnn_step, cfg, dataclasses.replace(
+                        state, params=params, opt=opt), batch, m)
+                if m is not None:
+                    leg["peak"] = peak_bytes(device)
+                leg[where] = {"ms": ms, "params": first,
+                              "grads": metrics.pop("grads"),
+                              **{k: float(v) for k, v in metrics.items()}}
+                del state, batch, params, opt, metrics
+            tol = RANKS_GNN_TOL[dtype]
+            got, want = leg["ranks"], leg["twin"]
+            f32 = dtype == "float32"
+            room = {k: abs(got[k] - want[k]) / (tol[k] * abs(want[k]))
+                    for k in ("loss", "grad_norm")}
+            room["grads"] = grads_held(got["grads"], want["grads"],
+                                       tol["grads"], by_norm=not f32)
+            room["params"], worst, strict = step_held(
+                got["params"], want["params"], want["grads"], want["lr"],
+                tol["params"], tol["grads"] if f32 else None)
+            out["legs"][f"{arch}/{dtype}"] = {
+                "ms": got["ms"], "twin_ms": want["ms"], "loss": got["loss"],
+                "twin_loss": want["loss"], "room": room, "strict": strict,
+                "worst": worst,
+                "peak": leg["peak"]}
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["issued"] = dict(comm.issued)
+    out["leg_s"] = time.perf_counter() - t0
+    return out
+
+
 def rank_single(device, graph, index, bucket, stepwise, serve,
                 moe_cfg) -> dict:
-    """The one-rank spawn: DKS, then the granite tp leg at (1, 1)."""
+    """The one-rank spawn: DKS, then the granite tp leg, DCN-v2 and the
+    GNNs at (1, 1)."""
     out = {"dks": rank_dks(device, graph, index, bucket, stepwise, serve)}
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     out["tp_moe"] = rank_tp_moe(device, moe_cfg)
+    for name, fn in (("dcn", rank_dcn), ("gnn", rank_gnn)):
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[name] = fn(device)
     return out
 
 
 def rank_pair(device, graph, index, bucket, moe_args, pp_args,
               ring_args, tp_args) -> dict:
     """The paths of two ranks, one after the other in one spawn: DKS,
-    then the MoE layer, the pipeline, the ring and the tensor-parallel
-    legs (ChatGLM3-6B, granite, the smoke train steps)."""
+    then the MoE layer, the pipeline, the ring, the tensor-parallel legs
+    (ChatGLM3-6B, granite, the smoke train steps), DCN-v2 and the GNNs."""
     out = {"dks": rank_dks(device, graph, index, bucket)}
     lm_cfg, moe_cfg, scfg = tp_args
     for name, fn, args in (("moe", rank_moe, moe_args),
@@ -4105,7 +4434,8 @@ def rank_pair(device, graph, index, bucket, moe_args, pp_args,
                            ("ring", rank_ring, ring_args),
                            ("tp", rank_tp_lm, (lm_cfg,)),
                            ("tp_moe", rank_tp_moe, (moe_cfg,)),
-                           ("tp_train", rank_tp_train, (scfg,))):
+                           ("tp_train", rank_tp_train, (scfg,)),
+                           ("dcn", rank_dcn, ()), ("gnn", rank_gnn, ())):
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -4393,16 +4723,138 @@ def tp_held(dev, card: str, cfg, moe_cfg, scfg, lm_outs, moe_outs,
             "tp_granite_nccl": [nccl_out["launches"]]}
 
 
+def gnn_mesh_bytes(world: int) -> dict:
+    """MB a rank receives in one train step at ogb_products
+    (``gnn_cell``'s padding) with nodes and edges split over ``world``
+    ranks, by collective and pass (``gnn.collective_bytes``), for gin-tu,
+    gat-cora and pna in bf16 message passing, over ring algorithms: an
+    all-gather or a reduce-scatter of a table of B bytes moves (W - 1) / W
+    x B into a rank, an all-reduce twice that."""
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.launch.cells import gnn_sizes
+    from repro_torch.models.common import pad_to
+    from repro_torch.models.gnn import collective_bytes
+
+    shape = {s.name: s for s in GNN_SHAPES}["ogb_products"]
+    n_nodes, n_edges, _ = gnn_sizes(shape)
+    n, e = pad_to(n_nodes, 512), pad_to(n_edges, 512) // world
+    frac = (world - 1) / world
+    out = {}
+    for arch in ("gin-tu", "gat-cora", "pna"):
+        cfg = dataclasses.replace(get_arch(arch), mp_dtype="bfloat16")
+        out[arch] = {f"{kind} {pas}": t * frac * (
+            2 if kind == "all_reduce" else 1) / 2**20 for (pas, kind), t in
+            collective_bytes(cfg, n, e, shape.d_feat).items()}
+    return out
+
+
+def dcn_gnn_held(card: str, pair: list, single: list) -> list:
+    """Phase 18's DCN-v2 and GNN legs, each rank held (in the rank)
+    against the one-process twin: checked and printed here.  Returns the
+    grouped kernel's launches of each rank, the 2 gloo ranks' then the
+    NCCL rank's."""
+    for what, outs in (("gloo", [o["dcn"] for o in pair]),
+                       ("nccl", [o["dcn"] for o in single])):
+        head = outs[0]
+        issued = head["issued"]
+        ms = lambda key: max(o[key] for o in outs)  # noqa: E731
+        # Printed first, so that a failed check below still leaves the
+        # numbers in the log.
+        log(f"  DCN-v2 at full width on (data 1, model {head['world']}), "
+            f"backend {head['backend']}: serve_bulk "
+            f"{ms('serve_ms'):.2f} ms (cold {ms('serve_cold_ms'):.2f}; twin "
+            f"{ms('twin_serve_ms'):.2f}), retrieval_cand "
+            f"{ms('retrieval_ms'):.2f} ms (cold "
+            f"{ms('retrieval_cold_ms'):.2f}; twin "
+            f"{ms('twin_retrieval_ms'):.2f}), one train_batch step "
+            f"{ms('train_ms'):.2f} ms (twin {ms('twin_train_ms'):.2f}; the "
+            f"step is a first call) (slowest rank, host clock); x0 == twin "
+            f"{[o['x0_equal'] for o in outs]}, logits within "
+            f"{max(o['logits_err'][0] for o in outs):.3g} (limit "
+            f"{RANKS_DCN_TOL} x {head['logits_err'][1]:.4g}), scores within "
+            f"{max(o['scores_err'][0] for o in outs):.3g}, positions equal "
+            f"{[o['positions_equal'] for o in outs]}, the step's gradients "
+            f"at {max(o['grads_room'] for o in outs):.3g} of their bound "
+            f"and parameters at {max(o['step_room'] for o in outs):.3g} "
+            f"(leaf {[o['worst'] for o in outs]}; "
+            f"{min(o['strict'] for o in outs):.3f} of those with a gradient "
+            f"held without the 2 lr slack), lr "
+            f"{head['twin_metrics']['lr']:.3g}, "
+            f"loss {head['metrics']['loss']:.6f} (twin "
+            f"{head['twin_metrics']['loss']:.6f}); grouped launches a rank "
+            f"{[o['launches'] for o in outs]}; collectives issued {issued}; "
+            f"peak {max(o['peak'] for o in outs) / 2**30:.2f} GiB a rank; "
+            f"leg {max(o['leg_s'] for o in outs):.1f} s [{card}; one card "
+            f"shared by the ranks: not a multi-card time]")
+        for r, out in enumerate(outs):
+            where = f"DCN-v2 ({what}) rank {r}"
+            check(out["launches"] == 8, f"{where}: embedding_bag_grouped "
+                  f"launched {out['launches']} times, want 8 (x0, serve "
+                  f"twice, retrieval's query and candidates twice, the "
+                  f"step)")
+            check(out["x0_equal"], f"{where}: x0 differs from the twin's")
+            for key in ("logits_err", "scores_err"):
+                err, top = out[key]
+                check(err <= RANKS_DCN_TOL * top,
+                      f"{where}: {key} {err} > {RANKS_DCN_TOL} x {top}")
+            check(out["positions_equal"],
+                  f"{where}: top-{RETRIEVAL_TOP_K} positions differ")
+            check(out["grads_room"] <= 1.0, f"{where}: a gradient leaf is "
+                  f"{out['grads_room']:.3g} of its bound away")
+            check(out["step_room"] <= 1.0, f"{where}: a parameter after the "
+                  f"step is {out['step_room']:.3g} of its bound away")
+            for k in ("loss", "grad_norm"):
+                got, want = out["metrics"][k], out["twin_metrics"][k]
+                check(abs(got - want) <= RANKS_DCN_TOL * abs(want),
+                      f"{where}: {k} {got} != twin {want}")
+        check(issued.get("all_reduce", 0) > 0
+              and issued.get("reduce_scatter", 0) > 0
+              and issued.get("all_gather", 0) > 0,
+              f"DCN-v2 ({what}): collectives issued {issued}")
+    for what, outs in (("gloo", [o["gnn"] for o in pair]),
+                       ("nccl", [o["gnn"] for o in single])):
+        for name in outs[0]["legs"]:
+            legs = [o["legs"][name] for o in outs]
+            log(f"  GNN {name} on {RANKS_GNN_SHAPE} across "
+                f"{outs[0]['world']} rank(s) ({what}): a step "
+                f"{max(l['ms'] for l in legs):.2f} ms (twin "
+                f"{max(l['twin_ms'] for l in legs):.2f}; the second step, "
+                f"slowest rank, host clock); the first step's loss "
+                f"{legs[0]['loss']:.6f} (twin {legs[0]['twin_loss']:.6f}); "
+                f"the first step's " + ", ".join(
+                    f"{k} at {max(l['room'][k] for l in legs):.3g}"
+                    for k in legs[0]["room"]) +
+                f" of their bounds (the parameters' worst in leaf "
+                f"{[l['worst'] for l in legs]}; {min(l['strict'] for l in legs):.3f} "
+                f"of those with a gradient held without the 2 lr slack); peak "
+                f"{max(l['peak'] for l in legs) / 2**30:.2f} GiB a rank "
+                f"[{card}; one card shared by the ranks]")
+            for r, leg in enumerate(legs):
+                for key, room in leg["room"].items():
+                    check(room <= 1.0, f"GNN {name} ({what}) rank {r}: "
+                          f"{key} at {room:.3g} of its bound")
+        log(f"  GNN ({what}): collectives issued {outs[0]['issued']}; leg "
+            f"{max(o['leg_s'] for o in outs):.1f} s")
+    for world in (2, 256):
+        log(f"  GNN collectives at ogb_products over {world} ranks, MB a "
+            f"rank receives in a train step: " + "; ".join(
+                f"{arch} " + ", ".join(f"{k} {v:,.1f}" for k, v in
+                                       moved.items())
+                for arch, moved in gnn_mesh_bytes(world).items()))
+    return [o["dcn"]["launches"] for o in pair] + \
+        [o["dcn"]["launches"] for o in single]
+
+
 def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
                 phase5, twin4, stepwise4, served9) -> dict:
     """Phase 18: DKS's frontier exchange and its stepwise surfaces,
-    expert-parallel MoE, GPipe, the int8 ring and the transformer's
-    tensor parallelism across ranks, each against its twin on the card.
-    ``twin4``: phase 12's 4-shard records and state digest;
+    expert-parallel MoE, GPipe, the int8 ring, the transformer's tensor
+    parallelism, DCN-v2 and the GNNs across ranks, each against its twin
+    on the card.  ``twin4``: phase 12's 4-shard records and state digest;
     ``stepwise4``: its :func:`stepwise_record`; ``served9``: phase 9's
-    :func:`serve_script` on one process.  Returns the flash
-    launches of the pipeline's and the tensor-parallel legs' ranks and a
-    summary."""
+    :func:`serve_script` on one process.  Returns the flash launches of
+    the pipeline's and the tensor-parallel legs' ranks, the grouped bag
+    kernel's of the DCN-v2 legs' ranks and a summary."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed.ranks import run_ranks
     from repro_torch.engine import ExecutionPolicy, QueryEngine
@@ -4625,12 +5077,16 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
                           [out["tp_train"] for out in pair])
     log(f"  tensor parallel references in this process: "
         f"{time.perf_counter() - t0:.1f} s")
+    bag_launches = dcn_gnn_held(card, pair, single)
     return {"pp_launches": launches, "tp_launches": tp_launches,
+            "bag_launches": {"dcn_v2_gloo": bag_launches[:2],
+                             "dcn_v2_nccl": bag_launches[2:]},
             "summary": f"DKS at {list(RANKS_DKS_WORLDS)} ranks == twin, "
                        f"its stepwise surfaces at "
                        f"{list(RANKS_STEPWISE_WORLDS)}, DKSService at "
                        f"{sorted(serve)} with followers; "
-                       f"MoE, GPipe, int8 ring, tensor parallelism held; "
+                       f"MoE, GPipe, int8 ring, tensor parallelism, DCN-v2 "
+                       f"and the GNNs held; "
                        f"phase {time.perf_counter() - t_phase:.1f} s"}
 
 
@@ -4640,16 +5096,20 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     meta: list = []             # the meta dry run, once phase 11 is done
+    workers: list = []          # phase 14's inputs, from phase 11 on
     try:
-        return phases(meta)
+        return phases(meta, workers)
     finally:
+        for proc, _ in workers:
+            proc.kill()
+            proc.join()
         for proc, _ in meta:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
 
 
-def phases(meta: list) -> int:
+def phases(meta: list, workers: list) -> int:
     from repro_torch import INF
     from repro_torch.configs import SEC_RDFABOUT
     from repro_torch.core import dks, driver
@@ -5046,6 +5506,9 @@ def phases(meta: list) -> int:
         f"at cut depth {moe['cut_launches']} launches")
     log(f"  card: {card}")
     meta.append(start_meta_dry_run())
+    # Phase 14's graph and index are made on the host meanwhile, beside
+    # the meta dry run, while phases 12 and 13 use the card.
+    workers.append(start_bluk_worker())
 
     card_state("phase 11 end, phase 12 start", meta)
 
@@ -5074,7 +5537,8 @@ def phases(meta: list) -> int:
     # ---------------- 14. bluk-bnb ----------------
     gc.collect()
     torch.cuda.empty_cache()
-    bluk = bluk_phase(dev)
+    bluk = bluk_phase(dev, workers[-1])
+    workers.pop()[0].join()
     for name, err in bluk["errs"].items():
         errs[name] = max(errs[name], err)
     log(f"[14/18] bluk-bnb at full size on backend=cuda: launches "
@@ -5163,6 +5627,7 @@ def phases(meta: list) -> int:
             kernels[-1]["sharded_launches"] = sharded["launches"][name]
         if name == "embedding_bag":
             kernels[-1]["train_launches"] = trained["launches"]
+            kernels[-1]["ranks_launches"] = ranks["bag_launches"]
         if name in bluk["launches"]:
             ms, plain, library, bound, by = bluk["timing"][name]
             kernels[-1].update({

@@ -12,10 +12,20 @@ the port's own layouts (int64 edge indices, a lane axis on the DKS state,
 the LM as a module) are made inside the step, where their cost is
 counted.
 
-One card in place of ``repro``'s 256-chip mesh: ``tp`` is 1, there are no
-partition specs, and the grad-accumulation rule divides activations by
-the card count (1) where ``repro``'s divides by 256.  ``param_specs`` and
-``lm_pp_cell`` wait for the multi-card paths.
+The catalog runs on one card in place of ``repro``'s 256-chip mesh:
+``tp`` is 1, and the grad-accumulation rule divides activations by the
+card count (1) where ``repro``'s divides by 256.  :func:`gnn_cell` and
+:func:`recsys_cell` also take ``mesh=``, a
+:class:`~repro_torch.distributed.comm.Mesh` of which this process is one
+rank: :meth:`Cell.build` then builds this rank's slice of each argument
+by ``repro``'s in-specs (the whole argument drawn from the generator, as
+every rank draws it, and cut by
+:func:`~repro_torch.launch.mesh.shard_tree`; on ``meta``, of the shape
+``comm.local_shape`` gives), and the step runs the sharded program:
+DCN-v2's tables split by ``recsys.param_specs`` with the grouped kernel
+on each rank's rows, the GNNs' nodes and edges split over every axis.
+The LM cells, ``lm_pp_cell`` (``repro``'s ``stage_layer_specs``) and the
+dry run on ``repro``'s production meshes are not built on a mesh.
 """
 
 from __future__ import annotations
@@ -33,7 +43,10 @@ from repro_torch.analysis import count
 from repro_torch.analysis import roofline as rl
 from repro_torch.configs import (DKS_CONFIGS, GNN_SHAPES, LM_SHAPES,
                                  RECSYS_SHAPES, get_arch)
+from repro_torch.distributed import comm
+from repro_torch.distributed.comm import PartitionSpec as P
 from repro_torch.distributed.fault import block_until_ready
+from repro_torch.models.common import ALL, DP
 from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
                                adamw_update, tree_map)
 
@@ -100,6 +113,17 @@ def _param_state(params, device) -> ParamState:
 
 def _scalars(metrics: dict) -> dict:
     return {k: metrics[k] for k in ("loss", "grad_norm", "lr")}
+
+
+def _local(tree, specs, mesh):
+    """This rank's slice of every leaf of ``tree`` by ``specs`` (the tree
+    itself without a mesh), of the shape ``comm.local_shape`` gives: cut
+    from the whole leaf, which every rank builds alike."""
+    if mesh is None:
+        return tree
+    from repro_torch.launch.mesh import shard_tree
+
+    return shard_tree(tree, specs, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -262,7 +286,22 @@ def gnn_sizes(shape) -> tuple[int, int, int]:
     return shape.n_nodes, shape.n_edges, 1
 
 
-def gnn_cell(arch_id: str, shape, mesh_divisor: int = 512) -> Cell:
+def gnn_batch_specs(label_len: int, n_graphs: int):
+    """``repro``'s ``gnn_cell`` layout: nodes and edges split over every
+    axis, the labels too when there are at least 4,096 of them."""
+    from repro_torch.models.gnn import GraphBatch
+
+    return GraphBatch(
+        x=P(ALL, None), edge_src=P(ALL), edge_dst=P(ALL), node_mask=P(ALL),
+        edge_mask=P(ALL), labels=P(None) if label_len < 4096 else P(ALL),
+        graph_ids=P(ALL), positions=P(ALL, None), n_graphs=n_graphs)
+
+
+def gnn_cell(arch_id: str, shape, mesh_divisor: int = 512,
+             mesh: "comm.Mesh | None" = None) -> Cell:
+    """``repro``'s GNN train cell; on a ``mesh``, one rank of it: the
+    batch cut by :func:`gnn_batch_specs`, the parameters and AdamW's
+    state whole."""
     from repro_torch.models import gnn as gnn_lib
 
     # repro's production cells pass messages in bf16.
@@ -283,7 +322,7 @@ def gnn_cell(arch_id: str, shape, mesh_divisor: int = 512) -> Cell:
             batch, edge_src=batch.edge_src.long(),
             edge_dst=batch.edge_dst.long(), graph_ids=batch.graph_ids.long())
         params, opt, metrics = gnn_lib.gnn_train_step(
-            state.params, state.opt, b64, cfg, opt_cfg)
+            state.params, state.opt, b64, cfg, opt_cfg, mesh)
         return ParamState(params, opt, state.step + 1), _scalars(metrics)
 
     def build(device, generator=None):
@@ -313,6 +352,12 @@ def gnn_cell(arch_id: str, shape, mesh_divisor: int = 512) -> Cell:
                                   ).to(torch.int32),
             positions=_normal((n_pad, 3), device, generator),
             n_graphs=n_graphs)
+        if mesh is not None:
+            specs = gnn_batch_specs(label_len, n_graphs)
+            batch = dataclasses.replace(batch, **{
+                f.name: _local(getattr(batch, f.name), getattr(specs, f.name),
+                               mesh)
+                for f in dataclasses.fields(batch) if f.name != "n_graphs"})
         return fn, (_param_state(params, device), batch)
 
     return Cell(arch_id, shape.name, "gnn_train", build,
@@ -353,34 +398,48 @@ def _dcn_inputs(cfg, batch: int, device, generator):
     return _normal((batch, cfg.n_dense), device, generator), sparse
 
 
-def recsys_cell(arch_id: str, shape) -> Cell:
+def recsys_cell(arch_id: str, shape,
+                mesh: "comm.Mesh | None" = None) -> Cell:
+    """``repro``'s DCN-v2 cell; on a ``mesh``, one rank of it: the
+    parameters (and AdamW's state) cut by ``recsys.param_specs``, the
+    batch split over the data axes, retrieval's query whole and its
+    candidates split over every axis."""
     from repro_torch.launch.train import make_recsys_step
     from repro_torch.models import recsys as rec_lib
 
     cfg = get_arch(arch_id)
     mf = rl.model_flops_recsys(cfg, shape)
+    pspec = rec_lib.param_specs(cfg)
+
+    def params_of(device, generator):
+        return _local(_dcn_params(cfg, device, generator), pspec, mesh)
+
+    def rows(x):
+        return _local(x, P(DP, *([None] * (x.dim() - 1))), mesh)
 
     if shape.kind == "train":
-        step = make_recsys_step(cfg, AdamWConfig())
+        step = make_recsys_step(cfg, AdamWConfig(), mesh=mesh)
 
         def fn(state, batch):
             (params, opt), metrics = step((state.params, state.opt), batch)
-            return ParamState(params, opt, state.step + 1), metrics
+            return ParamState(params, opt, state.step + 1), _scalars(metrics)
 
         def build(device, generator=None):
             dense, sparse = _dcn_inputs(cfg, shape.batch, device, generator)
             batch = {"dense": dense, "sparse": sparse,
                      "label": _ints((shape.batch,), 2, device, generator)}
-            return fn, (_param_state(_dcn_params(cfg, device, generator),
-                                     device), batch)
+            return fn, (_param_state(params_of(device, generator), device),
+                        {k: rows(v) for k, v in batch.items()})
 
         return Cell(arch_id, shape.name, "rec_train", build, mf)
 
     if shape.kind == "serve":
         def build(device, generator=None):
-            return (functools.partial(rec_lib.dcn_forward, cfg=cfg),
-                    (_dcn_params(cfg, device, generator),
-                     *_dcn_inputs(cfg, shape.batch, device, generator)))
+            return (functools.partial(rec_lib.dcn_forward, cfg=cfg,
+                                      mesh=mesh),
+                    (params_of(device, generator),
+                     *map(rows, _dcn_inputs(cfg, shape.batch, device,
+                                            generator))))
 
         return Cell(arch_id, shape.name, "rec_serve", build, mf)
 
@@ -389,10 +448,11 @@ def recsys_cell(arch_id: str, shape) -> Cell:
 
     def build(device, generator=None):
         return (functools.partial(rec_lib.retrieval_scores, cfg=cfg,
-                                  top_k=100),
-                (_dcn_params(cfg, device, generator),
+                                  top_k=100, mesh=mesh),
+                (params_of(device, generator),
                  *_dcn_inputs(cfg, shape.batch, device, generator),
-                 _ints((n_cand,), cfg.vocab_sizes[0], device, generator)))
+                 _local(_ints((n_cand,), cfg.vocab_sizes[0], device,
+                              generator), P(ALL), mesh)))
 
     return Cell(arch_id, shape.name, "rec_retrieval", build, mf,
                 notes=f"n_cand_pad={n_cand}")

@@ -42,7 +42,8 @@ from repro_torch.models import lm as lm_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                               tree_leaves)
+                               global_norm, reduce_replicated, tree_leaves,
+                               tree_unflatten)
 
 
 def opt_config(args) -> AdamWConfig:
@@ -126,24 +127,53 @@ def train_lm(args) -> dict:
                            if dev.type == "cuda" else None)}
 
 
+def recsys_loss_and_grads(params: dict, batch: dict, cfg: RecsysConfig,
+                          impl: str = "cuda", mesh=None
+                          ) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
+    """(``dcn_loss``, its gradient tree shaped like ``params``, the
+    gradients' global norm on a mesh, else None).
+
+    On a mesh ``params`` are this rank's slices (``rec_lib.param_specs``)
+    and ``batch`` its rows: every rank differentiates ``loss / world
+    size``, so that the ``psum`` of the lookup, whose transpose is
+    ``psum``, sends the loss's gradient back through it once in all; each
+    gradient is then summed over the axes its leaf is not split on (a
+    split table's over the data axes, a whole leaf's over every axis),
+    and the norm is the whole tree's: each split leaf's squares summed
+    over its axes, each whole leaf counted once."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = rec_lib.dcn_loss(params, batch, cfg, impl, mesh)
+    seed = None if mesh is None else torch.full_like(loss, 1.0 / mesh.size)
+    # The item tower takes no part in the loss: its gradient is zero, as
+    # JAX's.
+    grads = tree_unflatten(params, torch.autograd.grad(
+        loss, leaves, grad_outputs=seed, allow_unused=True,
+        materialize_grads=True))
+    for p in leaves:
+        p.requires_grad_(False)
+    if mesh is None:
+        return loss.detach(), grads, None
+    specs = rec_lib.param_specs(cfg)
+    grads = reduce_replicated(grads, specs, mesh)
+    return loss.detach(), grads, global_norm(grads, specs, mesh)
+
+
 def make_recsys_step(cfg: RecsysConfig, opt_cfg: AdamWConfig,
-                     impl: str = "cuda"):
-    """``step((params, opt), batch) -> ((params, opt), {"loss",
-    "grad_norm", "lr"})``: ``dcn_loss`` and its gradients, then AdamW, in
-    place, after the gradients and their norm are complete."""
+                     impl: str = "cuda", mesh=None):
+    """``step((params, opt), batch) -> ((params, opt), {"loss", "grads",
+    "grad_norm", "lr"})``: :func:`recsys_loss_and_grads`, then AdamW, in
+    place, after the gradients and their norm are complete (on a mesh,
+    ``params``, ``opt``, ``batch`` and ``grads`` this rank's)."""
 
     def step_fn(carry, batch):
         params, opt = carry
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = rec_lib.dcn_loss(params, batch, cfg, impl)
-        # The item tower takes no part in the loss: its gradient is zero,
-        # as JAX's.
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        _, opt, metrics = adamw_update(opt_cfg, list(grads), opt, leaves)
-        return (params, opt), {"loss": loss.detach(), **metrics}
+        loss, grads, norm = recsys_loss_and_grads(params, batch, cfg, impl,
+                                                  mesh)
+        _, opt, metrics = adamw_update(opt_cfg, grads, opt, params,
+                                       norm=norm)
+        return (params, opt), {"loss": loss, "grads": grads, **metrics}
 
     return step_fn
 
@@ -167,6 +197,7 @@ def train_recsys(args) -> dict:
         carry, metrics = block_until_ready(step_fn(carry, batch))
         record.append({"step": step, "loss": float(metrics["loss"]),
                        "step_s": time.perf_counter() - t0})
+        del metrics  # the gradients, not kept through the next step
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss={record[-1]['loss']:.4f} "
                   f"t={record[-1]['step_s'] * 1e3:.1f}ms")

@@ -17,12 +17,13 @@ from typing import Sequence
 
 import torch
 
-# Data-parallel dims ("pod", "data") and the tensor dim ("model"), as
-# ``repro``'s: an axis a mesh lacks is dropped, so one model runs on one
-# device or any mesh.
+# Data-parallel dims ("pod", "data"), the tensor dim ("model") and every
+# dim, as ``repro``'s: an axis a mesh lacks is dropped, so one model runs
+# on one device or any mesh.
 DP = ("pod", "data")
 TP = ("model",)
 FSDP = ("pod", "data")
+ALL = ("pod", "data", "model")
 
 
 def pad_to(x: int, multiple: int) -> int:

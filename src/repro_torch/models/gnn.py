@@ -1,5 +1,5 @@
 """GNN zoo: GAT, SchNet, GIN, PNA — segment-op message passing, trained on
-one device; the counterpart of ``repro.models.gnn``.
+one device or a mesh; the counterpart of ``repro.models.gnn``.
 
 Message passing is a gather (edge src) -> edge compute -> segment reduce
 (edge dst): sums are ``index_add`` on a zero base, maxima and minima
@@ -24,8 +24,20 @@ does in JAX.  bf16 segment sums run in bf16, as ``repro``'s do, but add in
 another order (``index_add`` on the card uses atomics), so bf16 results
 agree with ``repro``'s to bf16's precision, not bit for bit.
 
-The one-device branch of ``repro``'s ``_gather_rows`` is ported; its mesh
-branch (an explicit bf16 all-gather over the node shards) is not.
+On a mesh (``mesh=``) the nodes and the edges are split over every axis
+(``repro``'s ``gnn_cell``: ``P(ALL)``), the parameters whole.  A rank holds
+a block of the nodes and a block of the edges, whose ends are global node
+ids, so each node-table read at an edge end (``h[src]``) gathers the table
+over every rank first (:func:`_gather_rows`: ``comm.all_gather`` in the
+message-passing dtype, ``repro``'s explicit bf16 gather for GAT), and each
+segment reduction over the rank's edges is a partial over all N nodes:
+sums are reduce-scattered to their node blocks (:func:`_node_sum`), or
+``psum``-ed where a whole table is read back at ``dst`` (GAT's softmax)
+or per graph (the readouts); maxima and minima are reduced by
+:class:`_SegExtremum`, whose backward splits the gradient among the ties
+of every rank.  The loss is the rank's sums over ``psum``; every rank
+differentiates ``loss / world size`` and sums the gradients over every
+axis (:func:`gnn_loss_and_grads`).
 """
 
 from __future__ import annotations
@@ -37,9 +49,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import GNNConfig
-from repro_torch.models.common import dense_init, split_keys
+from repro_torch.distributed import comm
+from repro_torch.models.common import ALL, dense_init, mesh_axes, split_keys
 from repro_torch.optim import (AdamWConfig, OptState, adamw_update,
-                               tree_leaves, tree_map)
+                               reduce_replicated, tree_leaves, tree_map)
 
 # PNA's edge chunk: at ogb-products scale the four [E, d] message tensors
 # do not fit at once, so the aggregate runs over checkpointed edge chunks.
@@ -79,18 +92,94 @@ def _seg_sum(vals, seg, n):
     return _SegSum.apply(vals, seg, n)
 
 
-def _seg_reduce(vals, seg, n, op: str, fill: float):
-    idx = seg.view(-1, *([1] * (vals.dim() - 1))).expand_as(vals)
-    return vals.new_full((n, *vals.shape[1:]), fill).scatter_reduce(
-        0, idx, vals, op, include_self=False)
+def _seg_max(vals, seg, n, mesh=None):
+    return _SegExtremum.apply(vals, seg, n, True, mesh, _taped(vals))
 
 
-def _seg_max(vals, seg, n):
-    return _seg_reduce(vals, seg, n, "amax", -math.inf)
+def _seg_min(vals, seg, n, mesh=None):
+    return _SegExtremum.apply(vals, seg, n, False, mesh, _taped(vals))
 
 
-def _seg_min(vals, seg, n):
-    return _seg_reduce(vals, seg, n, "amin", math.inf)
+def _taped(vals) -> bool:
+    """Whether autograd records an op on ``vals`` (inside a custom
+    Function's forward grad mode is always off)."""
+    return torch.is_grad_enabled() and vals.requires_grad
+
+
+class _SegExtremum(torch.autograd.Function):
+    """The segment max (or min) of every rank's edges, [n, ...] on every
+    rank (of the one process's edges without a mesh): the rank's own
+    (``scatter_reduce``, ``include_self=False``), then ``pmax`` / ``pmin``
+    over every axis.  The backward gives each message that equals its
+    segment's result the sum of every rank's cotangent over the number of
+    such messages on every rank, as one process splits a tie among the
+    messages of its segment (torch's ``scatter_reduce`` backward and JAX's
+    ``segment_max``); it keeps a bool per message and the tie counts, not
+    the messages, and only where a gradient is taped (``taped``)."""
+
+    @staticmethod
+    def forward(ctx, vals, seg, n: int, is_max: bool, mesh, taped: bool):
+        op, fill = ("amax", -math.inf) if is_max else ("amin", math.inf)
+        idx = seg.view(-1, *([1] * (vals.dim() - 1))).expand_as(vals)
+        out = vals.new_full((n, *vals.shape[1:]), fill).scatter_reduce(
+            0, idx, vals, op, include_self=False)
+        if mesh is not None:
+            out = (comm.pmax if is_max else comm.pmin)(
+                out, mesh_axes(mesh, ALL), mesh=mesh)
+        if not taped:
+            return out
+        tie = vals == out.gather(0, idx)
+        count = _table_sum(vals.new_zeros(out.shape).index_add_(
+            0, seg, tie.to(vals.dtype)), mesh)
+        ctx.save_for_backward(seg, tie, count)
+        ctx.mesh = mesh
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        seg, tie, count = ctx.saved_tensors
+        total = _table_sum(grad, ctx.mesh)
+        share = (total / torch.clamp(count, min=1)).index_select(0, seg)
+        return torch.where(tie, share, 0.0), None, None, None, None, None
+
+
+def _world(mesh) -> int:
+    """The ranks the nodes and edges are split over (1 without a mesh)."""
+    return mesh.axis_size(mesh_axes(mesh, ALL)) if mesh is not None else 1
+
+
+def _nodes_all(h, mesh):
+    """Every rank's block of a node table, in node order (the table
+    itself without a mesh); its gradient is reduce-scattered back."""
+    if mesh is None:
+        return h
+    return comm.all_gather(h, mesh_axes(mesh, ALL), dim=0, tiled=True,
+                           mesh=mesh)
+
+
+def _node_sum(part, mesh):
+    """A rank's partial sums over all N nodes -> its block of the sums
+    over every rank (reduce-scattered)."""
+    if mesh is None:
+        return part
+    return comm.reduce_scatter(part, mesh_axes(mesh, ALL), dim=0, mesh=mesh)
+
+
+def _table_sum(part, mesh):
+    """A rank's partial sums of a table read whole (at ``dst``, per
+    graph) -> the sums over every rank, on every rank."""
+    if mesh is None:
+        return part
+    return comm.psum(part, mesh_axes(mesh, ALL), mesh=mesh)
+
+
+def _node_block(t, mesh):
+    """This rank's block of a whole node table."""
+    if mesh is None:
+        return t
+    w = t.shape[0] // _world(mesh)
+    i = mesh.axis_index(mesh_axes(mesh, ALL))
+    return t[i * w:(i + 1) * w]
 
 
 class _Extremum(torch.autograd.Function):
@@ -135,28 +224,34 @@ def _scale(c, a):
     return c.to(dt) * a.to(dt)
 
 
-def _degree(batch: GraphBatch, n: int) -> torch.Tensor:
-    return _seg_sum(batch.edge_mask.float(), batch.edge_dst, n)
+def _degree(batch: GraphBatch, n: int, mesh=None) -> torch.Tensor:
+    """In-degree of each node (of the rank's block on a mesh)."""
+    return _node_sum(_seg_sum(batch.edge_mask.float(), batch.edge_dst, n),
+                     mesh)
 
 
 def _mp_dtype(cfg: GNNConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.mp_dtype == "bfloat16" else torch.float32
 
 
-def _gather_rows(h, idx, mpd):
+def _gather_rows(h, idx, mpd, mesh=None):
     """``h[idx]`` with the node table cast to the message-passing dtype
-    first (``repro``'s one-device branch)."""
-    return h.to(mpd)[idx]
+    first; on a mesh ``h`` is the rank's block, all-gathered in that dtype
+    (``repro``'s explicit bf16 all-gather; the gradient comes back as a
+    reduce-scatter in it)."""
+    return _nodes_all(h.to(mpd), mesh)[idx]
 
 
-def _edge_softmax(scores, dst, edge_mask, n):
-    """Segment softmax over incoming edges (GAT); f32 for stability."""
+def _edge_softmax(scores, dst, edge_mask, n, mesh=None):
+    """Segment softmax over incoming edges (GAT); f32 for stability.  On a
+    mesh the maxima and the denominators are whole tables, read at
+    ``dst``."""
     scores = scores.float()
     mask = edge_mask[..., None] if scores.dim() > 1 else edge_mask
     scores = torch.where(mask, scores, -1e30)
-    mx = _seg_max(scores, dst, n)
+    mx = _seg_max(scores, dst, n, mesh)
     ex = torch.where(mask, torch.exp(scores - mx[dst]), 0.0)
-    den = _seg_sum(ex, dst, n)
+    den = _table_sum(_seg_sum(ex, dst, n), mesh)
     return ex / _maximum(den[dst], 1e-16)
 
 
@@ -188,26 +283,30 @@ def _leaky_relu(x, slope: float):
     return torch.where(x >= 0, x, slope * x)
 
 
-def gat_forward(params: dict, batch: GraphBatch, cfg: GNNConfig
-                ) -> torch.Tensor:
+def gat_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
+                mesh=None) -> torch.Tensor:
     x = batch.x
-    n = x.shape[0]
+    n_loc = x.shape[0]
+    n = n_loc * _world(mesh)
     n_layers = len(params["layers"])
     mpd = _mp_dtype(cfg)
     for li, lw in enumerate(params["layers"]):
         last = li == n_layers - 1
         heads = 1 if last else cfg.n_heads
         d_out = lw["w"].shape[1] // heads
-        h = _mm(x, lw["w"]).reshape(n, heads, d_out)
+        h = _mm(x, lw["w"]).reshape(n_loc, heads, d_out)
         s_src = torch.sum(h * lw["a_src"][None], dim=-1)   # [N, H]
         s_dst = torch.sum(h * lw["a_dst"][None], dim=-1)
-        e = _leaky_relu(s_src[batch.edge_src] + s_dst[batch.edge_dst], 0.2)
-        alpha = _edge_softmax(e, batch.edge_dst, batch.edge_mask, n)
-        h_src = _gather_rows(h.reshape(n, heads * d_out), batch.edge_src,
-                             mpd).reshape(-1, heads, d_out)
+        s_all = _nodes_all(torch.cat([s_src, s_dst], dim=-1), mesh)
+        e = _leaky_relu(s_all[batch.edge_src, :heads]
+                        + s_all[batch.edge_dst, heads:], 0.2)
+        alpha = _edge_softmax(e, batch.edge_dst, batch.edge_mask, n, mesh)
+        h_src = _gather_rows(h.reshape(n_loc, heads * d_out), batch.edge_src,
+                             mpd, mesh).reshape(-1, heads, d_out)
         msg = h_src * alpha.to(mpd)[..., None]             # [E, H, D]
-        agg = _seg_sum(msg, batch.edge_dst, n)             # stays mp_dtype
-        x = agg.reshape(n, heads * d_out) if not last else agg.mean(dim=1)
+        agg = _node_sum(_seg_sum(msg, batch.edge_dst, n), mesh)  # mp_dtype
+        x = (agg.reshape(n_loc, heads * d_out) if not last
+             else agg.mean(dim=1))
         if not last:
             x = torch.nn.functional.elu(x)
     return x  # [N, n_classes] logits
@@ -239,20 +338,22 @@ def init_gin(generator: torch.Generator, cfg: GNNConfig, d_in: int) -> dict:
 
 
 def gin_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
-                graph_level: bool = False) -> torch.Tensor:
+                graph_level: bool = False, mesh=None) -> torch.Tensor:
     x = batch.x
-    n = x.shape[0]
+    n = x.shape[0] * _world(mesh)
     mpd = _mp_dtype(cfg)
     for lw in params["layers"]:
         xm = x.to(mpd)
-        msg = torch.where(batch.edge_mask[:, None], xm[batch.edge_src], 0.0)
-        agg = _seg_sum(msg, batch.edge_dst, n)             # stays mp_dtype
+        msg = torch.where(batch.edge_mask[:, None],
+                          _gather_rows(xm, batch.edge_src, mpd, mesh), 0.0)
+        agg = _node_sum(_seg_sum(msg, batch.edge_dst, n), mesh)  # mp_dtype
         h = _scale(1.0 + lw["eps"], xm) + agg
         h = torch.relu(_mm(h, lw["w1"]) + lw["b1"])
         x = torch.relu(_mm(h, lw["w2"]) + lw["b2"])
     if graph_level:
-        pooled = _seg_sum(torch.where(batch.node_mask[:, None], x, 0.0),
-                          batch.graph_ids, batch.n_graphs)
+        pooled = _table_sum(_seg_sum(
+            torch.where(batch.node_mask[:, None], x, 0.0), batch.graph_ids,
+            batch.n_graphs), mesh)
         return _mm(pooled, params["out"])                 # [G, classes]
     return _mm(x, params["out"])                          # [N, classes]
 
@@ -289,17 +390,19 @@ def pna_chunks(n_edges: int, chunk_edges: int = PNA_CHUNK_EDGES) -> int:
     return 1 if nc == 1 or n_edges % nc else nc
 
 
-def _pna_messages(h, src, dst, mask, n):
-    """(sum, sumsq, max, min) of one set of edges' messages per node."""
+def _pna_messages(h, src, dst, mask, n, mesh=None):
+    """(sum, sumsq, max, min) of one set of edges' messages per node; on
+    a mesh the sums are the rank's partials and the extrema every rank's
+    (whole tables)."""
     g = h[src]
     m = torch.where(mask[:, None], g, 0.0)
     return (_seg_sum(m, dst, n), _seg_sum(m * m, dst, n),
-            _seg_max(torch.where(mask[:, None], g, -1e30), dst, n),
-            _seg_min(torch.where(mask[:, None], g, 1e30), dst, n))
+            _seg_max(torch.where(mask[:, None], g, -1e30), dst, n, mesh),
+            _seg_min(torch.where(mask[:, None], g, 1e30), dst, n, mesh))
 
 
 def _pna_aggregate(h, batch: GraphBatch, n: int,
-                   chunk_edges: int = PNA_CHUNK_EDGES):
+                   chunk_edges: int = PNA_CHUNK_EDGES, mesh=None):
     """(sum, sumsq, max, min) per destination — edge-CHUNKED when the edge
     set is large (:func:`pna_chunks`): each chunk's messages run under
     ``torch.utils.checkpoint``, so the live set is one chunk's [chunk, d]
@@ -308,26 +411,34 @@ def _pna_aggregate(h, batch: GraphBatch, n: int,
     its maxima and minima taken as ``torch.maximum`` / ``minimum`` would
     (a tie across chunks splits the gradient, as ``jnp.maximum``'s does)
     by :class:`_Extremum`, which keeps an int8 code per element for the
-    backward where ``torch.maximum`` would keep both [N, d] operands."""
+    backward where ``torch.maximum`` would keep both [N, d] operands.
+
+    On a mesh ``h`` is the whole node table (gathered), the edges and
+    their chunks the rank's, and the result the rank's node block: the
+    sums reduce-scattered, the extrema (every rank's edges of a chunk)
+    cut to the block."""
     e = batch.edge_src.shape[0]
     nc = pna_chunks(e, chunk_edges)
     if nc == 1:
-        return _pna_messages(h, batch.edge_src, batch.edge_dst,
-                             batch.edge_mask, n)
-    ec = e // nc
-    d = h.shape[1]
-    s = h.new_zeros((n, d))
-    sq = h.new_zeros((n, d))
-    mx = h.new_full((n, d), -1e30)
-    mn = h.new_full((n, d), 1e30)
-    for c in range(nc):
-        part = slice(c * ec, (c + 1) * ec)
-        ps, psq, pmx, pmn = checkpoint(
-            _pna_messages, h, batch.edge_src[part], batch.edge_dst[part],
-            batch.edge_mask[part], n, use_reentrant=False)
-        s, sq = s + ps, sq + psq
-        mx, mn = _Extremum.apply(mx, pmx, True), _Extremum.apply(mn, pmn, False)
-    return s, sq, mx, mn
+        s, sq, mx, mn = _pna_messages(h, batch.edge_src, batch.edge_dst,
+                                      batch.edge_mask, n, mesh)
+    else:
+        ec = e // nc
+        d = h.shape[1]
+        s = h.new_zeros((n, d))
+        sq = h.new_zeros((n, d))
+        mx = h.new_full((n, d), -1e30)
+        mn = h.new_full((n, d), 1e30)
+        for c in range(nc):
+            part = slice(c * ec, (c + 1) * ec)
+            ps, psq, pmx, pmn = checkpoint(
+                _pna_messages, h, batch.edge_src[part], batch.edge_dst[part],
+                batch.edge_mask[part], n, mesh, use_reentrant=False)
+            s, sq = s + ps, sq + psq
+            mx = _Extremum.apply(mx, pmx, True)
+            mn = _Extremum.apply(mn, pmn, False)
+    return (_node_sum(s, mesh), _node_sum(sq, mesh), _node_block(mx, mesh),
+            _node_block(mn, mesh))
 
 
 def _pna_features(aggregates, x, deg, log_deg, delta, cfg: GNNConfig):
@@ -358,21 +469,22 @@ def _pna_update(aggregates, x, deg, log_deg, delta, post, cfg: GNNConfig):
                                         cfg), post))
 
 
-def pna_forward(params: dict, batch: GraphBatch, cfg: GNNConfig
-                ) -> torch.Tensor:
+def pna_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
+                mesh=None) -> torch.Tensor:
     """PNA's layers.  Each layer's z ([N, 13 d], f32 from the first layer
     on under bf16) is recomputed in the backward from the aggregates
     (``torch.utils.checkpoint``) instead of kept, so that a step at
     ogb-products scale fits one card; the recomputation is elementwise
     and one product, so the gradients are those of the forward's z."""
     x = batch.x
-    n = x.shape[0]
-    deg = _degree(batch, n)
+    n = x.shape[0] * _world(mesh)
+    deg = _degree(batch, n, mesh)
     log_deg = torch.log(deg + 1.0)
     delta = params["delta"]
     for lw in params["layers"]:
-        h = torch.relu(_mm(x, lw["pre"]))
-        x = checkpoint(_pna_update, _pna_aggregate(h, batch, n), x, deg,
+        h = _nodes_all(torch.relu(_mm(x, lw["pre"])), mesh)
+        x = checkpoint(_pna_update,
+                       _pna_aggregate(h, batch, n, mesh=mesh), x, deg,
                        log_deg, delta, lw["post"], cfg, use_reentrant=False)
     return _mm(x, params["out"])
 
@@ -411,14 +523,14 @@ def init_schnet(generator: torch.Generator, cfg: GNNConfig,
     }
 
 
-def schnet_forward(params: dict, batch: GraphBatch, cfg: GNNConfig
-                   ) -> torch.Tensor:
+def schnet_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
+                   mesh=None) -> torch.Tensor:
     """Per-graph energy [G]. batch.x[:, 0] holds integer atom types."""
-    n = batch.x.shape[0]
+    n = batch.x.shape[0] * _world(mesh)
     embed = params["embed"]
     z = batch.x[:, 0].to(torch.int32).clamp(0, embed.shape[0] - 1)
     x = embed[z.long()]
-    pos = batch.positions
+    pos = _nodes_all(batch.positions, mesh)
     diff = pos[batch.edge_src] - pos[batch.edge_dst]
     dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
     centers = torch.linspace(0.0, cfg.cutoff, cfg.rbf, dtype=torch.float32,
@@ -432,14 +544,15 @@ def schnet_forward(params: dict, batch: GraphBatch, cfg: GNNConfig
         filt = shifted_softplus(_mm(rbf, lw["filt1"]))
         filt = shifted_softplus(_mm(filt, lw["filt2"])) * env[:, None]
         h = _mm(x, lw["w_in"])
-        msg = h[batch.edge_src] * filt
+        msg = _nodes_all(h, mesh)[batch.edge_src] * filt
         msg = torch.where(batch.edge_mask[:, None], msg, 0.0)
-        agg = _seg_sum(msg, batch.edge_dst, n)
+        agg = _node_sum(_seg_sum(msg, batch.edge_dst, n), mesh)
         v = _mm(shifted_softplus(_mm(agg, lw["w_out1"])), lw["w_out2"])
         x = x + v
     e_atom = _mm(shifted_softplus(_mm(x, params["out1"])), params["out2"])
     e_atom = torch.where(batch.node_mask[:, None], e_atom, 0.0)
-    return _seg_sum(e_atom[:, 0], batch.graph_ids, batch.n_graphs)   # [G]
+    return _table_sum(_seg_sum(e_atom[:, 0], batch.graph_ids,
+                               batch.n_graphs), mesh)            # [G]
 
 
 # --------------------------------------------------------------------------
@@ -462,7 +575,10 @@ def init_gnn(generator: torch.Generator, cfg: GNNConfig, d_in: int) -> dict:
 
 
 def gnn_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
-                graph_level: bool = False) -> torch.Tensor:
+                graph_level: bool = False, mesh=None) -> torch.Tensor:
+    """The family's output in f32: per node (the rank's block on a mesh),
+    or per graph, whole on every rank (GIN's ``graph_level`` head,
+    SchNet's energies)."""
     if cfg.mp_dtype == "bfloat16":
         # bf16 across the whole message-passing path (params, features,
         # edge gathers and their gradients); softmax and losses stay f32.
@@ -470,13 +586,13 @@ def gnn_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
                           if p.is_floating_point() else p, params)
         batch = dataclasses.replace(batch, x=batch.x.to(torch.bfloat16))
     if cfg.family == "gat":
-        out = gat_forward(params, batch, cfg)
+        out = gat_forward(params, batch, cfg, mesh)
     elif cfg.family == "gin":
-        out = gin_forward(params, batch, cfg, graph_level)
+        out = gin_forward(params, batch, cfg, graph_level, mesh)
     elif cfg.family == "pna":
-        out = pna_forward(params, batch, cfg)
+        out = pna_forward(params, batch, cfg, mesh)
     elif cfg.family == "schnet":
-        out = schnet_forward(params, batch, cfg)
+        out = schnet_forward(params, batch, cfg, mesh)
     else:
         raise ValueError(cfg.family)
     return out.float()
@@ -490,55 +606,149 @@ def _cross_entropy(logits, labels):
     return logz - gold
 
 
-def gnn_loss(params: dict, batch: GraphBatch, cfg: GNNConfig) -> torch.Tensor:
+def _graph_labels(batch: GraphBatch, mesh) -> torch.Tensor:
+    """The per-graph labels whole (gathered where they are split)."""
+    if batch.labels.shape[0] == batch.n_graphs:
+        return batch.labels
+    return _nodes_all(batch.labels, mesh)
+
+
+def gnn_loss(params: dict, batch: GraphBatch, cfg: GNNConfig,
+             mesh=None) -> torch.Tensor:
     """``repro``'s task losses: SchNet's energy MSE (always f32: it calls
     :func:`schnet_forward` on the parameters as they are, whatever
     ``mp_dtype``), a graph-level cross entropy when ``n_graphs > 1`` (GAT
     and PNA heads mean-pooled per graph), else a node-level one masked by
-    ``node_mask``."""
+    ``node_mask``.  On a mesh every rank returns the whole loss: the
+    per-graph tables and the node-level sums and counts over ``psum``."""
     if cfg.family == "schnet":
-        energy = schnet_forward(params, batch, cfg)
-        return torch.mean((energy - batch.labels.float()) ** 2)
+        energy = schnet_forward(params, batch, cfg, mesh)
+        return torch.mean((energy - _graph_labels(batch, mesh).float()) ** 2)
     graph_level = batch.n_graphs > 1
-    logits = gnn_forward(params, batch, cfg, graph_level)
+    logits = gnn_forward(params, batch, cfg, graph_level, mesh)
     if graph_level:
-        if logits.shape[0] != batch.n_graphs:
+        per_node = not (cfg.family == "gin")     # GIN's head pools itself
+        rows = logits.shape[0] * (_world(mesh) if per_node else 1)
+        if rows != batch.n_graphs:
             # Node-level heads (GAT/PNA): mean-pool per graph.
-            cnt = _seg_sum(batch.node_mask.float(), batch.graph_ids,
-                           batch.n_graphs)
-            pooled = _seg_sum(
+            cnt = _table_sum(_seg_sum(batch.node_mask.float(),
+                                      batch.graph_ids, batch.n_graphs), mesh)
+            pooled = _table_sum(_seg_sum(
                 torch.where(batch.node_mask[:, None], logits, 0.0),
-                batch.graph_ids, batch.n_graphs)
+                batch.graph_ids, batch.n_graphs), mesh)
             logits = pooled / torch.clamp(cnt[:, None], min=1.0)
-        return torch.mean(_cross_entropy(logits, batch.labels))
+        return torch.mean(_cross_entropy(logits, _graph_labels(batch, mesh)))
+    labels = batch.labels
+    if labels.shape[0] != logits.shape[0]:       # whole: this rank's block
+        labels = _node_block(labels, mesh)
     mask = batch.node_mask.float()
-    return (torch.sum(_cross_entropy(logits, batch.labels) * mask)
-            / torch.clamp(torch.sum(mask), min=1.0))
+    total = _table_sum(torch.sum(_cross_entropy(logits, labels) * mask), mesh)
+    return total / torch.clamp(_table_sum(torch.sum(mask), mesh), min=1.0)
 
 
-def gnn_loss_and_grads(params: dict, batch: GraphBatch, cfg: GNNConfig
-                       ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+def gnn_loss_and_grads(params: dict, batch: GraphBatch, cfg: GNNConfig,
+                       mesh=None) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """:func:`gnn_loss` and its gradient for every leaf of ``params``, in
     :func:`repro_torch.optim.tree_leaves`'s order (zeros for a leaf the
-    loss does not reach, as JAX's ``grad`` gives)."""
+    loss does not reach, as JAX's ``grad`` gives).  On a mesh every rank
+    differentiates ``loss / world size`` (the collectives' transposes
+    carry the rest) and the gradients, of parameters every rank holds
+    whole, are summed over every rank."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss = gnn_loss(params, batch, cfg)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                materialize_grads=True)
+    loss = gnn_loss(params, batch, cfg, mesh)
+    seed = None if mesh is None else torch.full_like(loss, 1.0 / mesh.size)
+    grads = torch.autograd.grad(loss, leaves, grad_outputs=seed,
+                                allow_unused=True, materialize_grads=True)
     for p in leaves:
         p.requires_grad_(False)
-    return loss.detach(), list(grads)
+    grads = list(grads)
+    if mesh is not None:
+        grads = reduce_replicated(grads, [comm.PartitionSpec()] * len(grads),
+                                  mesh)
+    return loss.detach(), grads
 
 
 def gnn_train_step(params: dict, opt: OptState, batch: GraphBatch,
-                   cfg: GNNConfig, opt_cfg: AdamWConfig
+                   cfg: GNNConfig, opt_cfg: AdamWConfig, mesh=None
                    ) -> tuple[dict, OptState, dict]:
     """One step of ``repro``'s GNN cell (``launch/cells.py``'s
     ``_gnn_train_step``): :func:`gnn_loss_and_grads`, then AdamW in place.
     Returns (``params``, the new :class:`OptState`, ``{"loss", "grads",
-    "grad_norm", "lr"}``), ``grads`` the step's gradient leaves."""
-    loss, grads = gnn_loss_and_grads(params, batch, cfg)
+    "grad_norm", "lr"}``), ``grads`` the step's gradient leaves.  On a
+    mesh ``batch`` is the rank's block and every rank takes the same
+    step."""
+    loss, grads = gnn_loss_and_grads(params, batch, cfg, mesh)
     _, opt, metrics = adamw_update(opt_cfg, grads, opt, tree_leaves(params))
     return params, opt, {"loss": loss, "grads": grads, **metrics}
+
+
+def collective_bytes(cfg: GNNConfig, n: int, e: int, d_feat: int,
+                     chunk_edges: int = PNA_CHUNK_EDGES) -> dict:
+    """The bytes a rank passes to the collectives in one
+    :func:`gnn_train_step` of a node-level task of GAT, GIN or PNA on a
+    mesh: ``{(pass, collective): bytes}``, ``pass`` ``"forward"`` or
+    ``"backward"`` (the gradients' ``psum`` included), each table at its
+    whole size (an all-gather's output, a reduce-scatter's input), for
+    ``n`` nodes in all, ``e`` edges a rank, ``d_feat`` features and
+    PNA's edge chunk ``chunk_edges``.
+
+    GIN's first layer reads the features, which take no gradient, so its
+    collectives have no transpose.  Every other all-gather's transpose is
+    a reduce-scatter of its table and back, a ``psum``'s a ``psum``, and a
+    segment extremum (:class:`_SegExtremum`: a ``pmax`` or ``pmin``, and
+    a ``psum`` of its tie counts where a gradient is taped, as in a step)
+    has one ``psum`` of its cotangent.  PNA's
+    checkpointed edge chunks (:func:`pna_chunks`) each reduce their
+    extrema across ranks, and run their forward again in the backward.
+    The loss adds two 0-d ``psum``s, and one in the backward."""
+    if cfg.family not in ("gat", "gin", "pna"):
+        raise ValueError(f"collective_bytes: {cfg.family}")
+    out = {(p, k): 0 for p in ("forward", "backward")
+           for k in ("all_gather", "reduce_scatter", "all_reduce")}
+
+    def add(pas, kind, nbytes, times=1):
+        out[(pas, kind)] += times * nbytes
+
+    mb = _mp_dtype(cfg).itemsize
+    d_in = d_feat
+    for layer in range(cfg.n_layers):
+        if cfg.family == "gin":          # x gathered, agg reduce-scattered
+            t = n * d_in * mb
+            add("forward", "all_gather", t)
+            add("forward", "reduce_scatter", t)
+            if layer:
+                add("backward", "reduce_scatter", t)
+                add("backward", "all_gather", t)
+            d_in = cfg.d_hidden
+        elif cfg.family == "gat":
+            last = layer == cfg.n_layers - 1
+            heads = 1 if last else cfg.n_heads
+            width = heads * (cfg.n_classes if last else cfg.d_hidden)
+            # s_src | s_dst and h gathered, agg reduce-scattered; the
+            # softmax's max (pmax and tie counts) and denominator in f32
+            for t in (n * 2 * heads * mb, n * width * mb):
+                add("forward", "all_gather", t)
+                add("backward", "reduce_scatter", t)
+            add("forward", "reduce_scatter", n * width * mb)
+            add("backward", "all_gather", n * width * mb)
+            add("forward", "all_reduce", n * heads * 4, 3)
+            add("backward", "all_reduce", n * heads * 4, 2)
+        else:                            # pna: f32 from the second layer
+            t = n * cfg.d_hidden * (mb if layer == 0 else 4)
+            nc = pna_chunks(e, chunk_edges)
+            add("forward", "all_gather", t)
+            add("backward", "reduce_scatter", t)
+            add("forward", "reduce_scatter", t, 2)   # sum, sum of squares
+            add("backward", "all_gather", t, 2)
+            add("forward", "all_reduce", t, 4 * nc)  # max, min, 2 counts
+            add("backward", "all_reduce", t, 2 * nc + (4 * nc if nc > 1
+                                                      else 0))
+    if cfg.family == "pna":
+        add("forward", "reduce_scatter", n * 4)      # the degrees
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, d_feat)
+    add("forward", "all_reduce", 4, 2)
+    add("backward", "all_reduce", 4 + 4 * sum(
+        p.numel() for p in tree_leaves(params)))
+    return out

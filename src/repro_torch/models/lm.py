@@ -40,6 +40,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import FSDP, TP, mesh_axes, mesh_sizes
 from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
                                adamw_update, global_norm)
+from repro_torch.optim import reduce_replicated as optim_reduce_replicated
 
 
 @dataclasses.dataclass
@@ -233,28 +234,15 @@ def _grads_of(model: tfm.LM, batch: dict, attn_impl: str, leaves: list):
 def reduce_replicated(model: tfm.LM, grads: dict) -> dict:
     """Each gradient summed over the mesh axes its parameter is replicated
     on (those its spec does not split): every rank then holds the whole
-    model's gradient of its slice.  One ``psum`` per set of axes, over the
-    gradients flattened together."""
-    mesh = model.mesh
-    if mesh is None:
+    model's gradient of its slice (:func:`repro_torch.optim.
+    reduce_replicated`, whose order of ``psum`` s follows the parameters',
+    the same on every rank)."""
+    if model.mesh is None:
         return grads
     specs = tfm.named_param_specs(model.b)
-    groups: dict = {}
-    for name in grads:
-        rest = tuple(a for a in mesh.axis_names
-                     if a not in comm.split_axes(specs[name], mesh))
-        if rest:
-            groups.setdefault(rest, []).append(name)
-    out = dict(grads)
-    for axes, names in groups.items():
-        for dtype in {grads[n].dtype for n in names}:
-            part = [n for n in names if grads[n].dtype == dtype]
-            flat = comm.psum(torch.cat([grads[n].reshape(-1) for n in part]),
-                             axes, mesh=mesh)
-            for n, piece in zip(part, flat.split(
-                    [grads[n].numel() for n in part])):
-                out[n] = piece.view_as(grads[n])
-    return out
+    out = optim_reduce_replicated(grads, {n: specs[n] for n in grads},
+                                  model.mesh)
+    return {n: out[n] for n in grads}
 
 
 def grad_norm(model: tfm.LM, grads: dict) -> torch.Tensor:

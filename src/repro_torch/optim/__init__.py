@@ -3,5 +3,6 @@
 
 from repro_torch.optim.optimizers import (  # noqa: F401
     AdamWConfig, OptState, adamw_init, adamw_update, clip_by_global_norm,
-    cosine_schedule, global_norm, tree_leaves, tree_map, tree_unflatten,
+    cosine_schedule, global_norm, reduce_replicated, tree_leaves, tree_map,
+    tree_unflatten,
 )

@@ -156,6 +156,37 @@ def global_norm(tree: Any, specs: Any = None, mesh=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def reduce_replicated(tree: Any, specs: Any, mesh) -> Any:
+    """Each leaf of ``tree`` (a rank's gradients) summed over the mesh
+    axes its spec in ``specs`` does not split: every rank then holds the
+    whole objective's gradient of its slice, when each rank differentiated
+    ``loss / world size`` through the collectives' transposes.  One
+    ``psum`` per set of axes and dtype, over the leaves flattened
+    together.  Without a mesh, ``tree`` as it is."""
+    if mesh is None:
+        return tree
+    leaves = tree_leaves(tree)
+    spec_leaves = tree_leaves(specs, is_leaf=lambda x: isinstance(
+        x, comm.PartitionSpec))
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"reduce_replicated: {len(leaves)} leaves, "
+                         f"{len(spec_leaves)} specs")
+    groups: dict = {}
+    for i, (leaf, spec) in enumerate(zip(leaves, spec_leaves)):
+        rest = tuple(a for a in mesh.axis_names
+                     if a not in comm.split_axes(spec, mesh))
+        if rest:
+            groups.setdefault((rest, leaf.dtype), []).append(i)
+    out = list(leaves)
+    for (axes, _), idx in groups.items():
+        flat = comm.psum(torch.cat([leaves[i].reshape(-1) for i in idx]),
+                         axes, mesh=mesh)
+        for i, piece in zip(idx, flat.split([leaves[i].numel()
+                                             for i in idx])):
+            out[i] = piece.view_as(leaves[i])
+    return tree_unflatten(tree, out)
+
+
 def _clip_scale(grads: Any, max_norm: float,
                 norm: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:

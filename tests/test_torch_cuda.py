@@ -22,6 +22,8 @@ deadline buckets, telemetry) and the service on ``"cuda"`` equal
 their own) on the card against the CPU: f32 loss within 1e-5 and
 gradients within 1e-4 of each leaf's largest magnitude (atomics reorder
 the scatter sums); PNA's chunked aggregate's maxima and minima exactly.
+DCN-v2's sharded lookup at one NCCL rank (a spawned process) equals its
+plain version and the one-process lookup exactly.
 """
 
 import numpy as np
@@ -914,6 +916,72 @@ def test_grouped_lookup_autograd_on_the_card_equals_plain(cuda_device):
     assert torch.equal(got["cuda"][0], got["torch"][0])
     for g, w in zip(got["cuda"][1], got["torch"][1]):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def _rank_sharded_lookup(device, seed: int) -> dict:
+    """One NCCL rank on a (data 1, model 1) mesh: DCN-v2's x0 by the
+    sharded lookup under ``through_group`` (its ``psum`` through the
+    group), the plain version of the same launch, the one-process x0, and
+    the kernel with ``clip=False`` on the second half of table_0 as if it
+    were rank 1 of 2."""
+    import dataclasses
+
+    from repro_torch.distributed import comm
+
+    base = DCN_V2.smoke()
+    cfg = dataclasses.replace(base, mlp_dims=(32, 24), vocab_sizes=(
+        100_000, 100_001) + base.vocab_sizes[2:])
+    mesh = comm.Mesh((1, 1), ("data", "model"), "cuda")
+    params = rec_lib.init_dcn(cfg, torch.Generator(device).manual_seed(seed))
+    batch = rec_lib.batch_to_device(next(recsys_synthetic_stream(
+        cfg, 4096, seed=seed)), device)
+    batch["sparse"][:4, :2] = torch.tensor([-3, 100_351, 100_400, 10 ** 6],
+                                           device=device)[:, None]
+    dense, sparse = batch["dense"], batch["sparse"]
+    tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
+    split = [v >= rec_lib.SHARD_VOCAB_MIN for v in cfg.vocab_sizes]
+    comm.issued.clear()
+    launched = eb_ops.launches
+    with comm.through_group(), torch.no_grad():
+        x0 = rec_lib._features(params, dense, sparse, cfg, "cuda", mesh)
+    out = {"launches": eb_ops.launches - launched,
+           "issued": dict(comm.issued)}
+    ids = rec_lib._shard_ids(sparse, tables, split, mesh)
+    plain = embedding_bag_grouped_ref(
+        tables, ids, torch.empty_like(x0), cfg.n_dense, False, dense)
+    one = rec_lib._features(params, dense, sparse, cfg, "cuda")
+    half = tables[0][tables[0].shape[0] // 2:].contiguous()
+    shard_ids = (torch.clamp(sparse[:, :1], 0, tables[0].shape[0] - 1)
+                 - half.shape[0]).to(torch.int32)
+    got = eb_ops.embedding_bag_grouped(
+        [half], shard_ids, torch.empty(len(sparse), cfg.embed_dim,
+                                       device=device), clip=False)
+    want = embedding_bag_grouped_ref(
+        [half], shard_ids, torch.empty_like(got), clip=False)
+    out.update(x0=x0.cpu(), plain=plain.cpu(), one=one.cpu(),
+               shard=got.cpu(), shard_plain=want.cpu(),
+               outside=int(((shard_ids < 0) | (shard_ids >= len(half)))
+                           .sum()))
+    return out
+
+
+@pytest.mark.cuda
+def test_sharded_lookup_at_one_nccl_rank_is_the_kernel(cuda_device):
+    """The sharded lookup at world 1 through ``comm.through_group()``:
+    one launch of the grouped kernel with ``clip=False`` on the rank's
+    shards and one all-reduce, its x0 equal to the plain version's and to
+    the one-process x0 (``torch.equal``); on half a table, ids outside the
+    shard read zeros, as the plain version's."""
+    from repro_torch.distributed.ranks import run_ranks
+
+    (out,) = run_ranks(_rank_sharded_lookup, 1, 3, device_type="cuda",
+                       timeout_s=180)
+    assert out["launches"] == 1
+    assert out["issued"] == {"all_reduce": 1}
+    assert torch.equal(out["x0"], out["plain"])
+    assert torch.equal(out["x0"], out["one"])
+    assert out["outside"] > 0
+    assert torch.equal(out["shard"], out["shard_plain"])
 
 
 @pytest.mark.cuda
