@@ -335,7 +335,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    the one-process step: the loss, ``grad_norm``, every gradient leaf and
    every parameter at ``RANKS_GNN_TOL``'s bounds, a second step timed
    warm; and the MB a rank's collectives move at ogb_products over 2 and
-   256 ranks (:func:`gnn_mesh_bytes`).  Each
+   256 ranks (:func:`gnn_mesh_bytes`).  The 4-rank gloo spawn then runs
+   GPipe on a (pod 2, data 1, model 2) mesh (``PP3_MESH``, :func:`rank_pp3`):
+   ChatGLM3-6B at full width cut to 4 layers (2 a stage), built at
+   ``tp=2`` and cut to each rank by ``pipeline.stage_layer_specs``; a bf16
+   pipelined forward of 4 x 1,024 tokens in 4 micro-batches through the
+   flash kernel on each rank's heads (5 ticks x 2 layers = 10 launches a
+   rank, counted from 0 around the call), its hidden states within 5e-2 x
+   max of the one-process twin at the same padding; one f32 train step at
+   AdamW's full lr on 4 x 128 tokens, loss and ``grad_norm`` within 1e-4
+   relative and each rank's slice of the new parameters within 1e-4 of
+   the leaf's largest (2 lr more only where the twin's gradient is within
+   1e-4 of its leaf's largest gradient of 0); each rank runs that step
+   under a ``count.Counter``, whose count equals a ``CountingMesh``'s
+   count of the same stage's step on ``meta`` in the parent: the
+   collective bytes kind by kind, and op for op the device-memory traffic
+   and FLOPs of every op that moves bytes or does FLOPs (so nothing of
+   gloo's transport, its host staging included, is counted), printed with the wire bytes and the NVLink term beside
+   the step's ms (:func:`pp3_held`; the twin runs once, in the parent).  Each
    path prints world size, backend, the ops staged through host memory
    (``comm.staged_ops``: none under NCCL), ms and peak
    memory a rank beside the card's name and power limit; one card shared
@@ -440,6 +457,14 @@ RANKS_SEED = 0              # phase 18's weights and gradients
 RANKS_REPS = 2              # calls of the MoE layer and the pipeline
 RANKS_MOE_ARCH, RANKS_MOE_X = "dbrx-132b", (4, 2048)   # one MoE layer
 PP_STAGES, PP_MICRO, PP_ATTN = 2, 4, "cuda"   # GPipe over LM_ARCH
+# GPipe on a (pod, data, model) mesh of the 4-rank spawn: LM_ARCH at full
+# width cut to PP3_LAYERS layers, built at tp = the model axis, its bf16
+# forward's tokens and its f32 train step's.
+PP3_MESH = ((2, 1, 2), ("pod", "data", "model"))
+PP3_LAYERS, PP3_TOKENS, PP3_STEP_TOKENS = 4, (4, 1024), (4, 128)
+PP3_TOL = 5e-2              # the bf16 hidden states, x max |twin|
+PP3_STEP_TOL = 1e-4         # loss, grad_norm (relative), params (x max)
+PP3_DIR = ROOT / "build" / "chip_smoke_ranks" / "pp3"   # the ranks' steps
 TP_MESH = (1, 2)            # phase 18's tensor-parallel legs: (data, model)
 # ChatGLM3's tp leg: its prompts' rows (of phase 6's first request) and
 # teacher-forced bf16 / int8 decode steps, cut from 4 rows and 8 steps to
@@ -3909,6 +3934,282 @@ def rank_pp(device, cfg, tok_shape, smoke_cfg) -> dict:
     return out
 
 
+def count_of(c) -> dict:
+    """What a ``count.Counter`` saw: collective bytes by kind, eager
+    bytes, and {op: (calls, bytes, FLOPs)}."""
+    summary = c.summary()
+    return {"collective_bytes": summary.collective_bytes,
+            "eager_bytes": summary.eager_bytes,
+            "ops": {k: (v.calls, v.nbytes, v.flops)
+                    for k, v in c.ops.items()}}
+
+
+def pp3_cfg(cfg, dtype: str):
+    return cfg.scaled(n_layers=PP3_LAYERS, param_dtype=dtype)
+
+
+def pp3_batch(cfg, device) -> dict:
+    toks = pp_tokens(cfg, PP3_STEP_TOKENS, device)
+    return {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+
+def rank_pp3(device, cfg) -> dict:
+    """GPipe on a (pod 2, data 1, model 2) mesh: ``cfg`` at full width cut
+    to :data:`PP3_LAYERS` layers, built at ``tp=2``, this rank's slice by
+    ``stage_layer_specs``: a bf16 forward through the flash kernel (its
+    launches counted from 0 around the call), then one f32 train step at
+    AdamW's full lr under a ``count.Counter`` (:func:`count_of`)."""
+    from repro_torch.analysis import count
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import shard_lm
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import pipeline as pp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig
+
+    clock = {"start": time.time()}
+    mesh = comm.Mesh(*PP3_MESH, device.type)
+    stage = mesh.axis_index("pod")
+    tp = mesh.axis_size("model")
+
+    def stage_model(dtype):
+        b = tfm.build(pp3_cfg(cfg, dtype), tp)
+        whole = tfm.init_lm(b, torch.Generator(device).manual_seed(LM_SEED))
+        model = shard_lm(whole, mesh, pp.stage_layer_specs(b))
+        del whole
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return pp.keep_stage_layers(model, stage, PP_STAGES)
+
+    model = stage_model("bfloat16")
+    clock["bf16 model"] = time.time()
+    toks = pp_tokens(cfg, PP3_TOKENS, device)
+    reset_peak(device)
+    with torch.no_grad():
+        fa_ops.counter.reset()
+        sync(device)
+        t0 = time.perf_counter()
+        hidden = pp.pp_hidden_forward(model, toks, n_stages=PP_STAGES,
+                                      n_micro=PP_MICRO, attn_impl=PP_ATTN,
+                                      mesh=mesh)
+        sync(device)
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        launches = fa_ops.launches
+    out = {**rank_header(device), "coords": mesh.coords,
+           "rank": comm.rank(), "launches": launches, "fwd_ms": fwd_ms,
+           "hidden": hidden.cpu()}
+    clock["forward"] = time.time()
+    del model, hidden
+    model = stage_model("float32")
+    clock["f32 model"] = time.time()
+    state = lm_lib.init_train_state(model)
+    step = pp.make_pp_train_step(AdamWConfig(**SMOKE_OPT),
+                                 n_stages=PP_STAGES, n_micro=PP_MICRO,
+                                 attn_impl="naive", mesh=mesh)
+    batch = pp3_batch(cfg, device)
+    with count.Counter() as counter:
+        sync(device)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(device)
+    clock["step"] = time.time()
+    # The new parameters (about 2 GB a rank in f32) go to a file: through
+    # the spawn's result pipe they took minutes on the card's host.
+    params = PP3_DIR / f"rank{comm.rank()}.pt"
+    params.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: p.detach() for k, p in state.model.named_parameters()},
+               params)
+    clock["params to a file"] = time.time()
+    out.update(ms=(time.perf_counter() - t0) * 1e3, peak=peak_bytes(device),
+               loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               count=count_of(counter), params=str(params),
+               clock=clock)
+    return out
+
+
+def rank_quad(device, graph, index, bucket, stepwise, serve, cfg) -> dict:
+    """The 4-rank spawn: DKS (its stepwise and serving legs), then GPipe
+    on (pod 2, data 1, model 2)."""
+    out = {"dks": rank_dks(device, graph, index, bucket, stepwise, serve)}
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["pp3"] = rank_pp3(device, cfg)
+    out["pp3"]["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+def pp3_clock(outs: list, returned: float) -> str:
+    """The 4-rank leg's host seconds by part, the slowest rank's, and the
+    return of the results to the parent (``returned``: its wall time)."""
+    parts, last = {}, None
+    for o in outs:
+        c = o["clock"]
+        names = list(c)
+        for a, b in zip(names, names[1:]):
+            parts[b] = max(parts.get(b, 0.0), c[b] - c[a])
+        last = max(last or 0.0, c[names[-1]])
+    parts["results to the parent"] = returned - last
+    return ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+
+
+def pp3_held(dev, card: str, cfg, outs: list, returned: float) -> list:
+    """:func:`rank_pp3`'s ranks against the one-process twin at the same
+    padding, run once here: the bf16 hidden states, the flash launches,
+    the f32 step's loss, ``grad_norm`` and each rank's slice of the new
+    parameters (:func:`step_held`), and each rank's count of its step
+    against a ``CountingMesh``'s count of its stage's step on ``meta``.
+    Returns the ranks' flash launches."""
+    from repro_torch.analysis import count
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models import pipeline as pp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    t0 = time.perf_counter()
+    tp = dict(zip(PP3_MESH[1], PP3_MESH[0]))["model"]
+    lps = PP3_LAYERS // PP_STAGES
+    gen = lambda: torch.Generator(dev).manual_seed(LM_SEED)  # noqa: E731
+    # (a) the bf16 forward.
+    twin = tfm.init_lm(tfm.build(pp3_cfg(cfg, "bfloat16"), tp), gen())
+    toks = pp_tokens(cfg, PP3_TOKENS, dev)
+    with torch.no_grad():
+        hidden, _, _ = twin(toks, attn_impl=PP_ATTN)
+    scale = float(hidden.float().abs().max())
+    err = max(max_abs_err(o["hidden"].to(dev).float(), hidden.float())
+              for o in outs)
+    check(err <= PP3_TOL * scale, f"GPipe on {PP3_MESH}: hidden states "
+          f"differ from the twin by {err} > {PP3_TOL} x {scale}")
+    want = (PP_MICRO + PP_STAGES - 1) * lps
+    launches = [o["launches"] for o in outs]
+    check(launches == [want] * len(outs), f"GPipe on {PP3_MESH}: flash "
+          f"launches {launches}, want {want} a rank")
+    del twin, hidden
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (b) one f32 step at AdamW's full lr.
+    opt_cfg = AdamWConfig(**SMOKE_OPT)
+    b = tfm.build(pp3_cfg(cfg, "float32"), tp)
+    twin = tfm.init_lm(b, gen())
+    state = lm_lib.init_train_state(twin)
+    params = dict(twin.named_parameters())
+    batch = pp3_batch(cfg, dev)
+    loss, grads, _ = lm_lib.loss_and_grads(twin, batch, "naive")
+    with torch.no_grad():
+        _, _, m = adamw_update(opt_cfg, grads, state.opt, params)
+    rel = {}
+    for key, want_v in (("loss", float(loss)),
+                        ("grad_norm", float(m["grad_norm"]))):
+        rel[key] = max(abs(o[key] - want_v) / abs(want_v) for o in outs)
+        check(rel[key] <= PP3_STEP_TOL, f"GPipe on {PP3_MESH}: {key} "
+              f"{[o[key] for o in outs]} against the twin's {want_v}")
+    specs = tfm.named_param_specs(b, pp.stage_layer_specs(b))
+    room, worst, strict = 0.0, "", []
+    for o in outs:
+        mesh = comm.CountingMesh(*PP3_MESH, rank=o["rank"])
+        stage = mesh.axis_index("pod")
+        got = torch.load(o["params"], map_location=dev)
+        names = list(got)
+        whole = [n if not n.startswith("layers.") else
+                 f"layers.{stage * lps + int(n.split('.')[1])}."
+                 f"{n.split('.', 2)[2]}" for n in names]
+        cut = lambda tree: shard_tree(  # noqa: E731
+            {n: tree[w].detach() for n, w in zip(names, whole)},
+            {n: specs[w] for n, w in zip(names, whole)}, mesh)
+        mine, g = cut(params), cut(grads)
+        r, i, share = step_held([got[n] for n in names],
+                                [mine[n] for n in names],
+                                [g[n] for n in names], opt_cfg.lr,
+                                PP3_STEP_TOL, PP3_STEP_TOL)
+        del got, mine, g
+        Path(o["params"]).unlink()
+        strict.append(share)
+        if r >= room:
+            room, worst = r, f"rank {o['rank']} {names[i]}"
+    check(room <= 1.0, f"GPipe on {PP3_MESH}: the step's parameters "
+          f"{room:.3g} x their bound from the twin's ({worst})")
+    del twin, state, params, grads
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (c) the count: a CountingMesh's count of each stage's step on meta.
+    counted = {}
+    for stage in range(PP_STAGES):
+        cmesh = comm.CountingMesh(*PP3_MESH, rank=int(np.ravel_multi_index(
+            (stage, 0, 0), PP3_MESH[0])))
+        meta = pp.keep_stage_layers(tfm.LM(b, device="meta", mesh=cmesh,
+                                           specs=pp.stage_layer_specs(b)),
+                                    stage, PP_STAGES)
+        step = pp.make_pp_train_step(opt_cfg, n_stages=PP_STAGES,
+                                     n_micro=PP_MICRO, attn_impl="naive",
+                                     mesh=cmesh)
+        state = lm_lib.init_train_state(meta)
+        with count.Counter() as c:
+            step(state, {k: torch.empty(v.shape, dtype=v.dtype,
+                                        device="meta")
+                         for k, v in batch.items()})
+        counted[stage] = count_of(c)
+    for o in outs:
+        got, want = o["count"], counted[o["coords"]["pod"]]
+        check(got["collective_bytes"] == want["collective_bytes"],
+              f"GPipe on {PP3_MESH}: rank {o['rank']}'s counter counts "
+              f"{got['collective_bytes']}, the counting mesh "
+              f"{want['collective_bytes']}")
+        # Ops that move bytes or do FLOPs; allocation-only ops move
+        # nothing (the card's rank allocates 2 fewer `empty`s than meta).
+        moved = [{k: v for k, v in c["ops"].items() if v[1] or v[2]}
+                 for c in (got, want)]
+        odd = {k: (moved[0].get(k), moved[1].get(k))
+               for k in set(moved[0]) | set(moved[1])
+               if moved[0].get(k) != moved[1].get(k)}
+        check(not odd and got["eager_bytes"] == want["eager_bytes"],
+              f"GPipe on {PP3_MESH}: rank {o['rank']}'s counter and the "
+              f"counting mesh differ op for op (rank, meta): {odd}; eager "
+              f"bytes {got['eager_bytes']} and {want['eager_bytes']}")
+    check(counted[0]["collective_bytes"] == counted[1]["collective_bytes"],
+          f"GPipe on {PP3_MESH}: the stages' collective bytes differ")
+    wire = count.wire_bytes(counted[0]["collective_bytes"])
+    n_ops = sum(v[0] for v in counted[0]["ops"].values() if v[1] or v[2])
+    eager = counted[0]["eager_bytes"]
+    gb = {k: round(v / 1e9, 4)
+          for k, v in counted[0]["collective_bytes"].items()}
+    ranks_line(f"GPipe {LM_ARCH} on (pod, data, model) {PP3_MESH[0]}", outs,
+               card,
+               f"; {PP3_LAYERS} of {cfg.n_layers} layers at full width, "
+               f"tp={tp}, cut by stage_layer_specs; bf16 forward of "
+               f"{list(PP3_TOKENS)} tokens in {PP_MICRO} micro-batches "
+               f"{max(o['fwd_ms'] for o in outs):.1f} ms, {launches} flash "
+               f"launches, hidden within {err:.3g} of the twin (limit "
+               f"{PP3_TOL} x {scale:.3g}); f32 step of "
+               f"{list(PP3_STEP_TOKENS)} tokens at lr {opt_cfg.lr} "
+               f"(warm-up 1): loss {outs[0]['loss']:.6f}, grad_norm "
+               f"{outs[0]['grad_norm']:.6f} (within {rel['loss']:.3g} and "
+               f"{rel['grad_norm']:.3g} of the twin's, relative), "
+               f"parameters within "
+               f"{room:.3g} of their bound (worst {worst}; strict share "
+               f"{min(strict):.4f}); each rank's counter == the counting "
+               f"mesh's count on meta, op for op ({n_ops:.0f} calls that "
+               f"move bytes or do FLOPs, {eager / 1e9:.4f} GB eager) and by "
+               f"kind "
+               f"(GB, counted, not measured) {gb}, wire {wire / 1e9:.4f} "
+               f"GB a rank, "
+               f"t_collective {wire / rl.NVLINK_BYTES_PER_S * 1e3:.3f} ms "
+               f"at NVLink 4's 450 GB/s beside the step's "
+               f"{max(o['ms'] for o in outs):.1f} ms over gloo with the "
+               f"counter on (four ranks sharing one card: not a time "
+               f"across cards); twin and "
+               f"count here {time.perf_counter() - t0:.1f} s, leg "
+               f"{max(o['leg_s'] for o in outs):.1f} s a rank: "
+               f"{pp3_clock(outs, returned)}")
+    return launches
+
+
 def ring_leaf(shape, rank: int, i: int, device) -> torch.Tensor:
     """Rank ``rank``'s gradient of leaf ``i``: seeded normals."""
     gen = torch.Generator(device).manual_seed(RANKS_SEED + 1000 * rank + i)
@@ -4880,7 +5181,7 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
     scfg = get_arch(LM_ARCH).smoke().scaled(param_dtype="float32")
     ring_cfg = get_arch(RING_ARCH)
     tp_moe = tp_moe_cfg(get_arch(MOE_ARCH))
-    spawned, pair, single = {}, None, None
+    spawned, pair, single, quad, quad_returned = {}, None, None, None, 0.0
     # The serving leg rides the 1-rank and the 4-rank spawns, the live
     # swap the 4-rank one.
     live = small_live(workdir / "live")
@@ -4897,6 +5198,12 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
             single = spawn(rank_single, 1, graph, index, bucket,
                            world in RANKS_STEPWISE_WORLDS, serve[1], tp_moe)
             spawned[world] = [out["dks"] for out in single]
+        elif world == 4:
+            quad = spawn(rank_quad, 4, graph, index, bucket,
+                         world in RANKS_STEPWISE_WORLDS, serve.get(world),
+                         cfg)
+            quad_returned = time.time()
+            spawned[world] = [out["dks"] for out in quad]
         else:
             spawned[world] = spawn(rank_dks, world, graph, index, bucket,
                                    world in RANKS_STEPWISE_WORLDS,
@@ -5055,6 +5362,13 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    # GPipe on (pod 2, data 1, model 2): the 4-rank spawn's leg.
+    pp3_launches = pp3_held(dev, card, cfg, [out["pp3"] for out in quad],
+                            quad_returned)
+    del quad
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
     # The int8 ring over DCN-v2's gradient tree.
     outs = [out["ring"] for out in pair]
@@ -5078,7 +5392,8 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
     log(f"  tensor parallel references in this process: "
         f"{time.perf_counter() - t0:.1f} s")
     bag_launches = dcn_gnn_held(card, pair, single)
-    return {"pp_launches": launches, "tp_launches": tp_launches,
+    return {"pp_launches": launches, "pp3_launches": pp3_launches,
+            "tp_launches": tp_launches,
             "bag_launches": {"dcn_v2_gloo": bag_launches[:2],
                              "dcn_v2_nccl": bag_launches[2:]},
             "summary": f"DKS at {list(RANKS_DKS_WORLDS)} ranks == twin, "
@@ -5639,6 +5954,8 @@ def phases(meta: list, workers: list) -> int:
             ms, plain, library, bound, by = moe["timing"]
             kernels[-1].update({
                 "ranks_launches": {"gpipe": ranks["pp_launches"],
+                                   "gpipe_pod_data_model":
+                                       ranks["pp3_launches"],
                                    **ranks["tp_launches"]},
                 "moe_launches": moe["launches"],
                 "cut_depth_launches": moe["cut_launches"],

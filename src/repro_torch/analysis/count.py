@@ -26,6 +26,17 @@ Like ``hlo.py``'s loop-trip multipliers, :func:`scaled` multiplies what
 runs inside it by a trip count: the catalog's folded train step runs one
 micro-batch under it, so a dry run never traces 128 micro-batches op by
 op.
+
+The collectives of :mod:`repro_torch.distributed.comm` report their
+bytes by kind (:meth:`Counter.add_collective`, ``repro``'s names and
+byte convention), on a mesh of ranks or on a
+:class:`~repro_torch.distributed.comm.CountingMesh`.  What moves the
+payload on a mesh of ranks (``torch.distributed``'s own ops, a gloo
+group's staging through host memory) runs under :func:`transport` and is
+not seen at all, so a collective is never also counted as device-memory
+traffic and a rank counts op for op what the counting mesh counts.
+:attr:`CountSummary.wire_bytes` weighs the kinds by ``repro``'s ring
+factors (``hlo.py``'s ``total_collective_bytes``).
 """
 
 from __future__ import annotations
@@ -48,6 +59,18 @@ _ALLOC_ONLY = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided"}
 # Gathers: of their first input they read only the rows they return.
 _GATHERS = {"embedding", "index_select", "index", "gather", "take_along_dim"}
+# Per-rank wire bytes of each kind over its counted bytes: ring
+# algorithms, an all-reduce a reduce-scatter then an all-gather
+# (``repro.analysis.hlo.HLOSummary.total_collective_bytes``).
+WIRE_FACTORS = {"all-gather": 1.0, "reduce-scatter": 1.0, "all-reduce": 2.0,
+                "all-to-all": 1.0, "collective-permute": 1.0}
+
+
+def wire_bytes(collective_bytes: dict) -> float:
+    """The bytes a rank sends: each kind's bytes times its ring factor
+    (:data:`WIRE_FACTORS`)."""
+    return float(sum(WIRE_FACTORS[k] * v
+                     for k, v in collective_bytes.items()))
 
 
 def tensor_leaves(tree: Any) -> list[torch.Tensor]:
@@ -143,13 +166,22 @@ class CountSummary:
     top_bytes: list               # (op, calls, bytes, flops), most bytes
     top_flops: list               # (op, calls, bytes, flops), most FLOPs
     multiplier: list              # the trip counts folded (scaled())
+    collective_bytes: dict = dataclasses.field(default_factory=dict)
+    collective_counts: dict = dataclasses.field(default_factory=dict)
+    # (kind, operand, calls, bytes), most bytes first
+    top_collectives: list = dataclasses.field(default_factory=list)
 
     @property
     def flops(self) -> float:
         return float(sum(self.flops_by_dtype.values()))
 
+    @property
+    def wire_bytes(self) -> float:
+        return wire_bytes(self.collective_bytes)
+
     def as_row(self) -> dict:
-        return {**dataclasses.asdict(self), "flops": self.flops}
+        return {**dataclasses.asdict(self), "flops": self.flops,
+                "wire_bytes": self.wire_bytes}
 
 
 class Counter(TorchDispatchMode):
@@ -172,8 +204,12 @@ class Counter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.folded: list[int] = []
+        self.collective_bytes: dict[str, float] = defaultdict(float)
+        self.collective_counts: dict[str, float] = defaultdict(float)
+        self.collective_ops: dict[tuple, OpStat] = defaultdict(OpStat)
         self._mult = 1.0
         self._in_kernel = 0
+        self._in_transport = 0
         self._storages: dict[int, Any] = {}
         self._arg_storages: dict[int, int] = {}   # key -> nbytes
         self._written: dict[int, int] = defaultdict(int)
@@ -233,6 +269,8 @@ class Counter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self._in_transport:
+            return out
         outs = _tensors(out, [])
         for t in outs:
             self._alloc(t)
@@ -305,6 +343,18 @@ class Counter(TorchDispatchMode):
         if flops:
             self.flops_by_dtype[str(dtype).replace("torch.", "")] += flops * m
 
+    def add_collective(self, kind: str, nbytes: float,
+                       operand: str = "") -> None:
+        """One collective call of ``kind`` (``repro``'s name, e.g.
+        ``"all-gather"``) and its bytes, times the loop trips;
+        ``operand`` names what it moved (dtype and shape), for
+        :attr:`CountSummary.top_collectives`."""
+        self.collective_bytes[kind] += nbytes * self._mult
+        self.collective_counts[kind] += self._mult
+        stat = self.collective_ops[kind, operand]
+        stat.calls += self._mult
+        stat.nbytes += nbytes * self._mult
+
     def summary(self, min_bytes: float = 0.0, arg_bytes: float = 0.0
                 ) -> CountSummary:
         rows = [(name, s.calls, s.nbytes, s.flops)
@@ -319,7 +369,13 @@ class Counter(TorchDispatchMode):
             top_bytes=sorted(rows, key=lambda r: -r[2])[:self.top],
             top_flops=[r for r in sorted(rows, key=lambda r: -r[3])
                        if r[3] > 0][:self.top],
-            multiplier=list(self.folded))
+            multiplier=list(self.folded),
+            collective_bytes=dict(self.collective_bytes),
+            collective_counts=dict(self.collective_counts),
+            top_collectives=sorted(
+                ((k, o, st.calls, st.nbytes)
+                 for (k, o), st in self.collective_ops.items()),
+                key=lambda r: -r[3])[:self.top])
 
 
 def active() -> Counter | None:
@@ -346,6 +402,24 @@ def scaled(trips: int):
         yield
     finally:
         c._mult /= trips
+
+
+@contextlib.contextmanager
+def transport():
+    """What runs inside moves a collective's payload between ranks
+    (``torch.distributed``'s ops, a gloo group's copies through host
+    memory): the active counter sees none of it, since
+    :mod:`repro_torch.distributed.comm` reports the collective's bytes by
+    kind and allocates its result outside the block."""
+    c = active()
+    if c is None:
+        yield
+        return
+    c._in_transport += 1
+    try:
+        yield
+    finally:
+        c._in_transport -= 1
 
 
 def reports(name: str, work: Callable):

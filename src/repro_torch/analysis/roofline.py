@@ -1,9 +1,22 @@
-"""Roofline terms on one NVIDIA H100 SXM, the useful work of each cell,
+"""Roofline terms on NVIDIA H100 SXM cards, the useful work of each cell,
 and the least time of each hand-written kernel.
 
   t_compute    = Σ_dtype FLOPs(dtype) / peak(dtype)
   t_memory     = min_bytes / 3.35 TB/s
-  t_collective = 0 (one card)
+  t_collective = wire bytes / 450 GB/s (NVLink 4; 0 on one card)
+
+Every term is one rank's: its FLOPs, its bytes and what it sends, from a
+count of one rank's call (on a mesh of ranks, or on a
+:class:`~repro_torch.distributed.comm.CountingMesh`).  The wire bytes are
+the count's collective bytes weighed by ``repro``'s ring factors
+(:data:`repro_torch.analysis.count.WIRE_FACTORS`).  The link rate is
+NVLink 4's: 18 links at 25 GB/s each way, 450 GB/s a card each way (the
+data sheet's 900 GB/s counts both directions).  That holds within one
+8-card NVLink domain only: beyond 8 cards a mesh axis crosses
+InfiniBand, about 50 GB/s a card (one 400 Gb/s NIC a card), so on
+``repro``'s 256- and 512-rank meshes the term understates the time of
+any collective over an axis that spans hosts, by up to 9x (the same kind
+of caveat as ``repro``'s note on its DCI link; no per-axis model here).
 
 The peaks are NVIDIA's data sheet for the SXM part (dense, no sparsity,
 at the full 700 W): 989 TFLOP/s in bf16 and fp16 on the tensor cores,
@@ -34,8 +47,10 @@ BF16_OPS_PER_S = 989e12     # dense bf16 / fp16 on the tensor cores
 TF32_OPS_PER_S = 495e12     # dense TF32 on the tensor cores
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 CARD_BYTES = 80e9           # the card's HBM ("80 GB"); fits_one_card's limit
-COLLECTIVE_NOTE = ("one card: no collective; the multi-card paths "
-                   "(ROADMAP queue 1, item 6) fill this term in")
+NVLINK_BYTES_PER_S = 450e9  # NVLink 4, one direction: 18 links x 25 GB/s
+COLLECTIVE_NOTE = ("wire bytes over NVLink 4 (450 GB/s a card each way); "
+                   "beyond 8 cards an axis crosses InfiniBand (~50 GB/s a "
+                   "card), which this term does not model")
 
 
 def peak_flops(dtype: torch.dtype | str) -> float:
@@ -54,13 +69,14 @@ def peak_flops(dtype: torch.dtype | str) -> float:
 class RooflineTerms:
     arch: str
     shape: str
+    mesh: str
     chips: int
-    flops: float             # the compute term's FLOPs
+    flops: float             # the compute term's FLOPs (a rank's)
     flops_by_dtype: dict
     min_bytes: float         # arguments read once, outputs written once
     eager_bytes: float       # every eager op's inputs and outputs
-    collective_bytes: float
-    model_flops: float
+    collective_bytes: float  # the wire bytes a rank sends
+    model_flops: float       # the whole step's, over every chip
     peak_flops: float        # the rate of the dtype carrying most FLOPs
     t_compute: float
     t_memory: float
@@ -74,32 +90,39 @@ class RooflineTerms:
         return dataclasses.asdict(self)
 
 
-def roofline(arch: str, shape: str, summary, model_flops: float
-             ) -> RooflineTerms:
-    """The three-term roofline of one call on one card from its
-    :class:`~repro_torch.analysis.count.CountSummary`.  A program whose
-    FLOPs are under 1 % of ``model_flops`` (DKS's min-plus lattice, the
-    GNNs' segment ops) does its work outside the products a counter sees:
-    its compute term takes ``model_flops`` at the f32 rate, as
-    ``repro``'s does."""
+def roofline(arch: str, shape: str, summary, model_flops: float,
+             mesh_name: str = "card", chips: int = 1) -> RooflineTerms:
+    """The three-term roofline of one rank's call, from its
+    :class:`~repro_torch.analysis.count.CountSummary`, on a mesh of
+    ``chips`` cards (``mesh_name``; one card by default).  ``model_flops``
+    is the whole step's and is divided by ``chips``, as ``repro``'s is.  A
+    program whose FLOPs are under 1 % of a chip's share of
+    ``model_flops`` (DKS's min-plus lattice, the GNNs' segment ops) does
+    its work outside the products a counter sees: its compute term takes
+    that share at the f32 rate, as ``repro``'s does.  The collective term
+    is the rank's wire bytes over :data:`NVLINK_BYTES_PER_S`; the
+    bottleneck is the largest of the three terms."""
     by_dtype = dict(summary.flops_by_dtype)
     flops = sum(by_dtype.values())
-    if flops < 0.01 * model_flops:
-        by_dtype = {"float32": float(model_flops)}
-        flops = float(model_flops)
+    per_chip = model_flops / chips
+    if flops < 0.01 * per_chip:
+        by_dtype = {"float32": float(per_chip)}
+        flops = float(per_chip)
     t_c = sum(f / peak_flops(d) for d, f in by_dtype.items())
     lead = max(by_dtype, key=by_dtype.get) if by_dtype else "float32"
     t_m = summary.min_bytes / HBM_BYTES_PER_S
-    terms = {"compute": t_c, "memory": t_m, "collective": 0.0}
+    wire = summary.wire_bytes
+    t_x = wire / NVLINK_BYTES_PER_S
+    terms = {"compute": t_c, "memory": t_m, "collective": t_x}
     return RooflineTerms(
-        arch=arch, shape=shape, chips=1, flops=flops,
+        arch=arch, shape=shape, mesh=mesh_name, chips=chips, flops=flops,
         flops_by_dtype=by_dtype, min_bytes=summary.min_bytes,
-        eager_bytes=summary.eager_bytes, collective_bytes=0.0,
+        eager_bytes=summary.eager_bytes, collective_bytes=wire,
         model_flops=model_flops, peak_flops=peak_flops(lead),
         t_compute=t_c, t_memory=t_m,
         t_memory_eager=summary.eager_bytes / HBM_BYTES_PER_S,
-        t_collective=0.0, bottleneck=max(terms, key=terms.get),
-        useful_flops_frac=model_flops / flops if flops > 0 else 0.0)
+        t_collective=t_x, bottleneck=max(terms, key=terms.get),
+        useful_flops_frac=per_chip / flops if flops > 0 else 0.0)
 
 
 # --------------------------------------------------------------------------

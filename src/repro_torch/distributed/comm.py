@@ -47,6 +47,26 @@ XLA elides it; inside :func:`through_group` it runs through the group all
 the same, which checks a group's transport at world size 1.  :data:`issued`
 counts the ops this process hands to ``torch.distributed``.
 
+A :class:`CountingMesh` has a :class:`Mesh`'s axes and one rank's
+place on them (rank 0 by default) and no process group: it stands for a
+mesh of 256 or 512 ranks that exists only to be counted on ``meta``.  On
+it every collective returns an output of the right shape and dtype and
+calls nothing of ``torch.distributed``; it refuses any tensor that is not
+on ``meta``, so that its made-up values never pass for real ones.
+
+On either mesh each collective, forward and backward, reports its bytes
+to the active :class:`repro_torch.analysis.count.Counter`, by ``repro``'s
+convention (``analysis/hlo.py``): an all-gather the bytes of its result,
+a reduce-scatter, an all-reduce (``psum``, ``pmax``, ``pmin``), an
+all-to-all and a ``ppermute`` (XLA's collective-permute) those of their
+operand.  The bytes are counted per call, the same on every rank whatever
+its part in a permute, so rank 0 stands for every rank.  An elided
+collective counts nothing.  Both meshes allocate a collective's result
+the same way; what moves the payload between ranks
+(``torch.distributed``'s ops, gloo's staging through host memory) runs
+under :func:`repro_torch.analysis.count.transport`, unseen by the
+counter, so a rank counts op for op what the counting mesh counts.
+
 Beside the data group, :func:`init` makes one gloo group, the control
 channel: :func:`broadcast_object` sends a pickled host object from rank 0
 over it (a served engine call's record, for instance), so that it neither
@@ -65,6 +85,8 @@ from typing import Iterator, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis import count
 
 # Ops whose payload crosses a gloo group through host memory when it lies
 # on a card: gloo's send / recv take host tensors only (every other op it
@@ -306,6 +328,8 @@ class Mesh:
     layout; a group for every non-empty set of axes is made up front (all
     ranks must create groups together)."""
 
+    counting = False           # a CountingMesh's collectives send nothing
+
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  device_type: str = "cuda") -> None:
         from torch.distributed.device_mesh import DeviceMesh
@@ -388,6 +412,38 @@ class Mesh:
         return f"Mesh({self.shape})"
 
 
+class CountingMesh(Mesh):
+    """A mesh that exists only to be counted: ``shape`` over
+    ``axis_names``, as :class:`Mesh` lays ranks out, seen from rank
+    ``rank`` (0 by default), with no process group.  Its collectives
+    (:data:`counting`) make outputs of the right shape and dtype on
+    ``meta`` and report their bytes; they send nothing and refuse any
+    tensor that is not on ``meta``."""
+
+    counting = True
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0) -> None:
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} and axes {axis_names} differ "
+                             "in length")
+        if not 0 <= rank < math.prod(shape):
+            raise ValueError(f"rank {rank} is not in a mesh of "
+                             f"{math.prod(shape)} ranks")
+        self.shape = dict(zip(axis_names, shape))
+        self.axis_names = axis_names
+        self.rank = rank
+        self.coords = {a: int(c) for a, c in zip(axis_names, (
+            torch.unravel_index(torch.tensor(rank), shape)))}
+
+    def group(self, axes=None):
+        raise RuntimeError("a CountingMesh has no process group")
+
+    def __repr__(self) -> str:
+        return f"CountingMesh({self.shape}, rank={self.rank})"
+
+
 @contextlib.contextmanager
 def mesh_scope(mesh: Mesh) -> Iterator[Mesh]:
     """Make ``mesh`` the ambient mesh inside the block."""
@@ -399,17 +455,42 @@ def mesh_scope(mesh: Mesh) -> Iterator[Mesh]:
 
 
 def get_mesh() -> Mesh | None:
-    """The ambient mesh, or None outside :func:`mesh_scope` or without a
-    process group (``repro``'s ``get_abstract_mesh``)."""
+    """The ambient mesh, or None outside :func:`mesh_scope` or, for a
+    :class:`Mesh` of ranks, without a process group (``repro``'s
+    ``get_abstract_mesh``).  A :class:`CountingMesh` needs no group."""
     mesh = _MESH.get()
-    return mesh if mesh is not None and is_initialized() else None
+    if mesh is None or not (mesh.counting or is_initialized()):
+        return None
+    return mesh
 
 
-def _mesh(mesh: Mesh | None) -> Mesh:
+def _mesh(mesh: Mesh | None, x: torch.Tensor | None = None) -> Mesh:
+    """``mesh``, else the ambient one; on a :class:`CountingMesh` ``x``
+    must lie on ``meta``."""
     mesh = mesh if mesh is not None else get_mesh()
     if mesh is None:
         raise RuntimeError("no mesh: pass mesh= or run under mesh_scope")
+    if mesh.counting and x is not None and x.device.type != "meta":
+        raise ValueError(f"a CountingMesh takes tensors on meta only, got "
+                         f"one on {x.device}: its collectives make up "
+                         f"their outputs")
     return mesh
+
+
+# repro's names of the collectives (XLA's opcodes), by the port's op.
+KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+         "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+         "ppermute": "collective-permute"}
+
+
+def _report(op: str, t: torch.Tensor, parts: int = 1) -> None:
+    """One ``op`` call's bytes to the active counter, if any: those of
+    ``t`` (its operand), times ``parts`` (an all-gather's result)."""
+    c = count.active()
+    if c is not None:
+        c.add_collective(KINDS[op], parts * t.numel() * t.element_size(),
+                         f"{str(t.dtype).replace('torch.', '')}"
+                         f"{list(t.shape)}")
 
 
 # --------------------------------------------------------------------------
@@ -421,10 +502,13 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axes, op: str) -> torch.Tensor:
+    _report("all_reduce", x)
     is_bool = x.dtype == torch.bool
     out = (x.to(torch.int32) if is_bool else x).contiguous().clone()
-    issued["all_reduce"] += 1
-    dist.all_reduce(out, op=_OPS[op], group=mesh.group(axes))
+    if not mesh.counting:
+        with count.transport():
+            issued["all_reduce"] += 1
+            dist.all_reduce(out, op=_OPS[op], group=mesh.group(axes))
     return out.bool() if is_bool else out
 
 
@@ -443,7 +527,7 @@ def psum(x: torch.Tensor, axes=None, mesh: Mesh | None = None
          ) -> torch.Tensor:
     """Sum over the ranks of ``axes`` (differentiable; its transpose is
     ``psum``)."""
-    mesh = _mesh(mesh)
+    mesh = _mesh(mesh, x)
     axes = mesh.axes(axes)
     if _elided(mesh, axes):
         return x.clone()
@@ -459,7 +543,7 @@ def pmean(x: torch.Tensor, axes=None, mesh: Mesh | None = None
 def _reduce(x: torch.Tensor, axes, mesh: Mesh | None, op: str
             ) -> torch.Tensor:
     """``op`` over the ranks of ``axes``, not differentiated."""
-    mesh = _mesh(mesh)
+    mesh = _mesh(mesh, x)
     axes = mesh.axes(axes)
     if _elided(mesh, axes):
         return x.detach().clone()
@@ -484,8 +568,11 @@ def pmin(x: torch.Tensor, axes=None, mesh: Mesh | None = None
 def _gather_parts(x: torch.Tensor, mesh: Mesh, axes) -> list[torch.Tensor]:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.axis_size(axes))]
-    issued["all_gather"] += 1
-    dist.all_gather(parts, x, group=mesh.group(axes))
+    _report("all_gather", x, len(parts))
+    if not mesh.counting:
+        with count.transport():
+            issued["all_gather"] += 1
+            dist.all_gather(parts, x, group=mesh.group(axes))
     return parts
 
 
@@ -507,7 +594,7 @@ def all_gather(x: torch.Tensor, axes=None, dim: int = 0, tiled: bool = False,
                mesh: Mesh | None = None) -> torch.Tensor:
     """Every rank's ``x`` over ``axes``, in rank order: stacked on a new
     axis ``dim``, or with ``tiled`` concatenated along ``dim``."""
-    mesh = _mesh(mesh)
+    mesh = _mesh(mesh, x)
     axes = mesh.axes(axes)
     dim = dim % (x.dim() + (0 if tiled else 1))
     if _elided(mesh, axes):
@@ -540,13 +627,19 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int
     # The group takes the chunks concatenated along dim 0.
     chunks = chunks.reshape(n * shape[0], *shape[1:]) if shape else \
         chunks.contiguous()
-    staged = "reduce_scatter" in staged_ops(x.device)
-    if staged:
-        chunks = chunks.cpu()
-    out = torch.empty(shape, dtype=chunks.dtype, device=chunks.device)
-    issued["reduce_scatter"] += 1
-    _REDUCE_SCATTER(out, chunks, group=mesh.group(axes))
-    return out.to(x.device) if staged else out
+    _report("reduce_scatter", x)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if mesh.counting:
+        return out
+    with count.transport():
+        staged = "reduce_scatter" in staged_ops(x.device)
+        src, dst = (chunks.cpu(), torch.empty(shape, dtype=x.dtype)) \
+            if staged else (chunks, out)
+        issued["reduce_scatter"] += 1
+        _REDUCE_SCATTER(dst, src, group=mesh.group(axes))
+        if staged:
+            out.copy_(dst)
+    return out
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -568,7 +661,7 @@ def reduce_scatter(x: torch.Tensor, axes=None, dim: int = 0,
     tiled=True)``: the sum over the ranks of ``axes``, of which this rank
     keeps chunk ``axis_index(axes)`` of ``dim`` (``x.shape[dim]`` must
     split evenly).  Its transpose is the tiled :func:`all_gather`."""
-    mesh = _mesh(mesh)
+    mesh = _mesh(mesh, x)
     axes = mesh.axes(axes)
     dim = dim % x.dim()
     if _elided(mesh, axes):
@@ -592,8 +685,11 @@ def _all_to_all(x: torch.Tensor, mesh: Mesh, axes, split_dim: int,
     chunks = x.unflatten(split_dim, (n, x.shape[split_dim] // n))
     chunks = chunks.movedim(split_dim, 0).contiguous()
     out = torch.empty_like(chunks)
-    issued["all_to_all"] += 1
-    dist.all_to_all_single(out, chunks, group=mesh.group(axes))
+    _report("all_to_all", x)
+    if not mesh.counting:
+        with count.transport():
+            issued["all_to_all"] += 1
+            dist.all_to_all_single(out, chunks, group=mesh.group(axes))
     return torch.cat(list(out.unbind(0)), concat_dim)
 
 
@@ -616,7 +712,7 @@ def all_to_all(x: torch.Tensor, axes=None, split_dim: int = 0,
     """``jax.lax.all_to_all(..., tiled=True)``: split ``split_dim`` into
     one chunk per rank, send chunk ``j`` to rank ``j``, and concatenate
     the chunks received along ``concat_dim`` in source order."""
-    mesh = _mesh(mesh)
+    mesh = _mesh(mesh, x)
     axes = mesh.axes(axes)
     split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
     if _elided(mesh, axes):
@@ -631,32 +727,41 @@ def all_to_all(x: torch.Tensor, axes=None, split_dim: int = 0,
 
 def _ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
               perm: tuple[tuple[int, int], ...]) -> torch.Tensor:
+    _report("ppermute", x)
     me = mesh.axis_index(axis)
-    group = mesh.group(axis)
-    # Group ranks are global ranks; an axis index maps to the group's
-    # rank of that index (groups order their ranks as the axis does).
-    to_global = dist.get_process_group_ranks(group)
-    staged = dist.get_backend(group) == "gloo" and x.is_cuda
-    payload = x.detach().contiguous()
-    if staged:
-        payload = payload.cpu()
-    out = torch.zeros_like(payload)
-    ops = []
-    for src, dst in perm:
-        if src == me and dst == me:
-            out.copy_(payload)
-        elif src == me:
-            issued["send"] += 1
-            ops.append(dist.P2POp(dist.isend, payload, to_global[dst],
-                                  group=group))
-        elif dst == me:
-            issued["recv"] += 1
-            ops.append(dist.P2POp(dist.irecv, out, to_global[src],
-                                  group=group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return out.to(x.device) if staged else out
+    # Zeros where nobody sends, this rank's own x where it keeps it.
+    out = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    if (me, me) in perm:
+        out.copy_(x.detach())
+    if mesh.counting:
+        return out
+    with count.transport():
+        group = mesh.group(axis)
+        # Group ranks are global ranks; an axis index maps to the group's
+        # rank of that index (groups order their ranks as the axis does).
+        to_global = dist.get_process_group_ranks(group)
+        staged = dist.get_backend(group) == "gloo" and x.is_cuda
+        payload = x.detach().contiguous()
+        recv = out
+        if staged:
+            payload = payload.cpu()
+            recv = torch.zeros_like(payload)
+        ops = []
+        for src, dst in perm:
+            if src == me and dst != me:
+                issued["send"] += 1
+                ops.append(dist.P2POp(dist.isend, payload, to_global[dst],
+                                      group=group))
+            elif dst == me and src != me:
+                issued["recv"] += 1
+                ops.append(dist.P2POp(dist.irecv, recv, to_global[src],
+                                      group=group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        if staged and any(d == me and s != me for s, d in perm):
+            out.copy_(recv)
+    return out
 
 
 class _PPermute(torch.autograd.Function):
@@ -679,7 +784,7 @@ def ppermute(x: torch.Tensor, axis: str,
     ``src`` of ``axis`` sends ``x`` to the rank at ``dst``; a rank that
     nobody sends to gets zeros.  Under gloo a card's payload is staged
     through host memory (:data:`STAGED_OPS`)."""
-    mesh = _mesh(mesh)
+    mesh = _mesh(mesh, x)
     (axis,) = mesh.axes(axis)
     perm = tuple((int(s), int(d)) for s, d in perm)
     srcs, dsts = [s for s, _ in perm], [d for _, d in perm]

@@ -12,6 +12,15 @@ cuda`` it runs the cell on the card (content from ``--seed``), warms it,
 and adds a ``torch.profiler`` window (:func:`profile_window`): the
 device-busy share of the wall, the kernels that lead by device time, and
 the launches.  With no card ``--device cuda`` fails.
+
+``--mesh single|multi`` (``multi`` is ``repro``'s ``--multi-pod``) counts
+the cell at rank 0 of a counting production mesh instead (on ``meta`` only;
+``cells.mesh_cells``, and ``cells.pp_cells``' ``<lm>__train_4k_pp2`` on
+the multi-pod mesh) and adds the top collectives by bytes, with the wire
+bytes and the collective term (counted, not measured):
+
+    PYTHONPATH=src python -m repro_torch.launch.analyze \
+        --cell command-r-plus-104b__train_4k --mesh multi
 """
 
 from __future__ import annotations
@@ -81,15 +90,18 @@ def op_rows(rows: list, what: str) -> list[str]:
     return lines
 
 
-def breakdown(cell: cells_mod.Cell, top: int = 20) -> tuple[list[str],
-                                                            object]:
-    """The meta count's report lines, and its summary."""
+def breakdown(cell: cells_mod.Cell, top: int = 20, mesh_name: str = "card",
+              chips: int = 1) -> tuple[list[str], object]:
+    """The meta count's report lines, and its summary (on a mesh of
+    ``chips`` cards: one rank's, with its top collectives)."""
     fn, args = cell.build(torch.device("meta"))
     _, s = count_call(fn, args, top=top)
     del fn, args
-    t = build_roofline(cell.arch_id, cell.shape_name, s, cell.model_flops)
+    t = build_roofline(cell.arch_id, cell.shape_name, s, cell.model_flops,
+                       mesh_name, chips)
+    where = "" if chips == 1 else f" on {mesh_name}, rank 0 of {chips}"
     lines = [
-        f"== {cell.name}  ({cell.notes or cell.kind}) ==",
+        f"== {cell.name}  ({cell.notes or cell.kind}){where} ==",
         f"arguments {s.arg_bytes / GIB:.2f} GiB, predicted peak "
         f"{s.peak_bytes / GIB:.2f} GiB; min_bytes {s.min_bytes / GIB:.3f} "
         f"GiB, eager_bytes {s.eager_bytes / GIB:.3f} GiB; {s.n_ops:.0f} "
@@ -98,10 +110,34 @@ def breakdown(cell: cells_mod.Cell, top: int = 20) -> tuple[list[str],
         f"{cell.model_flops:.4e} (useful {100 * t.useful_flops_frac:.1f} %)",
         f"kernels {s.kernel_calls or 'none'}",
         f"t_compute={t.t_compute:.3e}s t_memory={t.t_memory:.3e}s "
-        f"(eager {t.t_memory_eager:.3e}s) t_collective=0 -> "
-        f"{t.bottleneck}   [NVIDIA H100 SXM data-sheet peaks]",
+        f"(eager {t.t_memory_eager:.3e}s) t_collective="
+        f"{t.t_collective:.3e}s -> {t.bottleneck}   [NVIDIA H100 SXM "
+        f"data-sheet peaks, NVLink 4]",
         *op_rows(s.top_bytes, "bytes"), *op_rows(s.top_flops, "FLOPs")]
+    if chips > 1:
+        lines += [f"collectives (counted, not measured): "
+                  f"{ {k: f'{v / GIB:.3f} GiB' for k, v in s.collective_bytes.items()} }, "
+                  f"wire {s.wire_bytes / GIB:.3f} GiB a rank",
+                  "top collectives by bytes (kind, operand, calls, GiB):"]
+        lines += [f"  {kind:20s} {operand:40s} x{calls:<8.0f} "
+                  f"{nbytes / GIB:12.3f}"
+                  for kind, operand, calls, nbytes in s.top_collectives]
     return lines, s
+
+
+def mesh_cell(name: str, multi_pod: bool):
+    """(the cell ``name`` at rank 0 of a counting production mesh, the
+    mesh's name, its size)."""
+    from repro_torch.launch.mesh import MESH_NAMES, make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=multi_pod, counting=True)
+    makers = dict(cells_mod.mesh_cells(mesh))
+    if multi_pod:
+        makers.update(cells_mod.pp_cells(mesh))
+    if name not in makers:
+        raise KeyError(f"no cell {name!r} on {MESH_NAMES[multi_pod]}; it "
+                       f"has {sorted(makers)}")
+    return makers[name](), MESH_NAMES[multi_pod], mesh.size
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -110,13 +146,28 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", choices=("meta", "cuda"), default="meta")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--mesh", choices=("single", "multi"), default=None,
+                    help="count on a production mesh (meta only)")
     args = ap.parse_args(argv)
+    mesh = args.mesh
+    if mesh is not None and args.device != "meta":
+        print("analyze: --mesh counts on meta only",
+              file=sys.stderr)
+        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("analyze --device cuda: no CUDA device "
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    cell = cells_mod.get_cell(args.cell)
-    lines, summary = breakdown(cell, args.top)
+    if mesh is None:
+        cell = cells_mod.get_cell(args.cell)
+        lines, summary = breakdown(cell, args.top)
+    else:
+        try:
+            cell, name, chips = mesh_cell(args.cell, mesh == "multi")
+        except NotImplementedError as e:
+            print(f"analyze: {e}", file=sys.stderr)
+            return 2
+        lines, summary = breakdown(cell, args.top, name, chips)
     print("\n".join(lines))
     if args.device == "cuda":
         from repro_torch.launch.dryrun import card_line

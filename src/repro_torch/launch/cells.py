@@ -12,20 +12,27 @@ the port's own layouts (int64 edge indices, a lane axis on the DKS state,
 the LM as a module) are made inside the step, where their cost is
 counted.
 
-The catalog runs on one card in place of ``repro``'s 256-chip mesh:
-``tp`` is 1, and the grad-accumulation rule divides activations by the
-card count (1) where ``repro``'s divides by 256.  :func:`gnn_cell` and
-:func:`recsys_cell` also take ``mesh=``, a
-:class:`~repro_torch.distributed.comm.Mesh` of which this process is one
-rank: :meth:`Cell.build` then builds this rank's slice of each argument
-by ``repro``'s in-specs (the whole argument drawn from the generator, as
-every rank draws it, and cut by
-:func:`~repro_torch.launch.mesh.shard_tree`; on ``meta``, of the shape
-``comm.local_shape`` gives), and the step runs the sharded program:
-DCN-v2's tables split by ``recsys.param_specs`` with the grouped kernel
-on each rank's rows, the GNNs' nodes and edges split over every axis.
-The LM cells, ``lm_pp_cell`` (``repro``'s ``stage_layer_specs``) and the
-dry run on ``repro``'s production meshes are not built on a mesh.
+By default the catalog runs on one card: ``tp`` is 1 and the
+grad-accumulation rule divides activations by the card count (1).  On a
+``mesh``, a :class:`~repro_torch.distributed.comm.Mesh` of which this
+process is one rank, or a
+:class:`~repro_torch.distributed.comm.CountingMesh` that stands for
+``repro``'s 256- or 512-chip production mesh on ``meta``
+(:func:`mesh_cells`, ``repro``'s ``iter_cells``), :meth:`Cell.build`
+builds this rank's slice of each argument by ``repro``'s in-specs (the
+whole argument drawn from the generator, as every rank draws it, and cut
+by :func:`~repro_torch.launch.mesh.shard_tree`; on ``meta``, of the
+shape ``comm.local_shape`` gives), and the step runs the sharded
+program: the LMs built at ``tp`` (16 on the production meshes) with the
+transformer's Megatron / FSDP splits, the batch's rows over the data
+axes, a decode cache in ``repro``'s layout (``decode_layout``), and the
+grad-accumulation rule divided by 256 as ``repro``'s; :func:`lm_pp_cell`
+with ``pipeline.stage_layer_specs`` on the multi-pod mesh; DCN-v2's
+tables split by ``recsys.param_specs`` with the grouped kernel on each
+rank's rows; the GNNs' nodes and edges split over every axis; the
+frontier DKS cells one shard a rank.  The dense DKS cell has no layout
+on a mesh yet (``repro`` splits its keyword sets over ``model``):
+:func:`dks_cell_dense` raises ``NotImplementedError`` there.
 """
 
 from __future__ import annotations
@@ -46,11 +53,12 @@ from repro_torch.configs import (DKS_CONFIGS, GNN_SHAPES, LM_SHAPES,
 from repro_torch.distributed import comm
 from repro_torch.distributed.comm import PartitionSpec as P
 from repro_torch.distributed.fault import block_until_ready
-from repro_torch.models.common import ALL, DP
+from repro_torch.models.common import ALL, DP, mesh_axes
 from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
                                adamw_update, tree_map)
 
 CARDS = 1
+MESH_CARDS = 256        # repro's divisor of the rule on either mesh
 # repro's catalog, in its order: (arch, family).
 CATALOG = (
     ("qwen1.5-4b", "lm"), ("chatglm3-6b", "lm"),
@@ -59,6 +67,10 @@ CATALOG = (
     ("gin-tu", "gnn"), ("pna", "gnn"), ("dcn-v2", "recsys"))
 SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}
 DKS_SHARDS = 4          # the frontier cells' shards, all on the one card
+DENSE_ON_A_MESH = (
+    "dks-bluk-bnb__superstep_dense_m4_k2 on a mesh: repro splits the "
+    "keyword-set axis over 'model', a layout the port has not ported "
+    "(ROADMAP queue 1, the dense DKS cell on a mesh)")
 
 Build = Callable[[torch.device, "torch.Generator | None"],
                  tuple[Callable, tuple]]
@@ -131,13 +143,14 @@ def _local(tree, specs, mesh):
 # --------------------------------------------------------------------------
 
 
-def lm_grad_accum(cfg, shape) -> int:
-    """``repro``'s activation-memory rule with the card count in place of
-    its 256 chips: double the accumulation until a micro-batch's saved
+def lm_grad_accum(cfg, shape, cards: int = CARDS) -> int:
+    """``repro``'s activation-memory rule over ``cards`` cards (one, or
+    :data:`MESH_CARDS` on either production mesh, as ``repro`` divides by
+    its 256 chips): double the accumulation until a micro-batch's saved
     layer inputs fit the budget (2 GB, 0.5 GB past 50 B parameters)."""
     tokens = shape.seq_len * shape.global_batch
     act_bytes = tokens * cfg.d_model * 2 * cfg.n_layers  # saved layer inputs
-    per_card = act_bytes / CARDS
+    per_card = act_bytes / cards
     budget = 0.5e9 if cfg.param_count_analytic() > 5e10 else 2e9
     accum = 1
     while per_card / accum > budget and accum < shape.global_batch:
@@ -171,7 +184,7 @@ def folded_train_step(opt_cfg: AdamWConfig, attn_impl: str, trips: int):
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in params.values()]
         mb = batch["tokens"].shape[0] // trips
-        with count.scaled(trips):
+        with lm_lib._scope(model), count.scaled(trips):
             loss, grads, _ = lm_lib.loss_and_grads(
                 model, {k: v[:mb] for k, v in batch.items()}, attn_impl)
             for a, g in zip(acc, grads.values()):
@@ -179,9 +192,13 @@ def folded_train_step(opt_cfg: AdamWConfig, attn_impl: str, trips: int):
             del grads
         for a in acc:
             a.div_(trips)
+        grads = dict(zip(params, acc))
+        with lm_lib._scope(model):
+            norm = (lm_lib.grad_norm(model, grads) if model.mesh is not None
+                    else None)
         t1 = _clock(acc[0])
-        _, opt, metrics = adamw_update(opt_cfg, dict(zip(params, acc)),
-                                       state.opt, params)
+        _, opt, metrics = adamw_update(opt_cfg, grads, state.opt, params,
+                                       norm=norm)
         new = lm_lib.TrainState(model=model, opt=opt, step=state.step + 1)
         return new, {"loss": loss, **metrics, "grad_s": t1 - t0,
                      "update_s": _clock(new.step) - t1}
@@ -189,61 +206,158 @@ def folded_train_step(opt_cfg: AdamWConfig, attn_impl: str, trips: int):
     return step
 
 
-def _lm_model(cfg, device, generator):
+def _lm_model(b, device, generator, mesh=None, specs=None):
+    """An LM at the padded widths of ``b``: allocated on ``meta``
+    (``generator`` None), else drawn whole by ``init_lm``; on ``mesh``
+    this rank's slice by the spec tree ``specs`` (default
+    ``param_specs``)."""
+    from repro_torch.launch.mesh import shard_lm
     from repro_torch.models import transformer as tfm
 
     if generator is None:
-        return tfm.LM(cfg, device=device)
-    return tfm.init_lm(cfg, generator)
+        return tfm.LM(b, device=device, mesh=mesh, specs=specs)
+    model = tfm.init_lm(b, generator)
+    return shard_lm(model, mesh, specs) if mesh is not None else model
 
 
-def lm_cell(arch_id: str, shape) -> Cell:
+def _rows(shape, high: int, spec, mesh, device, generator) -> torch.Tensor:
+    """int32 ``shape`` cut by ``spec`` over ``mesh``: on ``meta`` made at
+    the slice's shape, else drawn whole (every rank alike) and cut."""
+    if generator is None:
+        return _ints(comm.local_shape(shape, spec, comm.axis_sizes(mesh)),
+                     high, device, None)
+    return _local(_ints(shape, high, device, generator), spec, mesh)
+
+
+def _lm_train_fn(step):
+    """A train cell's function: ``step``'s new state and its scalars."""
+    def fn(state, batch):
+        new, metrics = step(state, batch)
+        return new, {k: metrics[k] for k in (
+            "loss", "grad_norm", "lr", "grad_s", "update_s")}
+
+    return fn
+
+
+def _lm_train_state(model, device):
+    """``model``'s train state with ``repro``'s int32 step."""
+    from repro_torch.models import lm as lm_lib
+
+    state = lm_lib.init_train_state(model)
+    state.step = torch.zeros((), dtype=torch.int32, device=device)
+    return state
+
+
+def _train_batch(cfg, shape, spec, mesh, device, generator) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    return {k: _rows((b, s), cfg.vocab, spec, mesh, device, generator)
+            for k in ("tokens", "labels")}
+
+
+def _accum(cfg, shape, spec, mesh) -> tuple[int, str]:
+    """(the train cell's accumulation, its note): ``repro``'s rule over
+    the cards, at most the rows a rank holds on a mesh (a micro-batch of
+    at least one row each)."""
+    accum = lm_grad_accum(cfg, shape, MESH_CARDS if mesh is not None
+                          else CARDS)
+    note = f"grad_accum={accum}"
+    if mesh is not None:
+        rows = comm.local_shape((shape.global_batch,), P(spec),
+                                comm.axis_sizes(mesh))[0]
+        if accum > rows:
+            accum = rows
+            note += f" (at most the {rows} rows a rank holds)"
+    return accum, note + (", folded" if accum > 1 else "")
+
+
+def lm_cell(arch_id: str, shape, tp: int = 1,
+            mesh: "comm.Mesh | None" = None) -> Cell:
+    """``repro``'s LM cell built at ``tp``; on a ``mesh``, one rank of it:
+    the model and AdamW's state cut by ``param_specs``, the batch's rows
+    over the data axes, and a decode cache in ``decode_layout``'s layout
+    (the sequence over ``model``, or over ``("data", "model")`` with the
+    batch whole below 32 sequences)."""
     from repro_torch.models import lm as lm_lib
     from repro_torch.models import transformer as tfm
 
     cfg = get_arch(arch_id)
+    built = tfm.build(cfg, tp)
     mf = rl.model_flops_lm(cfg, shape)
     b, s = shape.global_batch, shape.seq_len
 
     if shape.kind == "train":
-        accum = lm_grad_accum(cfg, shape)
+        accum, note = _accum(cfg, shape, DP, mesh)
         attn = "flash_jax" if s > 2048 else "naive"
 
-        step = (folded_train_step(AdamWConfig(), attn, accum) if accum > 1
-                else lm_lib.make_train_step(AdamWConfig(), attn_impl=attn))
-
-        def fn(state, batch):
-            new, metrics = step(state, batch)
-            return new, {k: metrics[k] for k in (
-                "loss", "grad_norm", "lr", "grad_s", "update_s")}
+        fn = _lm_train_fn(
+            folded_train_step(AdamWConfig(), attn, accum) if accum > 1
+            else lm_lib.make_train_step(AdamWConfig(), attn_impl=attn))
 
         def build(device, generator=None):
-            state = lm_lib.init_train_state(_lm_model(cfg, device, generator))
-            state.step = torch.zeros((), dtype=torch.int32, device=device)
-            batch = {"tokens": _ints((b, s), cfg.vocab, device, generator),
-                     "labels": _ints((b, s), cfg.vocab, device, generator)}
-            return fn, (state, batch)
+            state = _lm_train_state(_lm_model(built, device, generator, mesh),
+                                    device)
+            return fn, (state, _train_batch(cfg, shape, P(DP, None), mesh,
+                                            device, generator))
 
-        return Cell(arch_id, shape.name, "train", build, mf,
-                    notes=f"grad_accum={accum}" + (
-                        ", folded" if accum > 1 else ""))
+        return Cell(arch_id, shape.name, "train", build, mf, notes=note)
 
     if shape.kind == "prefill":
         def build(device, generator=None):
             return (lm_lib.make_prefill_step(attn_impl="flash_jax"),
-                    (_lm_model(cfg, device, generator),
-                     _ints((b, s), cfg.vocab, device, generator)))
+                    (_lm_model(built, device, generator, mesh),
+                     _rows((b, s), cfg.vocab, P(DP, None), mesh, device,
+                           generator)))
 
         return Cell(arch_id, shape.name, "prefill", build, mf)
 
+    batch_axes, seq_axes = tfm.decode_layout(b)
+
     def build(device, generator=None):
         # One new token against a seq_len KV cache, as repro's cell.
-        cache = tfm.init_cache(cfg, b, s, device=device)
-        return (lm_lib.make_decode_step(attn_impl="naive"),
-                (_lm_model(cfg, device, generator), cache,
-                 _ints((b, 1), cfg.vocab, device, generator)))
+        cache = tfm.init_cache(built, b, s, device=device, mesh=mesh,
+                               seq_axes=seq_axes, batch_axes=batch_axes)
+        return (lm_lib.make_decode_step(attn_impl="naive",
+                                        seq_axes=seq_axes),
+                (_lm_model(built, device, generator, mesh), cache,
+                 _rows((b, 1), cfg.vocab, P(batch_axes, None), mesh, device,
+                       generator)))
 
     return Cell(arch_id, shape.name, "decode", build, mf)
+
+
+def lm_pp_cell(arch_id: str, shape_name: str = "train_4k", tp: int = 16,
+               n_stages: int = 2, n_micro: int = 16,
+               mesh: "comm.Mesh | None" = None) -> Cell:
+    """``repro``'s pipeline-parallel train cell on one rank of ``mesh``
+    (which has ``"pod"``: the multi-pod mesh): the GPipe step
+    (:mod:`repro_torch.models.pipeline`) on this stage's layers, the
+    model and AdamW's state cut by ``stage_layer_specs``, the batch's
+    rows over ``"data"``."""
+    from repro_torch.models import pipeline as pp
+    from repro_torch.models import transformer as tfm
+
+    if mesh is None or mesh.shape.get(pp.AXIS) != n_stages:
+        raise ValueError(f"lm_pp_cell runs on a mesh whose {pp.AXIS!r} "
+                         f"axis has {n_stages} ranks")
+    cfg = get_arch(arch_id)
+    shape = next(x for x in LM_SHAPES if x.name == shape_name)
+    built = tfm.build(cfg, tp)
+    specs = pp.stage_layer_specs(built)
+    fn = _lm_train_fn(pp.make_pp_train_step(
+        AdamWConfig(), n_stages=n_stages, n_micro=n_micro,
+        attn_impl="flash_jax", mesh=mesh))
+
+    def build(device, generator=None):
+        model = pp.keep_stage_layers(
+            _lm_model(built, device, generator, mesh, specs),
+            mesh.axis_index(pp.AXIS), n_stages)
+        return fn, (_lm_train_state(model, device),
+                    _train_batch(cfg, shape, P(("data",), None), mesh,
+                                 device, generator))
+
+    return Cell(arch_id, f"{shape_name}_pp{n_stages}", "train", build,
+                rl.model_flops_lm(cfg, shape),
+                notes=f"GPipe n_stages={n_stages} n_micro={n_micro}")
 
 
 def lm_decode_quant_cell(arch_id: str, shape_name: str) -> Cell:
@@ -514,14 +628,19 @@ def _edge_weights(n: int, device, generator) -> torch.Tensor:
 
 
 def dks_cell(ds_name: str, m: int = 4, k: int = 2,
-             n_shards: int = DKS_SHARDS) -> Cell:
+             n_shards: int = DKS_SHARDS,
+             mesh: "comm.Mesh | None" = None) -> Cell:
     """The frontier-compressed superstep
     (``core/dks_sharded.py::superstep_frontier``) with every shard on the
-    one card."""
+    one card; on a ``mesh``, one shard a rank (``n_shards`` the mesh's
+    size), node arrays and edge shards split over every axis as
+    ``repro``'s in-specs split them."""
     from repro_torch.core import dks_sharded
     from repro_torch.core.dks import DKSConfig
 
     ds = DKS_CONFIGS[ds_name]
+    if mesh is not None:
+        n_shards = mesh.size
     v_pad = pad_to(ds.n_nodes, max(512, n_shards))
     e_sym = 2 * ds.n_edges
     e_cap = pad_to(int(e_sym / n_shards * 1.2), 8)
@@ -554,24 +673,44 @@ def dks_cell(ds_name: str, m: int = 4, k: int = 2,
                 INF)
             out_degree = torch.bincount(src[src >= 0].long(),
                                         minlength=v_pad).to(torch.int32)
+        leaves = {"edge_src": src, "edge_dst_l": dst_l, "edge_w": w,
+                  "out_degree": out_degree,
+                  "node_valid": torch.arange(v_pad, device=device)
+                  < ds.n_nodes}
+        state = _dks_state(v_pad, ds.n_nodes, m, k, device, generator)
+        where = {}
+        if mesh is not None:
+            # repro's in-specs: node arrays, edge shards and the node
+            # tables over every axis, the per-query fields whole.
+            leaves = {f: _local(v, P(ALL, *([None] * (v.dim() - 1))), mesh)
+                      for f, v in leaves.items()}
+            state = dataclasses.replace(state, **{
+                f: _local(getattr(state, f), P(ALL, *([None] * (
+                    getattr(state, f).dim() - 1))), mesh)
+                for f in ("S", "changed", "first_fire", "visited")})
+            where = {"shard0": mesh.axis_index(mesh_axes(mesh, ALL)),
+                     "mesh": mesh}
         graph = dks_sharded.FrontierGraph(
-            edge_src=src, edge_dst_l=dst_l, edge_w=w, out_degree=out_degree,
-            node_valid=torch.arange(v_pad, device=device) < ds.n_nodes,
-            n_nodes=ds.n_nodes, n_edges=e_sym, n_shards=n_shards)
-        return fn, (graph, _dks_state(v_pad, ds.n_nodes, m, k, device,
-                                      generator))
+            **leaves, n_nodes=ds.n_nodes, n_edges=e_sym, n_shards=n_shards,
+            **where)
+        return fn, (graph, state)
 
     return Cell(f"dks-{ds_name}", f"superstep_m{m}_k{k}", "dks", build,
                 rl.model_flops_dks(ds.n_nodes, e_sym, m, k),
                 notes=f"V={ds.n_nodes} E_sym={e_sym} shards={n_shards}")
 
 
-def dks_cell_dense(ds_name: str, m: int = 4, k: int = 2) -> Cell:
+def dks_cell_dense(ds_name: str, m: int = 4, k: int = 2,
+                   mesh: "comm.Mesh | None" = None) -> Cell:
     """The dense-relax superstep (``core/dks.py::superstep``), its relax in
-    chunks of edges."""
+    chunks of edges, on one card.  On a mesh ``repro`` splits the
+    keyword-set axis of the node tables over ``model``, a layout the
+    port does not have yet: it raises ``NotImplementedError``."""
     from repro_torch.core import dks as dks_mod
     from repro_torch.graph.structure import DeviceGraph
 
+    if mesh is not None:
+        raise NotImplementedError(DENSE_ON_A_MESH)
     ds = DKS_CONFIGS[ds_name]
     v_pad = pad_to(ds.n_nodes, 512)
     e_sym = 2 * ds.n_edges
@@ -635,14 +774,18 @@ def dks_cell_dense(ds_name: str, m: int = 4, k: int = 2) -> Cell:
 # --------------------------------------------------------------------------
 
 
-def build_cell(arch_id: str, shape_name: str) -> Cell:
+def build_cell(arch_id: str, shape_name: str, tp: int = 1,
+               mesh: "comm.Mesh | None" = None) -> Cell:
+    """One cell of the catalog; an LM built at ``tp``; on ``mesh``, one
+    rank of it (``repro``'s ``build_cell`` on its production meshes takes
+    ``tp=16``)."""
     family = dict(CATALOG)[arch_id]
     shape = next(s for s in SHAPES[family] if s.name == shape_name)
     if family == "lm":
-        return lm_cell(arch_id, shape)
+        return lm_cell(arch_id, shape, tp=tp, mesh=mesh)
     if family == "gnn":
-        return gnn_cell(arch_id, shape)
-    return recsys_cell(arch_id, shape)
+        return gnn_cell(arch_id, shape, mesh=mesh)
+    return recsys_cell(arch_id, shape, mesh=mesh)
 
 
 def all_assigned_cells() -> list[tuple[str, str]]:
@@ -653,6 +796,31 @@ def dks_cells(n_shards: int = DKS_SHARDS) -> list[Cell]:
     return [dks_cell("sec-rdfabout", n_shards=n_shards),
             dks_cell("bluk-bnb", n_shards=n_shards),
             dks_cell_dense("bluk-bnb")]
+
+
+def mesh_cells(mesh: "comm.Mesh", tp: int = 16
+               ) -> list[tuple[str, Callable[[], Cell]]]:
+    """``repro``'s ``iter_cells`` on a production mesh, as (name, maker):
+    every assigned cell at ``tp``, then the DKS cells with one shard a
+    rank.  The dense DKS cell's maker raises ``NotImplementedError``
+    (:data:`DENSE_ON_A_MESH`)."""
+    makers = [(f"{a}__{s}", functools.partial(build_cell, a, s, tp, mesh))
+              for a, s in all_assigned_cells()]
+    return makers + [
+        (f"dks-{ds}__superstep_m4_k2",
+         functools.partial(dks_cell, ds, mesh=mesh))
+        for ds in ("sec-rdfabout", "bluk-bnb")] + [
+        ("dks-bluk-bnb__superstep_dense_m4_k2",
+         functools.partial(dks_cell_dense, "bluk-bnb", mesh=mesh))]
+
+
+def pp_cells(mesh: "comm.Mesh", tp: int = 16
+             ) -> list[tuple[str, Callable[[], Cell]]]:
+    """:func:`lm_pp_cell` at ``train_4k`` for every LM of the catalog, on
+    the multi-pod ``mesh``, as (name, maker)."""
+    return [(f"{a}__train_4k_pp2", functools.partial(
+        lm_pp_cell, a, "train_4k", tp, mesh=mesh))
+            for a, family in CATALOG if family == "lm"]
 
 
 def all_cells() -> list[Cell]:

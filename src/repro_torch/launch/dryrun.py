@@ -27,6 +27,23 @@ dtype's peak) and ``hbm_share`` (``min_bytes`` / time / 3.35 TB/s).  With
 no card it fails; it never falls back to the CPU.
 
 JSON goes to ``build/dryrun_torch/<device>/<cell>.json`` (``--out``).
+
+``--mesh single|multi|both`` counts ``repro``'s cells on its production
+meshes instead, on ``meta`` only (``--device cuda`` is refused): 16 x 16
+(data, model) and 2 x 16 x 16 (pod, data, model), each a
+:class:`~repro_torch.distributed.comm.CountingMesh` seen from rank 0.
+The cells are ``repro``'s ``iter_cells`` (``cells.mesh_cells``): the LMs
+built at ``tp=16``, each argument this rank's slice by ``repro``'s
+in-specs, the DKS cells one shard a rank; the multi-pod mesh adds
+``lm_pp_cell`` at ``train_4k`` for every LM (``cells.pp_cells``).  Per cell the record
+adds ``mesh``, ``chips``, ``fits_one_card`` (a rank's predicted peak
+within 80 GB), the collective bytes and counts by kind, the wire bytes
+a rank sends (``repro``'s ring factors) and the three roofline terms, the
+collective one over NVLink (its caveat in
+:mod:`repro_torch.analysis.roofline`).  These are counted, not measured.
+JSON goes to ``build/dryrun_torch/<pod16x16|multipod2x16x16>/<cell>.json``.
+The dense DKS cell is not ported on a mesh: its line says so and names
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,17 +81,20 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def meta_record(cell: cells_mod.Cell) -> dict:
-    """Count one call of ``cell`` on ``meta``."""
+def meta_record(cell: cells_mod.Cell, mesh_name: str = "card",
+                chips: int = 1) -> dict:
+    """Count one call of ``cell`` on ``meta`` (on a mesh of ``chips``
+    cards, ``mesh_name``: one rank's call)."""
     t0 = time.perf_counter()
     fn, args = cell.build(torch.device("meta"))
     _, summary = count_call(fn, args)
     del fn, args
     terms = build_roofline(cell.arch_id, cell.shape_name, summary,
-                           cell.model_flops)
+                           cell.model_flops, mesh_name, chips)
     return {
         "cell": cell.name, "arch": cell.arch_id, "shape": cell.shape_name,
         "kind": cell.kind, "notes": cell.notes, "device": "meta",
+        "mesh": mesh_name, "chips": chips,
         "count_s": time.perf_counter() - t0,
         "count": summary.as_row(),
         "flops": summary.flops, "eager_bytes": summary.eager_bytes,
@@ -82,6 +102,9 @@ def meta_record(cell: cells_mod.Cell) -> dict:
         "model_flops": cell.model_flops,
         "useful_flops_frac": terms.useful_flops_frac,
         "fits_one_card": summary.peak_bytes <= rl.CARD_BYTES,
+        "collective_bytes": summary.collective_bytes,
+        "collective_counts": summary.collective_counts,
+        "wire_bytes": summary.wire_bytes,
         "roofline": terms.as_row(),
     }
 
@@ -155,7 +178,11 @@ def summary_line(rec: dict) -> str:
             f"eager={rec['eager_bytes'] / GIB:9.2f}GiB "
             f"peak={rec['peak_bytes'] / GIB:7.2f}GiB "
             f"fits={rec['fits_one_card']!s:5s} t_c={r['t_compute']:.3e} "
-            f"t_m={r['t_memory']:.3e} -> {r['bottleneck']}")
+            f"t_m={r['t_memory']:.3e} ")
+    if rec.get("chips", 1) > 1:
+        line = (f"{rec['mesh']} {line}wire={rec['wire_bytes'] / 1e9:.3f}GB "
+                f"t_x={r['t_collective']:.3e} ")
+    line += f"-> {r['bottleneck']}"
     if rec["device"] == "cuda":
         line += (f" | {rec['ms']:.3f} ms, peak "
                  f"{rec['measured_peak_bytes'] / GIB:.2f} GiB, "
@@ -197,23 +224,79 @@ def run(device: str = "meta", only: str | None = None, seed: int = 0,
     return records, failures
 
 
+def run_mesh(multi_pod: bool, only: str | None = None,
+             out: Path = OUT_DIR) -> tuple[list[dict], list, list]:
+    """Every cell of ``cells.mesh_cells`` (on the multi-pod mesh, and of
+    ``cells.pp_cells``) counted on ``meta`` at rank 0 of a counting
+    production mesh (``only``: a substring of the name).  Returns the records, the failures ``(cell,
+    error)`` and the cells not ported on a mesh ``(cell, reason)``."""
+    from repro_torch.launch.mesh import MESH_NAMES, make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=multi_pod, counting=True)
+    name = MESH_NAMES[multi_pod]
+    makers = cells_mod.mesh_cells(mesh)
+    if multi_pod:
+        makers += cells_mod.pp_cells(mesh)
+    records, failures, not_ported = [], [], []
+    for cell_name, make in makers:
+        if only and only not in cell_name:
+            continue
+        try:
+            rec = meta_record(make(), name, mesh.size)
+            write(rec, out / name)
+        except NotImplementedError as e:
+            not_ported.append((cell_name, str(e)))
+            print(f"[NOT PORTED] {name} {cell_name}: {e}", flush=True)
+            continue
+        except Exception as e:  # noqa: BLE001  (one cell's fault is reported)
+            traceback.print_exc()
+            failures.append((f"{name} {cell_name}", repr(e)))
+            print(f"[FAIL] {name} {cell_name}: {e!r}", flush=True)
+            continue
+        records.append(rec)
+        print(f"[OK] {summary_line(rec)}  (counted, not measured)",
+              flush=True)
+    return records, failures, not_ported
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", choices=("meta", "cuda"), default="meta")
+    ap.add_argument("--mesh", choices=("single", "multi", "both"),
+                    default=None, help="count on repro's production "
+                    "meshes (meta only)")
     ap.add_argument("--only", default=None,
                     help="substring filter on <arch>__<shape>")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=OUT_DIR)
     args = ap.parse_args(argv)
+    if args.mesh is not None and args.device != "meta":
+        print("dryrun: --mesh counts on meta only; --device cuda runs one "
+              "card", file=sys.stderr)
+        return 2
+    not_ported = []
     try:
-        records, failures = run(args.device, args.only, args.seed,
-                                args.out)
+        if args.mesh is None:
+            records, failures = run(args.device, args.only, args.seed,
+                                    args.out)
+        else:
+            records, failures = [], []
+            for multi in {"single": (False,), "multi": (True,),
+                          "both": (False, True)}[args.mesh]:
+                r, f, n = run_mesh(multi, args.only, args.out)
+                records += r
+                failures += f
+                not_ported += n
     except RuntimeError as e:
         print(f"dryrun: {e}", file=sys.stderr)
         return 2
-    print(f"\n{len(records)} cells OK, {len(failures)} failed")
+    print(f"\n{len(records)} cells OK, {len(failures)} failed"
+          + (f", {len(not_ported)} not ported on a mesh" if not_ported
+             else ""))
     for name, err in failures:
         print("FAILED:", name, err)
+    for name, why in not_ported:
+        print("NOT PORTED:", name, why)
     return 1 if failures else 0
 
 

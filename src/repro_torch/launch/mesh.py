@@ -29,12 +29,19 @@ from repro_torch.optim.optimizers import tree_map
 P = PartitionSpec
 
 
-def make_production_mesh(*, multi_pod: bool = False,
+MESH_NAMES = {False: "pod16x16", True: "multipod2x16x16"}
+
+
+def make_production_mesh(*, multi_pod: bool = False, counting: bool = False,
                          device_type: str = "cuda") -> comm.Mesh:
     """16 x 16 (data, model) for one pod; 2 x 16 x 16 (pod, data, model)
-    for two.  Raises unless the group has exactly that many ranks."""
+    for two.  Raises unless the group has exactly that many ranks; with
+    ``counting``, a :class:`~repro_torch.distributed.comm.CountingMesh`
+    of that layout at rank 0 (no group: it counts on ``meta``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if counting:
+        return comm.CountingMesh(shape, axes)
     return comm.Mesh(shape, axes, device_type)
 
 
@@ -92,15 +99,20 @@ def lm_state_specs(b: tfm.BuiltLM) -> list:
     return [ps, [ps, ps, P()], P()]
 
 
-def shard_lm(model: tfm.LM, mesh: comm.Mesh) -> tfm.LM:
+def shard_lm(model: tfm.LM, mesh: comm.Mesh, specs: dict | None = None
+             ) -> tfm.LM:
     """This rank's :class:`~repro_torch.models.transformer.LM` on ``mesh``
     from a whole one (every rank holding the same): each parameter's
-    slice (``named_param_specs``), copied, so the whole model can be
-    freed."""
-    specs = tfm.named_param_specs(model.b)
+    slice by the spec tree ``specs`` (default ``param_specs``; a
+    pipeline stage's ``stage_layer_specs``, whose layer axis
+    :func:`~repro_torch.models.pipeline.keep_stage_layers` then cuts),
+    copied, so the whole model can be freed."""
+    out = tfm.LM(model.b, device="meta", dtype=model.embed.dtype, mesh=mesh,
+                 specs=specs)
     whole = {k: p.detach() for k, p in model.named_parameters()}
-    local = {k: v.clone() for k, v in shard_tree(whole, specs, mesh).items()}
-    out = tfm.LM(model.b, device="meta", dtype=model.embed.dtype, mesh=mesh)
+    local = {k: v.clone() for k, v in shard_tree(
+        whole, {k: s for k, s in out.named_specs().items() if k in whole},
+        mesh).items()}
     out.load_state_dict(local, assign=True)
     for p in out.parameters():
         p.requires_grad_(False)
@@ -110,9 +122,9 @@ def shard_lm(model: tfm.LM, mesh: comm.Mesh) -> tfm.LM:
 def gather_lm(model: tfm.LM) -> dict:
     """Every parameter of a rank's model whole, by name (every rank takes
     part)."""
-    specs = tfm.named_param_specs(model.b)
+    specs = model.named_specs()
     local = {k: p.detach() for k, p in model.named_parameters()}
-    return gather_tree(local, specs, model.mesh)
+    return gather_tree(local, {k: specs[k] for k in local}, model.mesh)
 
 
 def data_rows(x: torch.Tensor, mesh: comm.Mesh) -> torch.Tensor:

@@ -37,7 +37,7 @@ from repro_torch.distributed import comm
 from repro_torch.distributed.fault import block_until_ready
 from repro_torch.models import kvcache
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import FSDP, TP, mesh_axes, mesh_sizes
+from repro_torch.models.common import TP, mesh_axes, mesh_sizes
 from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
                                adamw_update, global_norm)
 from repro_torch.optim import reduce_replicated as optim_reduce_replicated
@@ -98,7 +98,7 @@ def train_state_tree(state: TrainState) -> list:
     count], step]``, each of params, mu and nu ``repro``'s param tree
     (keys sorted on flattening, layers stacked).  Its leaves alias the
     state's tensors."""
-    n = state.model.cfg.n_layers
+    n = len(state.model.layers)    # a pipeline stage holds its own
     params = {k: p.detach() for k, p in state.model.named_parameters()}
     return [_repro_tree(params, n),
             [_repro_tree(state.opt.mu, n), _repro_tree(state.opt.nu, n),
@@ -188,10 +188,11 @@ def chunked_ce(model: tfm.LM, hidden: torch.Tensor, labels: torch.Tensor,
                 labels[:, i * chunk:(i + 1) * chunk])
         total = total + (checkpoint(_chunk_ce, *args, use_reentrant=False)
                          if torch.is_grad_enabled() else _chunk_ce(*args))
-    data = mesh_axes(model.mesh, FSDP)
+    data = model.data_axes
     if data:
         total = comm.psum(total, data, mesh=model.mesh)
-    return total / (bsz * mesh_sizes(model.mesh)[0] * s)
+        bsz *= model.mesh.axis_size(data)
+    return total / (bsz * s)
 
 
 def lm_loss(model: tfm.LM, batch: dict, attn_impl: str = "auto",
@@ -239,7 +240,7 @@ def reduce_replicated(model: tfm.LM, grads: dict) -> dict:
     the same on every rank)."""
     if model.mesh is None:
         return grads
-    specs = tfm.named_param_specs(model.b)
+    specs = model.named_specs(stacked=True)
     out = optim_reduce_replicated(grads, {n: specs[n] for n in grads},
                                   model.mesh)
     return {n: out[n] for n in grads}
@@ -251,7 +252,8 @@ def grad_norm(model: tfm.LM, grads: dict) -> torch.Tensor:
     a replicated leaf counted once."""
     if model.mesh is None:
         return global_norm(grads)
-    return global_norm(grads, tfm.named_param_specs(model.b), model.mesh)
+    specs = model.named_specs(stacked=True)
+    return global_norm(grads, {n: specs[n] for n in grads}, model.mesh)
 
 
 def loss_and_grads(model: tfm.LM, batch: dict, attn_impl: str = "auto",
@@ -394,15 +396,17 @@ def make_prefill_step(attn_impl: str = "auto"):
     return prefill
 
 
-def make_decode_step(attn_impl: str = "auto"):
+def make_decode_step(attn_impl: str = "auto", seq_axes=TP):
     """decode(model, cache, tokens [B, 1]) -> (next_token [B, 1], cache):
     one step of greedy decode (:func:`greedy_token`); the cache is updated
-    in place."""
+    in place.  On a mesh the cache's sequence is split over ``seq_axes``
+    (:func:`~repro_torch.models.transformer.decode_layout`)."""
 
     @torch.no_grad()
     def decode(model: tfm.LM, cache: dict, tokens: torch.Tensor):
         with _scope(model):
-            logits, cache = model.decode_step(cache, tokens, attn_impl)
+            logits, cache = model.decode_step(cache, tokens, attn_impl,
+                                              seq_axes)
             next_tok = greedy_token(model, logits[:, -1])
         return next_tok[:, None], cache
 

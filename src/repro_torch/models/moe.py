@@ -168,9 +168,12 @@ def moe_local(params: dict, x: torch.Tensor, spec: MoESpec, n_real: int):
     return y.to(x.dtype), _aux(probs, ids, logits, e_pad, keep)
 
 
-def _mesh_axes(mesh: comm.Mesh) -> tuple[tuple[str, ...], tuple[str, ...]]:
-    """(the FSDP axes, the expert axes) the mesh has."""
-    return mesh_axes(mesh, FSDP), mesh_axes(mesh, TP)
+def _mesh_axes(mesh: comm.Mesh, fsdp=None
+               ) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(the FSDP axes, the expert axes) the mesh has; ``fsdp``: the FSDP
+    axes of the spec the weights were cut by (default :data:`FSDP`)."""
+    return mesh_axes(mesh, FSDP if fsdp is None else fsdp), \
+        mesh_axes(mesh, TP)
 
 
 def _gather_experts(params: dict, fsdp: tuple, mesh: comm.Mesh):
@@ -184,12 +187,12 @@ def _gather_experts(params: dict, fsdp: tuple, mesh: comm.Mesh):
 
 
 def _moe_sharded(params: dict, x_loc3: torch.Tensor, spec: MoESpec,
-                 n_real: int, mesh: comm.Mesh):
+                 n_real: int, mesh: comm.Mesh, fsdp=None):
     """``repro``'s ``_moe_sharded`` block on this rank: ``params`` this
     rank's slices (:data:`PARAM_SPECS`), ``x_loc3`` its block [B / fsdp,
     S / tp, D] of x.  Returns (y block, aux, (ids, slot, keep)), the aux
-    pmean'd over every axis."""
-    fsdp, tp = _mesh_axes(mesh)
+    pmean'd over the FSDP and expert axes."""
+    fsdp, tp = _mesh_axes(mesh, fsdp)
     e_pad = params["router"].shape[1]
     b_loc, s_loc, d = x_loc3.shape
     x_loc = x_loc3.reshape(b_loc * s_loc, d)
@@ -275,14 +278,14 @@ def _routing_weights(router, x, spec: MoESpec, n_real: int, e_pad: int,
 
 def _moe_dense_all(params: dict, x: torch.Tensor, spec: MoESpec,
                    n_real: int, mesh: comm.Mesh, token_axes=(),
-                   reduce: bool = True):
+                   reduce: bool = True, fsdp=None):
     """``repro``'s ``_moe_dense_all`` on this rank: x [T, D] the same on
     every rank of ``model`` (by default on every rank; ``token_axes``:
     the data axes its tokens are split over), ``params`` this rank's
     slices; this rank's experts on every token, summed over ``model``
     (with ``reduce=False`` left unsummed, in x's dtype, for the caller to
     reduce).  Returns (y [T, D], aux)."""
-    fsdp, tp = _mesh_axes(mesh)
+    fsdp, tp = _mesh_axes(mesh, fsdp)
     e_pad = params["router"].shape[1]
     wg, wu, wd = _gather_experts(params, fsdp, mesh)
     w_te, aux = _routing_weights(params["router"], x, spec, n_real, e_pad,
@@ -309,13 +312,14 @@ def moe_dense_all_twin(params: dict, x: torch.Tensor, spec: MoESpec,
     return torch.stack(parts).sum(0).to(x.dtype), aux
 
 
-def dispatch_kind(b: int, s: int, mesh: comm.Mesh | None) -> str:
+def dispatch_kind(b: int, s: int, mesh: comm.Mesh | None,
+                  fsdp=None) -> str:
     """``repro``'s ``moe_ffn`` rule: "local" without a mesh; "sharded" when
     ``b * s >= 4096``, the FSDP size divides ``b`` and the expert-axis
     size divides ``s``; else "dense_all"."""
     if mesh is None:
         return "local"
-    fsdp, tp = _mesh_axes(mesh)
+    fsdp, tp = _mesh_axes(mesh, fsdp)
     n_fsdp = math.prod(mesh.shape[a] for a in fsdp)
     n_tp = math.prod(mesh.shape[a] for a in tp)
     if b * s >= 4096 and b % n_fsdp == 0 and s % n_tp == 0:
@@ -325,7 +329,8 @@ def dispatch_kind(b: int, s: int, mesh: comm.Mesh | None) -> str:
 
 def moe_block(params: dict, x: torch.Tensor, spec: MoESpec,
               n_experts_real: int, mesh: comm.Mesh | None,
-              seq_parallel: bool = False) -> tuple[torch.Tensor, dict]:
+              seq_parallel: bool = False, fsdp=None
+              ) -> tuple[torch.Tensor, dict]:
     """The MoE FFN of this rank's block of x: [B / fsdp, S / tp (with
     ``seq_parallel``) or S, D] -> (y in the same block, aux).  Without a
     mesh, x is the whole batch.  On ``mesh`` the path is
@@ -334,12 +339,13 @@ def moe_block(params: dict, x: torch.Tensor, spec: MoESpec,
     residual is not split on it, and y gathered back); "dense_all" runs
     :func:`_moe_dense_all` on every position (gathered here under
     ``seq_parallel``) and sums y over ``model`` (reduce-scattered onto the
-    block under ``seq_parallel``)."""
+    block under ``seq_parallel``).  ``fsdp``: the axes the experts'
+    d_model and x's rows are split over (default :data:`FSDP`'s)."""
     b, s, d = x.shape
     if mesh is None:
         y, aux = moe_local(params, x.reshape(b * s, d), spec, n_experts_real)
         return y.reshape(b, s, d), aux
-    fsdp, tp = _mesh_axes(mesh)
+    fsdp, tp = _mesh_axes(mesh, fsdp)
     n_tp = mesh.axis_size(tp)
     e_pad = params["router"].shape[1]
     if params["w_gate"].shape[0] * n_tp != e_pad:
@@ -348,24 +354,24 @@ def moe_block(params: dict, x: torch.Tensor, spec: MoESpec,
             f"(PARAM_SPECS): {params['w_gate'].shape[0]} experts of "
             f"{e_pad} on {n_tp} expert ranks")
     s_all = s * n_tp if seq_parallel else s
-    kind = dispatch_kind(b * mesh.axis_size(fsdp), s_all, mesh)
+    kind = dispatch_kind(b * mesh.axis_size(fsdp), s_all, mesh, fsdp)
     if kind == "dense_all":
         if seq_parallel and tp:
             x = comm.all_gather(x, tp, dim=1, tiled=True, mesh=mesh)
         y, aux = _moe_dense_all(params, x.reshape(b * s_all, d), spec,
                                 n_experts_real, mesh, token_axes=fsdp,
-                                reduce=False)
+                                reduce=False, fsdp=fsdp)
         y = y.reshape(b, s_all, d)
         if tp:
             y = comm.reduce_scatter(y, tp, dim=1, mesh=mesh) if \
                 seq_parallel else comm.psum(y, tp, mesh=mesh)
         return y, aux
     if seq_parallel:
-        y, aux, _ = _moe_sharded(params, x, spec, n_experts_real, mesh)
+        y, aux, _ = _moe_sharded(params, x, spec, n_experts_real, mesh, fsdp)
         return y, aux
     sl, tj = s // n_tp, mesh.axis_index(tp)
     y, aux, _ = _moe_sharded(params, x[:, tj * sl:(tj + 1) * sl], spec,
-                             n_experts_real, mesh)
+                             n_experts_real, mesh, fsdp)
     if tp:
         y = comm.all_gather(y, tp, dim=1, tiled=True, mesh=mesh)
     return y, aux

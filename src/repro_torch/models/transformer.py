@@ -25,9 +25,11 @@ mesh (:func:`named_param_specs`; :func:`repro_torch.launch.mesh.shard_lm`
 cuts a whole model), and the collectives that XLA derives from
 ``repro``'s ``constrain`` calls are explicit (Megatron's schedule):
 
-- FSDP: a weight split over the data axes on its ``FSDP`` dimension is
-  all-gathered before use; its gradient comes back reduce-scattered (the
-  all-gather's transpose);
+- FSDP: a weight split over data axes on its ``FSDP`` dimension is
+  all-gathered over the axes its own spec names (``pod`` and ``data`` by
+  :func:`param_specs`, ``data`` alone on a pipeline stage cut by
+  ``pipeline.stage_layer_specs``) before use; its gradient comes back
+  reduce-scattered (the all-gather's transpose);
 - attention: each rank's q heads (and its KV heads when they are split;
   else the replicated KV heads its q heads read), ``out @ wo`` summed over
   ``model``; the dense FFN: ``d_ff`` split over ``model``, ``h @ w_down``
@@ -153,24 +155,30 @@ def param_specs(b: BuiltLM) -> dict:
     return specs
 
 
-def _layer_specs(b: BuiltLM) -> dict:
-    """One layer's specs keyed as its parameters (``moe.*`` for the
-    experts), the stacking dimension dropped."""
+def _layer_specs(layers: dict, stacked: bool = False) -> dict:
+    """One layer's specs from a spec tree's ``layers`` entry, keyed as its
+    parameters (``moe.*`` for the experts): the stacking dimension dropped,
+    or with ``stacked`` kept (the stacked leaf's spec, which names the
+    axes the layer axis is split over as well)."""
     out = {}
-    for key, spec in param_specs(b)["layers"].items():
-        if key == "moe":
-            out.update({f"moe.{k}": P(*s[1:]) for k, s in spec.items()})
-        else:
-            out[key] = P(*spec[1:])
+    for key, spec in layers.items():
+        sub = spec.items() if key == "moe" else ((None, spec),)
+        for name, s in sub:
+            out[key if name is None else f"moe.{name}"] = (
+                s if stacked else P(*s[1:]))
     return out
 
 
-def named_param_specs(b: BuiltLM) -> dict:
-    """:func:`param_specs` keyed as ``LM.named_parameters()``."""
-    top = param_specs(b)
+def named_param_specs(b: BuiltLM, specs: dict | None = None,
+                      stacked: bool = False) -> dict:
+    """A spec tree (default :func:`param_specs`) keyed as
+    ``LM.named_parameters()``; a layer's specs as :func:`_layer_specs`
+    gives them (``stacked``: each the stacked leaf's)."""
+    top = specs if specs is not None else param_specs(b)
     out = {k: v for k, v in top.items() if k != "layers"}
+    layer = _layer_specs(top["layers"], stacked)
     for i in range(b.cfg.n_layers):
-        out.update({f"layers.{i}.{k}": s for k, s in _layer_specs(b).items()})
+        out.update({f"layers.{i}.{k}": s for k, s in layer.items()})
     return out
 
 
@@ -264,18 +272,21 @@ def _kv_pick(b: BuiltLM, mesh):
 class MoE(nn.Module):
     """A layer's experts and router (``repro``'s ``layers/moe/*`` keys),
     ``b.e_pad`` experts of which the config's are real; the router is f32
-    whatever the model's dtype.  On a mesh this rank's slice
-    (:data:`~repro_torch.models.moe.PARAM_SPECS`)."""
+    whatever the model's dtype.  On a mesh this rank's slice by ``specs``
+    (a layer's, by name; default
+    :data:`~repro_torch.models.moe.PARAM_SPECS`), whose ``w_gate`` entry
+    names the FSDP axes the experts are gathered over."""
 
     def __init__(self, b: BuiltLM, dtype: torch.dtype, device: torch.device,
-                 mesh=None):
+                 mesh=None, specs: dict | None = None):
         super().__init__()
         self.spec, self.mesh = b.cfg.moe, mesh
+        specs = specs if specs is not None else moe_lib.PARAM_SPECS
+        self.fsdp = mesh_axes(mesh, entry_axes(specs["w_gate"][1]))
         shapes = moe_lib.param_shapes(b.cfg.d_model, self.spec, b.e_pad)
         for name, shape in shapes.items():
             setattr(self, name, _param(
-                local_shape(shape, moe_lib.PARAM_SPECS[name],
-                            axis_sizes(mesh)),
+                local_shape(shape, specs[name], axis_sizes(mesh)),
                 torch.float32 if name == "router" else dtype, device))
 
     def forward(self, x: torch.Tensor, sp: bool = False
@@ -284,7 +295,7 @@ class MoE(nn.Module):
         ``sp``) -> (y in the same block, aux)."""
         params = {name: getattr(self, name) for name in moe_lib.PARAMS}
         return moe_lib.moe_block(params, x, self.spec, self.spec.n_experts,
-                                 self.mesh, seq_parallel=sp)
+                                 self.mesh, seq_parallel=sp, fsdp=self.fsdp)
 
 
 class Block(nn.Module):
@@ -293,16 +304,19 @@ class Block(nn.Module):
     ``repro``'s layer keys; on a mesh each is this rank's slice."""
 
     def __init__(self, b: BuiltLM, dtype: torch.dtype, device: torch.device,
-                 mesh=None):
+                 mesh=None, specs: dict | None = None):
         super().__init__()
         self.b, self.cfg, self.mesh = b, b.cfg, mesh
-        self.specs = _layer_specs(b)
+        self.specs = specs if specs is not None else _layer_specs(
+            param_specs(b)["layers"])
         for name, shape in _layer_shapes(b).items():
             setattr(self, name, _param(
                 local_shape(shape, self.specs[name], axis_sizes(mesh)),
                 dtype, device))
         if b.cfg.moe is not None:
-            self.moe = MoE(b, dtype, device, mesh)
+            self.moe = MoE(b, dtype, device, mesh, {
+                k[len("moe."):]: v for k, v in self.specs.items()
+                if k.startswith("moe.")})
         self.kv_pick = _kv_pick(b, mesh) if mesh is not None else None
 
     def _w(self, name: str) -> torch.Tensor:
@@ -347,18 +361,20 @@ class Block(nn.Module):
         j = self.mesh.axis_index(mesh_axes(self.mesh, TP))
         return out[:, :, j * n_local:(j + 1) * n_local]
 
-    def _decode_split(self, q, k, v, cache_kv, pos: int) -> torch.Tensor:
+    def _decode_split(self, q, k, v, cache_kv, pos: int, seq_axes
+                      ) -> torch.Tensor:
         """Attention of this step's queries over a cache split on the
-        sequence over ``model`` ([B, Smax / tp, Hkv, Dh] here): the owner
-        of each new position writes its K/V (every KV head), every rank
-        attends over its own positions with every q head, each row's max
-        and sum reduced across ``model`` before its probabilities round
-        (:func:`decode_split`).  Returns this rank's heads' output."""
+        sequence over ``seq_axes`` ([B, Smax / n, Hkv, Dh] here): the
+        owner of each new position writes its K/V (every KV head), every
+        rank attends over its own positions with every q head, each row's
+        max and sum reduced across ``seq_axes`` before its probabilities
+        round (:func:`decode_split`).  Returns this rank's heads'
+        output."""
         b, mesh = self.b, self.mesh
-        tp = mesh_axes(mesh, TP)
+        seq = mesh_axes(mesh, seq_axes)
         k_cache, v_cache = cache_kv
         c, s = k_cache.shape[1], q.shape[1]
-        lo = mesh.axis_index(tp) * c if tp else 0
+        lo = mesh.axis_index(seq) * c if seq else 0
         k = self._all_heads(k, b.n_kv_heads_p)
         v = self._all_heads(v, b.n_kv_heads_p)
         a, z = max(pos, lo), min(pos + s, lo + c)
@@ -366,14 +382,15 @@ class Block(nn.Module):
             k_cache[:, a - lo:z - lo] = k[:, a - pos:z - pos]
             v_cache[:, a - lo:z - lo] = v[:, a - pos:z - pos]
         out = decode_split(self._all_heads(q, b.n_heads_p), k_cache, v_cache,
-                           q_offset=pos, k_offset=lo, axes=tp, mesh=mesh)
+                           q_offset=pos, k_offset=lo, axes=seq, mesh=mesh)
         return self._my_heads(out, q.shape[2])
 
-    def _attn(self, x, positions, cache_kv, cache_pos, attn_impl):
+    def _attn(self, x, positions, cache_kv, cache_pos, attn_impl,
+              seq_axes=TP):
         bsz, s, _ = x.shape
         q, k, v = self._qkv(x, positions)
         if cache_kv is not None and self.mesh is not None:
-            out = self._decode_split(q, k, v, cache_kv, cache_pos)
+            out = self._decode_split(q, k, v, cache_kv, cache_pos, seq_axes)
             new_kv = cache_kv
         elif cache_kv is not None:
             k_cache, v_cache = cache_kv
@@ -399,16 +416,17 @@ class Block(nn.Module):
         return _to_residual(y, self.mesh, sp), {}
 
     def forward(self, x, positions, cache_kv=None, cache_pos: int = 0,
-                attn_impl: str = "auto", sp: bool = False):
+                attn_impl: str = "auto", sp: bool = False, seq_axes=TP):
         """x [B, S, D] (split on the sequence over ``model`` with ``sp``)
         -> (x, (k, v), aux); with ``cache_kv`` = (k_cache, v_cache) [B,
-        Smax, Hkv, Dh] (on a mesh this rank's positions) this step's K/V
-        are written into the caches in place at ``cache_pos``.  ``aux`` is
-        the MoE layer's (``{}`` for a dense one)."""
+        Smax, Hkv, Dh] (on a mesh this rank's positions over
+        ``seq_axes``) this step's K/V are written into the caches in place
+        at ``cache_pos``.  ``aux`` is the MoE layer's (``{}`` for a dense
+        one)."""
         eps = self.cfg.norm_eps
         h = _from_residual(rms_norm(x, self.attn_norm, eps), self.mesh, sp)
         attn_out, new_kv = self._attn(h, positions, cache_kv, cache_pos,
-                                      attn_impl)
+                                      attn_impl, seq_axes)
         x = x + _to_residual(attn_out, self.mesh, sp)
         ffn_out, aux = self._ffn(rms_norm(x, self.ffn_norm, eps), sp)
         return x + ffn_out, new_kv, aux
@@ -448,29 +466,48 @@ class Block(nn.Module):
 class LM(nn.Module):
     """Embedding, ``n_layers`` :class:`Block` s, final norm, head, at the
     padded dimensions of a :class:`BuiltLM` (a config: ``tp=1``).  With
-    ``mesh`` each parameter is this rank's slice and the forward runs the
-    collectives; without, the model is whole in one process.  The
+    ``mesh`` each parameter is this rank's slice by ``specs``, a spec tree
+    in ``repro``'s layout (default :func:`param_specs`;
+    :func:`repro_torch.models.pipeline.stage_layer_specs` for a pipeline
+    stage), and the forward runs the collectives; without, the model is
+    whole in one process.  The tree chooses the axes: each weight is
+    gathered over the data axes of its own spec, and the batch's data
+    axes (:attr:`data_axes`) are the embedding's FSDP entry's.  The
     parameters are allocated, not initialised: use :func:`init_lm`,
     ``load_state_dict`` or :func:`repro_torch.launch.mesh.shard_lm`."""
 
     def __init__(self, cfg: LMConfig | BuiltLM,
                  device: str | torch.device | None = None,
-                 dtype: torch.dtype | None = None, mesh=None):
+                 dtype: torch.dtype | None = None, mesh=None,
+                 specs: dict | None = None):
         super().__init__()
         b = as_built(cfg)
         cfg = b.cfg
         dev = resolve_device(device)
         dtype = dtype or DTYPES[cfg.param_dtype]
         self.b, self.cfg, self.mesh = b, cfg, mesh
-        specs, sizes = param_specs(b), axis_sizes(mesh)
+        self.specs = specs if specs is not None else param_specs(b)
+        specs, sizes = self.specs, axis_sizes(mesh)
         self.embed = _param(local_shape((b.vocab_p, cfg.d_model),
                                         specs["embed"], sizes), dtype, dev)
         self.final_norm = _param((cfg.d_model,), dtype, dev)
         if not cfg.tie_embeddings:
             self.head = _param(local_shape((cfg.d_model, b.vocab_p),
                                            specs["head"], sizes), dtype, dev)
-        self.layers = nn.ModuleList(Block(b, dtype, dev, mesh)
+        layer = _layer_specs(specs["layers"])
+        self.layers = nn.ModuleList(Block(b, dtype, dev, mesh, layer)
                                     for _ in range(cfg.n_layers))
+
+    @property
+    def data_axes(self) -> tuple[str, ...]:
+        """The mesh axes the batch's rows are split over: those of the
+        embedding's FSDP entry (``pod`` and ``data``, or ``data`` alone on
+        a pipeline stage); ``()`` without a mesh."""
+        return mesh_axes(self.mesh, entry_axes(self.specs["embed"][1]))
+
+    def named_specs(self, stacked: bool = False) -> dict:
+        """:func:`named_param_specs` of this model's spec tree."""
+        return named_param_specs(self.b, self.specs, stacked)
 
     def vocab_offset(self) -> int:
         """The first vocabulary entry of this rank's slice."""
@@ -484,7 +521,7 @@ class LM(nn.Module):
         """tokens [B, S] -> the residual [B, S, D] (its sequence block with
         ``sp``): each rank looks up the ids among its rows of the table,
         zero elsewhere, and the rows are summed over ``model``."""
-        table = gathered(self.embed, P(TP, FSDP), self.mesh)
+        table = gathered(self.embed, self.specs["embed"], self.mesh)
         if not mesh_axes(self.mesh, TP):
             return F.embedding(tokens, table)
         rows = table.shape[0]
@@ -539,33 +576,39 @@ class LM(nn.Module):
         """hidden [..., D] -> f32 logits [..., vocab_p] (on a mesh this
         rank's slice of the vocabulary, from :meth:`vocab_offset`)."""
         if self.cfg.tie_embeddings:
-            head = gathered(self.embed, P(TP, FSDP), self.mesh).T
+            head = gathered(self.embed, self.specs["embed"], self.mesh).T
         else:
-            head = gathered(self.head, P(FSDP, TP), self.mesh)
+            head = gathered(self.head, self.specs["head"], self.mesh)
         return (x @ head.to(x.dtype)).float()
 
-    def _positions(self, cache: dict, key: str) -> int:
+    def _positions(self, cache: dict, key: str, seq_axes=TP) -> int:
         """The cache's length (every rank's positions together)."""
-        return cache[key].shape[2] * mesh_sizes(self.mesh)[1]
+        if self.mesh is None:
+            return cache[key].shape[2]
+        return cache[key].shape[2] * self.mesh.axis_size(
+            mesh_axes(self.mesh, seq_axes))
 
     def decode_step(self, cache: dict, tokens: torch.Tensor,
-                    attn_impl: str = "auto") -> tuple[torch.Tensor, dict]:
+                    attn_impl: str = "auto", seq_axes=TP
+                    ) -> tuple[torch.Tensor, dict]:
         """One-token decode: tokens [B, 1] + cache -> (logits [B, 1, V],
         cache).  The token's K/V go into ``cache["k"]``/``cache["v"]`` in
         place (``repro`` returns new arrays); ``pos`` advances by one.  On
-        a mesh the cache is :func:`cache_specs`' (this rank's positions)
-        and the logits this rank's vocabulary slice."""
+        a mesh the cache is :func:`cache_specs`' with its sequence over
+        ``seq_axes`` (this rank's positions; :func:`decode_layout`) and
+        the logits this rank's vocabulary slice."""
         pos = int(cache["pos"])
-        if pos >= self._positions(cache, "k"):
+        if pos >= self._positions(cache, "k", seq_axes):
             raise ValueError(f"KV cache full: position {pos} of "
-                             f"{self._positions(cache, 'k')}")
+                             f"{self._positions(cache, 'k', seq_axes)}")
         bsz = tokens.shape[0]
         positions = torch.full((bsz, 1), pos, device=tokens.device)
         x = self._embed(tokens, False)
         for i, layer in enumerate(self.layers):
             x, _, _ = layer(x, positions,
                             cache_kv=(cache["k"][i], cache["v"][i]),
-                            cache_pos=pos, attn_impl=attn_impl)
+                            cache_pos=pos, attn_impl=attn_impl,
+                            seq_axes=seq_axes)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self.unembed(x), {"k": cache["k"], "v": cache["v"],
                                  "pos": pos + 1}
@@ -649,26 +692,41 @@ def init_lm(cfg: LMConfig | BuiltLM, generator: torch.Generator) -> LM:
     return model
 
 
-def cache_specs(b: BuiltLM, decode_seq_shard: bool = True) -> dict:
+def cache_specs(b: BuiltLM, decode_seq_shard: bool = True,
+                seq_axes=TP, batch_axes=FSDP) -> dict:
     """KV cache shardings (``repro``'s): decode shapes split the sequence
-    axis over ``model`` (the flash-decoding layout), since KV heads are
-    few; else the KV heads, where they are split."""
-    seq = TP if decode_seq_shard else None
+    axis over ``seq_axes`` (the flash-decoding layout), since KV heads are
+    few; else the KV heads, where they are split.  The batch is split
+    over ``batch_axes`` (None: whole)."""
+    seq = seq_axes if decode_seq_shard else None
     kv_heads = None if decode_seq_shard else (TP if b.kv_sharded else None)
-    sp = P(None, ("pod", "data"), seq, kv_heads, None)
+    sp = P(None, batch_axes, seq, kv_heads, None)
     return {"k": sp, "v": sp, "pos": P()}
+
+
+def decode_layout(batch: int) -> tuple:
+    """``repro``'s decode cell layout of a batch of ``batch`` sequences:
+    (the batch's axes, the cache sequence's axes).  At 32 sequences or
+    more the batch is split over the data axes and the sequence over
+    ``model``; below, the batch is whole and the sequence is split over
+    ``("data", "model")``."""
+    if batch >= 32:
+        return FSDP, TP
+    return None, ("data", "model")
 
 
 def init_cache(cfg: LMConfig | BuiltLM, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: str | torch.device | None = None, mesh=None) -> dict:
+               device: str | torch.device | None = None, mesh=None,
+               seq_axes=TP, batch_axes=FSDP) -> dict:
     """A zero KV cache: k, v [L, batch, max_seq, Hkv, Dh] at the padded KV
     heads; pos 0.  On ``mesh``, this rank's slice of it
-    (:func:`cache_specs`: the batch over the data axes, the positions over
-    ``model``)."""
+    (:func:`cache_specs`: the batch over ``batch_axes``, the positions
+    over ``seq_axes``)."""
     b = as_built(cfg)
     shape = local_shape((b.cfg.n_layers, batch, max_seq, b.n_kv_heads_p,
-                         b.cfg.head_dim), cache_specs(b)["k"],
+                         b.cfg.head_dim),
+                        cache_specs(b, True, seq_axes, batch_axes)["k"],
                         axis_sizes(mesh))
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
