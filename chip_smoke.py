@@ -252,7 +252,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    0.5 GiB of the meta prediction, the FLOPs counted on the card equal to
    meta's, ``mfu`` and ``hbm_share`` at most 1.05; the DCN-v2 cells
    launch the grouped lookup (the kernels' counters set to 0 just before
-   the card's cells and read just after: ``accounting_launches``).
+   the card's cells and read just after: ``accounting_launches``).  Last,
+   the dense DKS cell's one-card superstep at ``ACCOUNTING_SEED``, every
+   state field's sha256 kept for phase 18's dense leg (:func:`dks_digest`).
 18. Several ranks (run before the kernels line) — each multi-rank path
    in ranks the phase spawns (``repro_torch.distributed.ranks.run_ranks``,
    ``RANKS_TIMEOUT_S`` a spawn, past which the ranks are killed and the
@@ -352,7 +354,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    collective bytes kind by kind, and op for op the device-memory traffic
    and FLOPs of every op that moves bytes or does FLOPs (so nothing of
    gloo's transport, its host staging included, is counted), printed with the wire bytes and the NVLink term beside
-   the step's ms (:func:`pp3_held`; the twin runs once, in the parent).  Each
+   the step's ms (:func:`pp3_held`; the twin runs once, in the parent).
+   The same leg then runs granite-moe-3b-a800m (``PP3_MOE_ARCH``) at full
+   width cut to 4 layers, its forward in f32 (granite's router turns
+   bf16's per-rank rounding into flipped picks) within 1e-4 x max of a
+   one-process twin whose MoE runs the mesh's dispatch
+   (:func:`mesh_dispatch`, one micro-batch's rows a call: ``_moe_dense_all``)
+   and routes as the ranks routed (:func:`routes_replayed`: f32 sums in
+   another order still flip a near tie now and then; where the twin's
+   own top-k differs, the ranks' pick must lie within ``NEAR_TIE`` of
+   its k-th probability), with the same step, parameter, launch and
+   count checks.  Last, the
+   dense DKS cell on a (data 2, model 2) mesh (``DENSE_MESH``,
+   :func:`rank_dense`): bluk-bnb at full size, each rank's arguments by
+   ``repro``'s in-specs from ``ACCOUNTING_SEED``'s draw (515 MB of ``S`` a
+   rank), one superstep under a ``count.Counter`` (the bytes each
+   collective moved a rank), the state gathered whole, and every field's
+   sha256 equal to phase 17's one-card superstep (:func:`dense_held`).  Each
    path prints world size, backend, the ops staged through host memory
    (``comm.staged_ops``: none under NCCL), ms and peak
    memory a rank beside the card's name and power limit; one card shared
@@ -376,6 +394,7 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -449,7 +468,7 @@ SMALL_SHARDED = (3001, 12000, 0.05)  # phase 12's small graph and its cap
 RANKS_DKS_WORLDS = (1, 2, 4)   # phase 18: 1 rank over NCCL, 2 and 4 over gloo
 RANKS_STEPWISE_WORLDS = (1, 4)  # of these, the ones that run the stepwise legs
 STEPWISE_LANES = 2          # the deadline legs' lanes: the bucket's first
-RANKS_TIMEOUT_S = 240       # each spawn of ranks: killed past it
+RANKS_TIMEOUT_S = 360       # each spawn of ranks: killed past it
 SERVE_CONFIG = {"max_batch": 8, "max_wait_ms": 50.0}  # phases 9 and 18's
 SWAP_CLIENTS = 2            # phase 18's client threads across the live swap
 SWAP_REQUESTS = 6           # requests served before the swap, and after it
@@ -465,6 +484,15 @@ PP3_LAYERS, PP3_TOKENS, PP3_STEP_TOKENS = 4, (4, 1024), (4, 128)
 PP3_TOL = 5e-2              # the bf16 hidden states, x max |twin|
 PP3_STEP_TOL = 1e-4         # loss, grad_norm (relative), params (x max)
 PP3_DIR = ROOT / "build" / "chip_smoke_ranks" / "pp3"   # the ranks' steps
+# The leg again with granite's MoE stages, its forward in f32: in bf16
+# granite's router turns each rank's rounding into flipped picks.
+PP3_MOE_ARCH, PP3_MOE_TOL = "granite-moe-3b-a800m", 1e-4
+# Its twin routes as the ranks routed; where its own top-k differs, the
+# ranks' worst pick must be within this share of its k-th probability
+# (f32 sums in another order: a near tie, not a fault).
+NEAR_TIE = 1e-5
+# The dense DKS cell's leg of the 4-rank spawn: bluk-bnb on (data, model).
+DENSE_MESH, DENSE_DATASET = ((2, 2), ("data", "model")), "bluk-bnb"
 TP_MESH = (1, 2)            # phase 18's tensor-parallel legs: (data, model)
 # ChatGLM3's tp leg: its prompts' rows (of phase 6's first request) and
 # teacher-forced bf16 / int8 decode steps, cut from 4 rows and 8 steps to
@@ -3405,11 +3433,29 @@ def accounting_phase(dev, card: str, meta: tuple, kernel_ops: dict
           f"the DCN-v2 cells launched the grouped lookup "
           f"{launches['embedding_bag']} times")
     (out / "cuda_records.json").write_text(json.dumps(records, indent=1))
+    # The dense DKS cell's one-card superstep, for phase 18's dense leg.
+    dense = next(c for c in cells if c.name == f"dks-{DENSE_DATASET}__"
+                 "superstep_dense_m4_k2")
+    fn, args = dense.build(dev, torch.Generator(dev).manual_seed(
+        ACCOUNTING_SEED))
+    digest = dks_digest(vars(fn(*args)))
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"  {len(records)} of {len(cells)} cells fit one card and ran on "
-        f"it; launches {launches}; the phase took "
+        f"it; launches {launches}; {dense.name}'s one-card superstep "
+        f"digested for phase 18; the phase took "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return {"launches": launches, "measured": len(records),
-            "cells": len(cells)}
+            "cells": len(cells), "dense_digest": digest}
+
+
+def dks_digest(fields: dict) -> dict:
+    """sha256 of every field of one DKS state, {name: tensor}."""
+    import hashlib
+
+    return {f: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
+            .hexdigest() for f, t in fields.items()}
 
 
 # --------------------------------------------------------------------------
@@ -3953,12 +3999,13 @@ def pp3_batch(cfg, device) -> dict:
     return {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
 
 
-def rank_pp3(device, cfg) -> dict:
+def rank_pp3(device, cfg, fwd_dtype: str = "bfloat16") -> dict:
     """GPipe on a (pod 2, data 1, model 2) mesh: ``cfg`` at full width cut
     to :data:`PP3_LAYERS` layers, built at ``tp=2``, this rank's slice by
-    ``stage_layer_specs``: a bf16 forward through the flash kernel (its
-    launches counted from 0 around the call), then one f32 train step at
-    AdamW's full lr under a ``count.Counter`` (:func:`count_of`)."""
+    ``stage_layer_specs``: a ``fwd_dtype`` forward through the flash
+    kernel (its launches counted from 0 around the call), then one f32
+    train step at AdamW's full lr under a ``count.Counter``
+    (:func:`count_of`)."""
     from repro_torch.analysis import count
     from repro_torch.distributed import comm
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -3983,11 +4030,12 @@ def rank_pp3(device, cfg) -> dict:
             torch.cuda.empty_cache()
         return pp.keep_stage_layers(model, stage, PP_STAGES)
 
-    model = stage_model("bfloat16")
-    clock["bf16 model"] = time.time()
+    model = stage_model(fwd_dtype)
+    clock[f"{fwd_dtype} model"] = time.time()
     toks = pp_tokens(cfg, PP3_TOKENS, device)
     reset_peak(device)
-    with torch.no_grad():
+    routed: list = []
+    with torch.no_grad(), routes_recorded(routed):
         fa_ops.counter.reset()
         sync(device)
         t0 = time.perf_counter()
@@ -3999,7 +4047,7 @@ def rank_pp3(device, cfg) -> dict:
         launches = fa_ops.launches
     out = {**rank_header(device), "coords": mesh.coords,
            "rank": comm.rank(), "launches": launches, "fwd_ms": fwd_ms,
-           "hidden": hidden.cpu()}
+           "hidden": hidden.cpu(), "routed": routed}
     clock["forward"] = time.time()
     del model, hidden
     model = stage_model("float32")
@@ -4017,7 +4065,7 @@ def rank_pp3(device, cfg) -> dict:
     clock["step"] = time.time()
     # The new parameters (about 2 GB a rank in f32) go to a file: through
     # the spawn's result pipe they took minutes on the card's host.
-    params = PP3_DIR / f"rank{comm.rank()}.pt"
+    params = PP3_DIR / f"{cfg.name}-rank{comm.rank()}.pt"
     params.parent.mkdir(parents=True, exist_ok=True)
     torch.save({k: p.detach() for k, p in state.model.named_parameters()},
                params)
@@ -4029,17 +4077,158 @@ def rank_pp3(device, cfg) -> dict:
     return out
 
 
-def rank_quad(device, graph, index, bucket, stepwise, serve, cfg) -> dict:
+@contextlib.contextmanager
+def routes_recorded(calls: list):
+    """Every MoE router call inside the block appends its ids [T, k] (on
+    the host) to ``calls``."""
+    from repro_torch.models import moe as moe_lib
+
+    route = moe_lib._route
+
+    def recording(router, x, spec, n_real, e_pad):
+        out = route(router, x, spec, n_real, e_pad)
+        calls.append(out[1].cpu())
+        return out
+
+    moe_lib._route = recording
+    try:
+        yield calls
+    finally:
+        moe_lib._route = route
+
+
+@contextlib.contextmanager
+def routes_replayed(next_ids, stats: dict):
+    """Every MoE router call inside the block routes to ``next_ids()``
+    [T, k] (another program's picks), its gates from its own
+    probabilities at them; ``stats`` counts the tokens whose own top-k
+    differs and keeps the worst relative gap between its k-th probability
+    and the replayed set's smallest."""
+    from repro_torch.models import moe as moe_lib
+
+    route = moe_lib._route
+
+    def replaying(router, x, spec, n_real, e_pad):
+        _, ids, probs, logits = route(router, x, spec, n_real, e_pad)
+        want = next_ids().to(ids.device)
+        differ = (ids.sort(dim=-1).values != want.sort(dim=-1).values
+                  ).any(dim=-1)
+        if bool(differ.any()):
+            kth = probs.gather(1, ids[:, -1:])[:, 0]
+            low = probs.gather(1, want).min(dim=-1).values
+            gap = ((kth - low) / kth)[differ]
+            stats["flips"] += int(differ.sum())
+            stats["gap"] = max(stats["gap"], float(gap.max()))
+        gate = probs.gather(1, want)
+        gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        return gate, want, probs, logits
+
+    moe_lib._route = replaying
+    try:
+        yield stats
+    finally:
+        moe_lib._route = route
+
+
+def rank_quad(device, graph, index, bucket, stepwise, serve, cfg,
+              moe_cfg) -> dict:
     """The 4-rank spawn: DKS (its stepwise and serving legs), then GPipe
-    on (pod 2, data 1, model 2)."""
+    on (pod 2, data 1, model 2) with ``cfg`` and with ``moe_cfg``'s MoE
+    stages, then the dense DKS cell on (data 2, model 2)."""
     out = {"dks": rank_dks(device, graph, index, bucket, stepwise, serve)}
+    for key, arch_cfg, dtype in (("pp3", cfg, "bfloat16"),
+                                 ("pp3_moe", moe_cfg, "float32")):
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[key] = rank_pp3(device, arch_cfg, dtype)
+        out[key]["leg_s"] = time.perf_counter() - t0
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out["pp3"] = rank_pp3(device, cfg)
-    out["pp3"]["leg_s"] = time.perf_counter() - t0
+    out["dense"] = rank_dense(device)
     return out
+
+
+def rank_dense(device) -> dict:
+    """The dense DKS cell (``DENSE_DATASET``, m = 4, K = 2) on a
+    ``DENSE_MESH`` mesh: this rank's arguments by ``repro``'s in-specs,
+    cut from phase 17's draw (``ACCOUNTING_SEED``), one superstep under a
+    ``count.Counter`` (the bytes each collective moved a rank), then the
+    state gathered whole; rank 0 returns its :func:`dks_digest`."""
+    from repro_torch.analysis import count
+    from repro_torch.core.dks import STATE_FIELDS
+    from repro_torch.distributed import comm
+    from repro_torch.launch import cells
+
+    t0 = time.perf_counter()
+    mesh = comm.Mesh(*DENSE_MESH, device.type)
+    fn, args = cells.dks_cell_dense(DENSE_DATASET, mesh=mesh).build(
+        device, torch.Generator(device).manual_seed(ACCOUNTING_SEED))
+    s_bytes = args[1].S.numel() * args[1].S.element_size()
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_peak(device)
+    sync(device)
+    t1 = time.perf_counter()
+    with count.Counter() as counter:
+        state = fn(*args)
+        sync(device)
+    t2 = time.perf_counter()
+    peak = peak_bytes(device)
+    del fn, args
+    whole = {f: comm.unshard(getattr(state, f), cells.DENSE_SPECS.get(
+        f, comm.PartitionSpec()), mesh) for f in STATE_FIELDS}
+    digest = dks_digest(whole) if comm.rank() == 0 else None
+    del state, whole
+    return {**rank_header(device), "rank": comm.rank(),
+            "coords": mesh.coords, "digest": digest, "ms": (t2 - t1) * 1e3,
+            "peak": peak, "s_bytes": s_bytes,
+            "collective_bytes": counter.summary().collective_bytes,
+            "build_s": t1 - t0, "gather_s": time.perf_counter() - t2,
+            "leg_s": time.perf_counter() - t0}
+
+
+def dense_held(card: str, outs: list, want: dict) -> None:
+    """:func:`rank_dense`'s ranks: the gathered state's digest against
+    phase 17's one-card superstep, field by field."""
+    got = outs[0]["digest"]
+    odd = [f for f in want if got[f] != want[f]]
+    check(not odd, f"the dense DKS cell on {DENSE_MESH}: fields {odd} "
+          f"differ from phase 17's one-card superstep")
+    kinds = outs[0]["collective_bytes"]
+    check(all(o["collective_bytes"] == kinds for o in outs),
+          f"the dense DKS cell on {DENSE_MESH}: the ranks' collective "
+          f"bytes differ: {[o['collective_bytes'] for o in outs]}")
+    ranks_line(f"dense DKS {DENSE_DATASET} (m 4, K 2) on (data, model) "
+               f"{DENSE_MESH[0]}", outs, card,
+               f"; {outs[0]['s_bytes'] / 1e6:.1f} MB of S a rank; one "
+               f"superstep with the counter on; bytes each collective "
+               f"moved a rank (GB, by kind) "
+               f"{ {k: round(v / 1e9, 4) for k, v in kinds.items()} }; "
+               f"every field's sha256 == phase 17's one-card superstep; "
+               f"build {max(o['build_s'] for o in outs):.1f} s, gather "
+               f"{max(o['gather_s'] for o in outs):.1f} s, leg "
+               f"{max(o['leg_s'] for o in outs):.1f} s a rank")
+
+
+def ranks_routes(outs: list, lps: int) -> dict:
+    """{(micro-batch, layer): the router ids} of :func:`rank_pp3`'s
+    forward, from the first ``model`` rank of each stage: its calls run
+    tick by tick, its ``lps`` layers each tick, and stage ``p`` holds
+    micro-batch ``tick - p`` (the ticks before and after are idle)."""
+    replay = {}
+    for o in outs:
+        if any(o["coords"][a] for a in ("data", "model")):
+            continue
+        p = o["coords"]["pod"]
+        for c, ids in enumerate(o["routed"]):
+            tick, j = divmod(c, lps)
+            if 0 <= tick - p < PP_MICRO:
+                replay[tick - p, p * lps + j] = ids
+    return replay
 
 
 def pp3_clock(outs: list, returned: float) -> str:
@@ -4052,17 +4241,20 @@ def pp3_clock(outs: list, returned: float) -> str:
         for a, b in zip(names, names[1:]):
             parts[b] = max(parts.get(b, 0.0), c[b] - c[a])
         last = max(last or 0.0, c[names[-1]])
-    parts["results to the parent"] = returned - last
+    parts["from its end to the spawn's return"] = returned - last
     return ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
 
 
-def pp3_held(dev, card: str, cfg, outs: list, returned: float) -> list:
+def pp3_held(dev, card: str, cfg, outs: list, returned: float,
+             fwd_dtype: str = "bfloat16", tol: float = PP3_TOL) -> list:
     """:func:`rank_pp3`'s ranks against the one-process twin at the same
-    padding, run once here: the bf16 hidden states, the flash launches,
-    the f32 step's loss, ``grad_norm`` and each rank's slice of the new
-    parameters (:func:`step_held`), and each rank's count of its step
-    against a ``CountingMesh``'s count of its stage's step on ``meta``.
-    Returns the ranks' flash launches."""
+    padding, run once here: the ``fwd_dtype`` hidden states (within
+    ``tol`` x max), the flash launches, the f32 step's loss,
+    ``grad_norm`` and each rank's slice of the new parameters
+    (:func:`step_held`), and each rank's count of its step against a
+    ``CountingMesh``'s count of its stage's step on ``meta``.  A MoE
+    twin runs the mesh's dispatch (:func:`mesh_dispatch`), one
+    micro-batch's rows a call.  Returns the ranks' flash launches."""
     from repro_torch.analysis import count
     from repro_torch.distributed import comm
     from repro_torch.launch.mesh import shard_tree
@@ -4075,19 +4267,38 @@ def pp3_held(dev, card: str, cfg, outs: list, returned: float) -> list:
     tp = dict(zip(PP3_MESH[1], PP3_MESH[0]))["model"]
     lps = PP3_LAYERS // PP_STAGES
     gen = lambda: torch.Generator(dev).manual_seed(LM_SEED)  # noqa: E731
-    # (a) the bf16 forward.
-    twin = tfm.init_lm(tfm.build(pp3_cfg(cfg, "bfloat16"), tp), gen())
+    def twin_of(b):
+        twin = tfm.init_lm(b, gen())
+        return mesh_dispatch(twin, tp) if cfg.moe is not None else twin
+
+    # (a) the forward; a MoE twin routes as the ranks routed.
+    twin = twin_of(tfm.build(pp3_cfg(cfg, fwd_dtype), tp))
     toks = pp_tokens(cfg, PP3_TOKENS, dev)
-    with torch.no_grad():
-        hidden, _, _ = twin(toks, attn_impl=PP_ATTN)
+    mb = PP3_TOKENS[0] // PP_MICRO
+    replay, ties = ranks_routes(outs, lps), {"flips": 0, "gap": 0.0}
+    order = iter(replay[t, layer] for t in range(PP_MICRO)
+                 for layer in range(PP3_LAYERS))
+    with torch.no_grad(), (routes_replayed(lambda: next(order), ties)
+                           if cfg.moe is not None
+                           else contextlib.nullcontext()):
+        hidden = torch.cat([twin(toks[i:i + mb], attn_impl=PP_ATTN)[0]
+                            for i in range(0, len(toks), mb)])
+    check(ties["gap"] <= NEAR_TIE, f"GPipe {cfg.name} on {PP3_MESH}: "
+          f"{ties['flips']} routed tokens differ from the twin's own "
+          f"top-k by up to {ties['gap']:.3g} of its k-th probability "
+          f"(a near tie is at most {NEAR_TIE})")
     scale = float(hidden.float().abs().max())
     err = max(max_abs_err(o["hidden"].to(dev).float(), hidden.float())
               for o in outs)
-    check(err <= PP3_TOL * scale, f"GPipe on {PP3_MESH}: hidden states "
-          f"differ from the twin by {err} > {PP3_TOL} x {scale}")
+    off = (outs[0]["hidden"].to(dev).float() - hidden.float()).abs().amax(
+        dim=-1) > tol * scale
+    check(err <= tol * scale, f"GPipe {cfg.name} on {PP3_MESH}: hidden "
+          f"states differ from the twin by {err} > {tol} x {scale} at "
+          f"{int(off.sum())} of {off.numel()} positions (first "
+          f"{off.nonzero()[:4].tolist()})")
     want = (PP_MICRO + PP_STAGES - 1) * lps
     launches = [o["launches"] for o in outs]
-    check(launches == [want] * len(outs), f"GPipe on {PP3_MESH}: flash "
+    check(launches == [want] * len(outs), f"GPipe {cfg.name} on {PP3_MESH}: flash "
           f"launches {launches}, want {want} a rank")
     del twin, hidden
     gc.collect()
@@ -4096,18 +4307,24 @@ def pp3_held(dev, card: str, cfg, outs: list, returned: float) -> list:
     # (b) one f32 step at AdamW's full lr.
     opt_cfg = AdamWConfig(**SMOKE_OPT)
     b = tfm.build(pp3_cfg(cfg, "float32"), tp)
-    twin = tfm.init_lm(b, gen())
+    twin = twin_of(b)
     state = lm_lib.init_train_state(twin)
     params = dict(twin.named_parameters())
     batch = pp3_batch(cfg, dev)
-    loss, grads, _ = lm_lib.loss_and_grads(twin, batch, "naive")
+    # The pipeline's objective: the cross entropy alone (no MoE aux loss).
+    hidden, _, _ = twin(batch["tokens"], attn_impl="naive")
+    loss = lm_lib.chunked_ce(twin, hidden, batch["labels"])
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    loss = loss.detach()
+    del hidden
     with torch.no_grad():
         _, _, m = adamw_update(opt_cfg, grads, state.opt, params)
     rel = {}
     for key, want_v in (("loss", float(loss)),
                         ("grad_norm", float(m["grad_norm"]))):
         rel[key] = max(abs(o[key] - want_v) / abs(want_v) for o in outs)
-        check(rel[key] <= PP3_STEP_TOL, f"GPipe on {PP3_MESH}: {key} "
+        check(rel[key] <= PP3_STEP_TOL, f"GPipe {cfg.name} on {PP3_MESH}: {key} "
               f"{[o[key] for o in outs]} against the twin's {want_v}")
     specs = tfm.named_param_specs(b, pp.stage_layer_specs(b))
     room, worst, strict = 0.0, "", []
@@ -4132,7 +4349,7 @@ def pp3_held(dev, card: str, cfg, outs: list, returned: float) -> list:
         strict.append(share)
         if r >= room:
             room, worst = r, f"rank {o['rank']} {names[i]}"
-    check(room <= 1.0, f"GPipe on {PP3_MESH}: the step's parameters "
+    check(room <= 1.0, f"GPipe {cfg.name} on {PP3_MESH}: the step's parameters "
           f"{room:.3g} x their bound from the twin's ({worst})")
     del twin, state, params, grads
     gc.collect()
@@ -4158,7 +4375,7 @@ def pp3_held(dev, card: str, cfg, outs: list, returned: float) -> list:
     for o in outs:
         got, want = o["count"], counted[o["coords"]["pod"]]
         check(got["collective_bytes"] == want["collective_bytes"],
-              f"GPipe on {PP3_MESH}: rank {o['rank']}'s counter counts "
+              f"GPipe {cfg.name} on {PP3_MESH}: rank {o['rank']}'s counter counts "
               f"{got['collective_bytes']}, the counting mesh "
               f"{want['collective_bytes']}")
         # Ops that move bytes or do FLOPs; allocation-only ops move
@@ -4169,24 +4386,28 @@ def pp3_held(dev, card: str, cfg, outs: list, returned: float) -> list:
                for k in set(moved[0]) | set(moved[1])
                if moved[0].get(k) != moved[1].get(k)}
         check(not odd and got["eager_bytes"] == want["eager_bytes"],
-              f"GPipe on {PP3_MESH}: rank {o['rank']}'s counter and the "
+              f"GPipe {cfg.name} on {PP3_MESH}: rank {o['rank']}'s counter and the "
               f"counting mesh differ op for op (rank, meta): {odd}; eager "
               f"bytes {got['eager_bytes']} and {want['eager_bytes']}")
     check(counted[0]["collective_bytes"] == counted[1]["collective_bytes"],
-          f"GPipe on {PP3_MESH}: the stages' collective bytes differ")
+          f"GPipe {cfg.name} on {PP3_MESH}: the stages' collective bytes differ")
     wire = count.wire_bytes(counted[0]["collective_bytes"])
     n_ops = sum(v[0] for v in counted[0]["ops"].values() if v[1] or v[2])
     eager = counted[0]["eager_bytes"]
     gb = {k: round(v / 1e9, 4)
           for k, v in counted[0]["collective_bytes"].items()}
-    ranks_line(f"GPipe {LM_ARCH} on (pod, data, model) {PP3_MESH[0]}", outs,
-               card,
+    ranks_line(f"GPipe {cfg.name} on (pod, data, model) {PP3_MESH[0]}",
+               outs, card,
                f"; {PP3_LAYERS} of {cfg.n_layers} layers at full width, "
-               f"tp={tp}, cut by stage_layer_specs; bf16 forward of "
+               f"tp={tp}, cut by stage_layer_specs; {fwd_dtype} forward of "
                f"{list(PP3_TOKENS)} tokens in {PP_MICRO} micro-batches "
                f"{max(o['fwd_ms'] for o in outs):.1f} ms, {launches} flash "
                f"launches, hidden within {err:.3g} of the twin (limit "
-               f"{PP3_TOL} x {scale:.3g}); f32 step of "
+               f"{tol} x {scale:.3g}"
+               + (f"; the twin routed as the ranks, {ties['flips']} "
+                  f"token-layers a near tie off its own top-k, gap at "
+                  f"most {ties['gap']:.3g}" if cfg.moe is not None else "")
+               + "); f32 step of "
                f"{list(PP3_STEP_TOKENS)} tokens at lr {opt_cfg.lr} "
                f"(warm-up 1): loss {outs[0]['loss']:.6f}, grad_norm "
                f"{outs[0]['grad_norm']:.6f} (within {rel['loss']:.3g} and "
@@ -5147,13 +5368,14 @@ def dcn_gnn_held(card: str, pair: list, single: list) -> list:
 
 
 def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
-                phase5, twin4, stepwise4, served9) -> dict:
+                phase5, twin4, stepwise4, served9, dense17) -> dict:
     """Phase 18: DKS's frontier exchange and its stepwise surfaces,
     expert-parallel MoE, GPipe, the int8 ring, the transformer's tensor
     parallelism, DCN-v2 and the GNNs across ranks, each against its twin
     on the card.  ``twin4``: phase 12's 4-shard records and state digest;
     ``stepwise4``: its :func:`stepwise_record`; ``served9``: phase 9's
-    :func:`serve_script` on one process.  Returns the flash launches of
+    :func:`serve_script` on one process; ``dense17``: phase 17's
+    :func:`dks_digest` of the dense DKS cell.  Returns the flash launches of
     the pipeline's and the tensor-parallel legs' ranks, the grouped bag
     kernel's of the DCN-v2 legs' ranks and a summary."""
     from repro_torch.configs import get_arch
@@ -5201,7 +5423,7 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
         elif world == 4:
             quad = spawn(rank_quad, 4, graph, index, bucket,
                          world in RANKS_STEPWISE_WORLDS, serve.get(world),
-                         cfg)
+                         cfg, get_arch(PP3_MOE_ARCH))
             quad_returned = time.time()
             spawned[world] = [out["dks"] for out in quad]
         else:
@@ -5365,6 +5587,14 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
     # GPipe on (pod 2, data 1, model 2): the 4-rank spawn's leg.
     pp3_launches = pp3_held(dev, card, cfg, [out["pp3"] for out in quad],
                             quad_returned)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    pp3_moe_launches = pp3_held(dev, card, get_arch(PP3_MOE_ARCH),
+                                [out["pp3_moe"] for out in quad],
+                                quad_returned, "float32", PP3_MOE_TOL)
+    # The dense DKS cell on (data 2, model 2): the spawn's last leg.
+    dense_held(card, [out["dense"] for out in quad], dense17)
     del quad
     gc.collect()
     if dev.type == "cuda":
@@ -5393,6 +5623,7 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
         f"{time.perf_counter() - t0:.1f} s")
     bag_launches = dcn_gnn_held(card, pair, single)
     return {"pp_launches": launches, "pp3_launches": pp3_launches,
+            "pp3_moe_launches": pp3_moe_launches,
             "tp_launches": tp_launches,
             "bag_launches": {"dcn_v2_gloo": bag_launches[:2],
                              "dcn_v2_nccl": bag_launches[2:]},
@@ -5400,8 +5631,9 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
                        f"its stepwise surfaces at "
                        f"{list(RANKS_STEPWISE_WORLDS)}, DKSService at "
                        f"{sorted(serve)} with followers; "
-                       f"MoE, GPipe, int8 ring, tensor parallelism, DCN-v2 "
-                       f"and the GNNs held; "
+                       f"MoE, GPipe (granite's MoE stages too), the dense "
+                       f"DKS cell on (data, model), int8 ring, tensor "
+                       f"parallelism, DCN-v2 and the GNNs held; "
                        f"phase {time.perf_counter() - t_phase:.1f} s"}
 
 
@@ -5901,7 +6133,7 @@ def phases(meta: list, workers: list) -> int:
     torch.cuda.empty_cache()
     ranks = ranks_phase("cuda", card, graph, index, bucket, singles, phase5,
                         sharded["twin4"], sharded["stepwise4"],
-                        serving["served"])
+                        serving["served"], accounting["dense_digest"])
     log(f"[18/18] several ranks: {ranks['summary']}")
     log(f"  card: {card}")
 
@@ -5956,6 +6188,8 @@ def phases(meta: list, workers: list) -> int:
                 "ranks_launches": {"gpipe": ranks["pp_launches"],
                                    "gpipe_pod_data_model":
                                        ranks["pp3_launches"],
+                                   "gpipe_pod_data_model_moe":
+                                       ranks["pp3_moe_launches"],
                                    **ranks["tp_launches"]},
                 "moe_launches": moe["launches"],
                 "cut_depth_launches": moe["cut_launches"],

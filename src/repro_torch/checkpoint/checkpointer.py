@@ -24,8 +24,14 @@ Fault-tolerance contract (``tests/test_torch_infra.py``):
   thread (ordered with the step loop) and writes them on a background
   thread, one save in flight at a time, keeping the newest ``keep``.
 
-``repro``'s ``restore_tree(shardings=)`` re-shards onto a mesh; one card
-has none, so the port's takes ``device=`` instead.
+On a mesh (:class:`repro_torch.distributed.comm.Mesh`), where each rank
+holds its slices of a tree cut by a spec tree (``launch/mesh.py``'s
+``shard_tree``): :func:`save_tree` with ``specs=`` and ``mesh=`` gathers
+every leaf whole, rank 0 writes ``repro``'s layout, and every rank
+returns once rank 0 has committed; :func:`restore_tree` with ``specs=``
+and ``mesh=`` reads each whole ``.npy`` on every rank and keeps the
+rank's slice, cut as ``shard_tree`` cuts: the twin of ``repro``'s
+``restore_tree(shardings=)``.  No file format is added.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+from repro_torch.optim.optimizers import tree_leaves, tree_map, \
+    tree_unflatten
 
 _NP_NAMES = {torch.float32: "float32", torch.float64: "float64",
              torch.float16: "float16", torch.int32: "int32",
@@ -111,10 +118,42 @@ def _write(host: list, directory: Path, step: int) -> Path:
     return out
 
 
-def save_tree(tree: Any, directory: str | Path, step: int) -> Path:
-    """Synchronous save; returns the committed directory."""
-    return _write([_host(leaf) for leaf in tree_leaves(tree)],
-                  Path(directory), step)
+def save_tree(tree: Any, directory: str | Path, step: int,
+              specs: Any = None, mesh: Any = None) -> Path:
+    """Synchronous save; returns the committed directory.  With ``mesh``,
+    ``tree`` is this rank's slices by the spec tree ``specs`` (a
+    :class:`Stacked` leaf's spec is its stack's): every rank takes part
+    in gathering each leaf whole, rank 0 writes, and every rank returns
+    once it has committed (a failed write raises on every rank)."""
+    if mesh is None:
+        return _write([_host(leaf) for leaf in tree_leaves(tree)],
+                      Path(directory), step)
+    from repro_torch.distributed import comm
+
+    def whole(leaf, spec):
+        if isinstance(leaf, Stacked):
+            leaf = torch.stack([p.detach() for p in leaf.parts])
+        if isinstance(leaf, torch.Tensor):
+            return comm.unshard(leaf.detach(), spec, mesh)
+        return leaf
+
+    host = [_host(leaf) for leaf in tree_leaves(tree_map(whole, tree,
+                                                         specs))]
+    out, error = Path(directory) / f"step_{step}", None
+    if mesh.axis_index() == 0:
+        try:
+            _write(host, Path(directory), step)
+        except Exception as e:  # noqa: BLE001 -- raised on every rank
+            error = e
+    dev = next((leaf.device for leaf in tree_leaves(tree)
+                if isinstance(leaf, (torch.Tensor, Stacked))), "cpu")
+    ok = comm.pmin(torch.tensor(float(error is None), device=dev),
+                   mesh=mesh)
+    if error is not None:
+        raise error
+    if not bool(ok) or not (out / "_COMMITTED").exists():
+        raise RuntimeError(f"rank 0 did not commit {out}")
+    return out
 
 
 def latest_step(directory: str | Path) -> int | None:
@@ -132,12 +171,11 @@ def latest_step(directory: str | Path) -> int | None:
     return max(steps) if steps else None
 
 
-def _restore_leaf(arr: np.ndarray, dtype_name: str, leaf, device):
+def _host_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A saved leaf as a host tensor of its logical dtype."""
     if dtype_name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return leaf_like(t, leaf, device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def leaf_like(t: torch.Tensor, leaf, device=None):
@@ -155,12 +193,16 @@ def leaf_like(t: torch.Tensor, leaf, device=None):
 
 
 def restore_tree(template: Any, directory: str | Path, step: int,
-                 device: str | torch.device | None = None) -> Any:
+                 device: str | torch.device | None = None,
+                 specs: Any = None, mesh: Any = None) -> Any:
     """A new tree shaped like ``template`` with the saved values: each
     tensor leaf in the template's dtype on ``device`` (None: the template
     leaf's own device), each int leaf an int.  The template's leaves give
     only shapes and dtypes, so a template on the ``meta`` device costs no
-    memory.  Raises ``ValueError`` when the leaf count or a shape differs."""
+    memory.  With ``mesh``, ``template`` is this rank's tree by the spec
+    tree ``specs``: each saved leaf is cut to this rank's slice
+    (:func:`repro_torch.distributed.comm.shard`), the template's shape.
+    Raises ``ValueError`` when the leaf count or a shape differs."""
     src = Path(directory) / f"step_{step}"
     if not (src / "_COMMITTED").exists():
         raise FileNotFoundError(f"no committed checkpoint at {src}")
@@ -170,14 +212,23 @@ def restore_tree(template: Any, directory: str | Path, step: int,
         raise ValueError(
             f"checkpoint has {meta['n_leaves']} leaves, template has "
             f"{len(leaves)} — architecture mismatch")
+    cuts = [None] * len(leaves)
+    if mesh is not None:
+        from repro_torch.distributed import comm
+        from repro_torch.distributed.comm import PartitionSpec
+
+        cuts = tree_leaves(tree_map(lambda _, spec: spec, template, specs),
+                           is_leaf=lambda x: isinstance(x, PartitionSpec))
     out = []
-    for i, leaf in enumerate(leaves):
-        arr = np.load(src / f"leaf_{i}.npy")
+    for i, (leaf, spec) in enumerate(zip(leaves, cuts, strict=True)):
+        t = _host_tensor(np.load(src / f"leaf_{i}.npy"), meta["dtypes"][i])
+        if spec is not None:
+            t = comm.shard(t, spec, mesh)
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
-        if tuple(arr.shape) != want:
-            raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != "
-                             f"template {want}")
-        out.append(_restore_leaf(arr, meta["dtypes"][i], leaf, device))
+        if tuple(t.shape) != want:
+            raise ValueError(f"leaf {i}: checkpoint shape {tuple(t.shape)} "
+                             f"!= template {want}")
+        out.append(leaf_like(t, leaf, device))
     return tree_unflatten(template, out)
 
 

@@ -15,6 +15,11 @@ function here carries the lane axis explicitly — a single query is the
      answer weights;
   4. *Exit check* — ``nu[full] >= W_K``, frontier exhaustion, message
      budget, superstep cap.
+
+On a mesh the superstep runs on one rank's :class:`MeshGraph`, the layout
+``repro``'s dense cell gives GSPMD: edges and node rows split over the
+data axes, the keyword-set axis of ``S`` over ``"model"``, with explicit
+collectives (:func:`mesh_superstep`).
 """
 
 from __future__ import annotations
@@ -111,19 +116,41 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(DKSState))
 # --------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshGraph(DeviceGraph):
+    """One rank's part of a :class:`DeviceGraph` on ``mesh``, as ``repro``'s
+    dense cell lays it out: every leaf split over ``node_axes`` (its
+    ``P(DP)``), so the rank holds a contiguous block of the
+    destination-sorted edges, from edge ``edge_lo``, and of the node rows,
+    from node ``node_lo``.  The rank's tables ``S`` split their keyword-set
+    axis over ``set_axes`` (``"model"``) and repeat over nothing else.
+    ``in_offsets_host`` are the whole graph's destination offsets."""
+
+    mesh: Any = None
+    node_axes: tuple[str, ...] = ()
+    set_axes: tuple[str, ...] = ()
+    node_lo: int = 0
+    edge_lo: int = 0
+
+    def e_min(self) -> torch.Tensor:
+        """Smallest real edge length of the whole graph, f32[]."""
+        return across_nodes(self, super().e_min(), "min")
+
+
 def across_nodes(graph: Any, x: torch.Tensor, op: str) -> torch.Tensor:
     """``x``, reduced over the node rows the graph holds, reduced over
     every rank that holds rows of the node axis (``op``: "sum", "max" or
-    "min").  The identity unless the graph is a
-    :class:`~repro_torch.core.dks_sharded.FrontierGraph` split across the
-    ranks of a mesh."""
+    "min"): the graph's ``node_axes`` (a :class:`MeshGraph`'s data axes),
+    else every axis of its mesh (a
+    :class:`~repro_torch.core.dks_sharded.FrontierGraph`).  The identity
+    on a graph without a mesh."""
     mesh = getattr(graph, "mesh", None)
     if mesh is None:
         return x
     from repro_torch.distributed import comm
 
     return {"sum": comm.psum, "max": comm.pmax, "min": comm.pmin}[op](
-        x, mesh=mesh)
+        x, getattr(graph, "node_axes", None), mesh=mesh)
 
 
 def node_rows(graph: Any, S: torch.Tensor, nodes: list[int]
@@ -367,7 +394,8 @@ def aggregate(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
     topk_w = srt.values[:, :cfg.k]
     cell = srt.indices[:, :cfg.k] + getattr(graph, "node_lo", 0) * cfg.k
     if getattr(graph, "mesh", None) is not None:
-        topk_w, cell = _merge_topk(graph.mesh, topk_w, cell, cfg.k)
+        topk_w, cell = _merge_topk(graph.mesh, topk_w, cell, cfg.k,
+                                   getattr(graph, "node_axes", None))
     topk_root = torch.div(cell, cfg.k, rounding_mode="floor").to(torch.int32)
     topk_root = torch.where(topk_w >= INF, torch.full_like(topk_root, -1),
                             topk_root)
@@ -375,15 +403,16 @@ def aggregate(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
         state, s_front=s_front, g=g, topk_w=topk_w, topk_root=topk_root)
 
 
-def _merge_topk(mesh: Any, w: torch.Tensor, cell: torch.Tensor, k: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The K smallest of every rank's K candidates per lane, ordered by
-    (weight, global cell index): the head of the stable sort of the whole
-    table, since each rank's candidates are the head of its own rows."""
+def _merge_topk(mesh: Any, w: torch.Tensor, cell: torch.Tensor, k: int,
+                axes=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K smallest of the K candidates per lane of every rank of
+    ``axes`` (None: the mesh's), ordered by (weight, global cell index):
+    the head of the stable sort of the whole table, since each rank's
+    candidates are the head of its own rows."""
     from repro_torch.distributed import comm
 
-    w = comm.all_gather(w, dim=1, tiled=True, mesh=mesh)
-    cell = comm.all_gather(cell, dim=1, tiled=True, mesh=mesh)
+    w = comm.all_gather(w, axes, dim=1, tiled=True, mesh=mesh)
+    cell = comm.all_gather(cell, axes, dim=1, tiled=True, mesh=mesh)
     by_cell = torch.argsort(cell, dim=1, stable=True)
     w, cell = w.gather(1, by_cell), cell.gather(1, by_cell)
     by_w = torch.argsort(w, dim=1, stable=True)[:, :k]
@@ -434,7 +463,7 @@ def freeze_finished(old: DKSState, new: DKSState) -> DKSState:
 
 def finish_superstep(graph: Any, S0: torch.Tensor, state: DKSState,
                      cfg: DKSConfig, overflow: torch.Tensor | None = None,
-                     ) -> DKSState:
+                     changed: torch.Tensor | None = None) -> DKSState:
     """The post-combine tail of every superstep flavor (dense and
     frontier-sharded): recompute the active set from the table delta,
     fold visit tracking, run the aggregators and the exit check.
@@ -443,9 +472,12 @@ def finish_superstep(graph: Any, S0: torch.Tensor, state: DKSState,
 
     ``overflow``: bool[L], the sharded relax's frontier-overflow flag; it
     folds into ``budget_hit`` and ``done`` (frontier overflow is the
-    paper's Sec. 5.4 message-budget forced stop).
+    paper's Sec. 5.4 message-budget forced stop).  ``changed``: the
+    active set, where the caller has it (:func:`mesh_superstep`, whose
+    ``S0`` holds some of the keyword sets).
     """
-    changed = (state.S < S0).any(dim=3).any(dim=2) & graph.node_valid
+    if changed is None:
+        changed = (state.S < S0).any(dim=3).any(dim=2) & graph.node_valid
     st = dataclasses.replace(
         state,
         changed=changed,
@@ -482,7 +514,10 @@ def message_counts(graph: DeviceGraph, state: DKSState
 def superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
               ) -> DKSState:
     """One Pregel superstep for every lane (phases 1-4 above), without the
-    freeze select (the driver applies it)."""
+    freeze select (the driver applies it); on a :class:`MeshGraph`,
+    :func:`mesh_superstep`."""
+    if isinstance(graph, MeshGraph):
+        return mesh_superstep(graph, state, cfg)
     S0 = state.S
     n_bfs, n_deep = message_counts(graph, state)
     R = relax(graph, S0, state.changed, cfg)
@@ -496,6 +531,74 @@ def superstep(graph: DeviceGraph, state: DKSState, cfg: DKSConfig
         step=state.step + 1,
     )
     return finish_superstep(graph, S0, nxt, cfg)
+
+
+def mesh_superstep(graph: MeshGraph, state: DKSState, cfg: DKSConfig
+                   ) -> DKSState:
+    """:func:`superstep` on one rank of ``graph.mesh``: ``S`` is this
+    rank's [L, V / dp, 2^m / tp, K] (node rows over the ``dp`` ranks of
+    ``node_axes``, keyword sets over the ``tp`` of ``set_axes``), the node
+    masks its [L, V / dp], the rest whole.  Every field equals the
+    one-process superstep's rows and sets of it, bit for bit:
+
+    1. the message counts are int64 sums over the rows, summed over the
+       data ranks before the one rounding;
+    2. the relax gathers this rank's sets of ``S`` and ``changed`` over the
+       data ranks, takes the candidates of the rank's edges into every
+       destination, in chunks, and sends each destination's rows to the
+       rank that holds them (one ``all_to_all``); the pieces merge with
+       ``topk_merge``, whose K smallest distinct values of a union do not
+       depend on the order of its parts;
+    3. the merged rows gather their sets over ``set_axes`` for the
+       closure, which reads every set of a node; each rank keeps its sets,
+       and ``changed`` is the ``pmax`` over ``set_axes`` of its sets'
+       changes;
+    4. the aggregators read the whole sets of the rank's rows and reduce
+       over the data ranks (the top-K in ``lax.top_k``'s order), the exit
+       check too (``e_min`` a ``pmin`` of each rank's edges): the fields
+       whole on every rank come out equal on every rank."""
+    from repro_torch.distributed import comm
+
+    mesh, nodes, sets = graph.mesh, graph.node_axes, graph.set_axes
+    S0 = state.S
+    n_bfs, n_deep = message_counts(graph, state)
+    S_all = comm.all_gather(S0, nodes, dim=1, tiled=True, mesh=mesh)
+    changed_all = comm.all_gather(state.changed, nodes, dim=1, tiled=True,
+                                  mesh=mesh)
+    offsets = graph.in_offsets_host
+    R = relax_edges(S_all, changed_all, graph.src, graph.dst, graph.w,
+                    graph.valid, dst_offsets=None if offsets is None
+                    else offsets - graph.edge_lo)
+    del S_all, changed_all
+    # [L, dp, V / dp, 2^m / tp, K]: piece j, the rows data rank j's edges
+    # sent to this rank's rows.
+    pieces = comm.all_to_all(R.unflatten(1, (mesh.axis_size(nodes), -1)),
+                             nodes, split_dim=1, concat_dim=1, mesh=mesh)
+    del R
+
+    def merge(s, parts):
+        for part in parts.unbind(1):
+            s = semiring.topk_merge(s, part)
+        return s
+
+    merged = map_node_chunks(merge, S0, pieces)
+    del pieces
+    S1_all = combine(comm.all_gather(merged, sets, dim=2, tiled=True,
+                                     mesh=mesh), cfg)
+    width = S0.shape[2]
+    j = mesh.axis_index(sets)
+    S1 = S1_all[:, :, j * width:(j + 1) * width].contiguous()
+    changed = comm.pmax((S1 < S0).any(dim=3).any(dim=2), sets,
+                        mesh=mesh) & graph.node_valid
+    nxt = dataclasses.replace(
+        state,
+        S=S1_all,
+        msgs_bfs=state.msgs_bfs + n_bfs,
+        msgs_deep=state.msgs_deep + n_deep,
+        step=state.step + 1,
+    )
+    nxt = finish_superstep(graph, S0, nxt, cfg, changed=changed)
+    return dataclasses.replace(nxt, S=S1)
 
 
 # --------------------------------------------------------------------------

@@ -602,6 +602,32 @@ def all_gather(x: torch.Tensor, axes=None, dim: int = 0, tiled: bool = False,
     return _AllGather.apply(x, mesh, axes, dim, tiled)
 
 
+def shard(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of a whole ``x`` every rank holds: dimension
+    ``d`` split over the ranks of ``spec[d]`` (axes ``mesh`` lacks
+    dropped), the chunk at this rank's index kept."""
+    for d, entry in enumerate(filter_spec(spec, mesh.axis_names)):
+        if entry is None:
+            continue
+        n, i = mesh.axis_size(entry), mesh.axis_index(entry)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"over {entry} ({n} ranks)")
+        w = x.shape[d] // n
+        x = x.narrow(d, i * w, w)
+    return x.contiguous()
+
+
+def unshard(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh
+            ) -> torch.Tensor:
+    """The inverse of :func:`shard`: the whole leaf on every rank, from
+    every rank's slice (tiled all-gathers)."""
+    for d, entry in enumerate(filter_spec(spec, mesh.axis_names)):
+        if entry is not None:
+            x = all_gather(x, entry, dim=d, tiled=True, mesh=mesh)
+    return x
+
+
 # --------------------------------------------------------------------------
 # reduce_scatter
 # --------------------------------------------------------------------------

@@ -162,11 +162,7 @@ def main(argv: list[str] | None = None) -> int:
         cell = cells_mod.get_cell(args.cell)
         lines, summary = breakdown(cell, args.top)
     else:
-        try:
-            cell, name, chips = mesh_cell(args.cell, mesh == "multi")
-        except NotImplementedError as e:
-            print(f"analyze: {e}", file=sys.stderr)
-            return 2
+        cell, name, chips = mesh_cell(args.cell, mesh == "multi")
         lines, summary = breakdown(cell, args.top, name, chips)
     print("\n".join(lines))
     if args.device == "cuda":

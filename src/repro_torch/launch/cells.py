@@ -30,9 +30,9 @@ grad-accumulation rule divided by 256 as ``repro``'s; :func:`lm_pp_cell`
 with ``pipeline.stage_layer_specs`` on the multi-pod mesh; DCN-v2's
 tables split by ``recsys.param_specs`` with the grouped kernel on each
 rank's rows; the GNNs' nodes and edges split over every axis; the
-frontier DKS cells one shard a rank.  The dense DKS cell has no layout
-on a mesh yet (``repro`` splits its keyword sets over ``model``):
-:func:`dks_cell_dense` raises ``NotImplementedError`` there.
+frontier DKS cells one shard a rank; the dense DKS cell's edges and node
+rows over the data axes and its keyword sets over ``model``
+(:func:`~repro_torch.core.dks.mesh_superstep`).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ from repro_torch.configs import (DKS_CONFIGS, GNN_SHAPES, LM_SHAPES,
 from repro_torch.distributed import comm
 from repro_torch.distributed.comm import PartitionSpec as P
 from repro_torch.distributed.fault import block_until_ready
-from repro_torch.models.common import ALL, DP, mesh_axes
+from repro_torch.models.common import ALL, DP, TP, mesh_axes
 from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
                                adamw_update, tree_map)
 
@@ -67,10 +67,6 @@ CATALOG = (
     ("gin-tu", "gnn"), ("pna", "gnn"), ("dcn-v2", "recsys"))
 SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}
 DKS_SHARDS = 4          # the frontier cells' shards, all on the one card
-DENSE_ON_A_MESH = (
-    "dks-bluk-bnb__superstep_dense_m4_k2 on a mesh: repro splits the "
-    "keyword-set axis over 'model', a layout the port has not ported "
-    "(ROADMAP queue 1, the dense DKS cell on a mesh)")
 
 Build = Callable[[torch.device, "torch.Generator | None"],
                  tuple[Callable, tuple]]
@@ -257,16 +253,22 @@ def _train_batch(cfg, shape, spec, mesh, device, generator) -> dict:
 def _accum(cfg, shape, spec, mesh) -> tuple[int, str]:
     """(the train cell's accumulation, its note): ``repro``'s rule over
     the cards, at most the rows a rank holds on a mesh (a micro-batch of
-    at least one row each)."""
-    accum = lm_grad_accum(cfg, shape, MESH_CARDS if mesh is not None
-                          else CARDS)
-    note = f"grad_accum={accum}"
+    at least one row each).  Past them (command-r's 16 on the multi-pod
+    mesh, whose ranks hold 8 rows) a rank's program could hold ``repro``'s
+    micro-batches only with padded rows; its rows folded one a micro-batch
+    give the same mean gradient over the same rows, and the note leads
+    with the count folded."""
+    want = lm_grad_accum(cfg, shape, MESH_CARDS if mesh is not None
+                         else CARDS)
+    accum, note = want, f"grad_accum={want}"
     if mesh is not None:
         rows = comm.local_shape((shape.global_batch,), P(spec),
                                 comm.axis_sizes(mesh))[0]
-        if accum > rows:
+        if want > rows:
             accum = rows
-            note += f" (at most the {rows} rows a rank holds)"
+            return accum, (f"grad_accum={rows} folded (repro's rule: "
+                           f"{want}; a rank holds {rows} of the "
+                           f"{shape.global_batch} rows)")
     return accum, note + (", folded" if accum > 1 else "")
 
 
@@ -700,31 +702,42 @@ def dks_cell(ds_name: str, m: int = 4, k: int = 2,
                 notes=f"V={ds.n_nodes} E_sym={e_sym} shards={n_shards}")
 
 
+# ``repro``'s in-specs of the dense cell's state fields that are split.
+DENSE_SPECS = {"S": P(DP, TP, None), "changed": P(DP), "first_fire": P(DP),
+               "visited": P(DP)}
+
+
 def dks_cell_dense(ds_name: str, m: int = 4, k: int = 2,
                    mesh: "comm.Mesh | None" = None) -> Cell:
     """The dense-relax superstep (``core/dks.py::superstep``), its relax in
-    chunks of edges, on one card.  On a mesh ``repro`` splits the
-    keyword-set axis of the node tables over ``model``, a layout the
-    port does not have yet: it raises ``NotImplementedError``."""
+    chunks of edges, on one card; on a ``mesh``, one rank of it by
+    ``repro``'s in-specs: the graph's leaves and the node masks over the
+    data axes, ``S``'s node rows over the data axes and its keyword sets
+    over ``model``, the rest whole (``core/dks.py::mesh_superstep``)."""
     from repro_torch.core import dks as dks_mod
     from repro_torch.graph.structure import DeviceGraph
 
-    if mesh is not None:
-        raise NotImplementedError(DENSE_ON_A_MESH)
     ds = DKS_CONFIGS[ds_name]
     v_pad = pad_to(ds.n_nodes, 512)
     e_sym = 2 * ds.n_edges
     e_pad = pad_to(e_sym, 512)
     cfg = dks_mod.DKSConfig(m=m, k=k, max_supersteps=64)
+    where = {}
+    if mesh is not None:
+        nodes = mesh_axes(mesh, DP)
+        dp, i = mesh.axis_size(nodes), mesh.axis_index(nodes)
+        where = {"mesh": mesh, "node_axes": nodes,
+                 "set_axes": mesh_axes(mesh, TP),
+                 "node_lo": i * (v_pad // dp), "edge_lo": i * (e_pad // dp)}
 
     def step(leaves: dict, state, offsets: np.ndarray):
         dev = leaves["src"].device
-        graph = DeviceGraph(
+        graph = (dks_mod.MeshGraph if mesh is not None else DeviceGraph)(
             **leaves, n_nodes=ds.n_nodes, n_edges=e_sym,
             # The lane kernel's CSR, which this superstep does not read.
             in_offsets=torch.empty(0, dtype=torch.int64, device=dev),
             hub_nodes=torch.empty(0, dtype=torch.int32, device=dev),
-            in_offsets_host=offsets)
+            in_offsets_host=offsets, **where)
         return _one_lane(dks_mod.superstep, graph, state, cfg)
 
     def build(device, generator=None):
@@ -760,9 +773,13 @@ def dks_cell_dense(ds_name: str, m: int = 4, k: int = 2,
             offsets[1:] = torch.cumsum(torch.bincount(
                 dst.long(), minlength=v_pad), 0).cpu().numpy()
         leaves["node_valid"] = torch.arange(v_pad, device=device) < ds.n_nodes
-        return (functools.partial(step, offsets=offsets),
-                (leaves, _dks_state(v_pad, ds.n_nodes, m, k, device,
-                                    generator)))
+        state = _dks_state(v_pad, ds.n_nodes, m, k, device, generator)
+        if mesh is not None:
+            leaves = _local(leaves, {f: P(DP) for f in leaves}, mesh)
+            state = dataclasses.replace(state, **_local(
+                {f: getattr(state, f) for f in DENSE_SPECS},
+                DENSE_SPECS, mesh))
+        return functools.partial(step, offsets=offsets), (leaves, state)
 
     return Cell(f"dks-{ds_name}", f"superstep_dense_m{m}_k{k}", "dks", build,
                 rl.model_flops_dks(ds.n_nodes, e_sym, m, k),
@@ -801,9 +818,8 @@ def dks_cells(n_shards: int = DKS_SHARDS) -> list[Cell]:
 def mesh_cells(mesh: "comm.Mesh", tp: int = 16
                ) -> list[tuple[str, Callable[[], Cell]]]:
     """``repro``'s ``iter_cells`` on a production mesh, as (name, maker):
-    every assigned cell at ``tp``, then the DKS cells with one shard a
-    rank.  The dense DKS cell's maker raises ``NotImplementedError``
-    (:data:`DENSE_ON_A_MESH`)."""
+    every assigned cell at ``tp``, then the frontier DKS cells with one
+    shard a rank and the dense one."""
     makers = [(f"{a}__{s}", functools.partial(build_cell, a, s, tp, mesh))
               for a, s in all_assigned_cells()]
     return makers + [

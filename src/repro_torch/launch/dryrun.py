@@ -34,16 +34,16 @@ meshes instead, on ``meta`` only (``--device cuda`` is refused): 16 x 16
 :class:`~repro_torch.distributed.comm.CountingMesh` seen from rank 0.
 The cells are ``repro``'s ``iter_cells`` (``cells.mesh_cells``): the LMs
 built at ``tp=16``, each argument this rank's slice by ``repro``'s
-in-specs, the DKS cells one shard a rank; the multi-pod mesh adds
-``lm_pp_cell`` at ``train_4k`` for every LM (``cells.pp_cells``).  Per cell the record
+in-specs, the frontier DKS cells one shard a rank, the dense one's rows
+over the data axes and its keyword sets over ``model``; the multi-pod
+mesh adds ``lm_pp_cell`` at ``train_4k`` for every LM
+(``cells.pp_cells``).  Per cell the record
 adds ``mesh``, ``chips``, ``fits_one_card`` (a rank's predicted peak
 within 80 GB), the collective bytes and counts by kind, the wire bytes
 a rank sends (``repro``'s ring factors) and the three roofline terms, the
 collective one over NVLink (its caveat in
 :mod:`repro_torch.analysis.roofline`).  These are counted, not measured.
 JSON goes to ``build/dryrun_torch/<pod16x16|multipod2x16x16>/<cell>.json``.
-The dense DKS cell is not ported on a mesh: its line says so and names
-its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -225,11 +225,11 @@ def run(device: str = "meta", only: str | None = None, seed: int = 0,
 
 
 def run_mesh(multi_pod: bool, only: str | None = None,
-             out: Path = OUT_DIR) -> tuple[list[dict], list, list]:
+             out: Path = OUT_DIR) -> tuple[list[dict], list]:
     """Every cell of ``cells.mesh_cells`` (on the multi-pod mesh, and of
     ``cells.pp_cells``) counted on ``meta`` at rank 0 of a counting
-    production mesh (``only``: a substring of the name).  Returns the records, the failures ``(cell,
-    error)`` and the cells not ported on a mesh ``(cell, reason)``."""
+    production mesh (``only``: a substring of the name).  Returns the
+    records and the failures ``(cell, error)``."""
     from repro_torch.launch.mesh import MESH_NAMES, make_production_mesh
 
     mesh = make_production_mesh(multi_pod=multi_pod, counting=True)
@@ -237,17 +237,13 @@ def run_mesh(multi_pod: bool, only: str | None = None,
     makers = cells_mod.mesh_cells(mesh)
     if multi_pod:
         makers += cells_mod.pp_cells(mesh)
-    records, failures, not_ported = [], [], []
+    records, failures = [], []
     for cell_name, make in makers:
         if only and only not in cell_name:
             continue
         try:
             rec = meta_record(make(), name, mesh.size)
             write(rec, out / name)
-        except NotImplementedError as e:
-            not_ported.append((cell_name, str(e)))
-            print(f"[NOT PORTED] {name} {cell_name}: {e}", flush=True)
-            continue
         except Exception as e:  # noqa: BLE001  (one cell's fault is reported)
             traceback.print_exc()
             failures.append((f"{name} {cell_name}", repr(e)))
@@ -256,7 +252,7 @@ def run_mesh(multi_pod: bool, only: str | None = None,
         records.append(rec)
         print(f"[OK] {summary_line(rec)}  (counted, not measured)",
               flush=True)
-    return records, failures, not_ported
+    return records, failures
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -274,7 +270,6 @@ def main(argv: list[str] | None = None) -> int:
         print("dryrun: --mesh counts on meta only; --device cuda runs one "
               "card", file=sys.stderr)
         return 2
-    not_ported = []
     try:
         if args.mesh is None:
             records, failures = run(args.device, args.only, args.seed,
@@ -283,20 +278,15 @@ def main(argv: list[str] | None = None) -> int:
             records, failures = [], []
             for multi in {"single": (False,), "multi": (True,),
                           "both": (False, True)}[args.mesh]:
-                r, f, n = run_mesh(multi, args.only, args.out)
+                r, f = run_mesh(multi, args.only, args.out)
                 records += r
                 failures += f
-                not_ported += n
     except RuntimeError as e:
         print(f"dryrun: {e}", file=sys.stderr)
         return 2
-    print(f"\n{len(records)} cells OK, {len(failures)} failed"
-          + (f", {len(not_ported)} not ported on a mesh" if not_ported
-             else ""))
+    print(f"\n{len(records)} cells OK, {len(failures)} failed")
     for name, err in failures:
         print("FAILED:", name, err)
-    for name, why in not_ported:
-        print("NOT PORTED:", name, why)
     return 1 if failures else 0
 
 

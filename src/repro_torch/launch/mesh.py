@@ -60,34 +60,16 @@ def make_host_mesh(device_type: str = "cuda") -> comm.Mesh:
 
 
 def shard_tree(tree: Any, spec_tree: Any, mesh: comm.Mesh) -> Any:
-    """This rank's slice of every leaf: dimension ``d`` split over the
-    ranks of ``spec[d]``, the chunk at this rank's index kept."""
-
-    def cut(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
-        for d, entry in enumerate(comm.filter_spec(spec, mesh.axis_names)):
-            if entry is None:
-                continue
-            n, i = mesh.axis_size(entry), mesh.axis_index(entry)
-            if x.shape[d] % n:
-                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
-                                 f"split over {entry} ({n} ranks)")
-            w = x.shape[d] // n
-            x = x.narrow(d, i * w, w)
-        return x.contiguous()
-
-    return tree_map(cut, tree, spec_tree)
+    """This rank's slice of every leaf (:func:`comm.shard`)."""
+    return tree_map(lambda x, spec: comm.shard(x, spec, mesh), tree,
+                    spec_tree)
 
 
 def gather_tree(tree: Any, spec_tree: Any, mesh: comm.Mesh) -> Any:
-    """The inverse of :func:`shard_tree`: every leaf whole on every rank."""
-
-    def join(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
-        for d, entry in enumerate(comm.filter_spec(spec, mesh.axis_names)):
-            if entry is not None:
-                x = comm.all_gather(x, entry, dim=d, tiled=True, mesh=mesh)
-        return x
-
-    return tree_map(join, tree, spec_tree)
+    """The inverse of :func:`shard_tree`: every leaf whole on every rank
+    (:func:`comm.unshard`)."""
+    return tree_map(lambda x, spec: comm.unshard(x, spec, mesh), tree,
+                    spec_tree)
 
 
 def lm_state_specs(b: tfm.BuiltLM) -> list:

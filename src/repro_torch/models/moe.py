@@ -80,6 +80,13 @@ def capacity(n_tokens: int, spec: MoESpec, e_pad: int) -> int:
     return max(4, pad_to(c, 4))
 
 
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(ids, n)`` as the compare ``meta`` decomposes it into,
+    so that a rank's counter counts on any device what a counting mesh
+    counts on ``meta`` (the CPU's one-hot scatters instead)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).long()
+
+
 def _route(router, x, spec: MoESpec, n_real: int, e_pad: int):
     """The router in f32: returns (gate [T, k], ids [T, k], probs [T, E],
     logits [T, E]).  Ties go to the lower expert id, as ``lax.top_k``."""
@@ -104,7 +111,7 @@ def _aux(probs, ids, logits, e_pad: int, keep=None, axes=(),
     mean = (lambda t: comm.pmean(t, axes, mesh=mesh)) if axes else \
         (lambda t: t)
     me = mean(probs.mean(dim=0))
-    ce = mean(F.one_hot(ids, e_pad).float().mean(dim=(0, 1)))
+    ce = mean(_one_hot(ids, e_pad).float().mean(dim=(0, 1)))
     out = {"load_balance": (me * ce).sum() * e_pad,
            "router_z": mean((torch.logsumexp(logits, dim=-1) ** 2).mean())}
     if keep is None:
@@ -126,7 +133,7 @@ def _dispatch_local(x, gate, ids, spec: MoESpec, e_pad: int, c: int):
     # Expert-major one-hot [E, T*k]: the cumsum runs along the inner dim,
     # which the card scans in parallel (along the outer dim of a
     # [T*k, E] one-hot it runs one thread per expert).
-    oh = F.one_hot(flat_ids, e_pad).T.contiguous()
+    oh = _one_hot(flat_ids, e_pad).T.contiguous()
     pos = oh.cumsum(dim=1) - oh
     my_pos = pos.gather(0, flat_ids[None, :])[0]
     keep = my_pos < c
@@ -272,7 +279,7 @@ def _dense_all_partial(x, w_te, wg, wu, wd):
 def _routing_weights(router, x, spec: MoESpec, n_real: int, e_pad: int,
                      axes=(), mesh=None):
     gate, ids, probs, logits = _route(router, x, spec, n_real, e_pad)
-    w_te = (F.one_hot(ids, e_pad).float() * gate[..., None]).sum(dim=1)
+    w_te = (_one_hot(ids, e_pad).float() * gate[..., None]).sum(dim=1)
     return w_te, _aux(probs, ids, logits, e_pad, axes=axes, mesh=mesh)
 
 

@@ -274,3 +274,159 @@ def test_repro_checkpoint_restores_bit_equal_in_the_port(tmp_path, arch):
              for k, v in next(lm_synthetic_stream(cfg.vocab, 2, 8)).items()}
     state, metrics = step(state, batch)
     assert state.step == 2 and torch.isfinite(metrics["loss"])
+
+
+# --------------------------------------------------------------------------
+# checkpoints on a mesh, across the packages
+# --------------------------------------------------------------------------
+#
+# ChatGLM3's bf16 smoke config at tp=2 on a (data 1, model 2) mesh: its
+# train state cut by ``repro``'s ``_lm_state_specs`` (the port's
+# ``lm_state_specs``), the moments drawn at random so that no leaf is
+# zeros.  ``repro`` shards its state over 2 forced host devices and saves
+# it; 2 gloo ranks restore it by the spec tree, and save the port's state
+# from their slices; ``repro`` restores that with ``shardings=``.
+
+CKPT_ARCH, CKPT_MESH, CKPT_AXES = "chatglm3-6b", (1, 2), ("data", "model")
+
+REPRO_CKPT = """
+    from repro.checkpoint import restore_tree, save_tree
+    from repro.configs import get_arch
+    from repro.launch.cells import _lm_state_specs
+    from repro.launch.mesh import sharding_tree
+    from repro.models import lm
+    from repro.models import transformer as tfm
+    from repro.optim import OptState
+    from repro.shardmap import make_mesh
+    b = tfm.build(get_arch(ARCH).config.smoke(), tp=2)
+    sh = sharding_tree(make_mesh(MESH, AXES), _lm_state_specs(b))
+    if MODE == "save":
+        state = lm.init_train_state(jax.random.PRNGKey(1), b)
+        keys = iter(jax.random.split(jax.random.PRNGKey(2), 4096))
+        rnd = lambda t: jax.tree_util.tree_map(
+            lambda p: jax.random.normal(next(keys), p.shape, jnp.float32), t)
+        state = lm.TrainState(params=state.params, opt=OptState(
+            mu=rnd(state.opt.mu), nu=rnd(state.opt.nu),
+            count=jnp.int32(3)), step=jnp.int32(3))
+        state = jax.device_put(state, sh)
+        save_tree(state, DIR, 3)
+        leaves = jax.tree_util.tree_leaves(state)
+    else:
+        template = lm.init_train_state(jax.random.PRNGKey(9), b)
+        leaves = jax.tree_util.tree_leaves(restore_tree(template, DIR, 4,
+                                                        shardings=sh))
+    want = jax.tree_util.tree_leaves(sh)
+    arrays = [np.asarray(x) for x in leaves]
+    np.savez(OUT, *[a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+                    for a in arrays])
+    out = {"sharded": [x.sharding == s for x, s in zip(leaves, want)],
+           "split": sum(len(x.sharding.device_set) > 1 and
+                        x.sharding.shard_shape(x.shape) != x.shape
+                        for x in leaves)}
+"""
+
+
+def _ckpt_model():
+    from repro_torch.models import transformer as tfm
+
+    return tfm.build(get_arch(CKPT_ARCH).smoke(), CKPT_MESH[1])
+
+
+def _port_state_tree(b) -> list:
+    """The port's whole train state at ``b``, its moments at random."""
+    from repro_torch.models import transformer as tfm
+
+    state = lm_t.init_train_state(tfm.init_lm(
+        b, torch.Generator().manual_seed(4)))
+    gen = torch.Generator().manual_seed(5)
+    for moments in (state.opt.mu, state.opt.nu):
+        for t in moments.values():
+            t.copy_(torch.randn(t.shape, generator=gen))
+    state.opt.count = torch.tensor(4, dtype=torch.int32)
+    state.step = 4
+    return lm_t.train_state_tree(state)
+
+
+def _slice(leaf, spec, mesh):
+    """This rank's slice of a whole leaf (a :class:`Stacked` by its
+    stack)."""
+    from repro_torch.distributed import comm
+
+    if isinstance(leaf, Stacked):
+        return Stacked(comm.shard(torch.stack(leaf.parts), spec,
+                                  mesh).unbind(0))
+    if isinstance(leaf, torch.Tensor):
+        return comm.shard(leaf, spec, mesh)
+    return leaf
+
+
+def _ckpt_ranks(device, dir_a, dir_b):
+    """Restore ``repro``'s checkpoint onto this rank's slices; save the
+    port's state from them."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import lm_state_specs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import tree_map
+
+    torch.set_num_threads(1)
+    mesh = comm.Mesh(CKPT_MESH, CKPT_AXES, "cpu")
+    b = _ckpt_model()
+    specs = lm_state_specs(b)
+    template = lm_t.train_state_tree(lm_t.init_train_state(
+        tfm.LM(b, device="meta", mesh=mesh)))
+    got = restore_tree(template, dir_a, 3, device="cpu", specs=specs,
+                       mesh=mesh)
+    local = tree_map(lambda leaf, spec: _slice(leaf, spec, mesh),
+                     _port_state_tree(b), specs)
+    path = save_tree(local, dir_b, 4, specs=specs, mesh=mesh)
+    return {"rank": comm.rank(), "committed": (path / "_COMMITTED").exists(),
+            "restored": [port_bits(leaf) for leaf in tree_leaves(got)]}
+
+
+def test_checkpoints_cross_the_packages_on_a_mesh(tmp_path):
+    """Both directions at 2 gloo ranks: each rank's restored slice of
+    ``repro``'s sharded save equals that slice of the saved leaf, bit for
+    bit; ``repro``'s ``restore_tree(shardings=)`` of the port's mesh save
+    equals the port's whole state, bit for bit, bf16 leaves included."""
+    import textwrap
+
+    from tests.test_distributed import run_in_subprocess
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.mesh import lm_state_specs
+    from repro_torch.optim import tree_map
+
+    def repro(mode, directory):
+        out = run_in_subprocess(
+            f"ARCH, MESH, AXES = {CKPT_ARCH!r}, {CKPT_MESH!r}, "
+            f"{CKPT_AXES!r}\nMODE, DIR = {mode!r}, {str(directory)!r}\n"
+            f"OUT = {str(tmp_path / (mode + '.npz'))!r}\n"
+            + textwrap.dedent(REPRO_CKPT), devices=2)
+        z = np.load(tmp_path / f"{mode}.npz")
+        return out, [z[f"arr_{i}"] for i in range(len(z.files))]
+
+    out, saved = repro("save", tmp_path / "a")
+    assert all(out["sharded"]) and out["split"] > 0
+    ranks = run_ranks(_ckpt_ranks, 2, tmp_path / "a", tmp_path / "b",
+                      timeout_s=120, workdir=tmp_path)
+    b = _ckpt_model()
+    specs = [leaf for leaf in tree_leaves(
+        tree_map(lambda _, s: s, _port_state_tree(b), lm_state_specs(b)),
+        is_leaf=lambda x: isinstance(x, comm.PartitionSpec))]
+    assert len(specs) == len(saved)
+    for r in ranks:
+        assert r["committed"]
+        mesh = comm.CountingMesh(CKPT_MESH, CKPT_AXES, r["rank"])
+        assert len(r["restored"]) == len(saved)
+        for got, whole, spec in zip(r["restored"], saved, specs):
+            want = comm.shard(torch.from_numpy(whole), spec, mesh).numpy()
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    out, back = repro("restore", tmp_path / "b")
+    assert all(out["sharded"]) and out["split"] > 0
+    want = [port_bits(leaf) for leaf in tree_leaves(_port_state_tree(b))]
+    assert len(back) == len(want)
+    for got, w in zip(back, want):
+        assert got.dtype == w.dtype
+        np.testing.assert_array_equal(got, w)

@@ -34,6 +34,7 @@ import textwrap
 from unittest import mock
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -51,7 +52,7 @@ from repro_torch import interop
 from repro_torch.analysis import count_call
 from repro_torch.analysis import roofline as rl
 from repro_torch.analysis.count import Counter, CountSummary
-from repro_torch.configs import GNNShape, get_arch
+from repro_torch.configs import LM_SHAPES, GNNShape, get_arch
 from repro_torch.distributed import comm
 from repro_torch.distributed.ranks import run_ranks
 from repro_torch.launch import cells, dryrun
@@ -60,6 +61,7 @@ from repro_torch.models import gnn as gnn_t
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import pipeline as pp
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import DP
 from repro_torch.optim import AdamWConfig
 
 META = torch.device("meta")
@@ -68,6 +70,11 @@ LMS = ("qwen1.5-4b", "chatglm3-6b", "command-r-plus-104b", "dbrx-132b",
 RANKS_TIMEOUT_S = 300
 # (pod, data, model): Megatron over model, then FSDP and rows over data.
 PP_SHAPES = ((2, 1, 2), (2, 2, 1))
+# The pipelines held, each on its meshes: ChatGLM3 on both, granite's MoE
+# stages (``moe_block(..., fsdp=)``) on (2, 1, 2).
+PP_ARCH, PP_MOE_ARCH = "chatglm3-6b", "granite-moe-3b-a800m"
+PP_RUNS = ((PP_ARCH, PP_SHAPES), (PP_MOE_ARCH, ((2, 1, 2),)))
+GATE_TOL = 1e-6             # ROADMAP §3, handled, item 6: f32 exp's ulp
 PP_AXES = ("pod", "data", "model")
 # repro's own GPipe test's optimizer (lr 3e-3, its default warm-up).
 PP_OPT = dict(lr=3e-3)
@@ -85,8 +92,8 @@ def _flat(tree, prefix=""):
                                else e for e in tree)}
 
 
-def _pp_config(tp_cfg=get_arch):
-    cfg = tp_cfg("chatglm3-6b").smoke()
+def _pp_config(tp_cfg=get_arch, arch=PP_ARCH):
+    cfg = tp_cfg(arch).smoke()
     return dc.replace(cfg, n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,
                       vocab=128, param_dtype="float32")
 
@@ -115,7 +122,7 @@ REPRO_PP = """
     from repro.models import transformer as tfm
     from repro.optim import AdamWConfig
     from repro.shardmap import make_mesh, mesh_scope
-    cfg = get_arch("chatglm3-6b").config.smoke()
+    cfg = get_arch(ARCH).config.smoke()
     cfg = dc.replace(cfg, n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,
                      vocab=128, param_dtype="float32")
     b = tfm.build(cfg, tp=2)
@@ -125,7 +132,11 @@ REPRO_PP = """
     params = {"layers": {}}
     for k in z.files:
         if k.startswith("layers/"):
-            params["layers"][k[len("layers/"):]] = jnp.asarray(z[k])
+            node = params["layers"]
+            *path, name = k[len("layers/"):].split(".")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[name] = jnp.asarray(z[k])
         elif k != "tokens":
             params[k] = jnp.asarray(z[k])
     toks = jnp.asarray(z["tokens"])
@@ -174,8 +185,8 @@ def _tally():
         yield got
 
 
-def _stage_model(params_np, mesh):
-    b = tfm.build(_pp_config(), 2)
+def _stage_model(arch, params_np, mesh):
+    b = tfm.build(_pp_config(arch=arch), 2)
     whole = interop.lm_params_from_numpy(params_np, b, device="cpu")
     model = shard_lm(whole, mesh, pp.stage_layer_specs(b))
     return pp.keep_stage_layers(model, mesh.axis_index("pod"), 2)
@@ -198,13 +209,41 @@ def _count_of(c: Counter) -> dict:
                     for k, v in c.ops.items()}}
 
 
-def _pp_rank(mesh, params_np, tokens):
-    model = _stage_model(params_np, mesh)
+def _routed(fn):
+    """``fn()`` and every call of the MoE router inside it: the router,
+    its input, the gates, the ids and the aux's dropped fraction."""
+    from repro_torch.models import moe as moe_lib
+
+    calls = []
+    route, aux = moe_lib._route, moe_lib._aux
+
+    def spy_route(router, x, spec, n_real, e_pad):
+        out = route(router, x, spec, n_real, e_pad)
+        calls.append({"router": router.detach().numpy().copy(),
+                      "x": x.detach().float().numpy().copy(),
+                      "gate": out[0].detach().numpy().copy(),
+                      "ids": out[1].numpy().copy(), "n_real": n_real,
+                      "e_pad": e_pad})
+        return out
+
+    def spy_aux(*args, **kwargs):
+        out = aux(*args, **kwargs)
+        calls[-1]["dropped"] = float(out["dropped_frac"])
+        return out
+
+    with mock.patch.object(moe_lib, "_route", spy_route), \
+            mock.patch.object(moe_lib, "_aux", spy_aux):
+        return fn(), calls
+
+
+def _pp_rank(arch, mesh, params_np, tokens):
+    model = _stage_model(arch, params_np, mesh)
     toks = torch.from_numpy(_rows(tokens, mesh.axis_size("data"),
                                   mesh.axis_index("data")))
     with torch.no_grad():
-        hidden = pp.pp_hidden_forward(model, toks, n_stages=2, n_micro=4,
-                                      attn_impl="naive", mesh=mesh)
+        hidden, routed = _routed(lambda: pp.pp_hidden_forward(
+            model, toks, n_stages=2, n_micro=4, attn_impl="naive",
+            mesh=mesh))
     state = lm_lib.init_train_state(model)
     step = pp.make_pp_train_step(AdamWConfig(**PP_OPT), n_stages=2,
                                  n_micro=4, attn_impl="naive", mesh=mesh)
@@ -217,13 +256,15 @@ def _pp_rank(mesh, params_np, tokens):
     params = {k: p.detach().numpy() for k, p in model.named_parameters()}
     return {"hidden": hidden.numpy(), "metrics": metrics, "params": params,
             "coords": mesh.coords, "passed": dict(tally),
-            "count": _count_of(c)}
+            "count": _count_of(c), "routed": routed}
 
 
-def _pp_ranks(device, params_np, tokens):
+def _pp_ranks(device, inputs):
+    """Every pipeline of :data:`PP_RUNS` on this rank, by (arch, mesh)."""
     torch.set_num_threads(1)
-    return {shape: _pp_rank(comm.Mesh(shape, PP_AXES, "cpu"), params_np,
-                            tokens) for shape in PP_SHAPES}
+    return {(arch, shape): _pp_rank(arch, comm.Mesh(shape, PP_AXES, "cpu"),
+                                    *inputs[arch])
+            for arch, shapes in PP_RUNS for shape in shapes}
 
 
 def _arrays(tree):
@@ -232,10 +273,10 @@ def _arrays(tree):
     return np.asarray(tree, np.float32)
 
 
-def _params0():
+def _params0(arch):
     """The smoke model's weights at ``tp=2`` (the port's ``init_lm``) as
     ``repro``'s param tree of numpy arrays, and the tokens."""
-    model = tfm.init_lm(tfm.build(_pp_config(), 2),
+    model = tfm.init_lm(tfm.build(_pp_config(arch=arch), 2),
                         torch.Generator().manual_seed(0))
     named = {k: p.detach().numpy() for k, p in model.named_parameters()}
     tree = {k: v for k, v in named.items() if not k.startswith("layers.")}
@@ -248,48 +289,53 @@ def _params0():
 
 @pytest.fixture(scope="module")
 def pp_runs(tmp_path_factory):
-    """``repro``'s pipeline (a subprocess a mesh) and the 4 ranks, at
-    once."""
+    """``repro``'s pipeline (a subprocess an (arch, mesh)) and the 4 ranks
+    (one spawn for every run), at once."""
     workdir = tmp_path_factory.mktemp("pp3")
-    params0, tokens = _params0()
-    path = workdir / "params0.npz"
-    np.savez(path, tokens=tokens, **{k: v for k, v in params0.items()
-                                     if k != "layers"},
-             **{f"layers/{k}": v for k, v in params0["layers"].items()})
-    with concurrent.futures.ThreadPoolExecutor(len(PP_SHAPES) + 1) as pool:
-        refs = {shape: pool.submit(
+    inputs, paths = {}, {}
+    for arch, _ in PP_RUNS:
+        params0, tokens = inputs[arch] = _params0(arch)
+        paths[arch] = workdir / f"{arch}.npz"
+        np.savez(paths[arch], tokens=tokens,
+                 **{k: v for k, v in params0.items() if k != "layers"},
+                 **{f"layers/{k}": v for k, v in params0["layers"].items()})
+    runs = [(arch, shape) for arch, shapes in PP_RUNS for shape in shapes]
+    with concurrent.futures.ThreadPoolExecutor(len(runs) + 1) as pool:
+        refs = {run: pool.submit(
             run_in_subprocess, f"PP_OPT = {PP_OPT!r}\nPARAMS0 = "
-            f"{str(path)!r}\nSHAPE = {shape!r}\n" + textwrap.dedent(REPRO_PP))
-            for shape in PP_SHAPES}
+            f"{str(paths[run[0]])!r}\nSHAPE = {run[1]!r}\nARCH = "
+            f"{run[0]!r}\n" + textwrap.dedent(REPRO_PP)) for run in runs}
         counted = pool.submit(_counted)
-        ranks = run_ranks(_pp_ranks, 4, params0, tokens,
-                          timeout_s=RANKS_TIMEOUT_S, workdir=workdir)
-        ref = {shape: r.result() for shape, r in refs.items()}
+        ranks = run_ranks(_pp_ranks, 4, inputs, timeout_s=RANKS_TIMEOUT_S,
+                          workdir=workdir)
+        ref = {run: r.result() for run, r in refs.items()}
     return ref, ranks, counted.result(), {
-        shape: _arrays(ref[shape]["params"]) for shape in PP_SHAPES}
+        run: _arrays(ref[run]["params"]) for run in runs}
 
 
 def _counted() -> dict:
-    """{(mesh shape, stage): the counting mesh's count (:func:`_count_of`)
-    of one step of that stage's first rank}, on ``meta``."""
+    """{(arch, mesh shape, stage): the counting mesh's count
+    (:func:`_count_of`) of one step of that stage's first rank}, on
+    ``meta``."""
     out = {}
-    b = tfm.build(_pp_config(), 2)
-    for shape in PP_SHAPES:
-        for stage in range(shape[0]):
-            rank = int(np.ravel_multi_index((stage, 0, 0), shape))
-            mesh = comm.CountingMesh(shape, PP_AXES, rank=rank)
-            meta = pp.keep_stage_layers(tfm.LM(
-                b, device=META, mesh=mesh, specs=pp.stage_layer_specs(b)),
-                stage, 2)
-            step = pp.make_pp_train_step(AdamWConfig(**PP_OPT), n_stages=2,
-                                         n_micro=4, attn_impl="naive",
-                                         mesh=mesh)
-            toks = torch.empty((8 // shape[1], 16), dtype=torch.int64,
-                               device=META)
-            state = lm_lib.init_train_state(meta)
-            with Counter() as c:
-                step(state, {"tokens": toks, "labels": toks})
-            out[shape, stage] = _count_of(c)
+    for arch, shapes in PP_RUNS:
+        b = tfm.build(_pp_config(arch=arch), 2)
+        for shape in shapes:
+            for stage in range(shape[0]):
+                rank = int(np.ravel_multi_index((stage, 0, 0), shape))
+                mesh = comm.CountingMesh(shape, PP_AXES, rank=rank)
+                meta = pp.keep_stage_layers(tfm.LM(
+                    b, device=META, mesh=mesh,
+                    specs=pp.stage_layer_specs(b)), stage, 2)
+                step = pp.make_pp_train_step(
+                    AdamWConfig(**PP_OPT), n_stages=2, n_micro=4,
+                    attn_impl="naive", mesh=mesh)
+                toks = torch.empty((8 // shape[1], 16), dtype=torch.int64,
+                                   device=META)
+                state = lm_lib.init_train_state(meta)
+                with Counter() as c:
+                    step(state, {"tokens": toks, "labels": toks})
+                out[arch, shape, stage] = _count_of(c)
     return out
 
 
@@ -317,31 +363,32 @@ def _cut(a, spec, coords, sizes):
     return a
 
 
-def _ranks_on(ranks, shape):
-    return [out[shape] for out in ranks]
+def _ranks_on(ranks, arch, shape):
+    return [out[arch, shape] for out in ranks]
 
 
-def test_pp_hidden_states_match_repros(pp_runs):
+def _hidden_held(pp_runs, arch):
     ref, ranks, _, _ = pp_runs
-    for shape in PP_SHAPES:
-        want = np.asarray(ref[shape]["hidden"], np.float32)
-        for out in _ranks_on(ranks, shape):
+    for shape in dict(PP_RUNS)[arch]:
+        want = np.asarray(ref[arch, shape]["hidden"], np.float32)
+        for out in _ranks_on(ranks, arch, shape):
             _close(out["hidden"], _rows(want, shape[1],
                                         out["coords"]["data"]), 1e-5,
                    float(np.abs(want).max()))
 
 
-def test_pp_two_steps_match_repros(pp_runs):
+def _steps_held(pp_runs, arch):
     ref, ranks, _, want = pp_runs
-    specs = _flat(pp.stage_layer_specs(tfm.build(_pp_config(), 2)))
-    for shape in PP_SHAPES:
+    specs = _flat(pp.stage_layer_specs(tfm.build(_pp_config(arch=arch),
+                                                 2)))
+    for shape in dict(PP_RUNS)[arch]:
         sizes = dict(zip(PP_AXES, shape))
-        for out in _ranks_on(ranks, shape):
+        for out in _ranks_on(ranks, arch, shape):
             np.testing.assert_allclose(out["metrics"],
-                                       ref[shape]["metrics"], rtol=1e-5,
-                                       err_msg=str(shape))
+                                       ref[arch, shape]["metrics"],
+                                       rtol=1e-5, err_msg=str(shape))
             for path, spec in specs.items():
-                leaf = want[shape]
+                leaf = want[arch, shape]
                 for k in path.split("/"):
                     leaf = leaf[k]
                 mine = _cut(leaf, spec, out["coords"], sizes)
@@ -355,17 +402,12 @@ def test_pp_two_steps_match_repros(pp_runs):
                            1e-4, scale)
 
 
-def test_counting_mesh_counts_what_the_ranks_pass(pp_runs):
-    """Each rank's counter, over a real gloo group, counts the bytes the
-    rank passed to ``comm`` kind by kind, and counts op for op what the
-    counting mesh counts of the same step on ``meta``: collectives,
-    device-memory traffic and FLOPs (``torch.distributed``'s own ops
-    unseen)."""
+def _count_held(pp_runs, arch):
     _, ranks, counted, _ = pp_runs
-    for shape in PP_SHAPES:
-        for out in _ranks_on(ranks, shape):
+    for shape in dict(PP_RUNS)[arch]:
+        for out in _ranks_on(ranks, arch, shape):
             got = out["count"]
-            want = counted[shape, out["coords"]["pod"]]
+            want = counted[arch, shape, out["coords"]["pod"]]
             assert out["passed"], "the ranks passed nothing to comm"
             assert {comm.KINDS[k]: v for k, v in out["passed"].items()
                     if v} == got["collective_bytes"], shape
@@ -373,11 +415,72 @@ def test_counting_mesh_counts_what_the_ranks_pass(pp_runs):
             assert got["collective_bytes"]["collective-permute"] > 0
             assert got["ops"] == want["ops"], shape
             assert got["eager_bytes"] == want["eager_bytes"], shape
-        assert counted[shape, 0]["collective_bytes"] == \
-            counted[shape, 1]["collective_bytes"]
+        assert counted[arch, shape, 0]["collective_bytes"] == \
+            counted[arch, shape, 1]["collective_bytes"]
+
+
+def test_pp_hidden_states_match_repros(pp_runs):
+    _hidden_held(pp_runs, PP_ARCH)
+
+
+def test_pp_two_steps_match_repros(pp_runs):
+    _steps_held(pp_runs, PP_ARCH)
+
+
+def test_counting_mesh_counts_what_the_ranks_pass(pp_runs):
+    """Each rank's counter, over a real gloo group, counts the bytes the
+    rank passed to ``comm`` kind by kind, and counts op for op what the
+    counting mesh counts of the same step on ``meta``: collectives,
+    device-memory traffic and FLOPs (``torch.distributed``'s own ops
+    unseen)."""
+    _count_held(pp_runs, PP_ARCH)
+    counted = pp_runs[2]
     # FSDP over data gathers and reduce-scatters; Megatron all-reduces.
-    assert counted[(2, 2, 1), 0]["collective_bytes"]["all-gather"] > 0
-    assert counted[(2, 2, 1), 0]["collective_bytes"]["reduce-scatter"] > 0
+    assert counted[PP_ARCH, (2, 2, 1), 0]["collective_bytes"][
+        "all-gather"] > 0
+    assert counted[PP_ARCH, (2, 2, 1), 0]["collective_bytes"][
+        "reduce-scatter"] > 0
+
+
+def test_pp_moe_hidden_states_match_repros(pp_runs):
+    """granite's smoke config through GPipe on (2, 1, 2): its MoE stages
+    (``moe_block(..., fsdp=)`` under ``stage_layer_specs``) against
+    ``repro``'s ``pp_hidden_forward``."""
+    _hidden_held(pp_runs, PP_MOE_ARCH)
+
+
+def test_pp_moe_two_steps_match_repros(pp_runs):
+    _steps_held(pp_runs, PP_MOE_ARCH)
+
+
+def test_pp_moe_counting_mesh_counts_what_the_ranks_pass(pp_runs):
+    _count_held(pp_runs, PP_MOE_ARCH)
+
+
+def test_pp_moe_router_matches_repros(pp_runs):
+    """Every routed block of the ranks' pipelined forward (each stage's
+    layers at every tick): the ids and the dropped fraction equal
+    ``repro``'s ``_route`` and ``_aux`` on the same router and input
+    exactly, the gates to 1e-6."""
+    from repro.models import moe as jm
+
+    _, ranks, _, _ = pp_runs
+    spec = repro_get_arch(PP_MOE_ARCH).config.smoke().moe
+    n = 0
+    for out in _ranks_on(ranks, PP_MOE_ARCH, (2, 1, 2)):
+        assert out["routed"], "no routed block"
+        for call in out["routed"]:
+            gate, ids, probs, logits = jm._route(
+                jnp.asarray(call["router"]), jnp.asarray(call["x"]), spec,
+                call["n_real"], call["e_pad"])
+            np.testing.assert_array_equal(call["ids"], np.asarray(ids))
+            np.testing.assert_allclose(call["gate"], np.asarray(gate),
+                                       rtol=0, atol=GATE_TOL)
+            assert call["dropped"] == float(jm._aux(
+                probs, ids, logits, call["e_pad"])["dropped_frac"])
+            n += 1
+    # 2 stages x 2 layers x 5 ticks on each of the 4 ranks.
+    assert n == 4 * 2 * 5
 
 
 # -- the counting mesh alone -------------------------------------------------
@@ -451,7 +554,8 @@ def test_roofline_collective_term_and_chips():
 
 MESH_CASES = ["chatglm3-6b__train_4k", "chatglm3-6b__long_500k",
               "granite-moe-3b-a800m__prefill_32k", "gin-tu__ogb_products",
-              "dcn-v2__retrieval_cand", "dks-sec-rdfabout__superstep_m4_k2"]
+              "dcn-v2__retrieval_cand", "dks-sec-rdfabout__superstep_m4_k2",
+              "dks-bluk-bnb__superstep_dense_m4_k2"]
 
 
 def _repro_local(cell, sizes):
@@ -483,6 +587,8 @@ def test_cell_on_a_production_mesh_matches_repros(name, multi):
     arch, shape = name.split("__")
     if name.endswith("_pp2"):
         want = jc.lm_pp_cell(arch, "train_4k")
+    elif shape.startswith("superstep_dense"):
+        want = jc.dks_cell_dense(arch[4:])
     elif arch.startswith("dks-"):
         want = jc.dks_cell(arch[4:], n_shards=mesh0.size)
     else:
@@ -493,6 +599,8 @@ def test_cell_on_a_production_mesh_matches_repros(name, multi):
                                  mesh0.axis_names, rank)
         if name.endswith("_pp2"):
             got = cells.lm_pp_cell(arch, "train_4k", mesh=mesh)
+        elif shape.startswith("superstep_dense"):
+            got = cells.dks_cell_dense(arch[4:], mesh=mesh)
         elif arch.startswith("dks-"):
             got = cells.dks_cell(arch[4:], mesh=mesh)
         else:
@@ -502,10 +610,54 @@ def test_cell_on_a_production_mesh_matches_repros(name, multi):
         assert [sorted(port_specs(a)) for a in args] == theirs
 
 
-def test_dense_dks_cell_is_not_ported_on_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cells.dks_cell_dense("bluk-bnb", mesh=make_production_mesh(
-            counting=True))
+def _dense_bytes(multi: bool) -> dict:
+    """The dense cell's collective bytes a rank a superstep in closed form
+    (bluk-bnb padded to 16,100,352 nodes, m = 4, K = 2, one lane), by
+    ``mesh_superstep``'s phases over ``dp`` data ranks and 16 ``model``
+    ranks."""
+    v, n, k, tp = 16_100_352, 16, 2, 16
+    dp = 32 if multi else 16
+    rows, sets = v // dp, n // tp
+    return {
+        # S's sets and changed over the data ranks; the merged rows' sets
+        # over model; the top-K merge's weights (f32) and cells (int64).
+        "all-gather": v * sets * k * 4 + v + rows * n * k * 4
+        + dp * k * (4 + 8),
+        # Each destination's rows to their rank.
+        "all-to-all": v * sets * k * 4,
+        # The int64 message counts, changed (bool) over model, the
+        # frontier and running minima [2, 2^m] (f32), the frontier test
+        # (bool), e_min (f32).
+        "all-reduce": 2 * 8 + rows + 2 * n * 4 + 1 + 4}
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+def test_dense_dks_cell_bytes_equal_the_closed_form(multi):
+    mesh = make_production_mesh(multi_pod=multi, counting=True)
+    fn, args = cells.dks_cell_dense("bluk-bnb", mesh=mesh).build(META)
+    out, summary = count_call(fn, args)
+    assert summary.collective_bytes == _dense_bytes(multi)
+    assert out.S.shape == args[1].S.shape == (16_100_352 // (
+        32 if multi else 16), 1, 2)
+
+
+@pytest.mark.parametrize("multi,folded", [(False, 16), (True, 8)],
+                         ids=["single", "multi"])
+def test_command_r_folds_what_a_rank_holds(multi, folded):
+    """``repro``'s rule gives command-r-plus-104b__train_4k 16
+    micro-batches on either mesh; a multi-pod rank holds 8 of the 256
+    rows and folds them one a micro-batch (kept on purpose, ROADMAP
+    §3), the single pod's 16 rows fold as ``repro``'s."""
+    arch = "command-r-plus-104b"
+    shape = next(s for s in LM_SHAPES if s.name == "train_4k")
+    theirs = next(s for s in repro_get_arch(arch).shapes
+                  if s.name == "train_4k")
+    assert jc._lm_grad_accum(repro_get_arch(arch).config, theirs) == 16
+    mesh = make_production_mesh(multi_pod=multi, counting=True)
+    note = ("grad_accum=8 folded (repro's rule: 16; a rank holds 8 of the "
+            "256 rows)" if multi else "grad_accum=16, folded")
+    assert cells._accum(get_arch(arch), shape, DP, mesh) == (folded, note)
+    assert cells.build_cell(arch, "train_4k", 16, mesh).notes == note
 
 
 def test_dryrun_mesh_writes_its_record(tmp_path, capsys):
