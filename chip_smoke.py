@@ -21,8 +21,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    f32 add; the backtrace records are integers): random small shapes
    (``subset_combine``, ``lane_superstep`` and ``padded_topk`` up to m = 6
    keywords and K = 8 slots; the ``batched_backtrace`` walk on the final
-   tables of 8 random buckets, stragglers included), then the main path's
-   shapes (the
+   tables of 8 random buckets, stragglers included; then each kernel's
+   wide route at (m, K) = (3, 10), (4, 10), (2, 16), (7, 3), (8, 2) and
+   (6, 9), ``lane_superstep`` also on a hub graph with done lanes and
+   INF-weight hub edges), then the main path's shapes (the
    paper-scale sec-rdfabout graph, an 8-lane m=3 K=3 bucket, a real mid-run
    state with one lane done; the hub count and threshold of
    ``lane_superstep``'s warp-per-hub rows), each kernel and plain version
@@ -50,8 +52,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    CUDA generator through ``repro_torch.launch.serve.generate``: 4 prompts
    of 2,048 tokens and then one of 1,000, each a prefill through the
    kernel (the launch counters set to 0 just before and read just after:
-   28 launches per prefill, all on the ``"wgmma"`` route) and 32 greedy
-   decode steps.  The prefill's
+   28 launches per prefill, all on the ``"wgmma"`` route) and
+   ``LM_GEN`` (16) greedy decode steps.  The prefill's
    last logits must agree with a prefill on naive attention within
    5e-2 x max |logit| (this script's own limit: one absolute bound on
    every logit), and so must the logits of the served tokens fed back
@@ -157,12 +159,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    granite at full width and depth (32 layers, 40 experts top-8, head dim
    64; 3,374,295,552 bf16 parameters, random from a seeded CUDA
    generator, the router in f32) through ``serve.generate`` with phase 6's
-   traffic and checks (4 x 2,048 and 1 x 1,000 tokens, 32 greedy steps
-   each, 32 ``"wgmma"`` flash launches per prefill, logits within 5e-2 x
+   traffic and checks (4 x 2,048 and 1 x 1,000 tokens, ``LM_GEN`` greedy
+   steps each, 32 ``"wgmma"`` flash launches per prefill, logits within 5e-2 x
    max |logit| of naive attention), each prefill's per-layer
    ``dropped_frac`` and ``load_balance``, and a torch.profiler split.
    The int8 cache: the 4 x 2,048 prefill's K/V through ``quantize_kv``
-   into a cache of 4,096 positions, 32 ``decode_step_quant`` steps fed
+   into a cache of 4,096 positions, ``LM_GEN`` ``decode_step_quant`` steps fed
    the bf16-cache decode's greedy tokens, logits within atol = rtol =
    0.25 of its (``tests/test_kvcache.py``'s bound) and the greedy token
    equal wherever the top-2 margin exceeds the difference; then both
@@ -197,8 +199,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 14. bluk-bnb — the paper's large dataset at full size (16,100,000 nodes,
    46,600,000 generated edges, vocabulary 500,000, seed 7, tau 1001),
    generated and indexed in a worker process started after phase 11
-   (its host ms each, and how long phase 14 waited for them and took to
-   receive them), built on
+   (the index shipped as flat postings; its host ms each, and how long
+   phase 14 waited for them and took to receive them), built on
    ``QueryEngine(backend="cuda")`` (host ms, the device graph's bytes);
    phase 5's traffic (a bucket of 8,
    m=3, k=3, and two m=4, k=2 queries) with the launch counters set to 0
@@ -233,7 +235,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``no_grad`` in bf16 and f32 through the chunked aggregate (4 chunks),
    the logits' gap held as gin-tu's, then one train step.  Leg
    5: ``minibatch_lg`` x gat-cora, bf16: a reddit-size host graph built by
-   ``build_graph``, 1,024 seeds sampled at fanout (15, 10), the sample's
+   ``build_graph`` (in a worker process started after phase 11; phase 15
+   runs before phase 14), 1,024 seeds sampled at fanout (15, 10), the
+   sample's
    features to the card, 8 steps; host ms of the build and the sampling.
    The kernels' launch counters are set to 0 before the phase and read
    after it: the GNN path reaches no ``pallas_call`` in ``repro`` and
@@ -386,7 +390,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``gnn_launches`` phase 15's, all 0; ``accounting_launches`` phase
    17's; the flash row's ``ranks_launches`` phase 18's, by leg: the
    pipeline's and the tensor-parallel legs' ranks, the bag row's its
-   DCN-v2 ranks', gloo's then NCCL's), error, times and bound.
+   DCN-v2 ranks', gloo's then NCCL's), error, times and bound; then a
+   row for each DKS kernel's wide route (``"<name> (wide route)"``): its
+   launches on phase 19's main path (``launches_by_route`` both routes'),
+   its largest error over phases 3 and 19, its times at m = 4, K = 10.
+19. DKS past the templated range (run after phase 11, on phase 5's
+   engines, while phase 14's inputs are made in the worker) —
+   phase 5's sec-rdfabout bucket of 8 at the paper's K = 10 (1.18 GB a
+   table), its two m = 4 queries at K = 5 (the templated route) and
+   K = 10, and one query of 7 keywords at K = 3 (707 MB a table) through
+   ``QueryEngine(backend="cuda")``, the launch counters (by route) set to
+   0 just before and read just after: one ``subset_combine`` a bucket or
+   query, one ``lane_superstep`` a superstep, one walk for the bucket,
+   each on the wide route past m = 6 or K = 8.  Every result (weights,
+   roots, supersteps, messages, flags, trees) equals a ``"torch"`` twin's
+   (the bucket's first ``WIDE_TWIN_LANES`` lanes).  Then each wide kernel
+   held against its plain version and timed at m = 4, K = 10 on a real
+   state of the K = 10 query (``padded_topk`` through the padded relax at
+   dmax = ``WIDE_DMAX``, one launch, equal to ``core/dks.py::relax``),
+   beside its bound; the driver and extraction ms of each query.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -424,7 +446,9 @@ BUCKET_M, BUCKET_K, BUCKET_LANES = 3, 3, 8
 SINGLE_M, SINGLE_K, N_SINGLE = 4, 2, 2
 QUERY_SEED = 2024
 LM_ARCH, LM_SEED = "chatglm3-6b", 0
-LM_BATCH, LM_PROMPT, LM_LONG, LM_GEN = 4, 2048, 1000, 32
+# LM_GEN: greedy decode steps a request (32 until PR 32, cut to keep the
+# script inside its limit beside phase 19).
+LM_BATCH, LM_PROMPT, LM_LONG, LM_GEN = 4, 2048, 1000, 16
 LM_TOL = 5e-2               # bf16 logits against naive: x max |logit|
 MOE_ARCH = "granite-moe-3b-a800m"   # phase 11, at full width and depth
 QUANT_SEQ, QUANT_LONG, QUANT_LONG_STEPS = 4096, 32768, 8  # int8 cache legs
@@ -457,6 +481,16 @@ BAG_TIMED = (65_536, 32, 0.3)   # bags, ids per bag, share of -1 pads
 L2_FLUSH_BYTES = 128 << 20  # written between cold launches: > 2 x 50 MB L2
 SPIN_CYCLES_PER_S = 2e9     # at or above the H100's top SM clock (1.98 GHz)
 PADDED_STEPS, PADDED_DMAX = 3, 64
+# The DKS kernels' wide route (run-time m and K, one warp a row): phase 3's
+# (m, K) past the templated m <= 6, K <= 8, and phase 19's traffic on
+# sec-rdfabout: phase 5's bucket at the paper's K = 10, its two m = 4
+# queries at K = 5 and 10, one query of 7 keywords at K = 3; the "torch"
+# twin runs the bucket's first lanes.  The wide padded relax cuts dmax to
+# 16, so that its candidates (C = 16 K slots) and their plain sort fit
+# beside the engines.
+WIDE_SHAPES = ((3, 10), (4, 10), (2, 16), (7, 3), (8, 2), (6, 9))
+WIDE_BUCKET_K, WIDE_SINGLE_K, WIDE_M7 = 10, (5, 10), (7, 3)
+WIDE_TWIN_LANES, WIDE_DMAX = 2, 16
 SERVE_REQUESTS, SERVE_UNIQUE, SERVE_CLIENTS = 32, 8, 8
 SERVE_DEADLINE_FRAC, SERVE_DEADLINE_MS = 0.25, 75.0
 SERVE_TIMEOUT_S = 120       # the most any served request is waited for
@@ -568,7 +602,7 @@ ACCOUNTING_SEED = 0         # phase 17: the cells' content
 PEAK_TOL, PEAK_SLACK = 0.10, 0.5 * 2 ** 30  # measured peak against meta's
 SHARE_LIMIT = 1.05          # mfu and hbm_share: at most the peak, and noise
 META_TIMEOUT_S = 900        # the meta dry run, started after phase 11
-BLUK_INPUTS_TIMEOUT_S = 600  # phase 14's graph and index, made since phase 11
+HOST_INPUTS_TIMEOUT_S = 600  # phases 14 and 15's host inputs, made since phase 11
 FLASH_SHAPES = (            # b, sq, skv, hq, hkv, dh, q_offset
     (1, 128, 128, 4, 4, 64, 0),       # MHA
     (2, 256, 256, 4, 2, 64, 0),       # GQA g=2
@@ -1665,6 +1699,264 @@ def padded_phase(dev, graph, index, bucket) -> tuple[float, tuple, int]:
         f"{list(red.shape)}: {times[0]} ms (plain {times[1]} ms, bound "
         f"{times[3]} ms by {times[4]})")
     return err, times, launches
+
+
+def wide_small_shapes(dev, g_small, dg_small, rng) -> dict:
+    """Phase 3's wide route, past m = 6 or K = 8: each DKS kernel at every
+    (m, K) of ``WIDE_SHAPES`` against its plain version, exactly, one
+    wide launch each; ``lane_superstep`` also on a hub graph (in-degrees
+    up to 980, INF-weight edges into hubs, lanes 1 and 3 of 4 done).
+    Returns each kernel's largest error."""
+    t0 = time.perf_counter()
+    from repro_torch import INF
+    from repro_torch.answers import BatchedBacktracer
+    from repro_torch.core import dks, driver
+    from repro_torch.graph.generators import lod_like_graph
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.batched_backtrace.ref import \
+        batched_backtrace_ref
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
+    from repro_torch.kernels.segment_minplus import ops as sm_ops
+    from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+    from repro_torch.kernels.subset_combine.ref import subset_combine_ref
+
+    errs_wide = dict.fromkeys(("subset_combine", "lane_superstep",
+                               "padded_topk", "batched_backtrace"), 0.0)
+
+    def held_wide(name, ops, call, want, what):
+        before = ops.launches_by_route["wide"]
+        got = call()
+        torch.cuda.synchronize()
+        check(ops.launches_by_route["wide"] == before + 1,
+              f"{name} at {what} did not launch the wide route")
+        err = max_abs_err(got, want)
+        errs_wide[name] = max(errs_wide[name], err)
+        check(torch.equal(got, want), f"{name} wide route != plain at "
+                                      f"{what} (max abs err {err})")
+
+    g_hub, _ = lod_like_graph(3000, 40000, seed=1, vocab=40, tau=300)
+    dg_hub = g_hub.to_device(dev)
+    for m, k in WIDE_SHAPES:
+        S = sorted_unique_tables((3, 301), m, k, seed=10 * m + k, device=dev)
+        held_wide("subset_combine", sc_ops,
+                  lambda: sc_ops.subset_combine(S, m),
+                  subset_combine_ref(S, m), f"m={m} k={k}")
+        cfg = dks.DKSConfig(m=m, k=k)
+        for what, dgw, density, done in (
+                ("small graph", dg_small, 0.03, [True, False, False]),
+                ("hub graph", dg_hub, 0.01, [False, True, False, True])):
+            masks = torch.from_numpy(
+                rng.random((len(done), m, dgw.v_pad)) < density).to(dev)
+            st = driver.lane_init(dgw, masks, cfg)
+            for _ in range(2):
+                st = dks.superstep(dgw, st, cfg)
+            args = (st.S, st.changed, torch.tensor(done, device=dev),
+                    dgw.in_offsets, dgw.src, dgw.w)
+            held_wide("lane_superstep", ls_ops,
+                      lambda: ls_ops.fused_lane_step(*args, m,
+                                                     dgw.hub_nodes),
+                      fused_lane_step_ref(*args, m), f"{what} m={m} k={k}")
+        if k > 8:  # padded_topk takes any F on its templated route
+            r = np.random.default_rng(m + k)
+            f, c = 1 << m, 4 * k
+            cand = r.integers(1, 60, size=(257, c, f)).astype(np.float32)
+            cand[r.random(cand.shape) > 0.6] = INF
+            cand = torch.from_numpy(cand).to(dev)
+            held_wide("padded_topk", sm_ops,
+                      lambda: sm_ops.padded_topk(cand, k),
+                      padded_topk_ref(cand, k), f"cand {[257, c, f]} k={k}")
+        kw_masks = rng.random((4, m, dg_small.v_pad)) < 0.05
+        kw_masks[:, :, g_small.n_nodes:] = False
+        kw_masks[0, 0] = False
+        kw = torch.from_numpy(kw_masks).to(dev)
+        st = driver.run_lanes(dg_small, kw, dks.DKSConfig(
+            m=m, k=k, max_supersteps=32))
+        for caps in ({}, TIGHT):
+            bt = BatchedBacktracer(g_small, device=dev, **caps)
+            args = bt._walk_args(st.S.contiguous(), kw, k)[2]
+            before = bt_ops.launches_by_route["wide"]
+            got = bt_ops.batched_backtrace(*args)
+            torch.cuda.synchronize()
+            check(bt_ops.launches_by_route["wide"] == before + 1,
+                  f"batched_backtrace at m={m} k={k} did not launch the "
+                  f"wide route")
+            errs_wide["batched_backtrace"] = max(
+                errs_wide["batched_backtrace"],
+                held_records(got, batched_backtrace_ref(*args),
+                             f"wide m={m} k={k} {caps}"))
+    log(f"  the wide route's holds took {time.perf_counter() - t0:.1f} s")
+    return errs_wide
+
+
+def wide_phase(dev, graph, index, bucket, singles, engines) -> dict:
+    """Phase 19: the DKS main path past the templated range, on phase 5's
+    sec-rdfabout engines: the bucket at K = 10, the two m = 4 queries at
+    K = 5 and 10, a query of 7 keywords at K = 3, the launch counters set
+    to 0 just before and read just after; every result equal to the
+    ``"torch"`` twin's (the bucket's first ``WIDE_TWIN_LANES`` lanes); then
+    each wide kernel held against its plain version and timed at m = 4,
+    K = 10 on a real state of the K = 10 query.  Returns the launches by
+    route, the wide kernels' errors and times, and a summary."""
+    from repro_torch import INF
+    from repro_torch.answers import BatchedBacktracer
+    from repro_torch.core import dks, driver
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.batched_backtrace.ref import \
+        batched_backtrace_ref
+    from repro_torch.kernels.lane_superstep import ops as ls_ops
+    from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
+    from repro_torch.kernels.segment_minplus import ops as sm_ops
+    from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
+    from repro_torch.kernels.subset_combine import ops as sc_ops
+    from repro_torch.kernels.subset_combine.ref import subset_combine_ref
+
+    t_phase = time.perf_counter()
+
+    [q7] = draw_queries(graph, index, 1, WIDE_M7[0],
+                        np.random.default_rng(QUERY_SEED + 1))
+    eng, twin = engines["cuda"], engines["torch"]
+    kernels = {"subset_combine": sc_ops, "lane_superstep": ls_ops,
+               "batched_backtrace": bt_ops}
+
+    # ---- the main path, counted ----
+    for ops in kernels.values():
+        for c in (ops.counter, *ops.route_counters.values()):
+            c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch = eng.query_batch(bucket, k=WIDE_BUCKET_K)
+    t_batch = time.perf_counter() - t0
+    single = []
+    for q, k in (*zip(singles, WIDE_SINGLE_K), (q7, WIDE_M7[1])):
+        t0 = time.perf_counter()
+        single.append((eng.query(q, k=k), time.perf_counter() - t0))
+    launches = {n: ops.launches_by_route for n, ops in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps_batch = max(r.supersteps for r in batch)
+    (r5, _), (r10, _), (r7, _) = single
+    want = {"subset_combine": {"templated": 1, "wide": 3},
+            "lane_superstep": {"templated": r5.supersteps,
+                               "wide": steps_batch + r10.supersteps
+                               + r7.supersteps},
+            "batched_backtrace": {"templated": 0, "wide": 1}}
+    check(launches == want, f"wide leg launches {launches}, want {want}")
+    for r in batch + [r for r, _ in single]:
+        check(r.found and len(r.answers) > 0, f"no answer for {r.query}")
+    log(f"[19/19] {graph.n_nodes}-node sec-rdfabout past the templated "
+        f"route on backend=cuda: launches by route {launches}; peak device "
+        f"memory {gib(peak)}")
+
+    def split(res, total_s):
+        drv = res.wall_time_s * 1e3
+        return (f"{total_s * 1e3:.1f} ms = driver {drv:.1f} ms "
+                f"({drv / res.supersteps:.2f} ms per superstep) + "
+                f"extraction {total_s * 1e3 - drv:.1f} ms")
+
+    log(f"  bucket of {BUCKET_LANES} (m={BUCKET_M}, k={WIDE_BUCKET_K}, "
+        f"{gib(BUCKET_LANES * graph.n_nodes * (4 << BUCKET_M) * WIDE_BUCKET_K)}"
+        f" a table): {steps_batch} supersteps, lanes "
+        f"{[r.supersteps for r in batch]}, best weights "
+        f"{[float(r.weights[0]) for r in batch]}; "
+        f"{split(batch[0], t_batch)}")
+    for r, t in single:
+        log(f"  query {list(r.query)} (m={r.m}, k={r.k}): {r.supersteps} "
+            f"supersteps, weights {r.weights.tolist()}; {split(r, t)}")
+
+    # ---- the "torch" twin ----
+    t0 = time.perf_counter()
+    got = twin.query_batch(bucket[:WIDE_TWIN_LANES], k=WIDE_BUCKET_K)
+    t_twin = [time.perf_counter() - t0]
+    for i, (rc, rt) in enumerate(zip(batch, got)):
+        same_results(rc, rt, f"wide bucket lane {i} vs torch twin")
+    for (rc, _), (q, k) in zip(single, (*zip(singles, WIDE_SINGLE_K),
+                                        (q7, WIDE_M7[1]))):
+        t0 = time.perf_counter()
+        same_results(rc, twin.query(q, k=k), f"wide query {q} k={k} vs "
+                                             f"torch twin")
+        t_twin.append(time.perf_counter() - t0)
+    log(f"  backend=torch twin == backend=cuda (weights, roots, supersteps, "
+        f"messages, flags, trees): bucket lanes 0..{WIDE_TWIN_LANES - 1} in "
+        f"{t_twin[0]:.1f} s, the three queries in "
+        f"{', '.join(f'{t:.1f}' for t in t_twin[1:])} s")
+    del batch, got, single
+
+    # ---- each wide kernel at m = 4, K = 10, a real state ----
+    m, k = SINGLE_M, WIDE_SINGLE_K[1]
+    dg = eng.device_graph
+    masks = torch.from_numpy(index.keyword_masks(
+        singles[1], graph.n_nodes, v_pad=dg.v_pad)[None]).to(dev)
+    cfg = dks.DKSConfig(m=m, k=k)
+    errs, timing = {}, {}
+    S_pre = torch.full((1, dg.v_pad, 1 << m, k), INF, device=dev)
+    for i in range(m):
+        S_pre[:, :, 1 << i, 0] = torch.where(masks[:, i], 0.0, INF)
+    got = sc_ops.subset_combine(S_pre, m)
+    want_t = subset_combine_ref(S_pre, m)
+    errs["subset_combine"] = max_abs_err(got, want_t)
+    check(torch.equal(got, want_t), "wide subset_combine != plain at m=4 "
+                                    "k=10")
+    timing["subset_combine"] = (
+        cuda_ms(lambda: sc_ops.subset_combine(S_pre, m), 20),
+        cuda_ms(lambda: subset_combine_ref(S_pre, m), 3), None,
+        *combine_bound(S_pre, m))
+    st = driver.lane_init(dg, masks, cfg)
+    for _ in range(2):
+        st = dks.superstep(dg, st, cfg)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
+    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
+    want_t = fused_lane_step_ref(*args, m)
+    errs["lane_superstep"] = max_abs_err(got, want_t)
+    check(torch.equal(got, want_t), "wide lane_superstep != plain at m=4 "
+                                    "k=10")
+    timing["lane_superstep"] = (
+        cuda_ms(lambda: ls_ops.fused_lane_step(*args, m, dg.hub_nodes), 5),
+        cuda_ms(lambda: fused_lane_step_ref(*args, m), 3), None,
+        *lane_bound(*args))
+    # The padded relax of that state (one padded_topk launch), equal to
+    # its plain version and to core/dks.py::relax.
+    n_e = dg.n_edges
+    csr = sm_ops.padded_csr_from_graph(
+        *(x[:n_e].cpu().numpy() for x in (dg.src, dg.dst, dg.w)),
+        dg.n_nodes, dmax=WIDE_DMAX, device=dev)
+    S1, ch1 = st.S[0].contiguous(), st.changed[0].contiguous()
+    for c in (sm_ops.counter, *sm_ops.route_counters.values()):
+        c.reset()
+    relaxed = sm_ops.segment_minplus_padded(S1, csr, ch1, k, dg.v_pad)
+    launches["padded_topk"] = sm_ops.launches_by_route
+    check(launches["padded_topk"] == {"templated": 0, "wide": 1},
+          f"padded_topk launches {launches['padded_topk']}, want 1 wide")
+    check(torch.equal(relaxed, dks.relax(dg, S1[None], ch1[None], cfg)[0]),
+          "wide segment_minplus_padded differs from core/dks.py::relax")
+    cand = sm_ops.padded_candidates(S1, csr, ch1)
+    got = sm_ops.padded_topk(cand, k)
+    want_t = padded_topk_ref(cand, k)
+    errs["padded_topk"] = max_abs_err(got, want_t)
+    check(torch.equal(got, want_t), "wide padded_topk != plain at m=4 k=10")
+    timing["padded_topk"] = (
+        cuda_ms(lambda: sm_ops.padded_topk(cand, k), 5),
+        cuda_ms(lambda: padded_topk_ref(cand, k), 3), None,
+        *rl.bound(*rl.topk_work(cand, k)[:2]))
+    del st, args, got, want_t, cand, relaxed, S1, ch1
+    # The walk on the K = 10 query's final table.
+    res = eng.query(singles[1], k=k, keep_state=True)
+    bt = BatchedBacktracer(graph, device=dev)
+    bt_args = bt._walk_args(res.state.S.contiguous(), masks, k)[2]
+    recs = bt_ops.batched_backtrace(*bt_args)
+    errs["batched_backtrace"] = held_records(
+        recs, batched_backtrace_ref(*bt_args), "the m=4 k=10 query's table")
+    timing["batched_backtrace"] = (
+        cuda_ms(lambda: bt_ops.batched_backtrace(*bt_args), 20),
+        cuda_ms(lambda: batched_backtrace_ref(*bt_args), 3), None,
+        *backtrace_bound(recs, m))
+    del res, bt_args, recs, S_pre
+    for name, (ms, plain, _, bound, by) in timing.items():
+        log(f"  {name} wide route at m={m} k={k}: {ms} ms (plain {plain} "
+            f"ms, bound {bound} ms by {by}), == plain")
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "errs": errs, "timing": timing}
 
 
 def same_stream(got, want) -> None:
@@ -2792,9 +3084,11 @@ def bluk_lane(dg, kw, cfg) -> tuple[float, tuple]:
 
 
 def bluk_inputs(conn) -> None:
-    """bluk-bnb's host graph and inverted index, and the seconds each
-    took, pickled to ``conn``: phase 14's inputs, made in a worker
-    process (:func:`start_bluk_worker`)."""
+    """bluk-bnb's host graph, its inverted index as flat postings
+    (``to_postings``: a pickled dict of 500,000 small arrays takes tens of
+    seconds each way), the seconds each took and the wall-clock time the
+    result was ready, pickled to ``conn``: phase 14's inputs, made in a
+    worker process (:func:`start_worker`)."""
     from repro_torch.configs import BLUK_BNB
     from repro_torch.graph.generators import lod_like_graph
     from repro_torch.graph.index import InvertedIndex
@@ -2805,23 +3099,40 @@ def bluk_inputs(conn) -> None:
                                    vocab=cb.vocab, tau=cb.tau)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    index = InvertedIndex.from_token_matrix(tokens)
-    conn.send_bytes(pickle.dumps((graph, index, gen_s,
-                                  time.perf_counter() - t0), protocol=5))
+    postings = InvertedIndex.from_token_matrix(tokens).to_postings()
+    data = pickle.dumps((graph, postings, gen_s, time.perf_counter() - t0,
+                         time.time()), protocol=5)
+    del graph, tokens, postings
+    conn.send_bytes(data)
     conn.close()
 
 
-def start_bluk_worker() -> tuple:
-    """(the process running :func:`bluk_inputs`, the end its result
-    arrives on).  The result stays in the pipe, with the worker blocked
-    on it, until phase 14 reads it, so no thread of this process
-    unpickles it while a timed phase runs."""
+def minibatch_worker(conn) -> None:
+    """:func:`minibatch_inputs`, pickled to ``conn``: phase 15's leg 5
+    inputs, made in a worker process (:func:`start_worker`)."""
+    conn.send_bytes(pickle.dumps(minibatch_inputs(), protocol=5))
+    conn.close()
+
+
+def start_worker(target) -> tuple:
+    """(the process running ``target(conn)``, the end its result arrives
+    on).  The result stays in the pipe, with the worker blocked on it,
+    until its phase reads it, so no thread of this process unpickles it
+    while a timed phase runs."""
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=bluk_inputs, args=(send,), daemon=True)
+    proc = ctx.Process(target=target, args=(send,), daemon=True)
     proc.start()
     send.close()
     return proc, recv
+
+
+def received(recv, what: str):
+    """The result of a worker's pipe, waited for at most
+    ``HOST_INPUTS_TIMEOUT_S``."""
+    check(recv.poll(HOST_INPUTS_TIMEOUT_S),
+          f"{what} not made within {HOST_INPUTS_TIMEOUT_S} s")
+    return pickle.loads(recv.recv_bytes())
 
 
 def bluk_phase(dev, worker) -> dict:
@@ -2829,22 +3140,26 @@ def bluk_phase(dev, worker) -> dict:
     ``backend="cuda"``, phase 5's traffic, the three DKS kernels held
     against their plain versions at its shapes, a ``"torch"`` twin of the
     bucket's first ``BLUK_TWIN_LANES`` lanes and the first m = 4 query.
-    ``worker``: :func:`start_bluk_worker`'s.  Returns the launches,
+    ``worker``: :func:`start_worker`'s of :func:`bluk_inputs`.  Returns
+    the launches,
     errors and times of the three kernels."""
     from repro_torch.configs import BLUK_BNB
     from repro_torch.core import dks
     from repro_torch.engine import ExecutionPolicy, QueryEngine
+    from repro_torch.graph.index import InvertedIndex
     from repro_torch.kernels.batched_backtrace import ops as bt_ops
     from repro_torch.kernels.lane_superstep import ops as ls_ops
     from repro_torch.kernels.subset_combine import ops as sc_ops
 
     t_phase = time.perf_counter()
     cb = BLUK_BNB
-    recv = worker[1]
-    check(recv.poll(BLUK_INPUTS_TIMEOUT_S), f"{cb.name}'s graph and index "
-          f"not made within {BLUK_INPUTS_TIMEOUT_S} s")
-    graph, index, gen_s, index_s = pickle.loads(recv.recv_bytes())
+    wall0 = time.time()
+    graph, postings, gen_s, index_s, ready = received(
+        worker[1], f"{cb.name}'s graph and index")
+    index = InvertedIndex.from_postings(*postings)
+    del postings
     wait_s = time.perf_counter() - t_phase
+    ready_s = max(0.0, ready - wall0)
     check(graph.n_nodes == cb.n_nodes, f"{cb.name}: {graph.n_nodes} nodes")
     qrng = np.random.default_rng(QUERY_SEED)
     bucket = draw_queries(graph, index, BUCKET_LANES, BUCKET_M, qrng)
@@ -2861,7 +3176,8 @@ def bluk_phase(dev, worker) -> dict:
         f"{dg.hub_nodes.numel()} hubs; host: generated in "
         f"{gen_s * 1e3:.1f} ms, indexed in {index_s * 1e3:.1f} ms (in a "
         f"worker process since phase 11; waited for them and received "
-        f"them in {wait_s * 1e3:.1f} ms), "
+        f"them in {wait_s * 1e3:.1f} ms, {ready_s * 1e3:.1f} of it before "
+        f"the worker had them), "
         f"engine built in {build_s * 1e3:.1f} ms; device graph {device_bytes(dg)} "
         f"bytes ({gib(torch.cuda.memory_allocated() - mem0)} allocated); "
         f"bucket {bucket}, single queries {singles}")
@@ -2897,7 +3213,7 @@ def bluk_phase(dev, worker) -> dict:
     # The final tables leave the results: the holds below need the room.
     S_b = torch.cat([res.state.S for res in batch])
     batch = [dataclasses.replace(res, state=None) for res in batch]
-    log(f"[14/18] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
+    log(f"[14/19] {cb.name} on backend=cuda: a bucket of {BUCKET_LANES} "
         f"(m={BUCKET_M}, k={BUCKET_K}) and {N_SINGLE} queries (m="
         f"{SINGLE_M}, k={SINGLE_K}); launches {launches}; peak device "
         f"memory {gib(peak)}")
@@ -3223,18 +3539,14 @@ def gnn_ogb(dev, card: str) -> None:
         f"{gib(torch.cuda.max_memory_allocated())} [{card}]")
 
 
-def gnn_minibatch(dev, card: str) -> None:
-    """Leg 5: ``minibatch_lg`` x gat-cora, bf16: a reddit-size host graph
-    (232,965 nodes; 57,307,946 random directed edges, weights given, so
-    ``build_graph``'s CSR holds about 114.6 M entries), 1,024 seeds
-    sampled at fanout (15, 10), their features gathered to the card,
-    ``GNN_SAMPLE_STEPS`` train steps on the seeds' labels."""
-    from repro_torch import interop
+def minibatch_inputs() -> dict:
+    """``minibatch_lg``'s host inputs for phase 15's leg 5: a reddit-size
+    host graph (232,965 nodes; 57,307,946 random directed edges, weights
+    given, so ``build_graph``'s CSR holds about 114.6 M entries), its
+    labels and features, the seeds, and the ms the graph took to build.
+    Made in a worker process (:func:`minibatch_worker`) since phase 11."""
     from repro_torch.configs import GAT_CORA, GNN_SHAPES
-    from repro_torch.graph.sampler import plan_sizes, sample_subgraph
     from repro_torch.graph.structure import build_graph
-    from repro_torch.models import gnn as gnn_lib
-    from repro_torch.optim import adamw_init
 
     shape = {s.name: s for s in GNN_SHAPES}["minibatch_lg"]
     rng = np.random.default_rng(GNN_SEED + 3)
@@ -3251,6 +3563,24 @@ def gnn_minibatch(dev, card: str) -> None:
     feats = centers[labels]
     feats += 0.5 * rng.standard_normal(feats.shape, dtype=np.float32)
     seeds = rng.choice(n, shape.batch_nodes, replace=False).astype(np.int32)
+    return {"g": g, "labels": labels, "feats": feats, "seeds": seeds,
+            "build_ms": build_ms}
+
+
+def gnn_minibatch(dev, card: str, inputs: dict) -> None:
+    """Leg 5: ``minibatch_lg`` x gat-cora, bf16: on
+    :func:`minibatch_inputs`' host graph, 1,024 seeds sampled at fanout
+    (15, 10), their features gathered to the card, ``GNN_SAMPLE_STEPS``
+    train steps on the seeds' labels."""
+    from repro_torch import interop
+    from repro_torch.configs import GAT_CORA, GNN_SHAPES
+    from repro_torch.graph.sampler import plan_sizes, sample_subgraph
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.optim import adamw_init
+
+    shape = {s.name: s for s in GNN_SHAPES}["minibatch_lg"]
+    g, labels, feats, seeds, build_ms = (inputs[k] for k in (
+        "g", "labels", "feats", "seeds", "build_ms"))
     t0 = time.perf_counter()
     sub = sample_subgraph(g, seeds, list(shape.fanout), seed=GNN_SEED)
     sample_ms = (time.perf_counter() - t0) * 1e3
@@ -3279,7 +3609,8 @@ def gnn_minibatch(dev, card: str) -> None:
     check(losses[-1] < losses[0], f"gat-cora minibatch: loss {losses[0]} -> "
           f"{losses[-1]} did not fall")
     log(f"  minibatch_lg: host graph of {g.n_nodes} nodes, {len(g.indices)} "
-        f"CSR entries built in {build_ms:.1f} ms; {shape.batch_nodes} seeds "
+        f"CSR entries built in {build_ms:.1f} ms (in a worker process "
+        f"since phase 11); {shape.batch_nodes} seeds "
         f"at fanout {shape.fanout} sampled in {sample_ms:.1f} ms "
         f"({sub.n_sub} node slots, {int(sub.node_valid.sum())} valid; "
         f"{len(sub.edge_src)} edge slots, {int(sub.edge_valid.sum())} "
@@ -3292,16 +3623,18 @@ def gnn_minibatch(dev, card: str) -> None:
         f"{gib(torch.cuda.max_memory_allocated())} [{card}]")
 
 
-def gnn_phase(dev, card: str) -> None:
-    """Phase 15: the GNN family trained on the card (legs 1-5).  Each leg
-    runs in a function of its own, so its tensors die with it."""
+def gnn_phase(dev, card: str, minibatch: dict) -> None:
+    """Phase 15: the GNN family trained on the card (legs 1-5; leg 5 on
+    ``minibatch``, :func:`minibatch_inputs`).  Each leg runs in a function
+    of its own, so its tensors die with it."""
     t_phase = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for leg in (gnn_card_vs_cpu, gnn_bf16_train, gnn_ogb, gnn_minibatch):
+        for leg in (gnn_card_vs_cpu, gnn_bf16_train, gnn_ogb,
+                    functools.partial(gnn_minibatch, inputs=minibatch)):
             leg(dev, card)
             gc.collect()
             torch.cuda.empty_cache()
@@ -5643,7 +5976,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     meta: list = []             # the meta dry run, once phase 11 is done
-    workers: list = []          # phase 14's inputs, from phase 11 on
+    workers: list = []          # phases 14 and 15's inputs, from phase 11 on
     try:
         return phases(meta, workers)
     finally:
@@ -5684,7 +6017,7 @@ def phases(meta: list, workers: list) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    log(f"[1/18] device: {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/19] device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {card}")
 
@@ -5693,7 +6026,7 @@ def phases(meta: list, workers: list) -> int:
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
     build = cuda_build.build_all()
-    log(f"[2/18] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/19] built {sorted(build)} in {time.perf_counter() - t0:.1f} s")
     for name, info in sorted(build.items()):
         entry = ""
         for line in info["log"].splitlines():
@@ -5769,8 +6102,14 @@ def phases(meta: list, workers: list) -> int:
             errs["batched_backtrace"],
             held_records(got, batched_backtrace_ref(*args),
                          f"small graph m={m} k={k} {caps}"))
-    log("[3/18] kernels == plain versions at small shapes (DKS kernels to "
+    log("[3/19] kernels == plain versions at small shapes (DKS kernels to "
         "m=6, K=8; the backtrace walk on 8 random buckets)")
+
+    errs_wide = wide_small_shapes(dev, g_small, dg_small, rng)
+    log(f"[3/19] the wide route == plain versions at (m, K) in "
+        f"{list(WIDE_SHAPES)} (padded_topk at K > 8; lane_superstep also "
+        f"on a hub graph with done lanes; the walk on random buckets, "
+        f"stragglers included)")
 
     t0 = time.perf_counter()
     cfg_sec = SEC_RDFABOUT
@@ -5832,7 +6171,7 @@ def phases(meta: list, workers: list) -> int:
     log("  lane_superstep inputs: " + "; ".join(
         f"{what} {x}" for what, x in figures.items()))
     del st, ls_args, ls_out, S_pre
-    log("[3/18] kernels == plain versions at the main path's shapes")
+    log("[3/19] kernels == plain versions at the main path's shapes")
 
     card_state("phase 3 end, phase 4 start", meta)
 
@@ -5853,7 +6192,7 @@ def phases(meta: list, workers: list) -> int:
         want = dreyfus_wagner(g, groups)
         check(abs(got.best_weight - want) <= 1e-3,
               f"oracle seed {seed}: engine {got.best_weight} vs DW {want}")
-    log("[4/18] top-1 weights == Dreyfus-Wagner on 6 random graphs")
+    log("[4/19] top-1 weights == Dreyfus-Wagner on 6 random graphs")
 
     card_state("phase 4 end, phase 5 start", meta)
 
@@ -5866,7 +6205,8 @@ def phases(meta: list, workers: list) -> int:
     for b, eng in engines.items():
         if b == "cuda":
             for ops in (sc_ops, ls_ops, bt_ops):
-                ops.counter.reset()
+                for c in (ops.counter, *ops.route_counters.values()):
+                    c.reset()
         t0 = time.perf_counter()
         batch = eng.query_batch(bucket, k=BUCKET_K, keep_state=b == "cuda")
         t_batch = time.perf_counter() - t0
@@ -5879,6 +6219,10 @@ def phases(meta: list, workers: list) -> int:
             launches = {"subset_combine": sc_ops.launches,
                         "lane_superstep": ls_ops.launches,
                         "batched_backtrace": bt_ops.launches}
+            wide_launched = {name: ops.launches_by_route["wide"]
+                             for name, ops in (("subset_combine", sc_ops),
+                                               ("lane_superstep", ls_ops),
+                                               ("batched_backtrace", bt_ops))}
         runs[b] = (batch, t_batch, single)
     batch, t_batch, single = runs["cuda"]
     steps_batch = max(r.supersteps for r in batch)
@@ -5892,6 +6236,8 @@ def phases(meta: list, workers: list) -> int:
     check(launches["batched_backtrace"] == 1,
           f"batched_backtrace launched {launches['batched_backtrace']} "
           f"times, want once per bucket (1)")
+    check(not any(wide_launched.values()), f"inside m <= 6, K <= 8 the "
+          f"wide route launched {wide_launched}")
     stats = {b: eng.extraction_stats for b, eng in engines.items()}
     check(stats["cuda"] == stats["torch"] and
           stats["cuda"]["device_resolved"] > 0,
@@ -5905,7 +6251,7 @@ def phases(meta: list, workers: list) -> int:
     # Phase 10 holds an artifact-built engine to these, state dropped.
     phase5 = [dataclasses.replace(r, state=None) for r in batch] + [
         r for r, _ in single]
-    log(f"[5/18] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
+    log(f"[5/19] {cfg_sec.name} on backend=cuda == backend=torch: weights, "
         f"roots, supersteps, messages, flags, answer trees")
 
     def split(res, total_s, steps):
@@ -5985,10 +6331,10 @@ def phases(meta: list, workers: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     errs["flash_attention"], timing["flash_attention"] = flash_phase(dev)
-    log("[6/18] flash_attention == plain version at small shapes and the "
+    log("[6/19] flash_attention == plain version at small shapes and the "
         "main path's shape")
     launches["flash_attention"] = lm_phase(dev)
-    log(f"[6/18] {LM_ARCH} served through the flash kernel: "
+    log(f"[6/19] {LM_ARCH} served through the flash kernel: "
         f"{launches['flash_attention']} launches, logits and tokens agree "
         f"with naive attention")
 
@@ -6004,7 +6350,7 @@ def phases(meta: list, workers: list) -> int:
     timing["embedding_bag"] = tuple(bag_rows[0][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
     shapes = {"embedding_bag": {"timed_shapes": bag_rows}}
-    log(f"[7/18] {RECSYS_ARCH} served through the grouped embedding_bag "
+    log(f"[7/19] {RECSYS_ARCH} served through the grouped embedding_bag "
         f"kernel: {launches['embedding_bag']} launches (1 + 1 + 2), logits "
         f"and retrieval bit-equal to the plain path")
 
@@ -6016,7 +6362,7 @@ def phases(meta: list, workers: list) -> int:
     err, timing["padded_topk"], launches["padded_topk"] = \
         padded_phase(dev, graph, index, bucket)
     errs["padded_topk"] = max(errs["padded_topk"], err)
-    log(f"[8/18] {cfg_sec.name} padded-CSR relax through padded_topk "
+    log(f"[8/19] {cfg_sec.name} padded-CSR relax through padded_topk "
         f"({launches['padded_topk']} launch) == plain == relax, exactly")
 
     card_state("phase 8 end, phase 9 start", meta)
@@ -6025,11 +6371,10 @@ def phases(meta: list, workers: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(graph, index, engines, bucket, singles)
-    log(f"[9/18] {cfg_sec.name} served on backend=cuda through DKSService: "
+    log(f"[9/19] {cfg_sec.name} served on backend=cuda through DKSService: "
         f"{serving['summary']}; deadline bucket, stream and telemetry == "
         f"backend=torch")
     log(f"  card: {card}")
-    del engines
 
     card_state("phase 9 end, phase 10 start", meta)
 
@@ -6037,7 +6382,7 @@ def phases(meta: list, workers: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phase(dev, graph, tokens, index, bucket, singles, phase5)
-    log(f"[10/18] {cfg_sec.name} through the graph store on backend=cuda: "
+    log(f"[10/19] {cfg_sec.name} through the graph store on backend=cuda: "
         f"{store['summary']}")
 
     card_state("phase 10 end, phase 11 start", meta)
@@ -6047,24 +6392,43 @@ def phases(meta: list, workers: list) -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     errs["flash_attention"] = max(errs["flash_attention"], moe["err"])
-    log(f"[11/18] {MOE_ARCH} served through the flash kernel: "
+    log(f"[11/19] {MOE_ARCH} served through the flash kernel: "
         f"{moe['launches']} launches, logits and tokens agree with naive "
         f"attention; int8 cache decode within {QUANT_TOL} of the bf16 cache; "
         f"at cut depth {moe['cut_launches']} launches")
     log(f"  card: {card}")
     meta.append(start_meta_dry_run())
-    # Phase 14's graph and index are made on the host meanwhile, beside
-    # the meta dry run, while phases 12 and 13 use the card.
-    workers.append(start_bluk_worker())
+    # Phases 14 and 15's host inputs are made meanwhile in two worker
+    # processes, beside the meta dry run, while phases 19, 12 and 13 use
+    # the card; phase 15 runs before 14, which needs the longer build.
+    workers.extend((start_worker(bluk_inputs),
+                    start_worker(minibatch_worker)))
 
-    card_state("phase 11 end, phase 12 start", meta)
+    card_state("phase 11 end, phase 19 start", meta)
+
+    # ---------------- 19. DKS past the templated range ----------------
+    # Run here, on phase 5's engines, while phase 14's inputs are made in
+    # the worker.
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide = wide_phase(dev, graph, index, bucket, singles, engines)
+    for name, err in wide["errs"].items():
+        errs_wide[name] = max(errs_wide[name], err)
+    log(f"[19/19] {cfg_sec.name} at K = {WIDE_BUCKET_K} and m = "
+        f"{WIDE_M7[0]} on backend=cuda == backend=torch; the four wide "
+        f"kernels == plain versions at m={SINGLE_M} k={WIDE_SINGLE_K[1]}")
+    log(f"  card: {card}")
+
+    del engines
+
+    card_state("phase 19 end, phase 12 start", meta)
 
     # ---------------- 12. sharded partition ----------------
     gc.collect()
     torch.cuda.empty_cache()
     sharded = sharded_phase(dev, graph, index, bucket, singles, phase5,
                             per_step)
-    log(f"[12/18] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
+    log(f"[12/19] {cfg_sec.name} on the sharded partition ({SHARDS} shards,"
         f" backend=torch) == phase 5; {sharded['summary']}")
 
     card_state("phase 12 end, phase 13 start", meta)
@@ -6073,27 +6437,13 @@ def phases(meta: list, workers: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(dev, card)
-    log(f"[13/18] {TRAIN_ARCH} trained at full width and depth "
+    log(f"[13/19] {TRAIN_ARCH} trained at full width and depth "
         f"({trained['split']['step_s']:.1f} ms a step); flash_jax == "
         f"chunked; a checkpoint restored bit-equal; {RECSYS_ARCH} trained on "
         f"the grouped lookup ({trained['launches']} launches); the smoke "
         f"steps card == CPU")
 
-    card_state("phase 13 end, phase 14 start", meta)
-
-    # ---------------- 14. bluk-bnb ----------------
-    gc.collect()
-    torch.cuda.empty_cache()
-    bluk = bluk_phase(dev, workers[-1])
-    workers.pop()[0].join()
-    for name, err in bluk["errs"].items():
-        errs[name] = max(errs[name], err)
-    log(f"[14/18] bluk-bnb at full size on backend=cuda: launches "
-        f"{bluk['launches']}; the three DKS kernels == plain versions at its "
-        f"shapes; the torch twin's lanes == cuda's")
-    log(f"  card: {card}")
-
-    card_state("phase 14 end, phase 15 start", meta)
+    card_state("phase 13 end, phase 15 start", meta)
 
     # ---------------- 15. GNN ----------------
     from repro_torch.kernels.embedding_bag import ops as eb_ops
@@ -6106,22 +6456,39 @@ def phases(meta: list, workers: list) -> int:
                   "padded_topk": sm_ops, "batched_backtrace": bt_ops}
     for ops in kernel_ops.values():
         ops.counter.reset()
-    gnn_phase(dev, card)
+    minibatch = received(workers[-1][1], "minibatch_lg's host graph")
+    workers.pop()[0].join()
+    gnn_phase(dev, card, minibatch)
+    del minibatch
     gnn_launches = {name: ops.launches for name, ops in kernel_ops.items()}
-    log(f"[15/18] GNN: {', '.join(GNN_ARCHS)} card == CPU (f32) and trained "
+    log(f"[15/19] GNN: {', '.join(GNN_ARCHS)} card == CPU (f32) and trained "
         f"in bf16; gin-tu trained and pna's chunked aggregate run on "
         f"ogb_products at full size; gat-cora trained on a minibatch_lg "
         f"sample of a reddit-size host graph; hand-written kernel launches "
         f"{gnn_launches} (no pallas_call on this path)")
     log(f"  card: {card}")
 
-    card_state("phase 15 end, phase 17 start", meta)
+    card_state("phase 15 end, phase 14 start", meta)
+
+    # ---------------- 14. bluk-bnb ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bluk = bluk_phase(dev, workers[0])
+    workers.pop(0)[0].join()
+    for name, err in bluk["errs"].items():
+        errs[name] = max(errs[name], err)
+    log(f"[14/19] bluk-bnb at full size on backend=cuda: launches "
+        f"{bluk['launches']}; the three DKS kernels == plain versions at its "
+        f"shapes; the torch twin's lanes == cuda's")
+    log(f"  card: {card}")
+
+    card_state("phase 14 end, phase 17 start", meta)
 
     # ---------------- 17. accounting ----------------
     gc.collect()
     torch.cuda.empty_cache()
     accounting = accounting_phase(dev, card, meta[0], kernel_ops)
-    log(f"[17/18] accounting: {accounting['cells']} cells counted on meta, "
+    log(f"[17/19] accounting: {accounting['cells']} cells counted on meta, "
         f"{accounting['measured']} that fit one card run on it; peaks "
         f"within {PEAK_TOL:.0%} or {PEAK_SLACK / 2 ** 30} GiB of meta's, "
         f"FLOPs == meta's, mfu and hbm_share <= {SHARE_LIMIT}")
@@ -6134,7 +6501,7 @@ def phases(meta: list, workers: list) -> int:
     ranks = ranks_phase("cuda", card, graph, index, bucket, singles, phase5,
                         sharded["twin4"], sharded["stepwise4"],
                         serving["served"], accounting["dense_digest"])
-    log(f"[18/18] several ranks: {ranks['summary']}")
+    log(f"[18/19] several ranks: {ranks['summary']}")
     log(f"  card: {card}")
 
     card_state("phase 18 end, phase 16 start", meta)
@@ -6197,6 +6564,21 @@ def phases(meta: list, workers: list) -> int:
                               "ms": ms, "plain_ms": plain,
                               "library_ms": library, "bound_ms": bound,
                               "bound_by": by}})
+    # The wide route of each DKS kernel: its launches on phase 19's main
+    # path (padded_topk: its padded relax), its largest error over phases 3
+    # and 19, its times at m = 4, K = 10 on sec-rdfabout (phase 19).
+    for name, (source, replaces) in sources.items():
+        if name not in wide["timing"]:
+            continue
+        ms, plain, library, bound, by = wide["timing"][name]
+        kernels.append({
+            "name": f"{name} (wide route)", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": wide["launches"][name]["wide"],
+            "max_abs_err": errs_wide[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": library,
+            "shape": f"sec-rdfabout, m={SINGLE_M}, k={WIDE_SINGLE_K[1]}",
+            "launches_by_route": wide["launches"][name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

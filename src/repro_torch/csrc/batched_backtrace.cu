@@ -39,22 +39,30 @@
 // conditions re-read at most K cells, which the L1 holds), and the lowest
 // set bit of the first non-empty ballot is the host's first choice.  Lane
 // 0 appends the children; the warp re-reads the queue after __syncwarp.
-// K is a template parameter (1..8), m a run-time one (1..6).  Nothing is
+// m is a run-time value: the leaf test gives warp lane i keyword i, so
+// any m <= 32 works, and the tables bound it first (2^m * K <=
+// BT_ROW_FLOATS, the DKS kernels' wide limit).  K is a template parameter
+// for K = 1..8 at m <= 6 (the templated route, as the DKS kernels); every
+// other (m, K) runs the same kernel with K a run-time value
+// (batched_backtrace_kernel<0>, the wide route): nothing here keeps a
+// K-vector in registers, so only the index arithmetic differs.  Nothing is
 // allocated here; the wrapper allocates the records with torch.empty.
 #include <cuda_runtime.h>
 
 #define BT_INF 1e9f
 #define BT_TOL 1e-3f
 #define BT_WARPS 4          // candidates per block
-#define BT_MAX_M 6
+#define BT_MAX_M 6          // the templated route: m <= 6, K <= 8
 #define BT_MAX_K 8
+#define BT_ROW_FLOATS 16384  // the wide route: 2^m * K floats a row
 #define BT_MAX_BUFFER 2048  // 4 queues of 7 x 2049 words: <= 227 KB
 #define BT_FULL 0xffffffffu
 
 enum { BT_PENDING = 0, BT_LEAF = 1, BT_SPLIT = 2, BT_EDGE = 3, BT_FAIL = 4,
        BT_UNUSED = -1 };
 
-template <int K>
+// KT: the slot count K, or 0 for the run-time k_rt (the wide route).
+template <int KT>
 __global__ void __launch_bounds__(BT_WARPS * 32)
 batched_backtrace_kernel(
     const float* __restrict__ S, const unsigned char* __restrict__ kw,
@@ -66,8 +74,9 @@ batched_backtrace_kernel(
     int* __restrict__ out_child1, int* __restrict__ out_edge_u,
     unsigned char* __restrict__ out_fail, int n_cand, long long n_items,
     long long vp, int m, int n_pairs, int B, int degree_cap,
-    long long n_nodes) {
+    long long n_nodes, int k_rt) {
   extern __shared__ int bt_smem[];
+  const int K = KT > 0 ? KT : k_rt;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long item = (long long)blockIdx.x * BT_WARPS + warp;
@@ -237,9 +246,10 @@ extern "C" int bt_batched_backtrace(
     int* child0, int* child1, int* edge_u, unsigned char* fail, int lanes,
     int n_cand, long long vp, int m, int k, int n_pairs, int buffer,
     int degree_cap, long long n_nodes, long long n_edges, void* stream) {
-  if (m < 1 || m > BT_MAX_M || k < 1 || k > BT_MAX_K || lanes < 0 ||
-      n_cand < 0 || n_pairs < 1 || buffer < 1 || buffer > BT_MAX_BUFFER ||
-      degree_cap < 1 || n_nodes < 0 || n_edges < 1)
+  if (m < 1 || m > 30 || k < 1 || (1LL << m) * k > BT_ROW_FLOATS ||
+      lanes < 0 || n_cand < 0 || n_pairs < 1 || buffer < 1 ||
+      buffer > BT_MAX_BUFFER || degree_cap < 1 || n_nodes < 0 ||
+      n_edges < 1)
     return (int)cudaErrorInvalidValue;
   const long long n_items = (long long)lanes * n_cand;
   if (n_items == 0) return 0;
@@ -256,8 +266,9 @@ extern "C" int bt_batched_backtrace(
   batched_backtrace_kernel<KK><<<(unsigned)blocks, BT_WARPS * 32, smem, st>>>( \
       S, kw, cand_idx, cand_val, indptr, esrc, ew, pa, pb, node, kind,      \
       child0, child1, edge_u, fail, n_cand, n_items, vp, m, n_pairs,        \
-      buffer, degree_cap, n_nodes)
-  switch (k) {
+      buffer, degree_cap, n_nodes, k)
+  switch (m <= BT_MAX_M && k <= BT_MAX_K ? k : 0) {
+    case 0: BT_LAUNCH(0); break;  // the wide route
     case 1: BT_LAUNCH(1); break;
     case 2: BT_LAUNCH(2); break;
     case 3: BT_LAUNCH(3); break;

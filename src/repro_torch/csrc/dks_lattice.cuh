@@ -1,6 +1,18 @@
 // Device code shared by the DKS kernels (subset_combine.cu,
-// lane_superstep.cu): the top-K distinct insert, the per-thread table slab
-// in shared memory, and the popcount-ordered subset-combine sweep.
+// lane_superstep.cu, padded_topk.cu): the top-K distinct insert, the
+// per-thread table slab in shared memory, and the popcount-ordered
+// subset-combine sweep, each in two routes:
+//
+// - templated (1 <= m <= DKS_MAX_M, 1 <= K <= DKS_MAX_K): K is a template
+//   parameter, K-vectors live in registers and each thread owns one row
+//   in a slab column;
+// - wide (every other (m, K) with 2^m * K <= DKS_ROW_FLOATS; the wrappers
+//   pick the route, kernels/subset_combine/ops.py::route): m and K are
+//   run-time values, one warp owns one row, whose table lives whole in the
+//   warp's share of shared memory, and warp lane j works the keyword sets
+//   f = j (mod 32) or the targets of one popcount.  Past K = 8 the
+//   templated route's registers spill, and past m = 6 its slab of 33 rows
+//   outgrows the 227 KB a block may have.
 //
 // A node's table is F = 2^m keyword-sets of K sorted, distinct,
 // INF-padded f32 values.  Every value the lattice makes is a min, a compare
@@ -18,6 +30,11 @@
 #define DKS_MAX_THREADS 256
 #define DKS_SLAB_AIM (48 * 1024)     // the slab size blocks are sized for
 #define DKS_SMEM_MAX (227 * 1024)    // the most a block may have on sm_90
+// The wide route: a row of 2^m * K floats in one warp's shared memory, at
+// most 64 KB (m <= 10 at K <= 16); a block takes as many rows as keep it
+// within DKS_SLAB_AIM, 1 to DKS_WIDE_WARPS.
+#define DKS_ROW_FLOATS 16384
+#define DKS_WIDE_WARPS 8
 
 // Insert x into the sorted-unique INF-padded K-vector r, keeping the K
 // smallest distinct values.  The result is a function of the value set
@@ -156,3 +173,78 @@ static inline cudaError_t dks_allow_slab(Kernel kernel, size_t bytes) {
     case 7: LAUNCH(7); break;   \
     case 8: LAUNCH(8); break;   \
   }
+
+// ---------------------------------------------------------------------------
+// The wide route: run-time m and K, one warp a row.
+// ---------------------------------------------------------------------------
+
+// Whether a wide row of f keyword sets of k slots fits one warp's share.
+static inline bool dks_wide_fits(long long f, int k) {
+  return f >= 1 && k >= 1 && f * k <= DKS_ROW_FLOATS;
+}
+
+// Rows (warps) a wide block takes for rows of fk floats.
+static inline int dks_wide_warps(int fk) {
+  int w = DKS_SLAB_AIM / (fk * (int)sizeof(float));
+  if (w < 1) w = 1;
+  return w > DKS_WIDE_WARPS ? DKS_WIDE_WARPS : w;
+}
+
+// dks_insert on a list of run-time length k in shared memory: insert x
+// into the sorted, distinct, INF-padded r[0..k), keeping the k smallest
+// distinct values (the same steps, so the same result).
+__device__ __forceinline__ void dks_insert_list(float* r, int k, float x) {
+  if (!(x < r[k - 1])) return;
+  for (int j = 0; j < k; ++j) {
+    const float y = r[j];
+    if (x == y) return;
+    if (x < y) {
+      r[j] = x;
+      x = y;
+    }
+  }
+}
+
+// One warp copies a row of fk floats (all lanes take part).
+__device__ __forceinline__ void dks_warp_copy(float* __restrict__ to,
+                                              const float* __restrict__ from,
+                                              int fk) {
+  for (int i = threadIdx.x & 31; i < fk; i += 32) to[i] = from[i];
+}
+
+// The subset-combine closure of one row (2^m sets of k floats, set f at
+// row[f * k]) by the whole warp, in place.  A target set of popcount p
+// reads only sets of smaller popcount, so the targets of one popcount are
+// independent: warp lane j takes every 32nd of them (ascending), with a
+// __syncwarp between popcounts.  Each lane runs dks_combine_sweep's steps
+// for its targets; a split's (i, j) loops stop at the first candidate not
+// below the list's last value (the lists are ascending and __fadd_rn is
+// monotone, so every later candidate would be refused too).
+__device__ void dks_combine_sweep_warp(float* row, int m, int k) {
+  const int lane = threadIdx.x & 31;
+  const int n_sets = 1 << m;
+  for (int p = 2; p <= m; ++p) {
+    int nth = 0;
+    for (int t = 3; t < n_sets; ++t) {
+      if (__popc(t) != p) continue;
+      if ((nth++ & 31) != lane) continue;
+      float* r = row + t * k;
+      for (int a = (t - 1) & t; a; a = (a - 1) & t) {
+        const int b = t ^ a;
+        if (a > b) continue;
+        const float* av = row + a * k;
+        const float* bv = row + b * k;
+        for (int i = 0; i < k; ++i) {
+          const float x = av[i];
+          if (!(fminf(__fadd_rn(x, bv[0]), DKS_INF) < r[k - 1])) break;
+          for (int j = 0; j < k; ++j) {
+            const float c = fminf(__fadd_rn(x, bv[j]), DKS_INF);
+            if (!(c < r[k - 1])) break;
+            dks_insert_list(r, k, c);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+}

@@ -43,6 +43,17 @@
 //   longest walks start first.  Light blocks load hub rows with the rest
 //   and write nothing for them.
 //
+// The wide route (every other (m, K) up to 2^m * K = DKS_ROW_FLOATS; see
+// dks_lattice.cuh): one warp per (lane, node) row, hubs included, its
+// table of 2^m * K floats in the warp's share of shared memory.  The warp
+// walks the row's in-edges in order (every lane reads the same w, src and
+// `changed`, so the skips are uniform), and warp lane j folds the
+// candidates of the keyword sets f = j (mod 32) from the sender's row into
+// their lists; each list's candidates stop at the first one not below its
+// last value (the sender's list is ascending).  Then the warp runs the
+// combine sweep (dks_combine_sweep_warp) and writes the row.  A hub is
+// walked serially by its one warp: right, and slow on long in-edge lists.
+//
 // Nothing is allocated here; the wrapper allocates with torch.empty.
 #include "dks_lattice.cuh"
 
@@ -201,5 +212,85 @@ extern "C" int dks_lane_superstep(const float* S0,
       hub_degree, (int)hub_blocks, m)
   DKS_SWITCH_K(k, DKS_LANE_LAUNCH)
 #undef DKS_LANE_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(DKS_WIDE_WARPS * 32)
+lane_superstep_wide_kernel(const float* __restrict__ S0,
+                           const unsigned char* __restrict__ changed,
+                           const unsigned char* __restrict__ done,
+                           const long long* __restrict__ offsets,
+                           const int* __restrict__ src,
+                           const float* __restrict__ w,
+                           float* __restrict__ out, int lanes,
+                           long long n_nodes, int m, int k) {
+  extern __shared__ float slab[];
+  const int lane = threadIdx.x & 31;
+  const int n_sets = 1 << m;
+  const int fk = n_sets * k;
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= (long long)lanes * n_nodes) return;  // a whole warp leaves
+  const int l = (int)(row / n_nodes);
+  const long long v = row - (long long)l * n_nodes;
+  const float* s0_row = S0 + row * fk;
+  float* out_row = out + row * fk;
+  if (done[l]) {  // a finished lane keeps its table
+    dks_warp_copy(out_row, s0_row, fk);
+    return;
+  }
+  float* tab = slab + (threadIdx.x >> 5) * fk;
+  dks_warp_copy(tab, s0_row, fk);
+  __syncwarp();
+  const float* s0_lane = S0 + (long long)l * n_nodes * fk;
+  const unsigned char* changed_lane = changed + (long long)l * n_nodes;
+  const long long e_end = offsets[v + 1];
+  for (long long e = offsets[v]; e < e_end; ++e) {
+    const float we = w[e];
+    if (!(we < DKS_HALF_INF)) continue;  // every candidate bumps to INF
+    const int u = src[e];
+    if (!changed_lane[u]) continue;       // the sender sends nothing
+    const float* su = s0_lane + (long long)u * fk;
+    for (int f = lane; f < n_sets; f += 32) {
+      float* r = tab + f * k;
+      for (int j = 0; j < k; ++j) {
+        const float c = __fadd_rn(__ldg(su + f * k + j), we);
+        const float x = c >= DKS_HALF_INF ? DKS_INF : c;
+        if (!(x < r[k - 1])) break;
+        dks_insert_list(r, k, x);
+      }
+    }
+  }
+  __syncwarp();
+  dks_combine_sweep_warp(tab, m, k);
+  dks_warp_copy(out_row, tab, fk);
+}
+
+// The wide route of dks_lane_superstep (same layouts, no hub list: every
+// row has its warp), for 2^m * k <= DKS_ROW_FLOATS.  Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
+extern "C" int dks_lane_superstep_wide(const float* S0,
+                                       const unsigned char* changed,
+                                       const unsigned char* done,
+                                       const long long* offsets,
+                                       const int* src, const float* w,
+                                       float* out, int lanes,
+                                       long long n_nodes, int m, int k,
+                                       void* stream) {
+  if (m < 1 || m > 30 || !dks_wide_fits(1LL << m, k) || lanes < 0 ||
+      n_nodes < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_rows = (long long)lanes * n_nodes;
+  if (n_rows == 0) return 0;
+  const int fk = (1 << m) * k;
+  const int warps = dks_wide_warps(fk);
+  const long long blocks = (n_rows + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps * fk * sizeof(float);
+  cudaError_t err = dks_allow_slab(lane_superstep_wide_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  lane_superstep_wide_kernel<<<(unsigned)blocks, warps * 32, smem,
+                               (cudaStream_t)stream>>>(
+      S0, changed, done, offsets, src, w, out, lanes, n_nodes, m, k);
   return (int)cudaGetLastError();
 }

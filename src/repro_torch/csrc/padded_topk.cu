@@ -22,8 +22,16 @@
 // sets of one row, so each of a warp's loads reads whole 32-byte sectors
 // (F = 8: 4 rows x 8 sets), and the K outputs of a warp's threads are one
 // contiguous span.  Any F works (it only sets the stride); K is 1..8, the
-// instantiations.  Nothing is allocated here; the wrapper allocates the
-// output.
+// instantiations.
+//
+// The wide route (K > 8, F * K <= DKS_ROW_FLOATS; see dks_lattice.cuh):
+// one warp per virtual row, the row's F lists of K floats in the warp's
+// share of shared memory (INF at first); warp lane j inserts the
+// candidates of keyword sets f = j (mod 32), reading slot by slot, so
+// neighbouring lanes read neighbouring floats, and the warp writes the
+// row's F * K outputs as one contiguous span.
+//
+// Nothing is allocated here; the wrapper allocates the output.
 #include "dks_lattice.cuh"
 
 template <int K>
@@ -45,6 +53,29 @@ padded_topk_kernel(const float* __restrict__ cand, float* __restrict__ out,
   for (int j = 0; j < K; ++j) o[j] = r[j];
 }
 
+__global__ void __launch_bounds__(DKS_WIDE_WARPS * 32)
+padded_topk_wide_kernel(const float* __restrict__ cand,
+                        float* __restrict__ out, long long rows, int c,
+                        int f, int k) {
+  extern __shared__ float slab[];
+  const int lane = threadIdx.x & 31;
+  const int fk = f * k;
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp leaves
+  float* tab = slab + (threadIdx.x >> 5) * fk;
+  for (int i = lane; i < fk; i += 32) tab[i] = DKS_INF;
+  __syncwarp();
+  const float* p = cand + row * c * f;
+  for (int set = lane; set < f; set += 32) {
+    float* r = tab + set * k;
+    for (int j = 0; j < c; ++j)
+      dks_insert_list(r, k, __ldg(p + (long long)j * f + set));
+  }
+  __syncwarp();
+  dks_warp_copy(out + row * fk, tab, fk);
+}
+
 // cand: f32[rows, c, f]; out: f32[rows, f, k]; contiguous, on the device;
 // c >= k.  Launches on `stream` and returns cudaGetLastError() (0 on
 // success).
@@ -61,5 +92,26 @@ extern "C" int dks_padded_topk(const float* cand, float* out, long long rows,
   padded_topk_kernel<KK><<<g, DKS_MAX_THREADS, 0, s>>>(cand, out, rows, c, f)
   DKS_SWITCH_K(k, DKS_TOPK_LAUNCH)
 #undef DKS_TOPK_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The wide route of dks_padded_topk (same layouts), for f * k <=
+// DKS_ROW_FLOATS.  Launches on `stream` and returns cudaGetLastError() (0
+// on success).
+extern "C" int dks_padded_topk_wide(const float* cand, float* out,
+                                    long long rows, int c, int f, int k,
+                                    void* stream) {
+  if (!dks_wide_fits(f, k) || c < k || rows < 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const int fk = f * k;
+  const int warps = dks_wide_warps(fk);
+  const long long blocks = (rows + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps * fk * sizeof(float);
+  cudaError_t err = dks_allow_slab(padded_topk_wide_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  padded_topk_wide_kernel<<<(unsigned)blocks, warps * 32, smem,
+                            (cudaStream_t)stream>>>(cand, out, rows, c, f, k);
   return (int)cudaGetLastError();
 }

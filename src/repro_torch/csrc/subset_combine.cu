@@ -17,8 +17,16 @@
 // its own table in the slab, and the block writes the slab back with
 // coalesced writes.  The split pairs are enumerated in-kernel in the same
 // order as spa.split_pairs (the order is uniform across a warp, so it
-// costs no divergence).  Nothing is allocated here; the wrapper allocates
-// the output with torch.empty.
+// costs no divergence).
+//
+// The wide route (every other (m, K) up to 2^m * K = DKS_ROW_FLOATS; see
+// dks_lattice.cuh): one warp per row, its table whole in the warp's share
+// of shared memory, loaded and stored coalesced, closed by
+// dks_combine_sweep_warp (the targets of one popcount spread over the
+// warp's lanes).
+//
+// Nothing is allocated here; the wrapper allocates the output with
+// torch.empty.
 #include "dks_lattice.cuh"
 
 template <int K>
@@ -59,5 +67,42 @@ extern "C" int dks_subset_combine(const float* S, float* out,
   subset_combine_kernel<KK><<<blocks, threads, smem, s>>>(S, out, n_rows, m)
   DKS_SWITCH_K(k, DKS_COMBINE_LAUNCH)
 #undef DKS_COMBINE_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(DKS_WIDE_WARPS * 32)
+subset_combine_wide_kernel(const float* __restrict__ S,
+                           float* __restrict__ out, long long n_rows, int m,
+                           int k) {
+  extern __shared__ float slab[];
+  const int fk = (1 << m) * k;
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // a whole warp leaves
+  float* tab = slab + (threadIdx.x >> 5) * fk;
+  dks_warp_copy(tab, S + row * fk, fk);
+  __syncwarp();
+  dks_combine_sweep_warp(tab, m, k);
+  dks_warp_copy(out + row * fk, tab, fk);
+}
+
+// The wide route of dks_subset_combine (same layout), for
+// 2^m * k <= DKS_ROW_FLOATS.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int dks_subset_combine_wide(const float* S, float* out,
+                                       long long n_rows, int m, int k,
+                                       void* stream) {
+  if (m < 1 || m > 30 || !dks_wide_fits(1LL << m, k) || n_rows < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  const int fk = (1 << m) * k;
+  const int warps = dks_wide_warps(fk);
+  const long long blocks = (n_rows + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps * fk * sizeof(float);
+  cudaError_t err = dks_allow_slab(subset_combine_wide_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  subset_combine_wide_kernel<<<(unsigned)blocks, warps * 32, smem,
+                               (cudaStream_t)stream>>>(S, out, n_rows, m, k);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,11 @@
 the obligation walk of every candidate of a lane bucket in one launch.
 
 On a CPU tensor it takes the plain version (:mod:`.ref`); on a CUDA tensor
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+it launches the kernel or raises.  Two routes, as the DKS kernels'
+(:func:`~repro_torch.kernels.subset_combine.ops.route`): K a template
+parameter inside 1 <= m <= 6, 1 <= K <= 8, a run-time value past it, for
+tables of 2^m * K <= ``ROW_FLOATS`` floats a row.  ``launches`` counts
+kernel launches and ``launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
@@ -13,12 +17,12 @@ from repro_torch.analysis import count, roofline
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.batched_backtrace.ref import batched_backtrace_ref
+from repro_torch.kernels.subset_combine.ops import check_range, route
 
-MAX_M = 6          # keyword count: the leaf test gives a warp lane to each
-MAX_K = 8          # top-K width: the kernel is instantiated for K = 1..8
 MAX_BUFFER = 2048  # obligations per candidate: 4 queues in 227 KB
 
 counter = LaunchCounter()
+route_counters = {"templated": LaunchCounter(), "wide": LaunchCounter()}
 
 RECORDS = ("node", "kind", "child0", "child1", "edge_u")
 
@@ -67,11 +71,10 @@ def batched_backtrace(S: torch.Tensor, kw: torch.Tensor,
         raise ValueError("batched_backtrace wants contiguous tensors")
     if S.device.type == "cpu":
         return batched_backtrace_ref(*tensors, buffer, degree_cap)
-    if not (m <= MAX_M and 1 <= k <= MAX_K and buffer <= MAX_BUFFER):
-        raise ValueError(
-            f"batched_backtrace: the CUDA kernel supports 1 <= m <= {MAX_M} "
-            f"keywords, 1 <= k <= {MAX_K} slots and buffer <= {MAX_BUFFER}, "
-            f"got m={m}, k={k}, buffer={buffer}")
+    check_range(m, k, "batched_backtrace")
+    if buffer > MAX_BUFFER:
+        raise ValueError(f"batched_backtrace: the CUDA kernel takes buffer "
+                         f"<= {MAX_BUFFER}, got {buffer}")
     if S.device.type not in ("cuda", "meta"):
         raise ValueError(f"batched_backtrace: unsupported device {S.device}")
     out = {name: torch.empty(lanes, c, buffer, dtype=torch.int32,
@@ -86,13 +89,16 @@ def batched_backtrace(S: torch.Tensor, kw: torch.Tensor,
              indptr.numel() - 1, esrc.numel(),
              torch.cuda.current_stream(S.device).cuda_stream)
     counter.add()
+    route_counters[route(m, k)].add()
     cuda_build.check(err, "batched_backtrace")
     return out
 
 
 def __getattr__(name: str):
-    # ``ops.launches``: the total of ``counter`` over every thread (and,
-    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    # ``ops.launches``: the total of ``counter`` over every thread, and
+    # ``ops.launches_by_route``, read like plain attributes.
     if name == "launches":
         return counter.total
+    if name == "launches_by_route":
+        return {r: c.total for r, c in route_counters.items()}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

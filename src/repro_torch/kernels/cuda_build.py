@@ -37,10 +37,13 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # library -> {C entry point: argument types}; every entry returns an int.
 SIGNATURES = {
-    "subset_combine": {"dks_subset_combine": (_P, _P, _L, _I, _I, _P)},
+    "subset_combine": {"dks_subset_combine": (_P, _P, _L, _I, _I, _P),
+                       "dks_subset_combine_wide": (_P, _P, _L, _I, _I, _P)},
     "lane_superstep": {"dks_lane_superstep":
                        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
-                        _I, _P)},
+                        _I, _P),
+                       "dks_lane_superstep_wide":
+                       (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P)},
     "flash_attention": {"flash_attention_fwd":
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P)},
@@ -48,7 +51,8 @@ SIGNATURES = {
         "embedding_bag_fwd": (_P, _L, _I, _P, _P, _P, _L, _I, _I, _P),
         "embedding_bag_grouped_fwd": (_P, _L, _I, _P, _P, _I, _P, _P, _L,
                                       _I, _I, _P)},
-    "padded_topk": {"dks_padded_topk": (_P, _P, _L, _I, _I, _I, _P)},
+    "padded_topk": {"dks_padded_topk": (_P, _P, _L, _I, _I, _I, _P),
+                    "dks_padded_topk_wide": (_P, _P, _L, _I, _I, _I, _P)},
     "batched_backtrace": {"bt_batched_backtrace":
                           (_P,) * 15 + (_I, _I, _L, _I, _I, _I, _I, _I, _L,
                                         _L, _P)},

@@ -31,9 +31,10 @@ from repro_torch.graph.structure import (
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
-from repro_torch.kernels.subset_combine.ops import check_range
+from repro_torch.kernels.subset_combine.ops import check_range, route
 
 counter = LaunchCounter()
+route_counters = {"templated": LaunchCounter(), "wide": LaunchCounter()}
 
 
 @count.reports("lane_superstep", roofline.lane_work)
@@ -47,7 +48,9 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
     kernel gives a warp to each (lane, node in it) and skips every node
     past ``HUB_IN_DEGREE`` in-edges on its one-thread-per-node path, so a
     hub left out of the list keeps an unwritten row (entries that are not
-    hubs are skipped).  The plain version needs no list."""
+    hubs are skipped).  Outside 1 <= m <= 6, 1 <= K <= 8 the kernel's wide
+    route gives every row, hubs included, a warp and takes no list.  The
+    plain version needs no list."""
     if hubs is None:
         hubs = hub_nodes(offsets)
     if S0.dtype != torch.float32 or S0.dim() != 4 or S0.shape[2] != 1 << m:
@@ -77,12 +80,20 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
         return torch.empty_like(S0)
     if S0.device.type != "cuda":
         raise ValueError(f"fused_lane_step: unsupported device {S0.device}")
-    fn = cuda_build.library("lane_superstep").dks_lane_superstep
+    lib = cuda_build.library("lane_superstep")
     out = torch.empty_like(S0)
-    err = fn(*(t.data_ptr() for t in (*tensors, hubs)), out.data_ptr(),
-             lanes, v, hubs.shape[0], HUB_IN_DEGREE, m, k,
-             torch.cuda.current_stream(S0.device).cuda_stream)
+    stream = torch.cuda.current_stream(S0.device).cuda_stream
+    way = route(m, k)
+    if way == "templated":
+        err = lib.dks_lane_superstep(
+            *(t.data_ptr() for t in (*tensors, hubs)), out.data_ptr(), lanes,
+            v, hubs.shape[0], HUB_IN_DEGREE, m, k, stream)
+    else:
+        err = lib.dks_lane_superstep_wide(
+            *(t.data_ptr() for t in tensors), out.data_ptr(), lanes, v, m, k,
+            stream)
     counter.add()
+    route_counters[way].add()
     cuda_build.check(err, "fused_lane_step")
     return out
 
@@ -108,8 +119,10 @@ def fused_lane_superstep(graph: DeviceGraph, state: DKSState,
 
 
 def __getattr__(name: str):
-    # ``ops.launches``: the total of ``counter`` over every thread (and,
-    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    # ``ops.launches``: the total of ``counter`` over every thread, and
+    # ``ops.launches_by_route``, read like plain attributes.
     if name == "launches":
         return counter.total
+    if name == "launches_by_route":
+        return {r: c.total for r, c in route_counters.items()}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

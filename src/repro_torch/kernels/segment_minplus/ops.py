@@ -8,8 +8,10 @@ gather of the source tables plus the edge length
 and a torch second-level merge of split hubs (:func:`merge_virtual_rows`).
 
 ``padded_topk`` takes the plain version (:mod:`.ref`) on a CPU tensor; on a
-CUDA tensor it launches the kernel or raises.  ``launches`` counts kernel
-launches.
+CUDA tensor it launches the kernel or raises: the templated route for
+K <= 8, the wide one (run-time K, one warp a virtual row) past it, both
+for rows of F * K <= ``ROW_FLOATS``.  ``launches`` counts kernel launches
+and ``launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
@@ -26,9 +28,10 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.segment_minplus.ref import padded_topk_ref
-from repro_torch.kernels.subset_combine.ops import MAX_K
+from repro_torch.kernels.subset_combine.ops import MAX_K, ROW_FLOATS
 
 counter = LaunchCounter()
+route_counters = {"templated": LaunchCounter(), "wide": LaunchCounter()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +104,10 @@ def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError("padded_topk wants a contiguous candidate tensor")
     if cand.device.type == "cpu":
         return padded_topk_ref(cand, k)
-    if k > MAX_K:
-        raise ValueError(f"padded_topk: the CUDA kernel supports 1 <= k <= "
-                         f"{MAX_K}, got k={k}")
+    if f * k > ROW_FLOATS:
+        raise ValueError(f"padded_topk: the CUDA kernel takes rows of "
+                         f"F * k <= {ROW_FLOATS} floats (one row in a "
+                         f"block's shared memory), got F={f}, k={k}")
     if cand.device.type not in ("cuda", "meta"):
         raise ValueError(f"padded_topk: unsupported device {cand.device}")
     out = torch.empty(vv, f, k, dtype=torch.float32, device=cand.device)
@@ -111,10 +115,14 @@ def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
         return out
     if vv == 0 or f == 0:
         return out
-    fn = cuda_build.library("padded_topk").dks_padded_topk
+    way = "templated" if k <= MAX_K else "wide"
+    lib = cuda_build.library("padded_topk")
+    fn = lib.dks_padded_topk if way == "templated" else \
+        lib.dks_padded_topk_wide
     err = fn(cand.data_ptr(), out.data_ptr(), vv, c, f, k,
              torch.cuda.current_stream(cand.device).cuda_stream)
     counter.add()
+    route_counters[way].add()
     cuda_build.check(err, "padded_topk")
     return out
 
@@ -158,8 +166,10 @@ def segment_minplus_padded(S: torch.Tensor, csr: PaddedCSR,
 
 
 def __getattr__(name: str):
-    # ``ops.launches``: the total of ``counter`` over every thread (and,
-    # for flash, ``ops.launches_by_route``), read like a plain attribute.
+    # ``ops.launches``: the total of ``counter`` over every thread, and
+    # ``ops.launches_by_route``, read like plain attributes.
     if name == "launches":
         return counter.total
+    if name == "launches_by_route":
+        return {r: c.total for r, c in route_counters.items()}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

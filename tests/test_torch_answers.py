@@ -254,18 +254,24 @@ def test_backtrace_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         bt_ops.batched_backtrace(S, torch.from_numpy(kw), *args,
                                  pa.t().contiguous().t(), pb, 64, 8)
-    # Past the kernel's range a tensor off the CPU is refused before any
-    # launch; the plain version takes any m and K.
+    # Past rows of 2^m * k = 16,384 floats a tensor off the CPU is refused
+    # before any launch, (7, 3) and (3, 10) pass the check; the plain
+    # version takes any m and K.
     meta = [t.to("meta") for t in args]
-    for shape, m, what in (((1, 4, 128, 2), 7, "m <= 6"),
-                           ((1, 4, 4, 9), 2, "k <= 8")):
+    for shape, m, refused in (((1, 4, 4, 4097), 2, True),
+                              ((1, 4, 128, 3), 7, False),
+                              ((1, 4, 8, 10), 3, False)):
         pm, qm = (torch.from_numpy(t).to("meta")
                   for t in ans_t.split_pair_table(m))
-        with pytest.raises(ValueError, match=what):
-            bt_ops.batched_backtrace(
-                torch.zeros(shape, device="meta"),
-                torch.zeros(1, m, 4, dtype=torch.bool, device="meta"),
-                *(t[:1] if t.dim() == 2 else t for t in meta), pm, qm, 64, 8)
+        call = functools.partial(
+            bt_ops.batched_backtrace, torch.zeros(shape, device="meta"),
+            torch.zeros(1, m, 4, dtype=torch.bool, device="meta"),
+            *(t[:1] if t.dim() == 2 else t for t in meta), pm, qm, 64, 8)
+        if refused:
+            with pytest.raises(ValueError, match=r"2\^m \* k <= 16384"):
+                call()
+        else:
+            assert call()["node"].shape == (1, 1, 64)
 
 
 # -- diversified ranking, rendering, streaming --------------------------

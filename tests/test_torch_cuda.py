@@ -16,7 +16,9 @@ compare or one f32 add; 2e-5 (f32) and 2e-2 (bf16) for flash attention and
 (``tests/test_kernels.py``), since their sums run in another order; none
 for single-hot bags, the grouped lookup and the DCN-v2 logits built on
 them, and none for the batched backtrace's records (integers).  The DKS
-kernels run at m = 1..6 and K = 1..8.  The stepwise surfaces (streams,
+kernels run at m = 1..6 and K = 1..8 on their templated route, and past
+it on the wide route (run-time m and K, one warp a row) at (m, K) = (3,
+10), (4, 10), (2, 16), (7, 3), (8, 2) and (6, 9).  The stepwise surfaces (streams,
 deadline buckets, telemetry) and the service on ``"cuda"`` equal
 ``"torch"`` exactly, times excluded.  The GNN families (no kernel of
 their own) on the card against the CPU: f32 loss within 1e-5 and
@@ -638,6 +640,152 @@ def test_query_batch_on_the_kernels_equals_torch(cuda_device, m, k):
             [(a.root, a.edges, a.weight) for a in rt.answers]
     assert engines["cuda"].extraction_stats == \
         engines["torch"].extraction_stats
+
+
+# ---------------------------------------------------------------------------
+# The DKS kernels' wide route: run-time m and K past m = 6 or K = 8
+# ---------------------------------------------------------------------------
+
+WIDE = [(3, 10), (4, 10), (2, 16), (7, 3), (8, 2), (6, 9)]
+
+
+def wide_launched(ops, before: dict, route: str) -> None:
+    """Exactly one launch since ``before``, on ``route``."""
+    after = ops.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", WIDE)
+def test_subset_combine_wide_route_matches_plain(cuda_device, m, k):
+    rng = np.random.default_rng(10 * m + k)
+    s = rng.integers(1, 20, size=(301, 1 << m, k)).astype(np.float32)
+    s[rng.random(s.shape) > 0.5] = INF
+    S = sorted_unique_k(torch.from_numpy(s).to(cuda_device), k)
+    S[:, 0, :] = INF
+    before = sc_ops.launches_by_route
+    got = sc_ops.subset_combine(S, m)
+    torch.cuda.synchronize()
+    wide_launched(sc_ops, before, "wide")
+    assert torch.equal(got, subset_combine_ref(S, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", WIDE)
+def test_lane_superstep_wide_route_matches_plain(cuda_device, hub_graph, m,
+                                                 k):
+    """A real mid-run state on the hub graph (hubs up to 980 in-edges,
+    INF-weight edges into hubs), lanes 1 and 3 of 4 done: every row, hubs
+    included, walked by its warp, bit-equal to the plain version."""
+    dg = hub_graph.to_device(cuda_device)
+    cfg = dks.DKSConfig(m=m, k=k)
+    masks = torch.from_numpy(
+        np.random.default_rng(m).random((4, m, dg.v_pad)) < 0.01)
+    st = driver.lane_init(dg, masks.to(cuda_device), cfg)
+    for _ in range(2):
+        st = dks.superstep(dg, st, cfg)
+    done = torch.tensor([False, True, False, True], device=cuda_device)
+    args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
+    before = ls_ops.launches_by_route
+    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
+    torch.cuda.synchronize()
+    wide_launched(ls_ops, before, "wide")
+    assert torch.equal(got, fused_lane_step_ref(*args, m))
+    assert torch.equal(got[1], st.S[1]) and torch.equal(got[3], st.S[3])
+    assert not torch.equal(got[0], st.S[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vv,c,f,k", [(64, 40, 8, 10), (33, 160, 16, 10),
+                                      (17, 32, 4, 16), (9, 27, 64, 9),
+                                      (5, 20, 1, 12), (40, 640, 8, 10)])
+def test_padded_topk_wide_route_matches_plain(cuda_device, vv, c, f, k):
+    rng = np.random.default_rng(vv + c + k)
+    cand = rng.integers(1, 60, size=(vv, c, f)).astype(np.float32)
+    cand[rng.random(cand.shape) > 0.6] = INF
+    cand = torch.from_numpy(cand).to(cuda_device)
+    before = sm_ops.launches_by_route
+    got = sm_ops.padded_topk(cand, k)
+    torch.cuda.synchronize()
+    wide_launched(sm_ops, before, "wide")
+    assert torch.equal(got, padded_topk_ref(cand, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [{}, {"degree_cap": 1, "buffer": 3}],
+                         ids=["default", "tight"])
+@pytest.mark.parametrize("m,k", WIDE)
+def test_batched_backtrace_wide_route_matches_plain(cuda_device, m, k, caps):
+    g = lod_like_graph(300, 1500, seed=m + k, vocab=40)[0]
+    S, kw = final_tables(g, m, k, 4, seed=10 * m + k, device=cuda_device)
+    bt = BatchedBacktracer(g, device=cuda_device, **caps)
+    args = bt._walk_args(S, kw, 4 * k)[2]
+    before = bt_ops.launches_by_route
+    got = bt_ops.batched_backtrace(*args)
+    torch.cuda.synchronize()
+    wide_launched(bt_ops, before, "wide")
+    want = batched_backtrace_ref(*args)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+    assert bool(got["fail"][0].all())  # the INF lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(3, 10), (7, 3)])
+def test_query_batch_on_the_wide_route_equals_torch(cuda_device, m, k):
+    """A bucket end to end on ``backend="cuda"`` past the templated range:
+    every superstep and the walk on the wide route, answers and trees
+    equal to ``"torch"``."""
+    g, tokens = lod_like_graph(400, 2000, seed=3, vocab=30)
+    engines = {b: QueryEngine.build(g, tokens=tokens, policy=ExecutionPolicy(
+        backend=b, max_supersteps=24), device=cuda_device)
+        for b in ("cuda", "torch")}
+    rng = np.random.default_rng(m * 10 + k)
+    queries = [list(rng.choice(30, size=m, replace=False)) for _ in range(4)]
+    kernels = (sc_ops, ls_ops, bt_ops)
+    before = [ops.launches_by_route for ops in kernels]
+    got = engines["cuda"].query_batch(queries, k=k)
+    for ops, b in zip(kernels, before):
+        after = ops.launches_by_route
+        assert after["templated"] == b["templated"], ops.__name__
+        assert after["wide"] > b["wide"], ops.__name__
+    assert bt_ops.launches_by_route["wide"] == before[2]["wide"] + 1
+    want = engines["torch"].query_batch(queries, k=k)
+    for rc, rt in zip(got, want):
+        np.testing.assert_array_equal(rc.weights, rt.weights)
+        assert rc.supersteps == rt.supersteps
+        assert [(a.root, a.edges, a.weight) for a in rc.answers] == \
+            [(a.root, a.edges, a.weight) for a in rt.answers]
+    assert engines["cuda"].extraction_stats == \
+        engines["torch"].extraction_stats
+
+
+@pytest.mark.cuda
+def test_inside_the_templated_range_nothing_takes_the_wide_route(
+        cuda_device):
+    """At (m, K) = (3, 3) and (6, 8) a bucket launches what it launched
+    before the wide route existed: every launch on the templated route,
+    one ``subset_combine``, one ``lane_superstep`` a superstep and one
+    walk."""
+    g, tokens = lod_like_graph(400, 2000, seed=3, vocab=30)
+    eng = QueryEngine.build(g, tokens=tokens, policy=ExecutionPolicy(
+        backend="cuda", max_supersteps=24), device=cuda_device)
+    kernels = {"subset_combine": sc_ops, "lane_superstep": ls_ops,
+               "batched_backtrace": bt_ops}
+    for m, k in ((3, 3), (6, 8)):
+        rng = np.random.default_rng(m * 10 + k)
+        queries = [list(rng.choice(30, size=m, replace=False))
+                   for _ in range(4)]
+        before = {n: ops.launches_by_route for n, ops in kernels.items()}
+        res = eng.query_batch(queries, k=k)
+        steps = max(r.supersteps for r in res)
+        grew = {n: {r: ops.launches_by_route[r] - before[n][r]
+                    for r in ("templated", "wide")}
+                for n, ops in kernels.items()}
+        assert grew == {"subset_combine": {"templated": 1, "wide": 0},
+                        "lane_superstep": {"templated": steps, "wide": 0},
+                        "batched_backtrace": {"templated": 1, "wide": 0}}
 
 
 # ---------------------------------------------------------------------------

@@ -85,12 +85,17 @@ def test_subset_combine_takes_lane_axis_and_checks_inputs():
     for lane in range(3):
         np.testing.assert_array_equal(
             got[lane].numpy(), np.asarray(sc_ref_j(jnp.asarray(s[lane]), 3)))
-    # Outside the kernel's (m, K) range a tensor off the CPU is refused
-    # before any launch; the plain version takes it.
-    with pytest.raises(ValueError, match="m <= 6"):
-        sc_ops.subset_combine(torch.full((4, 128, 2), INF, device="meta"), 7)
-    with pytest.raises(ValueError, match="k <= 8"):
-        sc_ops.subset_combine(torch.full((4, 8, 9), INF, device="meta"), 3)
+    # Past rows of 2^m * k = 16,384 floats (64 KB, one row in a block's
+    # shared memory) a tensor off the CPU is refused before any launch;
+    # (7, 3) and (3, 10), past the templated route, pass the check (on
+    # the card the wide route takes them); the plain version takes any.
+    for shape, m in (((4, 2048, 9), 11), ((4, 8, 2049), 3),
+                     ((4, 1024, 17), 10)):
+        with pytest.raises(ValueError, match=r"2\^m \* k <= 16384"):
+            sc_ops.subset_combine(torch.full(shape, INF, device="meta"), m)
+    for shape, m in (((4, 128, 3), 7), ((4, 8, 10), 3), ((4, 1024, 16), 10)):
+        assert sc_ops.subset_combine(
+            torch.full(shape, INF, device="meta"), m).shape == shape
     wide = np.stack([random_table(8, 6, 2, seed=s) for s in range(2)])
     np.testing.assert_array_equal(
         sc_ops.subset_combine(torch.from_numpy(wide), 6)[1].numpy(),
@@ -183,14 +188,20 @@ def test_lane_step_checks_inputs(hub_graphs):
     changed = torch.zeros(2, dt.v_pad, dtype=torch.bool)
     done = torch.zeros(2, dtype=torch.bool)
     meta = [t.to("meta") for t in (changed, done, off, dt.src, dt.w)]
-    with pytest.raises(ValueError, match="m <= 6"):
+    # Past 2^m * k = 16,384 floats a row, refused before any launch;
+    # (7, 3) and (3, 10) pass the check.
+    with pytest.raises(ValueError, match=r"2\^m \* k <= 16384"):
         ls_ops.fused_lane_step(
-            torch.full((2, dt.v_pad, 128, 2), INF, device="meta"), *meta, 7,
-            dt.hub_nodes.to("meta"))
-    with pytest.raises(ValueError, match="k <= 8"):
+            torch.full((2, dt.v_pad, 2048, 9), INF, device="meta"), *meta,
+            11, dt.hub_nodes.to("meta"))
+    with pytest.raises(ValueError, match=r"2\^m \* k <= 16384"):
         ls_ops.fused_lane_step(
-            torch.full((2, dt.v_pad, 4, 9), INF, device="meta"), *meta, 2,
+            torch.full((2, dt.v_pad, 4, 4097), INF, device="meta"), *meta, 2,
             dt.hub_nodes.to("meta"))
+    for m, k in ((7, 3), (3, 10)):
+        assert ls_ops.fused_lane_step(
+            torch.full((2, dt.v_pad, 1 << m, k), INF, device="meta"), *meta,
+            m, dt.hub_nodes.to("meta")).shape == (2, dt.v_pad, 1 << m, k)
     wide = ls_ops.fused_lane_step(torch.full((2, dt.v_pad, 64, 5), INF),
                                   changed, done, off, dt.src, dt.w, 6)
     assert torch.equal(wide, torch.full((2, dt.v_pad, 64, 5), INF))

@@ -80,8 +80,14 @@ def test_padded_topk_plain_matches_pallas_and_ref(vv, c, f, k):
 
 def test_padded_topk_checks_inputs():
     cand = torch.full((8, 6, 4), INF)
-    with pytest.raises(ValueError, match="k <= 8"):
-        sm_t.padded_topk(torch.full((8, 12, 4), INF, device="meta"), 9)
+    # Past rows of F * k = 16,384 floats a tensor off the CPU is refused
+    # before any launch; F = 128 at k = 3 and F = 8 at k = 10 (past the
+    # templated route) pass the check.
+    with pytest.raises(ValueError, match="F \\* k <= 16384"):
+        sm_t.padded_topk(torch.full((8, 40, 2048), INF, device="meta"), 9)
+    for f, k in ((128, 3), (8, 10)):
+        assert sm_t.padded_topk(torch.full((8, 4 * k, f), INF, device="meta"),
+                                k).shape == (8, f, k)
     assert torch.equal(sm_t.padded_topk(cand, 5), torch.full((8, 4, 5), INF))
     with pytest.raises(ValueError, match="C >= k"):
         sm_t.padded_topk(cand[:, :2].contiguous(), 3)
