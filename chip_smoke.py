@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (a checkout of the commit before the wide kernels'
+redesign; any directory holding its ``src/repro_torch/csrc``): phase 19
+also builds its wide ``subset_combine`` and ``lane_superstep`` and times
+them beside the new ones.  Run with no arguments it needs one card.
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -24,7 +29,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    tables of 8 random buckets, stragglers included; then each kernel's
    wide route at (m, K) = (3, 10), (4, 10), (2, 16), (7, 3), (8, 2) and
    (6, 9), ``lane_superstep`` also on a hub graph with done lanes and
-   INF-weight hub edges), then the main path's shapes (the
+   INF-weight hub edges; then a hub of 5,000 in-edges with every sender
+   active and with none, every lane done, rows at the 64 KB limit
+   (m = 10, K = 16) and K = 16 at m = 5, and the bucket's shape on a
+   4,000-node graph), then the main path's shapes (the
    paper-scale sec-rdfabout graph, an 8-lane m=3 K=3 bucket, a real mid-run
    state with one lane done; the hub count and threshold of
    ``lane_superstep``'s warp-per-hub rows), each kernel and plain version
@@ -393,7 +401,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    DCN-v2 ranks', gloo's then NCCL's), error, times and bound; then a
    row for each DKS kernel's wide route (``"<name> (wide route)"``): its
    launches on phase 19's main path (``launches_by_route`` both routes'),
-   its largest error over phases 3 and 19, its times at m = 4, K = 10.
+   its largest error over phases 3 and 19, its times at m = 4, K = 10;
+   the two redesigned ones' ``shapes`` hold (a), (b) and (c).
 19. DKS past the templated range (run after phase 11, on phase 5's
    engines, while phase 14's inputs are made in the worker) —
    phase 5's sec-rdfabout bucket of 8 at the paper's K = 10 (1.18 GB a
@@ -405,10 +414,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    each on the wide route past m = 6 or K = 8.  Every result (weights,
    roots, supersteps, messages, flags, trees) equals a ``"torch"`` twin's
    (the bucket's first ``WIDE_TWIN_LANES`` lanes).  Then each wide kernel
-   held against its plain version and timed at m = 4, K = 10 on a real
-   state of the K = 10 query (``padded_topk`` through the padded relax at
-   dmax = ``WIDE_DMAX``, one launch, equal to ``core/dks.py::relax``),
-   beside its bound; the driver and extraction ms of each query.
+   held against its plain version and timed at (a) m = 4, K = 10 on a
+   real state of the K = 10 query (``padded_topk`` through the padded
+   relax at dmax = ``WIDE_DMAX``, one launch, equal to
+   ``core/dks.py::relax``), beside its bound; the redesigned
+   ``subset_combine`` and ``lane_superstep`` also at (b) the K = 10
+   bucket and (c) the m = 7 query, ``WIDE_MID_STEPS`` supersteps in,
+   each beside its bound, its plain version's one call and, with
+   ``--parent``, the parent's kernel timed in turns; one superstep of
+   the bucket under ``torch.profiler``; the driver and extraction ms of
+   each query.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -416,7 +431,9 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -481,7 +498,7 @@ BAG_TIMED = (65_536, 32, 0.3)   # bags, ids per bag, share of -1 pads
 L2_FLUSH_BYTES = 128 << 20  # written between cold launches: > 2 x 50 MB L2
 SPIN_CYCLES_PER_S = 2e9     # at or above the H100's top SM clock (1.98 GHz)
 PADDED_STEPS, PADDED_DMAX = 3, 64
-# The DKS kernels' wide route (run-time m and K, one warp a row): phase 3's
+# The DKS kernels' wide route (run-time m and K): phase 3's
 # (m, K) past the templated m <= 6, K <= 8, and phase 19's traffic on
 # sec-rdfabout: phase 5's bucket at the paper's K = 10, its two m = 4
 # queries at K = 5 and 10, one query of 7 keywords at K = 3; the "torch"
@@ -491,6 +508,11 @@ PADDED_STEPS, PADDED_DMAX = 3, 64
 WIDE_SHAPES = ((3, 10), (4, 10), (2, 16), (7, 3), (8, 2), (6, 9))
 WIDE_BUCKET_K, WIDE_SINGLE_K, WIDE_M7 = 10, (5, 10), (7, 3)
 WIDE_TWIN_LANES, WIDE_DMAX = 2, 16
+# The redesigned wide kernels timed at (b) the bucket's own shape (8 lanes,
+# m = 3, K = 10) and (c) the m = 7, K = 3 query, each this many supersteps
+# into its run (the bucket's lanes end after 12 to 20), beside (a) m = 4,
+# K = 10 as before; with --parent, the parent commit's kernels too.
+WIDE_MID_STEPS, WIDE_TIMED_ITERS = 6, 10
 SERVE_REQUESTS, SERVE_UNIQUE, SERVE_CLIENTS = 32, 8, 8
 SERVE_DEADLINE_FRAC, SERVE_DEADLINE_MS = 0.25, 75.0
 SERVE_TIMEOUT_S = 120       # the most any served request is waited for
@@ -713,6 +735,109 @@ def sorted_unique_tables(shape, m, k, seed, device):
     t = sorted_unique_k(torch.from_numpy(s).to(device), k)
     t[..., 0, :] = INF
     return t.contiguous()
+
+
+def star_graph(n_nodes: int, hub_in: int, seed: int = 0):
+    """Node 0 with ``hub_in`` in-edges from nodes 1.. (weights 1 to 3),
+    beside 3,000 random edges: past ``WIDE_HUB_DEGREE``, a hub block's
+    row on the wide route."""
+    from repro_torch.graph.structure import build_graph
+
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.arange(1, hub_in + 1),
+                          rng.integers(0, n_nodes, 3000)])
+    dst = np.concatenate([np.zeros(hub_in, np.int64),
+                          rng.integers(0, n_nodes, 3000)])
+    w = rng.integers(1, 4, size=len(src)).astype(np.float32)
+    return build_graph(src, dst, n_nodes, w=w)
+
+
+def timed_once(fn) -> tuple:
+    """``fn()``'s result and the device ms of that one call (CUDA events):
+    for the plain versions at the wide shapes, whose call takes seconds."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def parent_wide(parent: Path) -> dict:
+    """The wide ``subset_combine`` and ``lane_superstep`` kernels of the
+    checkout at ``parent`` (``--parent``; the commit before their redesign,
+    whose C interface takes no plan and no hub list), built with this
+    checkout's nvcc flags into build/chip_smoke_parent, each wrapped to
+    take the new wrappers' arguments."""
+    from repro_torch.kernels import cuda_build
+
+    csrc = parent / "src" / "repro_torch" / "csrc"
+    out_dir = ROOT / "build" / "chip_smoke_parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in ("subset_combine", "lane_superstep"):
+        so = out_dir / f"lib{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", str(csrc),
+             "-o", str(so), str(csrc / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"the parent's {name} did not build:\n"
+                                    f"{out}")
+        libs[name] = ctypes.CDLL(str(so))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sc = libs["subset_combine"].dks_subset_combine_wide
+    sc.argtypes, sc.restype = [P, P, L, I, I, P], I
+    ls = libs["lane_superstep"].dks_lane_superstep_wide
+    ls.argtypes, ls.restype = [P] * 7 + [I, L, I, I, P], I
+    log(f"  the parent's wide kernels ({parent}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def combine(S, m):
+        out, k = torch.empty_like(S), S.shape[-1]
+        check(sc(S.data_ptr(), out.data_ptr(), S.numel() // ((1 << m) * k),
+                 m, k, torch.cuda.current_stream().cuda_stream) == 0,
+              "the parent's subset_combine did not launch")
+        return out
+
+    def lane(S0, changed, done, offsets, src, w, m):
+        out = torch.empty_like(S0)
+        check(ls(*(t.data_ptr() for t in (S0, changed, done, offsets, src,
+                                          w, out)),
+                 S0.shape[0], S0.shape[1], m, S0.shape[-1],
+                 torch.cuda.current_stream().cuda_stream) == 0,
+              "the parent's lane_superstep did not launch")
+        return out
+
+    return {"subset_combine": combine, "lane_superstep": lane}
+
+
+def wide_timed(new, plain, old, what: str) -> dict:
+    """One wide kernel at one shape: its result equal to the plain
+    version's (and to the parent's kernel ``old``, when given), the plain
+    version's one call, and the kernel's mean ms over ``WIDE_TIMED_ITERS``
+    calls (CUDA events); with the parent, the two timed in turns: parent,
+    new, new, parent."""
+    got = new()
+    want, plain_ms = timed_once(plain)
+    err = max_abs_err(got, want)
+    check(torch.equal(got, want), f"{what} != plain (max abs err {err})")
+    out = {"max_abs_err": err, "plain_ms": plain_ms}
+    del want
+    if old is None:
+        out["ms"] = cuda_ms(new, WIDE_TIMED_ITERS)
+        return out
+    check(torch.equal(old(), got), f"{what}: the parent's kernel differs")
+    del got
+    turns = [cuda_ms(fn, WIDE_TIMED_ITERS) for fn in (old, new, new, old)]
+    out.update(ms=(turns[1] + turns[2]) / 2,
+               parent_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+    return out
 
 
 def hops_within(graph, start: int, depth: int | None = None) -> np.ndarray:
@@ -1786,19 +1911,82 @@ def wide_small_shapes(dev, g_small, dg_small, rng) -> dict:
                 errs_wide["batched_backtrace"],
                 held_records(got, batched_backtrace_ref(*args),
                              f"wide m={m} k={k} {caps}"))
+    # The redesigned kernels' own cases: a hub of 5,000 in-edges (a block
+    # a lane) with every sender active and with none; every lane done;
+    # rows at the 64 KB limit and K = 16 at m = 5 (a set stride padded to
+    # 17), with a hub; the bucket's shape (8 lanes, m = 3, K = 10) on a
+    # 4,000-node graph with nodes past WIDE_HUB_DEGREE, three supersteps in.
+    dg_star = star_graph(6000, 5000).to_device(dev)
+    for m, k in ((3, 10), (4, 10), (5, 16)):
+        S0 = sorted_unique_tables((2, dg_star.v_pad), m, k, seed=m + k,
+                                  device=dev)
+        for active in (True, False):
+            args = (S0, torch.full((2, dg_star.v_pad), active, device=dev),
+                    torch.tensor([False, True], device=dev),
+                    dg_star.in_offsets, dg_star.src, dg_star.w)
+            held_wide("lane_superstep", ls_ops,
+                      lambda: ls_ops.fused_lane_step(*args, m,
+                                                     dg_star.hub_nodes),
+                      fused_lane_step_ref(*args, m),
+                      f"a hub of 5000 in-edges m={m} k={k}, "
+                      f"{'every' if active else 'no'} sender active")
+    S0 = sorted_unique_tables((3, dg_hub.v_pad), 3, 10, seed=5, device=dev)
+    args = (S0, torch.ones(3, dg_hub.v_pad, dtype=torch.bool, device=dev),
+            torch.ones(3, dtype=torch.bool, device=dev), dg_hub.in_offsets,
+            dg_hub.src, dg_hub.w)
+    held_wide("lane_superstep", ls_ops,
+              lambda: ls_ops.fused_lane_step(*args, 3, dg_hub.hub_nodes),
+              S0, "every lane done")
+    # The row limit's and K = 16's states are random tables and senders:
+    # the plain superstep's batched combine does not fit the card at m = 10.
+    g_cut, _ = lod_like_graph(4000, 60000, seed=2, vocab=40)
+    for what, dgw, m, k, lanes in (
+            ("the row limit", star_graph(300, 260, 10).to_device(dev), 10,
+             16, 2),
+            ("K = 16", star_graph(300, 260, 5).to_device(dev), 5, 16, 2),
+            ("the bucket's shape cut to 4000 nodes",
+             g_cut.to_device(dev), 3, 10, 8)):
+        if m > 3:
+            S0 = sorted_unique_tables((lanes, dgw.v_pad), m, k, seed=m,
+                                      device=dev)
+            changed = torch.from_numpy(
+                rng.random((lanes, dgw.v_pad)) < 0.5).to(dev)
+        else:
+            cfg = dks.DKSConfig(m=m, k=k)
+            st = driver.lane_init(dgw, torch.from_numpy(
+                rng.random((lanes, m, dgw.v_pad)) < 0.01).to(dev), cfg)
+            for _ in range(3):
+                st = dks.superstep(dgw, st, cfg)
+            S0, changed = st.S, st.changed
+        done = torch.zeros(lanes, dtype=torch.bool, device=dev)
+        done[-1] = True
+        args = (S0, changed, done, dgw.in_offsets, dgw.src, dgw.w)
+        held_wide("lane_superstep", ls_ops,
+                  lambda: ls_ops.fused_lane_step(*args, m, dgw.hub_nodes),
+                  fused_lane_step_ref(*args, m), f"{what} m={m} k={k}")
+        S = sorted_unique_tables((lanes, 61), m, k, seed=k, device=dev)
+        held_wide("subset_combine", sc_ops,
+                  lambda: sc_ops.subset_combine(S, m),
+                  subset_combine_ref(S, m), f"{what} m={m} k={k}")
     log(f"  the wide route's holds took {time.perf_counter() - t0:.1f} s")
     return errs_wide
 
 
-def wide_phase(dev, graph, index, bucket, singles, engines) -> dict:
+def wide_phase(dev, graph, index, bucket, singles, engines,
+               parent: Path | None = None) -> dict:
     """Phase 19: the DKS main path past the templated range, on phase 5's
     sec-rdfabout engines: the bucket at K = 10, the two m = 4 queries at
     K = 5 and 10, a query of 7 keywords at K = 3, the launch counters set
     to 0 just before and read just after; every result equal to the
     ``"torch"`` twin's (the bucket's first ``WIDE_TWIN_LANES`` lanes); then
-    each wide kernel held against its plain version and timed at m = 4,
-    K = 10 on a real state of the K = 10 query.  Returns the launches by
-    route, the wide kernels' errors and times, and a summary."""
+    each wide kernel held against its plain version and timed at (a)
+    m = 4, K = 10 on a real state of the K = 10 query, and the two
+    redesigned ones also at (b) the K = 10 bucket and (c) the m = 7 query,
+    ``WIDE_MID_STEPS`` supersteps in, where one superstep of the bucket
+    runs under ``torch.profiler``; with ``parent`` (a checkout of the
+    commit before their redesign) its two kernels beside them.  Returns
+    the launches by route, the wide kernels' errors and times (``timing``
+    at (a), ``shapes`` at all three)."""
     from repro_torch import INF
     from repro_torch.answers import BatchedBacktracer
     from repro_torch.core import dks, driver
@@ -1889,32 +2077,47 @@ def wide_phase(dev, graph, index, bucket, singles, engines) -> dict:
         singles[1], graph.n_nodes, v_pad=dg.v_pad)[None]).to(dev)
     cfg = dks.DKSConfig(m=m, k=k)
     errs, timing = {}, {}
+    old = parent_wide(parent) if parent is not None else None
+    shapes = {"subset_combine": [], "lane_superstep": []}
+
+    def both(label, S_c, m_c, lane_args, m_l):
+        """Both redesigned kernels at one shape, beside their bounds."""
+        for name, new, plain, bound, args_ in (
+                ("subset_combine", sc_ops.subset_combine, subset_combine_ref,
+                 combine_bound(S_c, m_c), (S_c, m_c)),
+                ("lane_superstep",
+                 lambda *a: ls_ops.fused_lane_step(*a, dg.hub_nodes),
+                 fused_lane_step_ref, lane_bound(*lane_args[:6]),
+                 (*lane_args, m_l))):
+            got = wide_timed(functools.partial(new, *args_),
+                             functools.partial(plain, *args_),
+                             None if old is None else
+                             functools.partial(old[name], *args_),
+                             f"wide {name} at {label}")
+            got.update(shape=label, bound_ms=bound[0], bound_by=bound[1])
+            shapes[name].append(got)
+            errs[name] = max(errs.get(name, 0.0), got["max_abs_err"])
+            beside = ("" if old is None else
+                      f"; the parent's kernel {got['parent_ms']} ms (turns "
+                      f"parent, new, new, parent: {got['turns_ms']})")
+            log(f"  {name} wide route at {label}: {got['ms']} ms (plain "
+                f"{got['plain_ms']} ms, bound {bound[0]} ms by {bound[1]}, "
+                f"{100 * bound[0] / got['ms']:.1f} % of it){beside}, == "
+                f"plain")
+
     S_pre = torch.full((1, dg.v_pad, 1 << m, k), INF, device=dev)
     for i in range(m):
         S_pre[:, :, 1 << i, 0] = torch.where(masks[:, i], 0.0, INF)
-    got = sc_ops.subset_combine(S_pre, m)
-    want_t = subset_combine_ref(S_pre, m)
-    errs["subset_combine"] = max_abs_err(got, want_t)
-    check(torch.equal(got, want_t), "wide subset_combine != plain at m=4 "
-                                    "k=10")
-    timing["subset_combine"] = (
-        cuda_ms(lambda: sc_ops.subset_combine(S_pre, m), 20),
-        cuda_ms(lambda: subset_combine_ref(S_pre, m), 3), None,
-        *combine_bound(S_pre, m))
     st = driver.lane_init(dg, masks, cfg)
     for _ in range(2):
         st = dks.superstep(dg, st, cfg)
     done = torch.zeros(1, dtype=torch.bool, device=dev)
     args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
-    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
-    want_t = fused_lane_step_ref(*args, m)
-    errs["lane_superstep"] = max_abs_err(got, want_t)
-    check(torch.equal(got, want_t), "wide lane_superstep != plain at m=4 "
-                                    "k=10")
-    timing["lane_superstep"] = (
-        cuda_ms(lambda: ls_ops.fused_lane_step(*args, m, dg.hub_nodes), 5),
-        cuda_ms(lambda: fused_lane_step_ref(*args, m), 3), None,
-        *lane_bound(*args))
+    both(f"(a) m={m} k={k}, one lane", S_pre, m, args, m)
+    for name in shapes:
+        a = shapes[name][0]
+        timing[name] = (a["ms"], a["plain_ms"], None, a["bound_ms"],
+                        a["bound_by"])
     # The padded relax of that state (one padded_topk launch), equal to
     # its plain version and to core/dks.py::relax.
     n_e = dg.n_edges
@@ -1952,11 +2155,37 @@ def wide_phase(dev, graph, index, bucket, singles, engines) -> dict:
         cuda_ms(lambda: batched_backtrace_ref(*bt_args), 3), None,
         *backtrace_bound(recs, m))
     del res, bt_args, recs, S_pre
-    for name, (ms, plain, _, bound, by) in timing.items():
+    for name in ("padded_topk", "batched_backtrace"):
+        ms, plain, _, bound, by = timing[name]
         log(f"  {name} wide route at m={m} k={k}: {ms} ms (plain {plain} "
             f"ms, bound {bound} ms by {by}), == plain")
+
+    # ---- the redesigned kernels at (b) the bucket, (c) m = 7 ----
+    for label, queries, (m_s, k_s) in (
+            (f"(b) m={BUCKET_M} k={WIDE_BUCKET_K}, the bucket's "
+             f"{BUCKET_LANES} lanes", bucket, (BUCKET_M, WIDE_BUCKET_K)),
+            (f"(c) m={WIDE_M7[0]} k={WIDE_M7[1]}, one lane", [q7],
+             WIDE_M7)):
+        cfg_s = dks.DKSConfig(m=m_s, k=k_s, backend="cuda")
+        st = driver.lane_init(dg, torch.from_numpy(np.stack([
+            index.keyword_masks(q, graph.n_nodes, v_pad=dg.v_pad)
+            for q in queries])).to(dev), cfg_s)
+        for _ in range(WIDE_MID_STEPS):
+            st = driver.lane_superstep(dg, st, cfg_s)
+        if m_s == BUCKET_M:
+            log(window_line(
+                f"one superstep of the K = {k_s} bucket ({WIDE_MID_STEPS} "
+                f"in, backend=cuda)",
+                profile_window(lambda: driver.lane_superstep(dg, st, cfg_s),
+                               top=10), 70))
+        args = (st.S.contiguous(), st.changed.contiguous(), st.done,
+                dg.in_offsets, dg.src, dg.w)
+        both(f"{label}, {WIDE_MID_STEPS} supersteps in", args[0], m_s,
+             args, m_s)
+        del st, args
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "errs": errs, "timing": timing}
+    return {"launches": launches, "errs": errs, "timing": timing,
+            "shapes": shapes}
 
 
 def same_stream(got, want) -> None:
@@ -5970,7 +6199,15 @@ def ranks_phase(device_type: str, card: str, graph, index, bucket, singles,
                        f"phase {time.perf_counter() - t_phase:.1f} s"}
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
+                                 "end to end on one GPU (see the module's "
+                                 "docstring).")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the commit before the wide "
+                         "kernels' redesign: phase 19 times its wide "
+                         "subset_combine and lane_superstep beside them")
+    parent = ap.parse_args(argv).parent
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5978,7 +6215,7 @@ def main() -> int:
     meta: list = []             # the meta dry run, once phase 11 is done
     workers: list = []          # phases 14 and 15's inputs, from phase 11 on
     try:
-        return phases(meta, workers)
+        return phases(meta, workers, parent)
     finally:
         for proc, _ in workers:
             proc.kill()
@@ -5989,7 +6226,7 @@ def main() -> int:
             proc.wait()
 
 
-def phases(meta: list, workers: list) -> int:
+def phases(meta: list, workers: list, parent: Path | None) -> int:
     from repro_torch import INF
     from repro_torch.configs import SEC_RDFABOUT
     from repro_torch.core import dks, driver
@@ -6411,7 +6648,7 @@ def phases(meta: list, workers: list) -> int:
     # the worker.
     gc.collect()
     torch.cuda.empty_cache()
-    wide = wide_phase(dev, graph, index, bucket, singles, engines)
+    wide = wide_phase(dev, graph, index, bucket, singles, engines, parent)
     for name, err in wide["errs"].items():
         errs_wide[name] = max(errs_wide[name], err)
     log(f"[19/19] {cfg_sec.name} at K = {WIDE_BUCKET_K} and m = "
@@ -6567,18 +6804,23 @@ def phases(meta: list, workers: list) -> int:
     # The wide route of each DKS kernel: its launches on phase 19's main
     # path (padded_topk: its padded relax), its largest error over phases 3
     # and 19, its times at m = 4, K = 10 on sec-rdfabout (phase 19).
+    # The two redesigned ones also at (b) and (c) (``shapes``: (a) first).
     for name, (source, replaces) in sources.items():
         if name not in wide["timing"]:
             continue
         ms, plain, library, bound, by = wide["timing"][name]
-        kernels.append({
+        row = {
             "name": f"{name} (wide route)", "route": "cuda",
             "source": source, "replaces": replaces,
             "launches": wide["launches"][name]["wide"],
             "max_abs_err": errs_wide[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library,
             "shape": f"sec-rdfabout, m={SINGLE_M}, k={WIDE_SINGLE_K[1]}",
-            "launches_by_route": wide["launches"][name]})
+            "launches_by_route": wide["launches"][name]}
+        if name in wide["shapes"]:
+            row["shapes"] = [{**t, "library_ms": None}
+                             for t in wide["shapes"][name]]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,15 +44,33 @@
 //   and write nothing for them.
 //
 // The wide route (every other (m, K) up to 2^m * K = DKS_ROW_FLOATS; see
-// dks_lattice.cuh): one warp per (lane, node) row, hubs included, its
-// table of 2^m * K floats in the warp's share of shared memory.  The warp
-// walks the row's in-edges in order (every lane reads the same w, src and
-// `changed`, so the skips are uniform), and warp lane j folds the
-// candidates of the keyword sets f = j (mod 32) from the sender's row into
-// their lists; each list's candidates stop at the first one not below its
-// last value (the sender's list is ascending).  Then the warp runs the
-// combine sweep (dks_combine_sweep_warp) and writes the row.  A hub is
-// walked serially by its one warp: right, and slow on long in-edge lists.
+// dks_lattice.cuh and the host-side plan, kernels/subset_combine/ops.py::
+// wide_plan).  Its least traffic is the same table read and written once;
+// on the H100 it is bound by the latency of the dependent loads a row
+// walks (edge, then sender flag, then sender row) and by the combine's
+// inserts in shared memory, not by bytes.  The design:
+//
+// - In-edges are taken a batch at a time: each lane reads one edge's w
+//   and src (the next batch's while this one is folded), then the
+//   sender's `changed` flag; __ballot_sync picks the live edges (finite
+//   weight, active sender) and only those are folded, each one's sender
+//   and weight passed by __shfl_sync.  A dead edge costs a share of one
+//   coalesced load instead of a chain of three.
+// - A warp is cut into teams with a lane for each keyword set (up to 32):
+//   at m = 3 a warp takes four light rows, one a team, so no lane idles.
+// - Three kinds of rows, from the hub list (every node of more than
+//   HUB_IN_DEGREE in-edges, most first): a node of more than hub_degree
+//   (256) in-edges gets a block, whose warps take strides of its batches
+//   into partial tables of their own, one a team, merged pairwise in
+//   shared memory, then closed once and written once; the hub blocks come
+//   first in the grid, longest first.  Every other listed node gets one
+//   warp, whose teams share its batches the same way.  The rest (at most
+//   HUB_IN_DEGREE in-edges) are light rows, one a team.  A light team
+//   walking a row of hundreds of in-edges kept its whole block waiting.
+// - The closure (dks_combine_team) runs over all of a row's lanes.
+// - A set's candidates are an ascending run, inserted from where the run's
+//   last one went (dks_insert_run); sets sit an odd number of floats apart.
+// - Blocks of 4 warps, at most 40 registers a thread (DKS_WIDE_PLAN_WARPS).
 //
 // Nothing is allocated here; the wrapper allocates with torch.empty.
 #include "dks_lattice.cuh"
@@ -215,82 +233,320 @@ extern "C" int dks_lane_superstep(const float* S0,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(DKS_WIDE_WARPS * 32)
+// Fold the candidates of one live in-edge (sender row su, weight we) into
+// the table at `tab`: team lane tl takes the sets f ≡ tl (mod T).  The
+// sender's lists are ascending, so a set's candidates are an ascending run
+// that stops at the first one not below its list's last value
+// (dks_insert_run); they are read four at a time, so that four loads are
+// in flight (all within the sender's set).
+__device__ __forceinline__ void wide_fold_edge(float* tab, int ks, int k,
+                                               int n_sets, int T, int tl,
+                                               const float* __restrict__ su,
+                                               float we) {
+  for (int f = tl; f < n_sets; f += T) {
+    float* r = tab + f * ks;
+    const float* s = su + f * k;
+    int pos = 0;
+    bool more = true;
+    for (int j0 = 0; more && j0 < k; j0 += 4) {
+      float x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        x[q] = j0 + q < k ? __ldg(s + j0 + q) : DKS_INF;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float c = __fadd_rn(x[q], we);
+        more = more && dks_insert_run(r, k, c >= DKS_HALF_INF ? DKS_INF : c,
+                                      pos);
+      }
+    }
+  }
+}
+
+// The first of the next batch of in-edges a lane reads: w and src of edge
+// e, where e < e_end (else INF and 0).
+__device__ __forceinline__ void wide_edge(const int* __restrict__ src,
+                                          const float* __restrict__ w,
+                                          long long e, long long e_end,
+                                          float& we, int& u) {
+  we = DKS_INF;
+  u = 0;
+  if (e < e_end) {
+    we = __ldg(w + e);
+    u = __ldg(src + e);
+  }
+}
+
+template <bool kBlock>
+__device__ __forceinline__ void wide_sync() {
+  if (kBlock)
+    __syncthreads();
+  else
+    __syncwarp();
+}
+
+// One row (lane l, in-edges [e0, e1) of its node, S0's row s0_row) by
+// n_warps warps: a hub block's (kBlock: every warp of the block, synced by
+// __syncthreads) or one medium row's warp (n_warps 1).  `base` is the first
+// warp's share of shared memory.  Warp w reads the batches of 32 in-edges
+// b ≡ w (mod n_warps), w and src of the next batch while it folds this
+// one, and deals the batch's live edges (finite weight, active sender) to
+// its `rows` teams in turn; team g folds them into partial table
+// p = w * rows + g.  Partial 0 starts as S0's row, the others as INF.  The
+// partials merge pairwise into partial 0, which warp 0 closes
+// (dks_combine_team over all 32 lanes) and writes to out_row.
+template <bool kBlock>
+__device__ void wide_row_by_warps(float* base, int warp, int n_warps,
+                                  const float* __restrict__ s0_row,
+                                  const float* __restrict__ s0_lane,
+                                  const unsigned char* __restrict__ ch_lane,
+                                  const int* __restrict__ src,
+                                  const float* __restrict__ w, long long e0,
+                                  long long e1, float* __restrict__ out_row,
+                                  int m, int k, int rows, int spread) {
+  const int lane = threadIdx.x & 31;
+  const int n_sets = 1 << m, fk = n_sets * k, ks = dks_wide_stride(k);
+  const int row_f = n_sets * ks;
+  const int warp_f = dks_wide_warp_floats(m, k, rows, spread);
+  const int T = 32 / rows, g = lane / T, tl = lane - g * T;
+  float* wbase = base + warp * warp_f;
+  for (int i = lane; i < rows * row_f; i += 32) wbase[i] = DKS_INF;
+  __syncwarp();
+  if (warp == 0) dks_rows_in(wbase, s0_row, fk, k, ks, lane, 32);
+  __syncwarp();
+  float* tab = wbase + g * row_f;
+  const long long stride = 32LL * n_warps;
+  long long e = e0 + 32LL * warp + lane;
+  float we;
+  int u;
+  wide_edge(src, w, e, e1, we, u);
+  while (__any_sync(DKS_FULL_MASK, e < e1)) {
+    const bool live = e < e1 && we < DKS_HALF_INF && ch_lane[u] != 0;
+    float wn;
+    int un;
+    wide_edge(src, w, e + stride, e1, wn, un);  // the next batch, meanwhile
+    unsigned rest = __ballot_sync(DKS_FULL_MASK, live);
+    while (rest) {  // the same on every lane of the warp
+      unsigned x = rest;
+      for (int i = 0; i < g; ++i) x &= x - 1;  // this team's: the g-th left
+      const int sl = x ? __ffs(x) - 1 : 0;
+      const int uu = __shfl_sync(DKS_FULL_MASK, u, sl);
+      const float ww = __shfl_sync(DKS_FULL_MASK, we, sl);
+      if (x)
+        wide_fold_edge(tab, ks, k, n_sets, T, tl, s0_lane + (long long)uu * fk,
+                       ww);
+      for (int i = 0; i < rows && rest; ++i) rest &= rest - 1;
+    }
+    e += stride;
+    we = wn;
+    u = un;
+  }
+  wide_sync<kBlock>();
+  // Merge the partials pairwise into partial 0, a (pair, set) a thread.
+  const int P = n_warps * rows;
+  const int tid = kBlock ? (int)threadIdx.x : lane;
+  const int n_threads = kBlock ? (int)blockDim.x : 32;
+  for (int s = 1; s < P; s <<= 1) {
+    const int pairs = (P + 2 * s - 1) / (2 * s);
+    for (int it = tid; it < pairs << m; it += n_threads) {
+      const int d = 2 * s * (it >> m), f = it & (n_sets - 1);
+      const int sp = d + s;
+      if (sp < P)
+        dks_merge_list(base + (d / rows) * warp_f + (d % rows) * row_f + f * ks,
+                       base + (sp / rows) * warp_f + (sp % rows) * row_f +
+                           f * ks,
+                       k);
+    }
+    wide_sync<kBlock>();
+  }
+  if (warp != 0) return;
+  dks_combine_team(base, spread ? base + rows * row_f : nullptr, m, k, ks, 32,
+                   lane, true);
+  __syncwarp();
+  dks_rows_out(out_row, base, fk, k, ks, m, lane, 32, 1u, 32);
+}
+
+// Light rows: warp `warp` of light block j takes `rows` consecutive rows
+// from ((j * n_warps) + warp) * rows, one a team of T = 32 / rows lanes,
+// and leaves the rows of more than light_degree in-edges to the medium
+// warps and hub blocks.  Each team reads its row's in-edges T at a time
+// (w and src, then `changed` of the sender; the next batch meanwhile) and
+// folds the live ones, each sender's sets over the team's lanes, into its
+// table in shared memory; then it closes the table (dks_combine_team) and
+// the warp writes its rows with coalesced stores.
+__device__ void wide_light_rows(float* slab, const float* __restrict__ S0,
+                                const unsigned char* __restrict__ changed,
+                                const unsigned char* __restrict__ done,
+                                const long long* __restrict__ offsets,
+                                const int* __restrict__ src,
+                                const float* __restrict__ w,
+                                float* __restrict__ out, int lanes,
+                                long long n_nodes, int light_degree, int m,
+                                int k, int rows, int spread, long long block) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_sets = 1 << m, fk = n_sets * k, ks = dks_wide_stride(k);
+  const int row_f = n_sets * ks;
+  const int warp_f = dks_wide_warp_floats(m, k, rows, spread);
+  const int T = 32 / rows, g = lane / T, tl = lane - g * T;
+  const long long n_rows = (long long)lanes * n_nodes;
+  const long long row0 = (block * n_warps + warp) * rows;
+  if (row0 >= n_rows) return;  // a whole warp leaves
+  const int nr = n_rows - row0 < rows ? (int)(n_rows - row0) : rows;
+  const long long row = row0 + g;
+  int l = 0;
+  long long e = 0, e_end = 0;
+  bool keep = false, work = false;
+  if (g < nr) {
+    l = (int)(row / n_nodes);
+    const long long v = row - (long long)l * n_nodes;
+    e = offsets[v];
+    e_end = offsets[v + 1];
+    keep = e_end - e <= light_degree;  // else a medium warp's or hub's row
+    work = keep && !done[l];           // a finished lane keeps its table
+  }
+  float* wbase = slab + warp * warp_f;
+  float* tab = wbase + g * row_f;
+  dks_rows_in(wbase, S0 + row0 * fk, nr * fk, k, ks, lane, 32);
+  __syncwarp();
+  if (!work) e_end = e;
+  const float* s0_lane = S0 + (long long)l * n_nodes * fk;
+  const unsigned char* ch_lane = changed + (long long)l * n_nodes;
+  const unsigned team = T == 32 ? DKS_FULL_MASK : ((1u << T) - 1) << (g * T);
+  e += tl;
+  float we;
+  int u;
+  wide_edge(src, w, e, e_end, we, u);
+  while (__any_sync(DKS_FULL_MASK, e < e_end)) {
+    const bool live = e < e_end && we < DKS_HALF_INF && ch_lane[u] != 0;
+    float wn;
+    int un;
+    wide_edge(src, w, e + T, e_end, wn, un);  // the next batch, meanwhile
+    unsigned mine = __ballot_sync(DKS_FULL_MASK, live) & team;
+    while (__any_sync(DKS_FULL_MASK, mine != 0)) {
+      const int sl = mine ? __ffs(mine) - 1 : lane;
+      const int uu = __shfl_sync(DKS_FULL_MASK, u, sl);
+      const float ww = __shfl_sync(DKS_FULL_MASK, we, sl);
+      if (mine)
+        wide_fold_edge(tab, ks, k, n_sets, T, tl, s0_lane + (long long)uu * fk,
+                       ww);
+      mine &= mine - 1;
+    }
+    e += T;
+    we = wn;
+    u = un;
+  }
+  __syncwarp();
+  dks_combine_team(tab, spread ? wbase + rows * row_f + g * T * ks : nullptr,
+                   m, k, ks, T, tl, work);
+  __syncwarp();
+  const unsigned keep_bits = __ballot_sync(DKS_FULL_MASK, keep && tl == 0);
+  dks_rows_out(out + row0 * fk, wbase, nr * fk, k, ks, m, lane, 32,
+               keep_bits, T);
+}
+
+// Three kinds of blocks, in this order in the grid: hub blocks, one for
+// each (hub entry h < n_hubs, lane l), h-major: a node of more than
+// hub_degree in-edges, walked by all the block's warps; medium blocks,
+// whose warps take the entries of the whole hub list (n_list), one
+// (entry, lane) a warp: a node of more than light_degree and at most
+// hub_degree in-edges, walked by that warp's teams; then light blocks.
+// Any other entry is skipped by both.  A finished lane's row is S0's.
+__global__ void __launch_bounds__(DKS_WIDE_PLAN_WARPS * 32, 12)
 lane_superstep_wide_kernel(const float* __restrict__ S0,
                            const unsigned char* __restrict__ changed,
                            const unsigned char* __restrict__ done,
                            const long long* __restrict__ offsets,
                            const int* __restrict__ src,
                            const float* __restrict__ w,
+                           const int* __restrict__ hubs,
                            float* __restrict__ out, int lanes,
-                           long long n_nodes, int m, int k) {
+                           long long n_nodes, long long n_list,
+                           int light_degree, int hub_degree,
+                           long long hub_blocks, long long medium_blocks,
+                           int m, int k, int rows, int spread) {
   extern __shared__ float slab[];
-  const int lane = threadIdx.x & 31;
-  const int n_sets = 1 << m;
-  const int fk = n_sets * k;
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= (long long)lanes * n_nodes) return;  // a whole warp leaves
-  const int l = (int)(row / n_nodes);
-  const long long v = row - (long long)l * n_nodes;
+  const long long b = blockIdx.x;
+  if (b >= hub_blocks + medium_blocks) {
+    wide_light_rows(slab, S0, changed, done, offsets, src, w, out, lanes,
+                    n_nodes, light_degree, m, k, rows, spread,
+                    b - hub_blocks - medium_blocks);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const bool hub = b < hub_blocks;
+  const long long item = hub ? b : (b - hub_blocks) * n_warps + warp;
+  if (item >= n_list * lanes) return;  // past the list: a whole warp leaves
+  const int l = (int)(item % lanes);
+  const long long v = hubs[item / lanes];
+  // Only a node of this graph with this kind's in-degree.
+  if (v < 0 || v >= n_nodes) return;
+  const long long e0 = offsets[v], e1 = offsets[v + 1];
+  if (hub ? e1 - e0 <= hub_degree
+          : (e1 - e0 <= light_degree || e1 - e0 > hub_degree))
+    return;
+  const int fk = k << m;
+  const long long row = (long long)l * n_nodes + v;
   const float* s0_row = S0 + row * fk;
   float* out_row = out + row * fk;
   if (done[l]) {  // a finished lane keeps its table
-    dks_warp_copy(out_row, s0_row, fk);
+    for (int i = hub ? threadIdx.x : lane; i < fk; i += hub ? blockDim.x : 32)
+      out_row[i] = s0_row[i];
     return;
   }
-  float* tab = slab + (threadIdx.x >> 5) * fk;
-  dks_warp_copy(tab, s0_row, fk);
-  __syncwarp();
   const float* s0_lane = S0 + (long long)l * n_nodes * fk;
-  const unsigned char* changed_lane = changed + (long long)l * n_nodes;
-  const long long e_end = offsets[v + 1];
-  for (long long e = offsets[v]; e < e_end; ++e) {
-    const float we = w[e];
-    if (!(we < DKS_HALF_INF)) continue;  // every candidate bumps to INF
-    const int u = src[e];
-    if (!changed_lane[u]) continue;       // the sender sends nothing
-    const float* su = s0_lane + (long long)u * fk;
-    for (int f = lane; f < n_sets; f += 32) {
-      float* r = tab + f * k;
-      for (int j = 0; j < k; ++j) {
-        const float c = __fadd_rn(__ldg(su + f * k + j), we);
-        const float x = c >= DKS_HALF_INF ? DKS_INF : c;
-        if (!(x < r[k - 1])) break;
-        dks_insert_list(r, k, x);
-      }
-    }
-  }
-  __syncwarp();
-  dks_combine_sweep_warp(tab, m, k);
-  dks_warp_copy(out_row, tab, fk);
+  const unsigned char* ch_lane = changed + (long long)l * n_nodes;
+  if (hub)
+    wide_row_by_warps<true>(slab, warp, n_warps, s0_row, s0_lane, ch_lane,
+                            src, w, e0, e1, out_row, m, k, rows, spread);
+  else
+    wide_row_by_warps<false>(
+        slab + warp * dks_wide_warp_floats(m, k, rows, spread), 0, 1, s0_row,
+        s0_lane, ch_lane, src, w, e0, e1, out_row, m, k, rows, spread);
 }
 
-// The wide route of dks_lane_superstep (same layouts, no hub list: every
-// row has its warp), for 2^m * k <= DKS_ROW_FLOATS.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// The wide route of dks_lane_superstep (same layouts), for
+// 2^m * k <= DKS_ROW_FLOATS, on the plan of
+// kernels/subset_combine/ops.py::wide_plan: `rows` light rows a warp (and
+// partials a warp in a hub block or medium warp), `warps` warps a block,
+// private lists for the combine if `spread`.  hubs: int32[n_list], every
+// node of more than light_degree in-edges (any order, entries that are not
+// such nodes skipped; a node left out keeps an unwritten row), those of
+// more than hub_degree among its first n_hubs entries (most in-edges first
+// runs best).  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int dks_lane_superstep_wide(const float* S0,
                                        const unsigned char* changed,
                                        const unsigned char* done,
                                        const long long* offsets,
                                        const int* src, const float* w,
-                                       float* out, int lanes,
-                                       long long n_nodes, int m, int k,
-                                       void* stream) {
-  if (m < 1 || m > 30 || !dks_wide_fits(1LL << m, k) || lanes < 0 ||
-      n_nodes < 0)
+                                       const int* hubs, float* out,
+                                       int lanes, long long n_nodes,
+                                       long long n_list, long long n_hubs,
+                                       int light_degree, int hub_degree,
+                                       int m, int k, int rows, int warps,
+                                       int spread, void* stream) {
+  if (!dks_wide_plan_ok(m, k, rows, warps, spread) || lanes < 0 ||
+      n_nodes < 0 || n_list < 0 || n_hubs < 0 || n_hubs > n_list ||
+      light_degree < 0 || hub_degree < light_degree)
     return (int)cudaErrorInvalidValue;
   const long long n_rows = (long long)lanes * n_nodes;
   if (n_rows == 0) return 0;
-  const int fk = (1 << m) * k;
-  const int warps = dks_wide_warps(fk);
-  const long long blocks = (n_rows + warps - 1) / warps;
+  const long long hub_blocks = n_hubs * lanes;
+  const long long medium_blocks = (n_list * lanes + warps - 1) / warps;
+  const long long per_block = (long long)warps * rows;
+  const long long blocks =
+      hub_blocks + medium_blocks + (n_rows + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)warps * fk * sizeof(float);
+  const size_t smem =
+      (size_t)warps * dks_wide_warp_floats(m, k, rows, spread) * sizeof(float);
   cudaError_t err = dks_allow_slab(lane_superstep_wide_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   lane_superstep_wide_kernel<<<(unsigned)blocks, warps * 32, smem,
                                (cudaStream_t)stream>>>(
-      S0, changed, done, offsets, src, w, out, lanes, n_nodes, m, k);
+      S0, changed, done, offsets, src, w, hubs, out, lanes, n_nodes, n_list,
+      light_degree, hub_degree, hub_blocks, medium_blocks, m, k, rows,
+      spread);
   return (int)cudaGetLastError();
 }

@@ -20,10 +20,14 @@
 // costs no divergence).
 //
 // The wide route (every other (m, K) up to 2^m * K = DKS_ROW_FLOATS; see
-// dks_lattice.cuh): one warp per row, its table whole in the warp's share
-// of shared memory, loaded and stored coalesced, closed by
-// dks_combine_sweep_warp (the targets of one popcount spread over the
-// warp's lanes).
+// dks_lattice.cuh and kernels/subset_combine/ops.py::wide_plan): a warp
+// takes 32 / 2^m rows at m < 5 (one a team of 2^m lanes), else one; the
+// warp's rows are loaded and stored coalesced into tables whose sets sit
+// an odd number of floats apart, and each team closes its table with
+// dks_combine_team.  On the H100 this is bound by the sweep's inserts in
+// shared memory (at m = 7, 966 splits a row), not by bytes; at m <= 3
+// and K >= 8 a popcount's few targets spread over all the team's lanes
+// through private lists, where one lane a target left most of it idle.
 //
 // Nothing is allocated here; the wrapper allocates the output with
 // torch.empty.
@@ -70,39 +74,50 @@ extern "C" int dks_subset_combine(const float* S, float* out,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(DKS_WIDE_WARPS * 32)
+__global__ void __launch_bounds__(DKS_WIDE_PLAN_WARPS * 32, 16)
 subset_combine_wide_kernel(const float* __restrict__ S,
                            float* __restrict__ out, long long n_rows, int m,
-                           int k) {
+                           int k, int rows, int spread) {
   extern __shared__ float slab[];
-  const int fk = (1 << m) * k;
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // a whole warp leaves
-  float* tab = slab + (threadIdx.x >> 5) * fk;
-  dks_warp_copy(tab, S + row * fk, fk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ks = dks_wide_stride(k), fk = k << m, row_f = ks << m;
+  const int T = 32 / rows, g = lane / T, tl = lane - g * T;
+  const long long row0 = ((long long)blockIdx.x * (blockDim.x >> 5) + warp) *
+                         rows;
+  if (row0 >= n_rows) return;  // a whole warp leaves
+  const int nr = n_rows - row0 < rows ? (int)(n_rows - row0) : rows;
+  float* wbase = slab + warp * dks_wide_warp_floats(m, k, rows, spread);
+  dks_rows_in(wbase, S + row0 * fk, nr * fk, k, ks, lane, 32);
   __syncwarp();
-  dks_combine_sweep_warp(tab, m, k);
-  dks_warp_copy(out + row * fk, tab, fk);
+  dks_combine_team(wbase + g * row_f,
+                   spread ? wbase + rows * row_f + g * T * ks : nullptr, m, k,
+                   ks, T, tl, g < nr);
+  __syncwarp();
+  dks_rows_out(out + row0 * fk, wbase, nr * fk, k, ks, m, lane, 32,
+               DKS_FULL_MASK, T);
 }
 
 // The wide route of dks_subset_combine (same layout), for
-// 2^m * k <= DKS_ROW_FLOATS.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// 2^m * k <= DKS_ROW_FLOATS, on the plan of
+// kernels/subset_combine/ops.py::wide_plan: `rows` rows a warp, `warps`
+// warps a block, private lists for the combine if `spread`.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int dks_subset_combine_wide(const float* S, float* out,
                                        long long n_rows, int m, int k,
+                                       int rows, int warps, int spread,
                                        void* stream) {
-  if (m < 1 || m > 30 || !dks_wide_fits(1LL << m, k) || n_rows < 0)
+  if (!dks_wide_plan_ok(m, k, rows, warps, spread) || n_rows < 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
-  const int fk = (1 << m) * k;
-  const int warps = dks_wide_warps(fk);
-  const long long blocks = (n_rows + warps - 1) / warps;
+  const long long per_block = (long long)warps * rows;
+  const long long blocks = (n_rows + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)warps * fk * sizeof(float);
+  const size_t smem =
+      (size_t)warps * dks_wide_warp_floats(m, k, rows, spread) * sizeof(float);
   cudaError_t err = dks_allow_slab(subset_combine_wide_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   subset_combine_wide_kernel<<<(unsigned)blocks, warps * 32, smem,
-                               (cudaStream_t)stream>>>(S, out, n_rows, m, k);
+                               (cudaStream_t)stream>>>(S, out, n_rows, m, k,
+                                                       rows, spread);
   return (int)cudaGetLastError();
 }

@@ -38,12 +38,14 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # library -> {C entry point: argument types}; every entry returns an int.
 SIGNATURES = {
     "subset_combine": {"dks_subset_combine": (_P, _P, _L, _I, _I, _P),
-                       "dks_subset_combine_wide": (_P, _P, _L, _I, _I, _P)},
+                       "dks_subset_combine_wide":
+                       (_P, _P, _L, _I, _I, _I, _I, _I, _P)},
     "lane_superstep": {"dks_lane_superstep":
                        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                         _I, _P),
                        "dks_lane_superstep_wide":
-                       (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P)},
+                       (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _I,
+                        _I, _I, _I, _I, _I, _I, _P)},
     "flash_attention": {"flash_attention_fwd":
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P)},

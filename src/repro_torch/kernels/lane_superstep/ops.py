@@ -8,7 +8,10 @@ block-aligned ``LaneCSR``), so no padded per-row layout exists.  A node
 with more than ``HUB_IN_DEGREE`` in-edges is a hub: the kernel gives each
 (lane, hub) a warp, from the list ``DeviceGraph.hub_nodes`` (or
 ``hub_nodes(offsets)``, re-exported here, for any other edge list), where
-``repro`` splits a hub into virtual rows.
+``repro`` splits a hub into virtual rows.  The wide route gives each
+(lane, hub) a warp, and each (lane, node) of more than
+``WidePlan.hub_degree`` in-edges a block, from the leading entries of the
+same list (:func:`wide_hub_entries`).
 
 - :func:`fused_lane_step` — the kernel call: one launch per superstep for
   every lane (plain version on a CPU tensor).
@@ -20,6 +23,7 @@ with more than ``HUB_IN_DEGREE`` in-edges is a hub: the kernel gives each
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 
@@ -31,10 +35,41 @@ from repro_torch.graph.structure import (
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.lane_superstep.ref import fused_lane_step_ref
-from repro_torch.kernels.subset_combine.ops import check_range, route
+from repro_torch.kernels.subset_combine.ops import (check_range, route,
+                                                    wide_plan)
 
 counter = LaunchCounter()
 route_counters = {"templated": LaunchCounter(), "wide": LaunchCounter()}
+# id(hub list) -> (a weak reference to it, what it was counted on, count).
+_hub_entries: dict[int, tuple] = {}
+
+
+def wide_hub_entries(offsets: torch.Tensor, hubs: torch.Tensor,
+                     hub_degree: int) -> int:
+    """How many leading entries of ``hubs`` the wide route gives blocks:
+    up to the last one naming a node of more than ``hub_degree`` in-edges
+    under ``offsets`` (on a list sorted by in-degree, as
+    :func:`hub_nodes` gives, exactly those).  One host sync a list; the
+    count is kept while the list lives and is not written to (not for
+    tensors made under ``torch.inference_mode``, which keep no version)."""
+    keep = not (hubs.is_inference() or offsets.is_inference())
+    if keep:
+        stamp = (hubs._version, offsets.data_ptr(), offsets._version,
+                 hub_degree)
+        hit = _hub_entries.get(id(hubs))
+        if hit is not None and hit[0]() is hubs and hit[1] == stamp:
+            return hit[2]
+    n_nodes = offsets.shape[0] - 1
+    ids = hubs.long()
+    valid = (ids >= 0) & (ids < n_nodes)
+    deg = offsets.diff()[ids.clamp(0, max(n_nodes - 1, 0))]
+    big = (valid & (deg > hub_degree)).nonzero()
+    n = int(big[-1]) + 1 if big.numel() else 0
+    if keep:
+        if len(_hub_entries) >= 64:
+            _hub_entries.clear()
+        _hub_entries[id(hubs)] = (weakref.ref(hubs), stamp, n)
+    return n
 
 
 @count.reports("lane_superstep", roofline.lane_work)
@@ -49,8 +84,11 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
     past ``HUB_IN_DEGREE`` in-edges on its one-thread-per-node path, so a
     hub left out of the list keeps an unwritten row (entries that are not
     hubs are skipped).  Outside 1 <= m <= 6, 1 <= K <= 8 the kernel's wide
-    route gives every row, hubs included, a warp and takes no list.  The
-    plain version needs no list."""
+    route (:func:`wide_plan`) gives a block to each (lane, node of more
+    than ``WidePlan.hub_degree`` in-edges) among the list's leading
+    entries (:func:`wide_hub_entries`), a warp to each (lane, other node
+    in the list) and a team of a warp to every other row.  The plain
+    version needs no list."""
     if hubs is None:
         hubs = hub_nodes(offsets)
     if S0.dtype != torch.float32 or S0.dim() != 4 or S0.shape[2] != 1 << m:
@@ -89,9 +127,13 @@ def fused_lane_step(S0: torch.Tensor, changed: torch.Tensor,
             *(t.data_ptr() for t in (*tensors, hubs)), out.data_ptr(), lanes,
             v, hubs.shape[0], HUB_IN_DEGREE, m, k, stream)
     else:
+        plan = wide_plan(m, k)
         err = lib.dks_lane_superstep_wide(
-            *(t.data_ptr() for t in tensors), out.data_ptr(), lanes, v, m, k,
-            stream)
+            *(t.data_ptr() for t in (*tensors, hubs)), out.data_ptr(), lanes,
+            v, hubs.shape[0], wide_hub_entries(offsets, hubs,
+                                               plan.hub_degree),
+            HUB_IN_DEGREE, plan.hub_degree, m, k, plan.rows, plan.warps,
+            int(plan.spread), stream)
     counter.add()
     route_counters[way].add()
     cuda_build.check(err, "fused_lane_step")

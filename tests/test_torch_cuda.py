@@ -17,8 +17,10 @@ compare or one f32 add; 2e-5 (f32) and 2e-2 (bf16) for flash attention and
 for single-hot bags, the grouped lookup and the DCN-v2 logits built on
 them, and none for the batched backtrace's records (integers).  The DKS
 kernels run at m = 1..6 and K = 1..8 on their templated route, and past
-it on the wide route (run-time m and K, one warp a row) at (m, K) = (3,
-10), (4, 10), (2, 16), (7, 3), (8, 2) and (6, 9).  The stepwise surfaces (streams,
+it on the wide route (run-time m and K, on ``subset_combine.ops.wide_plan``)
+at (m, K) = (3, 10), (4, 10), (2, 16), (7, 3), (8, 2) and (6, 9), and on
+a hub of 5,000 in-edges, with every lane done, at the row limit (10, 16),
+at K = 16 and at the paper-scale bucket's shape.  The stepwise surfaces (streams,
 deadline buckets, telemetry) and the service on ``"cuda"`` equal
 ``"torch"`` exactly, times excluded.  The GNN families (no kernel of
 their own) on the card against the CPU: f32 loss within 1e-5 and
@@ -40,6 +42,7 @@ from repro_torch.core.semiring import sorted_unique_k
 from repro_torch.checkpoint import Stacked, restore_tree, save_tree
 from repro_torch.data import lm_synthetic_stream, recsys_synthetic_stream
 from repro_torch.graph.generators import lod_like_graph
+from repro_torch.graph.structure import build_graph
 from repro_torch.answers import BatchedBacktracer
 from repro_torch.engine import ExecutionPolicy, QueryEngine
 from repro_torch.graph.generators import grid_graph
@@ -694,6 +697,132 @@ def test_lane_superstep_wide_route_matches_plain(cuda_device, hub_graph, m,
     assert torch.equal(got, fused_lane_step_ref(*args, m))
     assert torch.equal(got[1], st.S[1]) and torch.equal(got[3], st.S[3])
     assert not torch.equal(got[0], st.S[0])
+
+
+def star_graph(n_nodes: int, hub_in: int, seed: int = 0):
+    """Node 0 with ``hub_in`` in-edges from nodes 1.. (weights 1 to 3),
+    beside 3,000 random edges: past ``WIDE_HUB_DEGREE``, a hub block's
+    row on the wide route."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.arange(1, hub_in + 1),
+                          rng.integers(0, n_nodes, 3000)])
+    dst = np.concatenate([np.zeros(hub_in, np.int64),
+                          rng.integers(0, n_nodes, 3000)])
+    w = rng.integers(1, 4, size=len(src)).astype(np.float32)
+    return build_graph(src, dst, n_nodes, w=w)
+
+
+def random_tables(shape, m, k, seed, device):
+    """Sorted, distinct, INF-padded tables, the empty set all INF."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(1, 20, size=(*shape, 1 << m, k)).astype(np.float32)
+    s[rng.random(s.shape) > 0.5] = INF
+    t = sorted_unique_k(torch.from_numpy(s).to(device), k)
+    t[..., 0, :] = INF
+    return t.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active", [True, False],
+                         ids=["every_sender", "no_sender"])
+@pytest.mark.parametrize("m,k", [(3, 10), (4, 10), (5, 16)])
+def test_lane_superstep_wide_route_on_a_hub_past_4096(cuda_device, m, k,
+                                                      active):
+    """A hub of 5,000 in-edges (one block a lane, its warps' partials
+    merged), every sender active or none, lane 1 of 2 done."""
+    dg = star_graph(6000, 5000).to_device(cuda_device)
+    assert int(dg.in_offsets.diff()[0]) == 5000
+    assert ls_ops.wide_hub_entries(dg.in_offsets, dg.hub_nodes,
+                                   sc_ops.wide_plan(m, k).hub_degree) == 1
+    S0 = random_tables((2, dg.v_pad), m, k, seed=m + k, device=cuda_device)
+    changed = torch.full((2, dg.v_pad), active, device=cuda_device)
+    done = torch.tensor([False, True], device=cuda_device)
+    args = (S0, changed, done, dg.in_offsets, dg.src, dg.w)
+    before = ls_ops.launches_by_route
+    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
+    torch.cuda.synchronize()
+    wide_launched(ls_ops, before, "wide")
+    assert torch.equal(got, fused_lane_step_ref(*args, m))
+    assert torch.equal(got[1], S0[1])
+
+
+@pytest.mark.cuda
+def test_lane_superstep_wide_route_with_every_lane_done(cuda_device,
+                                                        hub_graph):
+    """Every lane finished: every row, hub blocks' too, is S0's."""
+    dg = hub_graph.to_device(cuda_device)
+    m, k = 3, 10
+    S0 = random_tables((3, dg.v_pad), m, k, seed=5, device=cuda_device)
+    args = (S0, torch.ones(3, dg.v_pad, dtype=torch.bool,
+                           device=cuda_device),
+            torch.ones(3, dtype=torch.bool, device=cuda_device),
+            dg.in_offsets, dg.src, dg.w)
+    before = ls_ops.launches_by_route
+    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
+    torch.cuda.synchronize()
+    wide_launched(ls_ops, before, "wide")
+    assert torch.equal(got, S0)
+    assert torch.equal(got, fused_lane_step_ref(*args, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(10, 16), (5, 16)])
+def test_wide_route_at_the_row_limit_and_at_k16(cuda_device, m, k):
+    """Rows of 2^m * K = 16,384 floats (64 KB; three warps a block, so a
+    hub block of three partials) and K = 16 at m = 5, whose set stride
+    the plan pads to 17 floats: both kernels, on random tables and
+    senders of a graph with a hub past ``WIDE_HUB_DEGREE`` (the plain
+    superstep's batched combine does not fit the card at m = 10)."""
+    dg = star_graph(300, 260, seed=m).to_device(cuda_device)
+    S0 = random_tables((2, dg.v_pad), m, k, seed=m, device=cuda_device)
+    changed = torch.from_numpy(
+        np.random.default_rng(m).random((2, dg.v_pad)) < 0.5)
+    done = torch.tensor([False, True], device=cuda_device)
+    args = (S0, changed.to(cuda_device), done, dg.in_offsets, dg.src, dg.w)
+    before = ls_ops.launches_by_route
+    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
+    torch.cuda.synchronize()
+    wide_launched(ls_ops, before, "wide")
+    assert torch.equal(got, fused_lane_step_ref(*args, m))
+    S = random_tables((61,), m, k, seed=k, device=cuda_device)
+    before = sc_ops.launches_by_route
+    got = sc_ops.subset_combine(S, m)
+    torch.cuda.synchronize()
+    wide_launched(sc_ops, before, "wide")
+    assert torch.equal(got, subset_combine_ref(S, m))
+
+
+@pytest.mark.cuda
+def test_wide_route_at_the_bucket_shape_cut_to_4000_nodes(cuda_device):
+    """The paper-scale bucket's shape (8 lanes, m = 3, K = 10) on a
+    4,000-node graph with nodes past ``WIDE_HUB_DEGREE``, three
+    supersteps in, lane 2 done: both kernels, one wide launch each."""
+    g, _ = lod_like_graph(4000, 60000, seed=2, vocab=40)
+    dg = g.to_device(cuda_device)
+    assert ls_ops.wide_hub_entries(dg.in_offsets, dg.hub_nodes,
+                                   sc_ops.WIDE_HUB_DEGREE) > 0
+    m, k = 3, 10
+    cfg = dks.DKSConfig(m=m, k=k)
+    masks = torch.from_numpy(
+        np.random.default_rng(8).random((8, m, dg.v_pad)) < 0.01)
+    st = driver.lane_init(dg, masks.to(cuda_device), cfg)
+    for _ in range(3):
+        st = dks.superstep(dg, st, cfg)
+    done = torch.zeros(8, dtype=torch.bool, device=cuda_device)
+    done[2] = True
+    args = (st.S, st.changed, done, dg.in_offsets, dg.src, dg.w)
+    before = ls_ops.launches_by_route
+    got = ls_ops.fused_lane_step(*args, m, dg.hub_nodes)
+    torch.cuda.synchronize()
+    wide_launched(ls_ops, before, "wide")
+    assert torch.equal(got, fused_lane_step_ref(*args, m))
+    assert not torch.equal(got[0], st.S[0])
+    S1 = got
+    before = sc_ops.launches_by_route
+    got = sc_ops.subset_combine(S1, m)
+    torch.cuda.synchronize()
+    wide_launched(sc_ops, before, "wide")
+    assert torch.equal(got, subset_combine_ref(S1, m))
 
 
 @pytest.mark.cuda

@@ -250,3 +250,31 @@ def test_lane_step_checks_the_hub_list(hub_graphs):
     # Omitted, the list is the one of the offsets given.
     assert torch.equal(ls_ops.fused_lane_step(*args),
                        ls_ops.fused_lane_step(*args, dt.hub_nodes))
+
+
+@pytest.mark.parametrize("m,k", [(3, 10), (7, 3)])
+def test_wide_lane_step_checks_the_hub_list(hub_graphs, m, k):
+    """Past the templated range the kernel takes the hub list too (its
+    leading entries get hub blocks): a list of the wrong dtype, shape or
+    device raises before any launch, on the CPU as on the card."""
+    _, _, dt = hub_graphs
+    S = torch.full((2, dt.v_pad, 1 << m, k), INF)
+    changed = torch.zeros(2, dt.v_pad, dtype=torch.bool)
+    done = torch.zeros(2, dtype=torch.bool)
+    args = (S, changed, done, dt.in_offsets, dt.src, dt.w, m)
+    launched = ls_ops.launches_by_route
+    for bad in (dt.hub_nodes.long(), dt.hub_nodes[None],
+                dt.hub_nodes.float()):
+        with pytest.raises(ValueError, match="hubs must be"):
+            ls_ops.fused_lane_step(*args, bad)
+    with pytest.raises(ValueError, match="hubs is on meta"):
+        ls_ops.fused_lane_step(*args, dt.hub_nodes.to("meta"))
+    meta = [t.to("meta") for t in (S, changed, done, dt.in_offsets, dt.src,
+                                   dt.w)]
+    with pytest.raises(ValueError, match="hubs is on cpu"):
+        ls_ops.fused_lane_step(*meta, m, dt.hub_nodes)
+    assert ls_ops.fused_lane_step(*meta, m, dt.hub_nodes.to("meta")).shape \
+        == S.shape
+    assert torch.equal(ls_ops.fused_lane_step(*args),
+                       ls_ops.fused_lane_step(*args, dt.hub_nodes))
+    assert ls_ops.launches_by_route == launched  # the CPU launches nothing
