@@ -3,10 +3,14 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-``--parent DIR`` (a checkout of the commit before the wide kernels'
-redesign; any directory holding its ``src/repro_torch/csrc``): phase 19
-also builds its wide ``subset_combine`` and ``lane_superstep`` and times
-them beside the new ones.  Run with no arguments it needs one card.
+``--parent DIR`` (a checkout of commit 29e18c9, the one before the walk's
+and the wide ``padded_topk``'s redesign; any directory holding its
+``src/repro_torch/csrc``): builds its ``subset_combine``,
+``lane_superstep``, ``padded_topk`` and ``batched_backtrace`` after phase
+2 and times each beside the new kernel in turns (parent, new, new,
+parent) wherever the script times that kernel's redesign: the walk in
+phases 5, 14 and 19, the wide kernels in phase 19.  Run with no
+arguments it needs one card.
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -50,7 +54,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    final tables (device sort + walk, host replay + ``finish_tree``) beside
    the 981.2 ms the host collector took (PERF.md), and the walk kernel is
    held against
-   its plain version there and timed beside a bytes floor.
+   its plain version there and timed beside its bound (the records, the
+   candidates and each input entry its scans test, once) and the serial
+   steps of its longest walk (obligations, split and edge rounds).
 6. LM serving — the flash-attention kernel against its plain version
    (random small shapes: MHA, GQA, MQA, ragged lengths, ``q_offset``; f32
    within 2e-5, bf16 within 2e-2; then the main path's shape, timed beside
@@ -86,7 +92,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``recsys_synthetic_stream``: the launch counter set to 0 just before
    and read just after (one grouped launch per forward, two per
    retrieval), and logits, scores and candidate positions bit-equal to
-   ``impl="torch"``; then the grouped kernel at each of those lookups,
+   ``impl="torch"``; retrieval_cand's top 100 equal to the parent's
+   scoring before the tie repair (29e18c9: the product's columns as they
+   come), both timed in turns; then the grouped kernel at each of those
+   lookups,
    equal to its plain version and to ``F.embedding`` per field, timed
    beside both.
 8. Padded-CSR relax — one lane of a real mid-run state of the
@@ -765,20 +774,27 @@ def timed_once(fn) -> tuple:
     return out, t0.elapsed_time(t1)
 
 
-def parent_wide(parent: Path) -> dict:
-    """The wide ``subset_combine`` and ``lane_superstep`` kernels of the
-    checkout at ``parent`` (``--parent``; the commit before their redesign,
-    whose C interface takes no plan and no hub list), built with this
-    checkout's nvcc flags into build/chip_smoke_parent, each wrapped to
-    take the new wrappers' arguments."""
+def parent_kernels(parent: Path) -> dict:
+    """The kernels of the checkout at ``parent`` (``--parent``; 29e18c9,
+    the commit before the walk's and the wide ``padded_topk``'s
+    redesign): ``subset_combine``, ``lane_superstep``, ``padded_topk``
+    and ``batched_backtrace``, built with this checkout's nvcc flags into
+    build/chip_smoke_parent (all at once).  Returned:
+    ``"through"(name, fn)``, ``fn`` (a wrapper call of the first two, whose
+    C interface is unchanged) on the parent's library; the walk and the
+    wide ``padded_topk`` on the new wrappers' arguments, through the
+    parent's C interface (no plan)."""
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.batched_backtrace.ops import RECORDS
 
     csrc = parent / "src" / "repro_torch" / "csrc"
     out_dir = ROOT / "build" / "chip_smoke_parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    names = ("subset_combine", "lane_superstep", "padded_topk",
+             "batched_backtrace")
     procs = {}
-    for name in ("subset_combine", "lane_superstep"):
+    for name in names:
         so = out_dir / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", str(csrc),
@@ -791,30 +807,63 @@ def parent_wide(parent: Path) -> dict:
                                     f"{out}")
         libs[name] = ctypes.CDLL(str(so))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    sc = libs["subset_combine"].dks_subset_combine_wide
-    sc.argtypes, sc.restype = [P, P, L, I, I, P], I
-    ls = libs["lane_superstep"].dks_lane_superstep_wide
-    ls.argtypes, ls.restype = [P] * 7 + [I, L, I, I, P], I
-    log(f"  the parent's wide kernels ({parent}) built in "
+    for name in ("subset_combine", "lane_superstep"):
+        for fn_name, argtypes in cuda_build.SIGNATURES[name].items():
+            fn = getattr(libs[name], fn_name)
+            fn.argtypes, fn.restype = list(argtypes), I
+    pt = libs["padded_topk"].dks_padded_topk_wide
+    pt.argtypes, pt.restype = [P, P, L, I, I, I, P], I
+    bt = libs["batched_backtrace"].bt_batched_backtrace
+    bt.argtypes = [P] * 15 + [I, I, L, I, I, I, I, I, L, L, P]
+    bt.restype = I
+    log(f"  the parent's kernels ({parent}) built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def combine(S, m):
-        out, k = torch.empty_like(S), S.shape[-1]
-        check(sc(S.data_ptr(), out.data_ptr(), S.numel() // ((1 << m) * k),
-                 m, k, torch.cuda.current_stream().cuda_stream) == 0,
-              "the parent's subset_combine did not launch")
-        return out
+    def through(name, fn):
+        def call(*args):
+            saved = cuda_build._LIBS.get(name)
+            cuda_build._LIBS[name] = libs[name]
+            try:
+                return fn(*args)
+            finally:
+                cuda_build._LIBS[name] = saved   # None: loaded again
+        return call
 
-    def lane(S0, changed, done, offsets, src, w, m):
-        out = torch.empty_like(S0)
-        check(ls(*(t.data_ptr() for t in (S0, changed, done, offsets, src,
-                                          w, out)),
-                 S0.shape[0], S0.shape[1], m, S0.shape[-1],
+    def topk(cand, k):
+        vv, c, f = cand.shape
+        out = torch.empty(vv, f, k, dtype=torch.float32, device=cand.device)
+        check(pt(cand.data_ptr(), out.data_ptr(), vv, c, f, k,
                  torch.cuda.current_stream().cuda_stream) == 0,
-              "the parent's lane_superstep did not launch")
+              "the parent's padded_topk did not launch")
         return out
 
-    return {"subset_combine": combine, "lane_superstep": lane}
+    def walk(S, kw, cand_idx, cand_val, indptr, esrc, ew, pa, pb, buffer,
+             degree_cap):
+        lanes, vp, _, k = S.shape
+        c = cand_idx.shape[1]
+        out = {n: torch.empty(lanes, c, buffer, dtype=torch.int32,
+                              device=S.device) for n in RECORDS}
+        out["fail"] = torch.empty(lanes, c, dtype=torch.bool,
+                                  device=S.device)
+        check(bt(*(t.data_ptr() for t in (S, kw, cand_idx, cand_val, indptr,
+                                          esrc, ew, pa, pb)),
+                 *(out[n].data_ptr() for n in (*RECORDS, "fail")),
+                 lanes, c, vp, kw.shape[1], k, pa.shape[1], buffer,
+                 degree_cap, indptr.numel() - 1, esrc.numel(),
+                 torch.cuda.current_stream().cuda_stream) == 0,
+              "the parent's batched_backtrace did not launch")
+        return out
+
+    return {"through": through, "padded_topk": topk,
+            "batched_backtrace": walk}
+
+
+def in_turns(new, old, iters: int) -> dict:
+    """``new`` beside the parent's ``old``, each ``iters`` calls (CUDA
+    events) in turns: parent, new, new, parent."""
+    turns = [cuda_ms(fn, iters) for fn in (old, new, new, old)]
+    return {"ms": (turns[1] + turns[2]) / 2,
+            "parent_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns}
 
 
 def wide_timed(new, plain, old, what: str) -> dict:
@@ -834,10 +883,55 @@ def wide_timed(new, plain, old, what: str) -> dict:
         return out
     check(torch.equal(old(), got), f"{what}: the parent's kernel differs")
     del got
-    turns = [cuda_ms(fn, WIDE_TIMED_ITERS) for fn in (old, new, new, old)]
-    out.update(ms=(turns[1] + turns[2]) / 2,
-               parent_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+    out.update(in_turns(new, old, WIDE_TIMED_ITERS))
     return out
+
+
+def walk_timed(args, old, what: str, iters: int) -> dict:
+    """The walk kernel on ``args`` (the wrapper's): its records equal to
+    the plain walk's (and to the parent's kernel ``old``, when given), its
+    bound from the input entries the plain walk's scans test
+    (``roofline.backtrace_reads``), the serial steps of its longest walk
+    at its plan's threads (``roofline.backtrace_rounds``), and its mean ms
+    over ``iters`` calls (with the parent: in turns).  The plain walk's
+    time is the caller's."""
+    from repro_torch.kernels.batched_backtrace import ops as bt_ops
+    from repro_torch.kernels.batched_backtrace.ref import \
+        batched_backtrace_ref
+
+    recs = bt_ops.batched_backtrace(*args)
+    reads = {}
+    err = held_records(recs, batched_backtrace_ref(*args, reads=reads),
+                       what)
+    distinct = rl.backtrace_reads(args, reads)
+    lanes, c = args[2].shape
+    plan = bt_ops.walk_plan(lanes * c, args[-2], args[7].shape[1])
+    out = {"err": err, "records": recs, "warps": plan.warps,
+           "bound": backtrace_bound(args, distinct),
+           "entries": {k: distinct[k] for k in rl.BACKTRACE_ENTRY_BYTES},
+           "rounds": rl.backtrace_rounds(distinct, 32 * plan.warps,
+                                         bt_ops.EDGES)}
+    new = functools.partial(bt_ops.batched_backtrace, *args)
+    if old is None:
+        out["ms"] = cuda_ms(new, iters)
+        return out
+    held_records(old(*args), recs, f"{what}: the parent's kernel")
+    out.update(in_turns(new, functools.partial(old, *args), iters))
+    return out
+
+
+def walk_line(got: dict) -> str:
+    """The walk's timing beside its bound, rounds and parent, for a log."""
+    bound, by = got["bound"]
+    beside = ("" if "parent_ms" not in got else
+              f"; the parent's kernel {got['parent_ms']} ms (turns parent, "
+              f"new, new, parent: {got['turns_ms']})")
+    r = got["rounds"]
+    return (f"{got['ms']} ms, {got['warps']} warps a walk (bound {bound} ms "
+            f"by {by}: {got['entries']} input entries tested; the longest "
+            f"walk {r['obligations']} obligations, {r['split_rounds']} split "
+            f"and {r['edge_rounds']} edge rounds at {r['threads']} threads)"
+            f"{beside}")
 
 
 def hops_within(graph, start: int, depth: int | None = None) -> np.ndarray:
@@ -1602,6 +1696,39 @@ def lookup_routes(params, cfg, batch) -> dict:
             for name, x in ms.items()}
 
 
+def retrieval_repair(params, cfg, batch, cand) -> dict:
+    """retrieval_cand's top ``RETRIEVAL_TOP_K`` as ``retrieval_scores``
+    gives it (each candidate the score of its id's first position) beside
+    the parent's one-process scoring (the product's columns as they come,
+    commit 29e18c9): the same top scores and positions, and both timed
+    in turns (parent, new, new, parent; CUDA events)."""
+    from repro_torch.models import recsys as rec
+
+    table = params["tables"]["table_0"]
+
+    def before():
+        u = rec.user_vector(params, batch["dense"], batch["sparse"], cfg)
+        ids = torch.clamp(cand, 0, table.shape[0] - 1)
+        emb = rec._lookup(table, ids, "cuda")
+        return rec._top_k(u @ (emb @ params["item"]).T, RETRIEVAL_TOP_K)
+
+    def after():
+        return rec.retrieval_scores(params, batch["dense"], batch["sparse"],
+                                    cand, cfg, top_k=RETRIEVAL_TOP_K)
+
+    (s_old, i_old), (s_new, i_new) = before(), after()
+    check(torch.equal(s_old, s_new) and torch.equal(i_old, i_new),
+          "retrieval_cand: the tie repair changed the top "
+          f"{RETRIEVAL_TOP_K}")
+    got = in_turns(after, before, REQUEST_REPS)
+    log(f"  retrieval_cand's tie repair ({cand.numel()} candidates, "
+        f"{int(torch.unique(cand).numel())} distinct ids): "
+        f"{got['ms']:.4f} ms a call against the parent's {got['parent_ms']:.4f}"
+        f" (turns parent, new, new, parent: {got['turns_ms']}), the same top "
+        f"{RETRIEVAL_TOP_K}")
+    return got
+
+
 def recsys_phase(dev) -> tuple[float, list[dict], int]:
     """DCN-v2 serving at full width through the grouped EmbeddingBag
     kernel: returns (the kernels' max abs err, their timed rows, the
@@ -1704,6 +1831,7 @@ def recsys_phase(dev) -> tuple[float, list[dict], int]:
             f"{min(again):.3f}) of {REQUEST_REPS} more ({n / med * 1e3:.0f} "
             f"{unit}; impl=torch {plain_ms:.3f} ms), peak device memory "
             f"{peak:.2f} GiB, bit-equal to impl=torch")
+    retrieval_repair(params, cfg, batches["retrieval_cand"], cand)
     routes = lookup_routes(params, cfg, batches["serve_p99"])
     log("  serve_p99's x0 under no_grad, median / p99 of "
         f"{LOOKUP_ROUTE_REPS} calls each, interleaved: " + "; ".join(
@@ -1973,7 +2101,7 @@ def wide_small_shapes(dev, g_small, dg_small, rng) -> dict:
 
 
 def wide_phase(dev, graph, index, bucket, singles, engines,
-               parent: Path | None = None) -> dict:
+               old: dict | None = None) -> dict:
     """Phase 19: the DKS main path past the templated range, on phase 5's
     sec-rdfabout engines: the bucket at K = 10, the two m = 4 queries at
     K = 5 and 10, a query of 7 keywords at K = 3, the launch counters set
@@ -1983,8 +2111,9 @@ def wide_phase(dev, graph, index, bucket, singles, engines,
     m = 4, K = 10 on a real state of the K = 10 query, and the two
     redesigned ones also at (b) the K = 10 bucket and (c) the m = 7 query,
     ``WIDE_MID_STEPS`` supersteps in, where one superstep of the bucket
-    runs under ``torch.profiler``; with ``parent`` (a checkout of the
-    commit before their redesign) its two kernels beside them.  Returns
+    runs under ``torch.profiler``; with ``old`` (:func:`parent_kernels`
+    of the commit before this one) the parent's four kernels beside
+    them, in turns.  Returns
     the launches by route, the wide kernels' errors and times (``timing``
     at (a), ``shapes`` at all three)."""
     from repro_torch import INF
@@ -2077,7 +2206,6 @@ def wide_phase(dev, graph, index, bucket, singles, engines,
         singles[1], graph.n_nodes, v_pad=dg.v_pad)[None]).to(dev)
     cfg = dks.DKSConfig(m=m, k=k)
     errs, timing = {}, {}
-    old = parent_wide(parent) if parent is not None else None
     shapes = {"subset_combine": [], "lane_superstep": []}
 
     def both(label, S_c, m_c, lane_args, m_l):
@@ -2092,7 +2220,8 @@ def wide_phase(dev, graph, index, bucket, singles, engines,
             got = wide_timed(functools.partial(new, *args_),
                              functools.partial(plain, *args_),
                              None if old is None else
-                             functools.partial(old[name], *args_),
+                             functools.partial(old["through"](name, new),
+                                               *args_),
                              f"wide {name} at {label}")
             got.update(shape=label, bound_ms=bound[0], bound_by=bound[1])
             shapes[name].append(got)
@@ -2134,31 +2263,40 @@ def wide_phase(dev, graph, index, bucket, singles, engines,
     check(torch.equal(relaxed, dks.relax(dg, S1[None], ch1[None], cfg)[0]),
           "wide segment_minplus_padded differs from core/dks.py::relax")
     cand = sm_ops.padded_candidates(S1, csr, ch1)
-    got = sm_ops.padded_topk(cand, k)
-    want_t = padded_topk_ref(cand, k)
-    errs["padded_topk"] = max_abs_err(got, want_t)
-    check(torch.equal(got, want_t), "wide padded_topk != plain at m=4 k=10")
-    timing["padded_topk"] = (
-        cuda_ms(lambda: sm_ops.padded_topk(cand, k), 5),
-        cuda_ms(lambda: padded_topk_ref(cand, k), 3), None,
-        *rl.bound(*rl.topk_work(cand, k)[:2]))
-    del st, args, got, want_t, cand, relaxed, S1, ch1
+    plan = sm_ops.topk_wide_plan(*cand.shape[1:], k)
+    got = wide_timed(
+        lambda: sm_ops.padded_topk(cand, k), lambda: padded_topk_ref(cand, k),
+        None if old is None else lambda: old["padded_topk"](cand, k),
+        f"wide padded_topk at m={m} k={k}")
+    errs["padded_topk"] = got["max_abs_err"]
+    bound = rl.bound(*rl.topk_work(cand, k)[:2])
+    timing["padded_topk"] = (got["ms"], got["plain_ms"], None, *bound)
+    wide_topk = {k_: got[k_] for k_ in ("parent_ms", "turns_ms") if k_ in got}
+    beside = ("" if old is None else
+              f"; the parent's kernel {got['parent_ms']} ms (turns parent, "
+              f"new, new, parent: {got['turns_ms']})")
+    log(f"  padded_topk wide route at cand {list(cand.shape)}, k={k}: "
+        f"{got['ms']} ms, team {plan.team}, {plan.chunk} candidates a "
+        f"chunk, {plan.warps} warps a block (plain {got['plain_ms']} ms, "
+        f"bound {bound[0]} ms by {bound[1]}, "
+        f"{100 * bound[0] / got['ms']:.1f} % of it){beside}, == plain")
+    del st, args, got, cand, relaxed, S1, ch1
     # The walk on the K = 10 query's final table.
     res = eng.query(singles[1], k=k, keep_state=True)
     bt = BatchedBacktracer(graph, device=dev)
     bt_args = bt._walk_args(res.state.S.contiguous(), masks, k)[2]
-    recs = bt_ops.batched_backtrace(*bt_args)
-    errs["batched_backtrace"] = held_records(
-        recs, batched_backtrace_ref(*bt_args), "the m=4 k=10 query's table")
+    got = walk_timed(bt_args, None if old is None else
+                     old["batched_backtrace"], "the m=4 k=10 query's table",
+                     20)
+    errs["batched_backtrace"] = got["err"]
     timing["batched_backtrace"] = (
-        cuda_ms(lambda: bt_ops.batched_backtrace(*bt_args), 20),
-        cuda_ms(lambda: batched_backtrace_ref(*bt_args), 3), None,
-        *backtrace_bound(recs, m))
-    del res, bt_args, recs, S_pre
-    for name in ("padded_topk", "batched_backtrace"):
-        ms, plain, _, bound, by = timing[name]
-        log(f"  {name} wide route at m={m} k={k}: {ms} ms (plain {plain} "
-            f"ms, bound {bound} ms by {by}), == plain")
+        got["ms"], cuda_ms(lambda: batched_backtrace_ref(*bt_args), 3),
+        None, *got["bound"])
+    wide_walk = {k_: got[k_] for k_ in ("parent_ms", "turns_ms", "rounds",
+                                        "warps") if k_ in got}
+    log(f"  batched_backtrace wide route at m={m} k={k}: {walk_line(got)} "
+        f"(plain {timing['batched_backtrace'][1]} ms), == plain")
+    del res, bt_args, got, S_pre
 
     # ---- the redesigned kernels at (b) the bucket, (c) m = 7 ----
     for label, queries, (m_s, k_s) in (
@@ -2185,7 +2323,8 @@ def wide_phase(dev, graph, index, bucket, singles, engines,
         del st, args
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "errs": errs, "timing": timing,
-            "shapes": shapes}
+            "shapes": shapes, "padded_topk": wide_topk,
+            "batched_backtrace": wide_walk}
 
 
 def same_stream(got, want) -> None:
@@ -3213,15 +3352,15 @@ def bluk_counts(dg, kw, cfg, batch) -> None:
             f"x{e.count}" for e in kernels[:8]))
 
 
-def bluk_extraction(eng, S_b, kw_b, twin: int) -> dict:
+def bluk_extraction(eng, S_b, kw_b, twin: int, old=None) -> dict:
     """The bucket's extraction split on its final tables, the deadline
     path's cost per lane, ``batched_backtrace`` held against its plain
-    version and timed; the twin's lanes extracted again from the
-    ``"cuda"`` tables alone (their stats and rows fetched)."""
+    version and timed (beside the parent's walk ``old``, when given); the
+    twin's lanes extracted again from the ``"cuda"`` tables alone (their
+    stats and rows fetched)."""
     from repro_torch.answers import BatchedBacktracer
     from repro_torch.answers.streaming import _host
     from repro_torch.core.reconstruct import HostScan
-    from repro_torch.kernels.batched_backtrace import ops as bt_ops
     from repro_torch.kernels.batched_backtrace.ref import \
         batched_backtrace_ref
 
@@ -3234,12 +3373,11 @@ def bluk_extraction(eng, S_b, kw_b, twin: int) -> dict:
     walk_s = host_s(lambda: bt._walk(S_b, kw_b, BUCKET_K, 4))
     parts = extraction_parts(bt, S_b, kw_b, list(range(BUCKET_LANES)), n)
     args = bt._walk_args(S_b, kw_b, BUCKET_K)[2]
-    recs = bt_ops.batched_backtrace(*args)
-    err = held_records(recs, batched_backtrace_ref(*args),
-                       "bluk-bnb's final tables")
-    times = (cuda_ms(lambda: bt_ops.batched_backtrace(*args), 5),
-             once_ms(lambda: batched_backtrace_ref(*args)), None,
-             *backtrace_bound(recs, BUCKET_M))
+    got = walk_timed(args, old, "bluk-bnb's final tables", 5)
+    times = (got["ms"], once_ms(lambda: batched_backtrace_ref(*args)), None,
+             *got["bound"])
+    log(f"  batched_backtrace on bluk-bnb's final tables: {walk_line(got)} "
+        f"(plain {times[1]} ms), records == plain walk")
     log(f"  bucket extraction on its final tables (host clock, "
         f"synchronised): device {walk_s * 1e3:.1f} ms (stable sort of "
         f"{BUCKET_LANES} x {n * BUCKET_K} cells {sort_s * 1e3:.2f} ms, the "
@@ -3260,8 +3398,10 @@ def bluk_extraction(eng, S_b, kw_b, twin: int) -> dict:
         f"{argsort_s * 1e3:.1f} ms")
     bt_twin = BatchedBacktracer(eng.graph, device=S_b.device, backend="cuda")
     bt_twin.extract_lanes(S_b[:twin], kw_b[:twin], k=BUCKET_K, n_nodes=n)
-    return {"err": err, "times": times,
-            "twin": (bt_twin.stats(), bt_twin.rows_fetched)}
+    return {"err": got["err"], "times": times,
+            "twin": (bt_twin.stats(), bt_twin.rows_fetched),
+            "walk": {k_: got[k_] for k_ in ("parent_ms", "turns_ms",
+                                            "rounds", "warps") if k_ in got}}
 
 
 def bluk_combine(kw) -> tuple[float, tuple]:
@@ -3364,12 +3504,13 @@ def received(recv, what: str):
     return pickle.loads(recv.recv_bytes())
 
 
-def bluk_phase(dev, worker) -> dict:
+def bluk_phase(dev, worker, old=None) -> dict:
     """Phase 14: the DKS main path at bluk-bnb's full size on
     ``backend="cuda"``, phase 5's traffic, the three DKS kernels held
     against their plain versions at its shapes, a ``"torch"`` twin of the
     bucket's first ``BLUK_TWIN_LANES`` lanes and the first m = 4 query.
-    ``worker``: :func:`start_worker`'s of :func:`bluk_inputs`.  Returns
+    ``worker``: :func:`start_worker`'s of :func:`bluk_inputs`; ``old``:
+    :func:`parent_kernels` (the walk beside the parent's).  Returns
     the launches,
     errors and times of the three kernels."""
     from repro_torch.configs import BLUK_BNB
@@ -3466,7 +3607,8 @@ def bluk_phase(dev, worker) -> dict:
     kw_b = torch.from_numpy(np.stack([index.keyword_masks(
         q, graph.n_nodes, v_pad=dg.v_pad) for q in bucket])).to(dev)
     twin = BLUK_TWIN_LANES
-    ext = bluk_extraction(eng, S_b, kw_b, twin)
+    ext = bluk_extraction(eng, S_b, kw_b, twin,
+                          None if old is None else old["batched_backtrace"])
     del S_b
     gc.collect()
     torch.cuda.empty_cache()
@@ -3510,7 +3652,8 @@ def bluk_phase(dev, worker) -> dict:
         f"superstep with extraction), query 0 in {t_twin_q:.1f} s; peak "
         f"device memory {gib(torch.cuda.max_memory_allocated())}")
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "errs": errs, "timing": timing}
+    return {"launches": launches, "errs": errs, "timing": timing,
+            "walk": ext["walk"]}
 
 
 def gnn_full_graph(shape, n_classes: int, seed: int) -> dict:
@@ -6278,6 +6421,7 @@ def phases(meta: list, workers: list, parent: Path | None) -> int:
     counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
     check(all(counts.values()), f"flash_attention's SASS lacks {counts}")
     log(f"  flash_attention SASS (cuobjdump): {counts}")
+    old = parent_kernels(parent) if parent is not None else None
 
     card_state("phase 2 end, phase 3 start", meta)
 
@@ -6535,16 +6679,17 @@ def phases(meta: list, workers: list, parent: Path | None) -> int:
         S_b, kw_b, k=BUCKET_K, lanes=lanes_b, n_nodes=graph.n_nodes))
     parts = extraction_parts(bt, S_b, kw_b, lanes_b, graph.n_nodes)
     bt_args = bt._walk_args(S_b, kw_b, BUCKET_K)[2]
-    recs = bt_ops.batched_backtrace(*bt_args)
-    plain = batched_backtrace_ref(*bt_args)
-    errs["batched_backtrace"] = max(
-        errs["batched_backtrace"],
-        held_records(recs, plain, "the sec-rdfabout bucket's tables"))
+    got = walk_timed(bt_args, None if old is None else
+                     old["batched_backtrace"],
+                     "the sec-rdfabout bucket's tables", 20)
+    recs = got["records"]
+    errs["batched_backtrace"] = max(errs["batched_backtrace"], got["err"])
     walked = int((recs["kind"] > 0).sum())
     timing["batched_backtrace"] = (
-        cuda_ms(lambda: bt_ops.batched_backtrace(*bt_args), 20),
-        cuda_ms(lambda: batched_backtrace_ref(*bt_args), 3), None,
-        *backtrace_bound(recs, BUCKET_M))
+        got["ms"], cuda_ms(lambda: batched_backtrace_ref(*bt_args), 3),
+        None, *got["bound"])
+    walk5 = {k_: got[k_] for k_ in ("parent_ms", "turns_ms", "rounds",
+                                    "warps") if k_ in got}
     ms = timing["batched_backtrace"]
     log(f"  bucket extraction (host clock, synchronised): "
         f"{ext_s * 1e3:.1f} ms (host collector: {EXTRACTION_HOST_MS} ms) = "
@@ -6556,9 +6701,8 @@ def phases(meta: list, workers: list, parent: Path | None) -> int:
     log(f"  batched_backtrace at S {list(S_b.shape)}, "
         f"{bt_args[2].shape[1]} candidates per lane, {walked} obligations "
         f"walked (buffer {bt.buffer}, degree cap {bt.degree_cap}): "
-        f"{ms[0]} ms (plain {ms[1]} ms, bound {ms[3]} ms by {ms[4]}), "
-        f"records == plain walk")
-    del S_b, kw_b, flat_b, bt_args, recs, plain
+        f"{walk_line(got)} (plain {ms[1]} ms), records == plain walk")
+    del S_b, kw_b, flat_b, bt_args, recs, got
 
     card_state("phase 5 end, phase 6 start", meta)
 
@@ -6648,7 +6792,7 @@ def phases(meta: list, workers: list, parent: Path | None) -> int:
     # the worker.
     gc.collect()
     torch.cuda.empty_cache()
-    wide = wide_phase(dev, graph, index, bucket, singles, engines, parent)
+    wide = wide_phase(dev, graph, index, bucket, singles, engines, old)
     for name, err in wide["errs"].items():
         errs_wide[name] = max(errs_wide[name], err)
     log(f"[19/19] {cfg_sec.name} at K = {WIDE_BUCKET_K} and m = "
@@ -6710,7 +6854,7 @@ def phases(meta: list, workers: list, parent: Path | None) -> int:
     # ---------------- 14. bluk-bnb ----------------
     gc.collect()
     torch.cuda.empty_cache()
-    bluk = bluk_phase(dev, workers[0])
+    bluk = bluk_phase(dev, workers[0], old)
     workers.pop(0)[0].join()
     for name, err in bluk["errs"].items():
         errs[name] = max(errs[name], err)
@@ -6785,7 +6929,11 @@ def phases(meta: list, workers: list, parent: Path | None) -> int:
                 "bluk_launches": bluk["launches"][name],
                 "bluk_shape": {"ms": ms, "plain_ms": plain,
                                "library_ms": library, "bound_ms": bound,
-                               "bound_by": by}})
+                               "bound_by": by,
+                               **(bluk["walk"] if name == "batched_backtrace"
+                                  else {})}})
+        if name == "batched_backtrace":
+            kernels[-1].update(walk5)
         if name == "flash_attention":
             ms, plain, library, bound, by = moe["timing"]
             kernels[-1].update({
@@ -6820,6 +6968,7 @@ def phases(meta: list, workers: list, parent: Path | None) -> int:
         if name in wide["shapes"]:
             row["shapes"] = [{**t, "library_ms": None}
                              for t in wide["shapes"][name]]
+        row.update(wide.get(name, {}))
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

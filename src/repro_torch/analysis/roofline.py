@@ -269,39 +269,90 @@ def topk_work(cand, k, result=None) -> tuple[float, float, torch.dtype]:
     return (cand.numel() + vv * f * k) * 4, cand.numel(), torch.float32
 
 
-def _backtrace_bytes(lanes: int, c: int, buffer: int, m: int,
-                     kind=None) -> int:
-    """The walk's byte floor: every record array written once and the
-    candidates read once, plus, per obligation its records ``kind``
-    resolved (None: not known), what its match reads at the least — m
-    mask bytes for a leaf, two table cells for a split, the node's two
-    offsets, one CSR entry and one cell for an edge."""
+# Bytes of one entry of each input of the walk that its scans test.
+BACKTRACE_ENTRY_BYTES = {"kw": 1, "pa": 4, "pb": 4, "S": 4, "indptr": 8,
+                         "ew": 4, "esrc": 4}
+
+
+def backtrace_reads(args, reads: dict | None = None) -> dict:
+    """The distinct entries of each input of the walk on ``args`` (the
+    wrapper's arguments) that the host's first-match order tests, by
+    input name, and ``"scans"``: int64[obligations, 3] on the host, each
+    obligation's walk, split items (p, i) and neighbours tested.
+    ``reads``: what the plain walk already filled in on these arguments
+    (``batched_backtrace_ref(..., reads=)``), else it runs here."""
+    from repro_torch.kernels.batched_backtrace.ref import \
+        batched_backtrace_ref
+
+    if reads is None:
+        reads = {}
+        batched_backtrace_ref(*args, reads=reads)
+    out = {name: int(torch.unique(torch.cat(reads[name])).numel())
+           if reads.get(name) else 0 for name in BACKTRACE_ENTRY_BYTES}
+    cols = [torch.cat(reads[k]).cpu() if reads.get(k) else
+            torch.zeros(0, dtype=torch.long)
+            for k in ("walk", "split_items", "neighbours")]
+    out["scans"] = torch.stack(cols, dim=1)
+    return out
+
+
+def _backtrace_bytes(lanes: int, c: int, buffer: int,
+                     distinct: dict | None = None) -> int:
+    """The walk's bytes: every record array written once and the
+    candidates read once, plus, where the scans are known (``distinct``,
+    :func:`backtrace_reads`), each input entry they test read once."""
     nbytes = 5 * lanes * c * buffer * 4 + lanes * c + lanes * c * 8
-    if kind is not None:
-        nbytes += (int((kind == 1).sum()) * m + int((kind == 2).sum()) * 8
-                   + int((kind == 3).sum()) * (16 + 8 + 4))
+    if distinct is not None:
+        nbytes += sum(distinct[name] * size
+                      for name, size in BACKTRACE_ENTRY_BYTES.items())
     return nbytes
 
 
 def backtrace_work(S, kw, cand_idx, cand_val, indptr, esrc, ew, pa, pb,
                    buffer, degree_cap, result=None
                    ) -> tuple[float, float, torch.dtype]:
-    """A floor on the walk's bytes for its records (``result``),
-    :func:`_backtrace_bytes`.  The scan items tested before each first
-    match are left out, so the true least time is higher.  Without
-    records (``meta``) only the writes and the candidates count."""
+    """The walk's bytes (:func:`_backtrace_bytes`) with its scans: each
+    input entry that the host's first-match order tests on these inputs,
+    counted once (the plain walk counts them: :func:`backtrace_reads`).
+    Without records (``meta``) only the writes and the candidates
+    count."""
     lanes, c = cand_idx.shape
-    m = S.shape[2].bit_length() - 1
-    kind = (result["kind"] if result is not None and not S.is_meta
-            else None)
-    return _backtrace_bytes(lanes, c, buffer, m, kind), 0, torch.float32
+    distinct = None
+    if result is not None and not S.is_meta:
+        distinct = backtrace_reads((S, kw, cand_idx, cand_val, indptr, esrc,
+                                    ew, pa, pb, buffer, degree_cap))
+    return _backtrace_bytes(lanes, c, buffer, distinct), 0, torch.float32
 
 
-def backtrace_bound(recs: dict, m: int) -> tuple[float, str]:
-    """Least time of the walk that wrote ``recs`` (:func:`backtrace_work`'s
-    floor)."""
-    kind = recs["kind"]
-    return bound(_backtrace_bytes(*kind.shape, m, kind), 0)
+def backtrace_bound(args, distinct: dict | None = None
+                    ) -> tuple[float, str]:
+    """Least time of the walk on ``args`` (:func:`backtrace_work`'s bytes;
+    ``distinct``: :func:`backtrace_reads` of these arguments, else counted
+    here)."""
+    lanes, c = args[2].shape
+    if distinct is None:
+        distinct = backtrace_reads(args)
+    return bound(_backtrace_bytes(lanes, c, args[-2], distinct), 0)
+
+
+def backtrace_rounds(distinct: dict, threads: int, edges: int = 4) -> dict:
+    """What sets the walk's time: the serial steps of its longest walk, at
+    ``threads`` a walk testing ``edges`` neighbours each a round
+    (``csrc/batched_backtrace.cu``): its obligations, its split rounds
+    (each obligation's items (p, i) over ``threads``, rounded up) and edge
+    rounds (its neighbours over ``threads * edges``); the walk with the
+    most of the three together (:func:`backtrace_reads`' ``"scans"``)."""
+    walk, items, nbrs = distinct["scans"].unbind(1)
+    if walk.numel() == 0:
+        return {"obligations": 0, "split_rounds": 0, "edge_rounds": 0,
+                "threads": threads}
+    per = torch.stack([torch.ones_like(walk), -(-items // threads),
+                       -(-nbrs // (threads * edges))], dim=1)
+    sums = torch.zeros(int(walk.max()) + 1, 3, dtype=torch.long)
+    sums.index_add_(0, walk, per)
+    o, sr, er = sums[int(sums.sum(1).argmax())].tolist()
+    return {"obligations": o, "split_rounds": sr, "edge_rounds": er,
+            "threads": threads}
 
 
 def flash_flops(q, k, q_offset: int = 0) -> int:

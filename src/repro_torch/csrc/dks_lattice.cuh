@@ -10,8 +10,9 @@
 //   pick the route, kernels/subset_combine/ops.py::route): m and K are
 //   run-time values, a row's table lives whole in shared memory and is
 //   worked by a team of a warp's lanes (below), on a plan the wrapper
-//   computes (ops.py::wide_plan).  padded_topk's wide kernel keeps one warp
-//   a row.  Past K = 8 the templated route's registers spill, and past
+//   computes (ops.py::wide_plan).  padded_topk's wide kernel spreads a
+//   row's keyword sets over a warp's lanes (padded_topk.cu).  Past K = 8
+//   the templated route's registers spill, and past
 //   m = 6 its slab of 33 rows outgrows the 227 KB a block may have.
 //
 // A node's table is F = 2^m keyword-sets of K sorted, distinct,
@@ -31,10 +32,8 @@
 #define DKS_SLAB_AIM (48 * 1024)     // the slab size blocks are sized for
 #define DKS_SMEM_MAX (227 * 1024)    // the most a block may have on sm_90
 // The wide route: a row of 2^m * K floats in one warp's shared memory, at
-// most 64 KB (m <= 10 at K <= 16).  padded_topk's wide block takes as many
-// rows, one a warp, as keep it within DKS_SLAB_AIM, 1 to DKS_WIDE_WARPS.
+// most 64 KB (m <= 10 at K <= 16).
 #define DKS_ROW_FLOATS 16384
-#define DKS_WIDE_WARPS 8
 
 // Insert x into the sorted-unique INF-padded K-vector r, keeping the K
 // smallest distinct values.  The result is a function of the value set
@@ -175,20 +174,12 @@ static inline cudaError_t dks_allow_slab(Kernel kernel, size_t bytes) {
   }
 
 // ---------------------------------------------------------------------------
-// The wide route: run-time m and K; padded_topk's kernel gives a row one
-// warp (dks_wide_warps, dks_insert_list, dks_warp_copy).
+// The wide route: run-time m and K (dks_wide_fits, dks_insert_list).
 // ---------------------------------------------------------------------------
 
 // Whether a wide row of f keyword sets of k slots fits one warp's share.
 static inline bool dks_wide_fits(long long f, int k) {
   return f >= 1 && k >= 1 && f * k <= DKS_ROW_FLOATS;
-}
-
-// Rows (warps) padded_topk's wide block takes for rows of fk floats.
-static inline int dks_wide_warps(int fk) {
-  int w = DKS_SLAB_AIM / (fk * (int)sizeof(float));
-  if (w < 1) w = 1;
-  return w > DKS_WIDE_WARPS ? DKS_WIDE_WARPS : w;
 }
 
 // dks_insert on a list of run-time length k in shared memory: insert x
@@ -204,13 +195,6 @@ __device__ __forceinline__ void dks_insert_list(float* r, int k, float x) {
       x = y;
     }
   }
-}
-
-// One warp copies a row of fk floats (all lanes take part).
-__device__ __forceinline__ void dks_warp_copy(float* __restrict__ to,
-                                              const float* __restrict__ from,
-                                              int fk) {
-  for (int i = threadIdx.x & 31; i < fk; i += 32) to[i] = from[i];
 }
 
 // ---------------------------------------------------------------------------

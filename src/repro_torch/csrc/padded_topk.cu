@@ -24,15 +24,35 @@
 // contiguous span.  Any F works (it only sets the stride); K is 1..8, the
 // instantiations.
 //
-// The wide route (K > 8, F * K <= DKS_ROW_FLOATS; see dks_lattice.cuh):
-// one warp per virtual row, the row's F lists of K floats in the warp's
-// share of shared memory (INF at first); warp lane j inserts the
-// candidates of keyword sets f = j (mod 32), reading slot by slot, so
-// neighbouring lanes read neighbouring floats, and the warp writes the
-// row's F * K outputs as one contiguous span.
+// The wide route (K > 8, F * K <= DKS_ROW_FLOATS; see dks_lattice.cuh)
+// is bound by its inserts more than by bytes: a list of run-time K lives
+// in shared memory, and each candidate below the list's K-th value costs
+// about K shared-memory steps.  So it spreads them over every lane and
+// keeps the loads wide and ahead:
+//
+// - a warp walks rows (grid-stride), staging each row's candidates in
+//   chunks of `chunk` candidates (a contiguous span of chunk * F floats)
+//   into shared memory with cp.async, 16 bytes a copy where both ends are
+//   aligned, double-buffered: the next chunk is in flight while this one
+//   is inserted;
+// - where F < 32, each keyword set has a team of `team` lanes (up to
+//   32 / F; the host's plan, kernels/segment_minplus/ops.py::
+//   topk_wide_plan), each lane keeping a partial K-list of its share of
+//   the candidates (j = part, part + team, ...), pruned against the
+//   partial's K-th value; at the row's end the partials merge pairwise
+//   (a tree over the team) as the K smallest distinct of their union.
+//   That is exact: dks_insert's result depends only on the value set.
+//   Where F >= 32, a lane takes sets lane, lane + 32, ..., one list each;
+// - lists sit at an odd stride (K | 1), so lanes on equal slots hit
+//   distinct banks, and the warp writes the row's F * K outputs as one
+//   contiguous span.
 //
 // Nothing is allocated here; the wrapper allocates the output.
+#include <stdint.h>
+
 #include "dks_lattice.cuh"
+
+#define DKS_TOPK_WARPS 4  // warps a block of the wide route, at most
 
 template <int K>
 __global__ void __launch_bounds__(DKS_MAX_THREADS)
@@ -53,27 +73,140 @@ padded_topk_kernel(const float* __restrict__ cand, float* __restrict__ out,
   for (int j = 0; j < K; ++j) o[j] = r[j];
 }
 
-__global__ void __launch_bounds__(DKS_WIDE_WARPS * 32)
+// cp.async: one 16- or 4-byte copy from device memory into shared memory.
+__device__ __forceinline__ void pt_copy16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void pt_copy4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// One warp stages n floats: 16-byte copies where src and dst are both
+// aligned, then the tail (or everything) in 4-byte copies; one commit
+// group.
+__device__ __forceinline__ void pt_stage(float* dst, const float* src,
+                                         int n) {
+  const int lane = threadIdx.x & 31;
+  int head = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+       15) == 0) {
+    const int n4 = n >> 2;
+    for (int i = lane; i < n4; i += 32) pt_copy16(dst + 4 * i, src + 4 * i);
+    head = n4 << 2;
+  }
+  for (int i = head + lane; i < n; i += 32) pt_copy4(dst + i, src + i);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Insert x < r[k - 1] into the sorted, distinct, INF-padded r[0..k): find
+// its place, then shift the tail down one slot; a duplicate changes
+// nothing.  The same list as dks_insert / dks_insert_list.
+__device__ __forceinline__ void pt_insert(float* r, int k, float x) {
+  int j = 0;
+  while (r[j] < x) ++j;  // stops by k - 1: x < r[k - 1]
+  if (r[j] == x) return;
+  for (int t = k - 1; t > j; --t) r[t] = r[t - 1];
+  r[j] = x;
+}
+
+// Merge the partial list o into r: the K smallest distinct of both.  o is
+// ascending, so its first value not below r's K-th ends the merge.
+__device__ __forceinline__ void pt_merge(float* r, const float* o, int k) {
+  for (int q = 0; q < k; ++q) {
+    const float y = o[q];
+    if (!(y < r[k - 1])) return;
+    pt_insert(r, k, y);
+  }
+}
+
+// A warp's share of shared memory: two staging buffers of `stage` floats
+// (>= chunk * f, a multiple of 4), then the lists: f * team partials of
+// stride k | 1 where f < 32 (list part * f + set), else one a set.
+__global__ void __launch_bounds__(DKS_TOPK_WARPS * 32)
 padded_topk_wide_kernel(const float* __restrict__ cand,
                         float* __restrict__ out, long long rows, int c,
-                        int f, int k) {
-  extern __shared__ float slab[];
-  const int lane = threadIdx.x & 31;
-  const int fk = f * k;
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= rows) return;  // a whole warp leaves
-  float* tab = slab + (threadIdx.x >> 5) * fk;
-  for (int i = lane; i < fk; i += 32) tab[i] = DKS_INF;
-  __syncwarp();
-  const float* p = cand + row * c * f;
-  for (int set = lane; set < f; set += 32) {
-    float* r = tab + set * k;
-    for (int j = 0; j < c; ++j)
-      dks_insert_list(r, k, __ldg(p + (long long)j * f + set));
+                        int f, int k, int team, int chunk, int stage,
+                        int warp_floats) {
+  extern __shared__ float4 pt_slab4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* buf = reinterpret_cast<float*>(pt_slab4) +
+               (size_t)warp * warp_floats;
+  float* lists = buf + 2 * stage;
+  const int ks = k | 1;
+  const int n_lists = f < 32 ? f * team : f;
+  const long long gw = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  const long long nw = (long long)gridDim.x * (blockDim.x >> 5);
+  if (gw >= rows) return;  // a whole warp leaves
+  const int n_ch = (c + chunk - 1) / chunk;
+  const long long steps = (rows - gw + nw - 1) / nw * n_ch;
+  const int set = f < 32 ? lane % f : 0;
+  const int part = f < 32 ? lane / f : 0;
+  const bool teamed = f < 32 && part < team;
+  for (int i = lane; i < n_lists * ks; i += 32) lists[i] = DKS_INF;
+  pt_stage(buf, cand + gw * c * (long long)f, min(chunk, c) * f);
+  for (long long st = 0; st < steps; ++st) {
+    const int cur = (int)(st & 1);
+    const int ch = (int)(st % n_ch);
+    if (st + 1 < steps) {
+      const long long row1 = gw + (st + 1) / n_ch * nw;
+      const int c1 = (int)((st + 1) % n_ch) * chunk;
+      pt_stage(buf + (cur ^ 1) * stage, cand + (row1 * c + c1) * f,
+               min(chunk, c - c1) * f);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncwarp();
+    const float* tile = buf + cur * stage;
+    const int cnt = min(chunk, c - ch * chunk);
+    if (f < 32) {
+      if (teamed) {
+        float* r = lists + lane * ks;  // lane == part * f + set
+        float last = r[k - 1];
+        for (int j = part; j < cnt; j += team) {
+          const float x = tile[j * f + set];
+          if (x < last) {
+            pt_insert(r, k, x);
+            last = r[k - 1];
+          }
+        }
+      }
+    } else {
+      for (int s2 = lane; s2 < f; s2 += 32) {
+        float* r = lists + s2 * ks;
+        float last = r[k - 1];
+        for (int j = 0; j < cnt; ++j) {
+          const float x = tile[j * f + s2];
+          if (x < last) {
+            pt_insert(r, k, x);
+            last = r[k - 1];
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (ch == n_ch - 1) {
+      // The row is in: merge each team's partials into its part 0 (lists
+      // 0 .. f - 1), write the row, and reset the lists.
+      for (int step = 1; step < team; step <<= 1) {
+        if (teamed && part % (2 * step) == 0 && part + step < team)
+          pt_merge(lists + lane * ks, lists + (lane + step * f) * ks, k);
+        __syncwarp();
+      }
+      float* o = out + (gw + st / n_ch * nw) * (long long)f * k;
+      for (int i = lane; i < f * k; i += 32) {
+        const int s2 = i / k;
+        o[i] = lists[s2 * ks + (i - s2 * k)];
+      }
+      __syncwarp();
+      for (int i = lane; i < n_lists * ks; i += 32) lists[i] = DKS_INF;
+      __syncwarp();
+    }
   }
-  __syncwarp();
-  dks_warp_copy(out + row * fk, tab, fk);
 }
 
 // cand: f32[rows, c, f]; out: f32[rows, f, k]; contiguous, on the device;
@@ -96,22 +229,29 @@ extern "C" int dks_padded_topk(const float* cand, float* out, long long rows,
 }
 
 // The wide route of dks_padded_topk (same layouts), for f * k <=
-// DKS_ROW_FLOATS.  Launches on `stream` and returns cudaGetLastError() (0
-// on success).
+// DKS_ROW_FLOATS, on the host's plan (ops.py::topk_wide_plan): `team`
+// lanes a set where f < 32 (1 <= team, f * team <= 32), `chunk`
+// candidates staged a step, `stage` floats a staging buffer, `warp_floats`
+// a warp's share, `warps` a block, `blocks` in the grid.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int dks_padded_topk_wide(const float* cand, float* out,
                                     long long rows, int c, int f, int k,
+                                    int team, int chunk, int stage,
+                                    int warp_floats, int warps, int blocks,
                                     void* stream) {
-  if (!dks_wide_fits(f, k) || c < k || rows < 0)
+  if (!dks_wide_fits(f, k) || c < k || rows < 0 || team < 1 ||
+      (f < 32 ? f * team > 32 : team != 1) || chunk < 1 || chunk > c ||
+      stage < chunk * f || stage % 4 != 0 ||
+      warp_floats < 2 * stage + (f < 32 ? f * team : f) * (k | 1) ||
+      warp_floats % 4 != 0 || warps < 1 || warps > DKS_TOPK_WARPS ||
+      blocks < 1)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  const int fk = f * k;
-  const int warps = dks_wide_warps(fk);
-  const long long blocks = (rows + warps - 1) / warps;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)warps * fk * sizeof(float);
+  const size_t smem = (size_t)warps * warp_floats * sizeof(float);
   cudaError_t err = dks_allow_slab(padded_topk_wide_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   padded_topk_wide_kernel<<<(unsigned)blocks, warps * 32, smem,
-                            (cudaStream_t)stream>>>(cand, out, rows, c, f, k);
+                            (cudaStream_t)stream>>>(
+      cand, out, rows, c, f, k, team, chunk, stage, warp_floats);
   return (int)cudaGetLastError();
 }

@@ -5,11 +5,14 @@ On a CPU tensor it takes the plain version (:mod:`.ref`); on a CUDA tensor
 it launches the kernel or raises.  Two routes, as the DKS kernels'
 (:func:`~repro_torch.kernels.subset_combine.ops.route`): K a template
 parameter inside 1 <= m <= 6, 1 <= K <= 8, a run-time value past it, for
-tables of 2^m * K <= ``ROW_FLOATS`` floats a row.  ``launches`` counts
-kernel launches and ``launches_by_route`` splits them by route.
+tables of 2^m * K <= ``ROW_FLOATS`` floats a row.  Each walk is a block of
+:func:`walk_plan`'s warps.  ``launches`` counts kernel launches and
+``launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -19,7 +22,45 @@ from repro_torch.kernels.counting import LaunchCounter
 from repro_torch.kernels.batched_backtrace.ref import batched_backtrace_ref
 from repro_torch.kernels.subset_combine.ops import check_range, route
 
-MAX_BUFFER = 2048  # obligations per candidate: 4 queues in 227 KB
+MAX_BUFFER = 2048  # obligations per candidate
+SMS = 132              # the H100's streaming multiprocessors
+WALK_WARPS = 8         # warps a walk at most (BT_MAX_WARPS)
+EDGES = 4              # neighbours a thread tests a round (BT_EDGES)
+SMEM_MAX = 227 * 1024  # shared memory a block may have (sm_90)
+SM_SMEM = 228 * 1024   # an SM's, with 1 KB reserved for each block on it
+SM_THREADS, SM_BLOCKS = 2048, 32   # resident threads and blocks an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """How the walk kernel lays out one launch: ``warps`` a walk (a block
+    each), ``smem_bytes`` of queue and split prefix lengths a block, and
+    ``resident`` blocks an SM can hold at once."""
+    warps: int
+    smem_bytes: int
+    resident: int
+
+
+def walk_plan(n_walks: int, buffer: int, n_pairs: int) -> WalkPlan:
+    """The most warps a walk (8, 4, 2 or 1) under which all ``n_walks``
+    walks of a bucket are resident at once on the card's ``SMS`` SMs, so
+    that more threads share each walk's scans without a second wave; one
+    warp a walk where even that takes waves.  The block keeps the queue
+    (7 words a slot, ``buffer + 1`` slots) and 2 prefix lengths a split
+    pair; raises ``ValueError`` past ``SMEM_MAX``."""
+    smem = (7 * (buffer + 1) + 2 * n_pairs) * 4
+    if smem > SMEM_MAX:
+        raise ValueError(f"batched_backtrace: buffer {buffer} and {n_pairs} "
+                         f"split pairs need {smem} B of shared memory, past "
+                         f"{SMEM_MAX}")
+
+    def resident(warps):
+        return min(SM_BLOCKS, SM_THREADS // (32 * warps),
+                   SM_SMEM // (smem + 1024))
+
+    warps = next((w for w in (WALK_WARPS, 4, 2)
+                  if n_walks <= SMS * resident(w)), 1)
+    return WalkPlan(warps=warps, smem_bytes=smem, resident=resident(warps))
 
 counter = LaunchCounter()
 route_counters = {"templated": LaunchCounter(), "wide": LaunchCounter()}
@@ -82,11 +123,12 @@ def batched_backtrace(S: torch.Tensor, kw: torch.Tensor,
     out["fail"] = torch.empty(lanes, c, dtype=torch.bool, device=S.device)
     if lanes * c == 0 or S.device.type == "meta":
         return out
+    plan = walk_plan(lanes * c, buffer, pa.shape[1])
     fn = cuda_build.library("batched_backtrace").bt_batched_backtrace
     err = fn(*(t.data_ptr() for t in tensors),
              *(out[name].data_ptr() for name in (*RECORDS, "fail")),
              lanes, c, vp, m, k, pa.shape[1], buffer, degree_cap,
-             indptr.numel() - 1, esrc.numel(),
+             indptr.numel() - 1, esrc.numel(), plan.warps,
              torch.cuda.current_stream(S.device).cuda_stream)
     counter.add()
     route_counters[route(m, k)].add()

@@ -39,7 +39,8 @@ def batched_backtrace_ref(S: torch.Tensor, kw: torch.Tensor,
                           cand_idx: torch.Tensor, cand_val: torch.Tensor,
                           indptr: torch.Tensor, esrc: torch.Tensor,
                           ew: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
-                          buffer: int, degree_cap: int
+                          buffer: int, degree_cap: int,
+                          reads: dict | None = None
                           ) -> dict[str, torch.Tensor]:
     """Decomposition records of every candidate.
 
@@ -50,7 +51,13 @@ def batched_backtrace_ref(S: torch.Tensor, kw: torch.Tensor,
     at least one entry); ``pa``/``pb`` int32[2^m, P] the split pairs of
     ``split_pair_table(m)``.  Returns ``node``, ``kind``, ``child0``,
     ``child1``, ``edge_u`` (int32[L, C, buffer]) and ``fail``
-    (bool[L, C]), equal to ``repro``'s records."""
+    (bool[L, C]), equal to ``repro``'s records.
+
+    ``reads`` (a dict, filled in): the flat index of every input entry
+    that the host's first-match order tests, by input name, as lists of
+    tensors (repeats included), and per obligation its walk (``"walk"``)
+    and how many split items (p, i) and neighbours its scans took
+    (:func:`_note_reads`)."""
     L, _vp, n_sets, K = S.shape
     C = cand_idx.shape[1]
     m = kw.shape[1]
@@ -123,6 +130,10 @@ def batched_backtrace_ref(S: torch.Tensor, kw: torch.Tensor,
         eu, ev = u[r_, d_i], Su[r_, d_i, ej]
         kd = torch.where(leaf, LEAF, torch.where(
             s_found, SPLIT, torch.where(e_found, EDGE, FAIL)))
+        if reads is not None:
+            _note_reads(reads, S.shape, m, n_nodes, rows, lane, v, s, x, tol,
+                        leaf, a, b, ia_ok, jb_ok, s_found, p_i, i_i, j_i,
+                        deg, ei, u, emask, ju_ok, e_found, d_i, ej)
         split, edge = kd == SPLIT, kd == EDGE
         c0n = torch.where(split, v, eu)
         c0s = torch.where(split, sa, s)
@@ -153,3 +164,70 @@ def batched_backtrace_ref(S: torch.Tensor, kw: torch.Tensor,
     return {"node": out(node), "kind": out(kind), "child0": out(child0),
             "child1": out(child1), "edge_u": out(edge_u),
             "fail": fail.reshape(L, C)}
+
+
+def _note_reads(reads: dict, shape, m: int, n_nodes: int, rows, lane, v, s,
+                x, tol, leaf, a, b, ia_ok, jb_ok, s_found, p_i, i_i, j_i,
+                deg, ei, u, emask, ju_ok, e_found, d_i, ej) -> None:
+    """One round's reads in the host's first-match order (the scan of the
+    plain walk above, for the walk's byte count,
+    ``analysis/roofline.py::backtrace_work``):
+
+    - leaf, where x <= tol: the mask byte of each keyword of s;
+    - split, past a leaf: pairs p up to the match (all n_p without one),
+      each pair's ``pa`` / ``pb`` entry; of a's row the slots up to the
+      first that fails (or up to i at the match), and, where some i
+      passed, of b's row the slots up to the first INF (or up to j where
+      the match is at i = 0);
+    - edge, past a split: the node's two offsets, then neighbours up to
+      the match (the whole window without one), each neighbour's ``ew``
+      and ``esrc`` entry and, where its weight passes, its row's slots up
+      to the first INF (or up to j at the match)."""
+    _, vp, n_sets, K = shape
+    dev = v.device
+    P, D = a.shape[1], ei.shape[1]
+
+    def add(name, t):
+        reads.setdefault(name, []).append(t.reshape(-1))
+
+    bitpos = torch.arange(m, device=dev)
+    bits = (((s[:, None] >> bitpos) & 1) == 1) & (x <= tol)[:, None]
+    add("kw", ((lane[:, None] * m + bitpos) * vp + v[:, None])[bits])
+    slots = torch.arange(K, device=dev)
+    scan = ~leaf
+    n_p = (a > 0).sum(1)
+    ps = torch.arange(P, device=dev)
+    at = (ps == p_i[:, None]) & s_found[:, None]          # the matched pair
+    pm = scan[:, None] & (ps < torch.where(s_found, p_i + 1, n_p)[:, None])
+    add("pa", (s[:, None] * P + ps)[pm])
+    add("pb", (s[:, None] * P + ps)[pm])
+    la, lb = ia_ok.sum(-1), jb_ok.sum(-1)                 # prefix lengths
+    last_a = torch.where(at, i_i[:, None], la.clamp(max=K - 1))
+    last_b = torch.where(at & (i_i == 0)[:, None], j_i[:, None],
+                         lb.clamp(max=K - 1))
+    row = (lane * vp + v) * n_sets
+
+    def cells(sets, last, mask):
+        flat = (row[:, None] + sets)[..., None] * K + slots
+        return flat[mask[..., None] & (slots <= last[..., None])]
+
+    add("S", cells(a, last_a, pm))
+    add("S", cells(b, last_b, pm & (at | (la >= 1))))
+    edge = scan & ~s_found
+    on = edge & (v < n_nodes)
+    add("indptr", torch.cat([v[on], v[on] + 1]))
+    off = torch.arange(D, device=dev)
+    d_lim = torch.where(e_found, d_i + 1, deg.clamp(max=D))
+    dm = edge[:, None] & (off < d_lim[:, None])
+    add("ew", ei[dm])
+    add("esrc", ei[dm])
+    atd = (off == d_i[:, None]) & e_found[:, None]
+    last_u = torch.where(atd, ej[:, None], ju_ok.sum(-1).clamp(max=K - 1))
+    flat = ((lane * vp)[:, None] + u) * n_sets + s[:, None]
+    flat = flat[..., None] * K + slots
+    add("S", flat[(dm & emask)[..., None] & (slots <= last_u[..., None])])
+    add("walk", rows)
+    add("split_items", torch.where(
+        scan & (n_p > 0), torch.where(s_found, p_i * K + i_i + 1, n_p * K),
+        0))
+    add("neighbours", torch.where(edge, d_lim, 0))

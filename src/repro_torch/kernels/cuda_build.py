@@ -54,10 +54,11 @@ SIGNATURES = {
         "embedding_bag_grouped_fwd": (_P, _L, _I, _P, _P, _I, _P, _P, _L,
                                       _I, _I, _P)},
     "padded_topk": {"dks_padded_topk": (_P, _P, _L, _I, _I, _I, _P),
-                    "dks_padded_topk_wide": (_P, _P, _L, _I, _I, _I, _P)},
+                    "dks_padded_topk_wide": (_P, _P, _L, _I, _I, _I, _I,
+                                             _I, _I, _I, _I, _I, _P)},
     "batched_backtrace": {"bt_batched_backtrace":
                           (_P,) * 15 + (_I, _I, _L, _I, _I, _I, _I, _I, _L,
-                                        _L, _P)},
+                                        _L, _I, _P)},
 }
 
 # name -> {"seconds": build wall time, "log": nvcc's stderr (ptxas -v)}.

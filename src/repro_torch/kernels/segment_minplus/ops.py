@@ -9,14 +9,16 @@ and a torch second-level merge of split hubs (:func:`merge_virtual_rows`).
 
 ``padded_topk`` takes the plain version (:mod:`.ref`) on a CPU tensor; on a
 CUDA tensor it launches the kernel or raises: the templated route for
-K <= 8, the wide one (run-time K, one warp a virtual row) past it, both
-for rows of F * K <= ``ROW_FLOATS``.  ``launches`` counts kernel launches
-and ``launches_by_route`` splits them by route.
+K <= 8, the wide one (run-time K, a warp's lanes over a virtual row's
+keyword sets, on :func:`topk_wide_plan`) past it, both for rows of
+F * K <= ``ROW_FLOATS``.  ``launches`` counts kernel launches and
+``launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -32,6 +34,72 @@ from repro_torch.kernels.subset_combine.ops import MAX_K, ROW_FLOATS
 
 counter = LaunchCounter()
 route_counters = {"templated": LaunchCounter(), "wide": LaunchCounter()}
+
+TOPK_CHUNK_FLOATS = 2048   # candidates' floats a wide warp stages a step
+TOPK_WARPS = 4             # warps a wide block at most (DKS_TOPK_WARPS)
+SMEM_MAX = 227 * 1024      # shared memory a block may have (sm_90)
+SM_SMEM = 228 * 1024       # an SM's, with 1 KB reserved for each block
+SMS, SM_THREADS, SM_BLOCKS = 132, 2048, 32   # the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class TopkWidePlan:
+    """The wide ``padded_topk``'s layout for cand [Vv, C, F] at K:
+    ``team`` lanes a keyword set where F < 32 (each a partial list of
+    ``ks`` = K | 1 floats; 1 where F >= 32, a list a set), ``chunk``
+    candidates staged a step into each of two buffers of ``stage``
+    floats, ``warp_floats`` a warp's share of shared memory, ``warps`` a
+    block and ``resident`` blocks an SM."""
+    team: int
+    ks: int
+    chunk: int
+    stage: int
+    warp_floats: int
+    warps: int
+    resident: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.warps * self.warp_floats * 4
+
+    def blocks(self, rows: int) -> int:
+        """The grid: one row a warp, up to a wave of resident blocks (a
+        warp then walks rows ``SMS * resident * warps`` apart)."""
+        return max(1, min(-(-rows // self.warps), SMS * self.resident))
+
+
+def topk_wide_plan(c: int, f: int, k: int) -> TopkWidePlan:
+    """The wide route's plan: teams of 32 // F lanes a set (halved while
+    the lists and staging overflow ``SMEM_MAX``), chunks of about
+    ``TOPK_CHUNK_FLOATS`` floats whose starts keep 16-byte alignment
+    (a multiple of 4 // gcd(F, 4) candidates), as many warps a block as
+    fit, up to ``TOPK_WARPS``."""
+    if f < 1 or k < 1 or f * k > ROW_FLOATS or c < k:
+        raise ValueError(f"topk_wide_plan: wants F * k <= {ROW_FLOATS} and "
+                         f"C >= k, got C={c}, F={f}, k={k}")
+    ks = k | 1
+    step = 4 // math.gcd(f, 4)
+    n_chunks = -(-c * f // TOPK_CHUNK_FLOATS)
+    chunk = min(c, -(-(-(-c // n_chunks)) // step) * step)
+    stage = -(-chunk * f // 4) * 4
+    team = 32 // f if f < 32 else 1
+
+    def floats(team):
+        lists = f * team if f < 32 else f
+        return 2 * stage + -(-lists * ks // 4) * 4
+
+    while team > 1 and floats(team) * 4 > SMEM_MAX:
+        team //= 2
+    warp_floats = floats(team)
+    warps = min(TOPK_WARPS, SMEM_MAX // (warp_floats * 4))
+    if warps < 1:
+        raise ValueError(f"topk_wide_plan: a warp's {warp_floats * 4} B "
+                         f"pass {SMEM_MAX} B (C={c}, F={f}, k={k})")
+    resident = min(SM_BLOCKS, SM_THREADS // (32 * warps),
+                   SM_SMEM // (warps * warp_floats * 4 + 1024))
+    return TopkWidePlan(team=team, ks=ks, chunk=chunk, stage=stage,
+                        warp_floats=warp_floats, warps=warps,
+                        resident=resident)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,10 +185,16 @@ def padded_topk(cand: torch.Tensor, k: int) -> torch.Tensor:
         return out
     way = "templated" if k <= MAX_K else "wide"
     lib = cuda_build.library("padded_topk")
-    fn = lib.dks_padded_topk if way == "templated" else \
-        lib.dks_padded_topk_wide
-    err = fn(cand.data_ptr(), out.data_ptr(), vv, c, f, k,
-             torch.cuda.current_stream(cand.device).cuda_stream)
+    stream = torch.cuda.current_stream(cand.device).cuda_stream
+    if way == "templated":
+        err = lib.dks_padded_topk(cand.data_ptr(), out.data_ptr(), vv, c, f,
+                                  k, stream)
+    else:
+        plan = topk_wide_plan(c, f, k)
+        err = lib.dks_padded_topk_wide(
+            cand.data_ptr(), out.data_ptr(), vv, c, f, k, plan.team,
+            plan.chunk, plan.stage, plan.warp_floats, plan.warps,
+            plan.blocks(vv), stream)
     counter.add()
     route_counters[way].add()
     cuda_build.check(err, "padded_topk")

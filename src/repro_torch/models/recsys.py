@@ -411,6 +411,18 @@ def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor,
     return torch.gather(scores, 1, idx), idx
 
 
+def _first_of_id(ids: torch.Tensor) -> torch.Tensor:
+    """For each position of ``ids`` int[N], the lowest position that holds
+    the same id: a stable sort puts equal ids in position order, and a
+    binary search finds the first of each.  Scores gathered through it are
+    bit-equal for equal ids whatever order the product summed each column
+    in (a host GEMM's tail columns take another order than its body), so
+    :func:`_top_k` gives them ``lax.top_k``'s order.  Static shapes, so it
+    also runs on ``meta``."""
+    sid, order = torch.sort(ids, stable=True)
+    return order[torch.searchsorted(sid, ids)]
+
+
 @torch.no_grad()
 def retrieval_scores(params: dict, dense: torch.Tensor,
                      sparse_ids: torch.Tensor, cand_ids: torch.Tensor,
@@ -420,28 +432,33 @@ def retrieval_scores(params: dict, dense: torch.Tensor,
     """Score B queries against item ids ``cand_ids`` int32[n_cand] (rows
     of ``table_0``); return the top ``top_k`` scores [B, top_k] and their
     candidate positions, highest first, the lower position first among
-    equal scores (as ``lax.top_k``).
+    equal scores (as ``lax.top_k``).  Equal ids after the clip score
+    bit-equal: each candidate takes the score of its id's first position
+    (:func:`_first_of_id`).
 
     On a mesh the queries are whole on every rank and ``cand_ids`` is
     this rank's block of the candidates (split over every axis): the rank
     scores its block (``table_0``'s rows by :func:`_rows_of`, the item
-    tower gathered whole), keeps its own top ``top_k``, and the
-    (score, global position) pairs of every rank, gathered in rank order,
-    give the global top ``top_k`` by the same stable sort."""
+    tower gathered whole); the blocks' scores and clipped ids, gathered
+    in rank order, give every candidate its id's first score across the
+    ranks, and the global top ``top_k`` by the same stable sort."""
     u = user_vector(params, dense, sparse_ids, cfg, impl, mesh)  # [B, Dv]
+    table = params["tables"]["table_0"]
     if mesh is None:
-        cand_emb = _lookup(params["tables"]["table_0"], cand_ids, impl)
-        return _top_k(u @ (cand_emb @ params["item"]).T, top_k)
+        ids = torch.clamp(cand_ids, 0, table.shape[0] - 1)
+        cand_emb = _lookup(table, ids, impl)
+        scores = u @ (cand_emb @ params["item"]).T
+        return _top_k(scores[:, _first_of_id(ids)], top_k)
     specs = param_specs(cfg)
-    cand_emb = _rows_of(params["tables"]["table_0"], cand_ids,
-                        _split(specs["tables"]["table_0"], mesh), mesh)
+    split = _split(specs["tables"]["table_0"], mesh)
+    cand_emb = _rows_of(table, cand_ids, split, mesh)
     # The ranks of a "model" group score other candidates: each takes the
     # whole item tower (16 x mlp_dims[-1]), not its columns of the product.
     item = _gather_cols(params["item"], _split(specs["item"], mesh), mesh)
-    scores, idx = _top_k(u @ (cand_emb @ item).T, top_k)   # [B, <= top_k]
+    rows = table.shape[0] * (_model_rank(mesh)[2] if split else 1)
     axes = mesh_axes(mesh, ALL)
-    pos = idx + mesh.axis_index(axes) * cand_ids.shape[0]
-    scores = comm.all_gather(scores, axes, dim=1, tiled=True, mesh=mesh)
-    pos = comm.all_gather(pos, axes, dim=1, tiled=True, mesh=mesh)
-    best, order = _top_k(scores, top_k)
-    return best, torch.gather(pos, 1, order)
+    ids = comm.all_gather(torch.clamp(cand_ids, 0, rows - 1), axes, dim=0,
+                          tiled=True, mesh=mesh)
+    scores = comm.all_gather(u @ (cand_emb @ item).T, axes, dim=1,
+                             tiled=True, mesh=mesh)
+    return _top_k(scores[:, _first_of_id(ids)], top_k)

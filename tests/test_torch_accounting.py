@@ -261,7 +261,139 @@ def test_backtrace_wrapper_reports_its_records():
     assert s.kernel_calls == {"batched_backtrace": 1} and s.n_ops == 1
     want, _, _ = rl.backtrace_work(*args, result=recs)
     assert s.kernel_bytes == want
-    assert rl.bound(want, 0)[0] == rl.backtrace_bound(recs, 3)[0]
+    assert rl.bound(want, 0)[0] == rl.backtrace_bound(args)[0]
+    # The scans' bytes are part of it: more than the records alone.
+    assert want > rl.backtrace_work(*args)[0]
+
+
+TOL32 = np.float32(1e-3)
+
+
+def brute_reads(S, kw, cand_idx, cand_val, indptr, esrc, ew, pa, pb,
+                buffer, degree_cap):
+    """The host backtrace's scans written out, one candidate and one
+    obligation at a time: the set of (input, flat index) entries each
+    first-match scan tests, and per walk (obligations, split items (p, i),
+    neighbours)."""
+    from repro_torch import INF
+
+    S, kw = S.numpy(), kw.numpy()
+    L, vp, n_sets, K = S.shape
+    m, P = kw.shape[1], pa.shape[1]
+    flat = S.reshape(-1)
+    seen, walks = set(), []
+    n_nodes = indptr.numel() - 1
+    for lane in range(L):
+        for c in range(cand_idx.shape[1]):
+            x0 = np.float32(cand_val[lane, c])
+            queue = [(int(cand_idx[lane, c]) // K, n_sets - 1, x0)]
+            obl = items = nbrs = 0
+            it = 0
+            while x0 < INF and it < len(queue):
+                v, s_, x = queue[it]
+                it += 1
+                obl += 1
+                xt = np.float32(x + TOL32)
+                if x <= TOL32:
+                    bits = [b for b in range(m) if s_ >> b & 1]
+                    seen.update(("kw", (lane * m + b) * vp + v) for b in bits)
+                    if all(kw[lane, b, v] for b in bits):
+                        continue
+                row = (lane * vp + v) * n_sets
+                n_p = int((pa[s_] > 0).sum())
+                kids = None
+                for p in range(n_p):
+                    a, b = int(pa[s_, p]), int(pb[s_, p])
+                    seen.update({("pa", s_ * P + p), ("pb", s_ * P + p)})
+                    for i in range(K):
+                        items += 1
+                        seen.add(("S", (row + a) * K + i))
+                        y = flat[(row + a) * K + i]
+                        if not (y <= xt and y < INF):
+                            items += K - 1 - i
+                            break
+                        for j in range(K):
+                            seen.add(("S", (row + b) * K + j))
+                            z = flat[(row + b) * K + j]
+                            if not z < INF:
+                                break
+                            if abs(np.float32(np.float32(y + z) - x)) <= TOL32:
+                                kids = [(v, a, y), (v, b, z)]
+                                break
+                        if kids:
+                            break
+                    if kids:
+                        break
+                if kids is None and v < n_nodes:
+                    start = int(indptr[v])
+                    seen.update({("indptr", v), ("indptr", v + 1)})
+                    for d in range(min(int(indptr[v + 1]) - start,
+                                       degree_cap)):
+                        e = start + d
+                        nbrs += 1
+                        seen.update({("ew", e), ("esrc", e)})
+                        w, u = np.float32(ew[e]), int(esrc[e])
+                        if not (w < INF and w <= xt):
+                            continue
+                        xw = np.float32(x - w)
+                        for j in range(K):
+                            cell = ((lane * vp + u) * n_sets + s_) * K + j
+                            seen.add(("S", cell))
+                            z = flat[cell]
+                            if not z < INF:
+                                break
+                            if abs(np.float32(z - xw)) <= TOL32:
+                                kids = [(u, s_, z)]
+                                break
+                        if kids:
+                            break
+                if kids is None or len(queue) + len(kids) > buffer:
+                    break
+                queue += kids
+            walks.append((obl, items, nbrs))
+    counts = {}
+    for name, _ in seen:
+        counts[name] = counts.get(name, 0) + 1
+    return counts, walks
+
+
+@pytest.mark.parametrize("m,k,caps", [(3, 2, {}), (2, 3, {}), (4, 1, {}),
+                                      (3, 3, {"degree_cap": 3, "buffer": 5})])
+def test_backtrace_scan_bytes_equal_a_brute_force_count(m, k, caps):
+    """The walk's scan reads (``rl.backtrace_reads``: entries its
+    first-match order tests, each once) and each walk's obligations and
+    scan lengths against the host scans written out one by one."""
+    from repro_torch.answers import BatchedBacktracer
+    from repro_torch.core import dks, driver
+    from repro_torch.graph.generators import lod_like_graph
+
+    graph, _ = lod_like_graph(150, 900, seed=m + k, vocab=30)
+    dg = graph.to_device("cpu")
+    masks = np.random.default_rng(m * k).random((3, m, dg.v_pad)) < 0.06
+    masks[:, :, graph.n_nodes:] = False
+    kw = torch.from_numpy(masks)
+    st = driver.run_lanes(dg, kw, dks.DKSConfig(m=m, k=k,
+                                                max_supersteps=32))
+    args = BatchedBacktracer(graph, device="cpu", **caps)._walk_args(
+        st.S.contiguous(), kw, k)[2]
+    got = rl.backtrace_reads(args)
+    want, walks = brute_reads(*args)
+    assert {n: got[n] for n in rl.BACKTRACE_ENTRY_BYTES if got[n]} == want
+    scans = got["scans"]
+    per = np.zeros((len(walks), 3), np.int64)
+    np.add.at(per, scans[:, 0].numpy(), np.stack(
+        [np.ones(len(scans), np.int64), scans[:, 1].numpy(),
+         scans[:, 2].numpy()], 1))
+    assert per.tolist() == [list(w) for w in walks]
+    assert want["S"] > 0 and want.get("ew", 0) > 0
+    # One thread testing one item a round: rounds are the scan lengths.
+    r = rl.backtrace_rounds(got, 1, edges=1)
+    assert r["obligations"] + r["split_rounds"] + r["edge_rounds"] == \
+        max(sum(w) for w in walks)
+    wide = rl.backtrace_rounds(got, 256)
+    assert wide["obligations"] <= sum(wide[k] for k in (
+        "obligations", "split_rounds", "edge_rounds")) <= sum(r[k] for k in (
+            "obligations", "split_rounds", "edge_rounds"))
 
 
 def test_meta_wrappers_return_empty_outputs_of_the_right_shape():

@@ -20,7 +20,12 @@ kernels run at m = 1..6 and K = 1..8 on their templated route, and past
 it on the wide route (run-time m and K, on ``subset_combine.ops.wide_plan``)
 at (m, K) = (3, 10), (4, 10), (2, 16), (7, 3), (8, 2) and (6, 9), and on
 a hub of 5,000 in-edges, with every lane done, at the row limit (10, 16),
-at K = 16 and at the paper-scale bucket's shape.  The stepwise surfaces (streams,
+at K = 16 and at the paper-scale bucket's shape.  The walk also runs on
+stars of 33 to 5,000 neighbours (the first match at a round's last item,
+against matches in other warps, past the 2,048 window), at K = 1..16 and
+at rows of 16,384 floats; the wide ``padded_topk`` at F < 32, F = 32 and
+F > 32 (teams of 32 / F lanes, on ``segment_minplus.ops.topk_wide_plan``)
+with duplicates, ties and all-INF rows.  The stepwise surfaces (streams,
 deadline buckets, telemetry) and the service on ``"cuda"`` equal
 ``"torch"`` exactly, times excluded.  The GNN families (no kernel of
 their own) on the card against the CPU: f32 loss within 1e-5 and
@@ -44,6 +49,7 @@ from repro_torch.data import lm_synthetic_stream, recsys_synthetic_stream
 from repro_torch.graph.generators import lod_like_graph
 from repro_torch.graph.structure import build_graph
 from repro_torch.answers import BatchedBacktracer
+from repro_torch.answers.batched import split_pair_table
 from repro_torch.engine import ExecutionPolicy, QueryEngine
 from repro_torch.graph.generators import grid_graph
 from repro_torch.kernels.batched_backtrace import ops as bt_ops
@@ -858,6 +864,139 @@ def test_batched_backtrace_wide_route_matches_plain(cuda_device, m, k, caps):
     for name, t in want.items():
         assert torch.equal(got[name], t), name
     assert bool(got["fail"][0].all())  # the INF lane
+
+
+def hub_walk_args(deg: int, matches, m: int, k: int, cap: int, buffer: int,
+                  device):
+    """The walk's arguments on a star: node 0 with ``deg`` neighbours 1..deg
+    (weight 1), lane 0 one candidate at node 0 of value 1, lane 1 an INF
+    candidate.  Neighbour d = ``(d, j)`` in ``matches`` holds 0.5 in slots
+    < j and 0 at slot j, a match whose child is a leaf; the others miss:
+    all INF, finite but off by 0.5, a 0 behind an INF slot, or a 0 behind
+    an INF weight or a weight past x + tol."""
+    vp, n_sets = deg + 1, 1 << m
+    full = n_sets - 1
+    S = torch.full((2, vp, n_sets, k), INF)
+    ew = torch.ones(deg)
+    hit = dict(matches)
+    for d in range(deg):
+        u = d + 1
+        if d in hit:
+            j = min(hit[d], k - 1)
+            S[0, u, full, :j] = 0.5
+            S[0, u, full, j] = 0.0
+        elif d % 7 == 3:
+            ew[d] = INF
+            S[0, u, full, 0] = 0.0
+        elif d % 7 == 5:
+            ew[d] = 5.0
+            S[0, u, full, 0] = 0.0
+        elif d % 3 == 1:
+            S[0, u, full, :] = 0.5
+        elif d % 3 == 2 and k > 1:
+            S[0, u, full, 1] = 0.0
+    kw = torch.ones(2, m, vp, dtype=torch.bool)
+    kw[:, :, 0] = False
+    indptr = torch.tensor([0] + [deg] * vp, dtype=torch.int64)
+    esrc = torch.arange(1, deg + 1, dtype=torch.int32)
+    pa, pb = (torch.from_numpy(t) for t in split_pair_table(m))
+    cand_idx = torch.zeros(2, 1, dtype=torch.int32)
+    cand_val = torch.tensor([[1.0], [INF]])
+    return tuple(t.to(device).contiguous() for t in (
+        S, kw, cand_idx, cand_val, indptr, esrc, ew, pa, pb)) + (buffer, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(2, 1), (2, 3), (3, 8), (2, 10), (7, 16)])
+@pytest.mark.parametrize("deg,matches,cap", [
+    (33, [(32, 0)], 2048),                    # the last neighbour
+    (257, [(256, 2)], 2048),                  # round 0, r = 1, thread 0
+    (1100, [(1023, 1)], 2048),                # round 0's last item
+    (1100, [(1024, 0)], 2048),                # round 1's first
+    (600, [(259, 0), (255, 0)], 2048),        # warp 7 at r = 0 wins
+    (600, [(296, 0), (230, 0), (70, 2)], 2048),   # warps 2, 7, 1: 70 wins
+    (5000, [(2047, 0)], 2048),                # the window's last
+    (5000, [(2048, 0)], 2048),                # past the window: a fail
+    (5000, [(4500, 1)], 5000)],               # round 4
+    ids=["33", "257", "1023", "1024", "warps", "three", "cap_last",
+         "past_cap", "5000"])
+@pytest.mark.parametrize("buffer", [64, 1])
+def test_batched_backtrace_first_match_on_hubs(cuda_device, deg, matches,
+                                               cap, m, k, buffer):
+    """The walk's edge scan on hubs of 33, 257, past 1,024 (a round of
+    8 warps x 4 neighbours a thread) and past the 2,048 window: the first
+    match in CSR order, wherever it lies in a round, against several
+    matches in other warps, misses behind INF slots and weights; a buffer
+    of 1 overflows on the first edge; the INF candidate fails."""
+    args = hub_walk_args(deg, matches, m, k, cap, buffer, cuda_device)
+    assert bt_ops.walk_plan(2, buffer, args[7].shape[1]).warps == 8
+    got = bt_ops.batched_backtrace(*args)
+    torch.cuda.synchronize()
+    want = batched_backtrace_ref(*args)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+    assert bool(got["fail"][1, 0])
+    first = min(d for d, _ in matches)
+    if buffer == 1 or first >= cap:
+        assert bool(got["fail"][0, 0])
+    else:
+        assert int(got["edge_u"][0, 0, 0]) == first + 1
+        assert not bool(got["fail"][0, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(2, kk) for kk in range(1, 17)]
+                         + [(10, 16), (11, 8), (6, 9)])
+def test_batched_backtrace_every_k_and_the_row_limit(cuda_device, m, k):
+    """K = 1..16 (both routes) and m up to rows of 2^m * K = 16,384 floats,
+    on random sorted tables (splits and edges of equal integer sums) of a
+    lod graph, four lanes and 4K candidates each."""
+    g = lod_like_graph(300, 1500, seed=m + k, vocab=40)[0]
+    dg = g.to_device(cuda_device)
+    S = random_tables((4, dg.v_pad), m, k, seed=7 * m + k,
+                      device=cuda_device)
+    kw = torch.rand(4, m, dg.v_pad, device=cuda_device) < 0.3
+    bt = BatchedBacktracer(g, device=cuda_device)
+    args = bt._walk_args(S, kw.contiguous(), 4 * k)[2]
+    before = bt_ops.launches_by_route
+    got = bt_ops.batched_backtrace(*args)
+    torch.cuda.synchronize()
+    wide_launched(bt_ops, before, sc_ops.route(m, k))
+    want = batched_backtrace_ref(*args)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vv,c,f,k", [
+    (37, 161, 16, 10),   # teams of 2, C odd
+    (20, 75, 8, 9),      # teams of 4, C % 4 = 3
+    (9, 50, 32, 12),     # F = 32: a lane a set
+    (7, 40, 64, 9),      # F > 32: two sets a lane
+    (5, 33, 3, 11),      # F = 3: teams of 10, rows not 16-byte aligned
+    (4, 300, 2, 16),     # teams of 16
+    (3, 20, 1024, 16),   # F * K = 16,384: chunks of 2 candidates
+    (5000, 48, 16, 10)])  # more rows than warps: each warp walks rows
+def test_padded_topk_wide_teams_and_chunks(cuda_device, vv, c, f, k):
+    """The wide route's teams and staging against the plain version:
+    duplicates and ties (values 1..6), rows of all INF, rows with fewer
+    than K distinct values."""
+    rng = np.random.default_rng(vv * c + f + k)
+    cand = rng.integers(1, 7, size=(vv, c, f)).astype(np.float32)
+    cand[rng.random(cand.shape) > 0.7] = INF
+    cand[::5] = INF                          # all-INF rows
+    cand[1::5] = np.minimum(cand[1::5], 3)   # at most 3 distinct
+    cand[2::5, :, :] = rng.random((len(cand[2::5]), c, f)).astype(
+        np.float32) * 1000                   # distinct, more than K
+    cand = torch.from_numpy(cand).to(cuda_device).contiguous()
+    plan = sm_ops.topk_wide_plan(c, f, k)
+    assert plan.team == (32 // f if f < 32 else 1) or f * k > 8192
+    before = sm_ops.launches_by_route
+    got = sm_ops.padded_topk(cand, k)
+    torch.cuda.synchronize()
+    wide_launched(sm_ops, before, "wide")
+    assert torch.equal(got, padded_topk_ref(cand, k))
+    assert bool((got[::5] == INF).all())
 
 
 @pytest.mark.cuda

@@ -129,6 +129,17 @@ def ids(rng, cfg, n):
     return out.astype(np.int32)
 
 
+def tie_cand():
+    """int32[N_CAND]: 37 ids repeated in turn, so that each sits in every
+    rank's block at other local positions; ids below 0 and past the
+    padded table (100,352 rows) fold onto one row each in the clip."""
+    base = np.array([-9, -1, 0, 7, 99_999, 100_000, 100_351, 100_352,
+                     2 ** 31 - 1] + list(range(1000, 29_000, 1000)),
+                    np.int64)
+    assert base.size == 37
+    return np.resize(base, N_CAND).astype(np.int32)
+
+
 def write_case(path):
     """Weights at ``param_shapes`` (tables N(0, 0.5), weights
     N(0, 1 / fan_in), biases N(0, 0.1)) and the inputs: a serving batch,
@@ -155,7 +166,8 @@ def write_case(path):
     cand = ids(rng, cfg, N_CAND)[:, 0]
     cand[N_CAND // 2::4] = cand[:N_CAND // 2:4]
     inputs = {"dense": dense(B), "sparse": ids(rng, cfg, B),
-              "qdense": dense(1), "qsparse": ids(rng, cfg, 1), "cand": cand}
+              "qdense": dense(1), "qsparse": ids(rng, cfg, 1), "cand": cand,
+              "tcand": tie_cand()}
     for i in range(2):
         inputs.update({f"dense{i}": dense(B), f"sparse{i}": ids(rng, cfg, B),
                        f"label{i}": rng.integers(0, 2, B).astype(np.int32)})
@@ -200,6 +212,9 @@ REPRO = """
                 "r", "retrieval", 1, n_candidates=N_CAND))
             res["scores"], res["pos"] = jax.jit(ret.fn)(*put(
                 (params, data["qdense"], data["qsparse"], data["cand"]),
+                ret.in_specs))
+            res["tscores"], res["tpos"] = jax.jit(ret.fn)(*put(
+                (params, data["qdense"], data["qsparse"], data["tcand"]),
                 ret.in_specs))
             train = cells.recsys_cell("dcn-v2", RecsysShape("t", "train", B))
             state_spec, batch_spec = train.in_specs
@@ -268,6 +283,9 @@ def _rank_mesh(shape, path):
     cand = shard_tree(t["cand"], P(ALL), mesh)
     out["scores"], out["pos"] = rec_t.retrieval_scores(
         params, t["qdense"], t["qsparse"], cand, cfg, top_k=TOP_K, mesh=mesh)
+    out["tscores"], out["tpos"] = rec_t.retrieval_scores(
+        params, t["qdense"], t["qsparse"],
+        shard_tree(t["tcand"], P(ALL), mesh), cfg, top_k=TOP_K, mesh=mesh)
     batches = [{k: rows(t[f"{k}{i}"]) for k in ("dense", "sparse", "label")}
                for i in range(2)]
     loss, grads, norm = recsys_loss_and_grads(params, batches[0], cfg,
@@ -313,8 +331,11 @@ def twin_run(path):
     logits = rec_t.dcn_forward(params, t["dense"], t["sparse"], cfg)
     scores, pos = rec_t.retrieval_scores(params, t["qdense"], t["qsparse"],
                                          t["cand"], cfg, top_k=TOP_K)
+    tscores, tpos = rec_t.retrieval_scores(params, t["qdense"], t["qsparse"],
+                                           t["tcand"], cfg, top_k=TOP_K)
     return {"x0": x0.numpy(), "logits": logits.numpy(),
-            "scores": scores.numpy(), "pos": pos.numpy()}
+            "scores": scores.numpy(), "pos": pos.numpy(),
+            "tscores": tscores.numpy(), "tpos": tpos.numpy()}
 
 
 # -- fixture ---------------------------------------------------------------------
@@ -420,6 +441,28 @@ def test_retrieval_matches_repro(runs, name):
     tied = np.flatnonzero(want[1:] == want[:-1])
     assert len(tied) > 0
     assert all(pos[0, i] < pos[0, i + 1] for i in tied)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_retrieval_ties_across_ranks(runs, name):
+    """One id in every rank's block, at other local positions there (and
+    ids the clip folds together): the top ``TOP_K`` scores are bit-equal
+    for equal clipped ids, whichever rank scored them, and positions are
+    ``repro``'s and the one-process twin's."""
+    ref, ranks, twin, path = runs
+    scores = same_on_every_rank(ranks[name], "tscores")[0]
+    pos = same_on_every_rank(ranks[name], "tpos")[0]
+    np.testing.assert_array_equal(pos, ref[name]["tpos"][0])
+    np.testing.assert_array_equal(pos, twin["tpos"][0])
+    close(scores, ref[name]["tscores"][0])
+    clipped = np.clip(read_case(path)[1]["tcand"], 0, 100_351)[pos]
+    owners = {int(p) * MESHES[name][0] * MESHES[name][1] // N_CAND
+              for p in pos}
+    assert len(owners) > 1
+    for i in np.unique(clipped):
+        same = scores[clipped == i]
+        assert (same.view(np.int32) == same[0].view(np.int32)).all(), i
+    assert len(np.unique(clipped)) < len(clipped)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -229,6 +229,53 @@ def test_retrieval_scores_match_jax(smoke_params, impl, n_cand, top_k, dup):
         assert bool((idx[0, 1:][ties] > idx[0, :-1][ties]).all())
 
 
+def tie_candidates(n_cand: int) -> np.ndarray:
+    """int32[n_cand]: every id at least twice (from 2 on), drawn from ids
+    the clip folds together (below 0 with 0, past the vocabulary with its
+    last row) and a few in between, shuffled."""
+    vocab = CFG_T.vocab_sizes[0]
+    rng = np.random.default_rng(500 + n_cand)
+    pool = np.array([-7, -1, 0, 1, 3, 5, vocab - 1, vocab, vocab + 11,
+                     2 ** 31 - 1, -(2 ** 31)], np.int32)
+    base = rng.choice(pool, size=max(1, n_cand // 2))
+    return rng.permutation(np.resize(base, n_cand)).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_cand", range(1, 81))
+def test_retrieval_ties_are_bit_equal(smoke_params, n_cand):
+    """All ``n_cand`` candidates ranked: equal ids after the clip score
+    bit-equal wherever they sit (a host GEMM sums its tail columns in
+    another order than its body, so the product alone does not tie
+    them), and the positions are ``repro``'s: equal scores, the lower
+    position first."""
+    params_j, params_t, _ = smoke_params
+    dense, sparse = batch(1, seed=3)
+    cand = tie_candidates(n_cand)
+    scores, idx = rec_t.retrieval_scores(
+        params_t, torch.from_numpy(dense), torch.from_numpy(sparse),
+        torch.from_numpy(cand), CFG_T, top_k=n_cand)
+    want_s, want_i = rec_j.retrieval_scores(
+        params_j, jnp.asarray(dense), jnp.asarray(sparse), jnp.asarray(cand),
+        CFG_J, top_k=n_cand)
+    close(scores, want_s)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+    at = np.empty(n_cand, np.float32)
+    at[idx.numpy()[0]] = scores.numpy()[0]
+    clipped = np.clip(cand, 0, CFG_T.vocab_sizes[0] - 1)
+    for i in np.unique(clipped):
+        same = at[clipped == i]
+        assert (same.view(np.int32) == same[0].view(np.int32)).all(), i
+
+
+def test_first_of_id_points_at_the_lowest_position():
+    ids = torch.tensor([5, 3, 5, 0, 3, 9, 5], dtype=torch.int32)
+    assert rec_t._first_of_id(ids).tolist() == [0, 1, 0, 3, 1, 5, 0]
+    assert rec_t._first_of_id(ids[:0]).numel() == 0
+    meta = rec_t._first_of_id(torch.empty(7, dtype=torch.int32,
+                                          device="meta"))
+    assert meta.shape == (7,) and meta.is_meta
+
+
 def test_recsys_embedding_bag_rejects_unknown_impl():
     with pytest.raises(ValueError, match="impl must be one of"):
         rec_t.embedding_bag(torch.zeros(4, 2), torch.zeros(1, 1, dtype=torch.int32),
